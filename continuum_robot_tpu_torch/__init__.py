@@ -1,0 +1,59 @@
+"""continuum-robot-tpu on PyTorch and CUDA: the port for NVIDIA Hopper.
+
+A second package beside the JAX one (``continuum_robot_tpu``), which stays
+the reference. This slice holds the model build (CSV/DataFrame -> linear
+Euler-Bernoulli beam, host float64) and the linear modal generalized-α
+engine, whose per-step and composed-map drives run as hand-written CUDA
+kernels (``ops/cuda``) on the card and as their plain PyTorch twins on the
+CPU.
+
+Precision policy: importing the package turns TF32 off for float32 matmuls
+and convolutions. Reduced-precision matmul inputs were a correctness cliff
+for operators at stiffness ~1e9 (docs/design.md, Precision); the basis
+transforms here are large float32 matmuls and must stay true float32.
+"""
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from .models import (  # noqa: E402
+    BoundaryConditionType,
+    DynamicEulerBernoulliBeam,
+    ElementType,
+    EulerBernoulliBeam,
+    ForceParams,
+    GravityForce,
+    IBeam,
+    ISegment,
+    Properties,
+)
+from .models.simulate import (  # noqa: E402
+    ModalGenAlpha,
+    PiecewiseConstant,
+    SimulationResult,
+    make_modal_genalpha,
+    simulate,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BoundaryConditionType",
+    "DynamicEulerBernoulliBeam",
+    "ElementType",
+    "EulerBernoulliBeam",
+    "ForceParams",
+    "GravityForce",
+    "IBeam",
+    "ISegment",
+    "ModalGenAlpha",
+    "PiecewiseConstant",
+    "Properties",
+    "SimulationResult",
+    "__version__",
+    "make_modal_genalpha",
+    "simulate",
+]

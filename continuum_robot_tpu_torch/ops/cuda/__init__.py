@@ -1,0 +1,27 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) with plain PyTorch twins.
+
+Importing this package builds nothing; the kernels are compiled on first
+use by a CUDA tensor (``_build.py``).
+"""
+
+from .modal_rollout import (
+    affine_steps,
+    affine_steps_plain,
+    modal_frames,
+    modal_frames_plain,
+    modal_steps,
+    modal_steps_plain,
+    mode_coeffs,
+    reset_launch_counts,
+)
+
+__all__ = [
+    "affine_steps",
+    "affine_steps_plain",
+    "modal_frames",
+    "modal_frames_plain",
+    "modal_steps",
+    "modal_steps_plain",
+    "mode_coeffs",
+    "reset_launch_counts",
+]
