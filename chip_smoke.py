@@ -1,36 +1,74 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the full check
+    python3 chip_smoke.py --profile  # ROM main path under torch.profiler
 
 Phases, one line each (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compile the CUDA kernels from the sources in this checkout;
-3. kernel vs plain: every kernel against its plain PyTorch version on the
-   card, float32 and float64, at a small ragged size and at the main path's
-   size; they must agree bit for bit;
-4. main path: the 1000-element linear Nitinol cantilever (the JAX package's
-   bench.py beam, built from the DataFrame schema), host float64 eigh, 4096
-   envs in float32, ``rollout_power(K=64)`` over 2000 steps at dt=1e-4 and
-   rho_inf=0.8, checked against the step kernel over the same span
-   (``vs_stepper_rel`` <= 1e-4) and for finite physical states;
+2. build: compile the CUDA sources of this checkout, one nvcc each, at once;
+3. linear kernels vs plain: every modal kernel against its plain PyTorch
+   version on the card, float32 and float64, at a small ragged size and at
+   the main path's size; they must agree bit for bit;
+4. linear main path: the 1000-element linear Nitinol cantilever (the JAX
+   package's bench.py beam), host float64 eigh, 4096 envs in float32,
+   ``rollout_power(K=64)`` over 2000 steps at dt=1e-4 and rho_inf=0.8,
+   checked against the step kernel over the same span (``vs_stepper_rel``
+   <= 1e-4) and for finite physical states;
 5. ``simulate(method="modal")`` with engines "pallas", "power" and "xla"
    (64 envs, 10 frames x 20 substeps), each held to "xla", the plain path;
-6. timings: CUDA events, best of 3 after a warm-up.
+6. linear timings: CUDA events, best of 3 after a warm-up;
+7. ROM kernels vs plain, small: the fused ROM span against its plain twin
+   on 8-element nonlinear and hybrid beams (12 modes, 5 envs, amplitude
+   3e-2 so the correction is leading order, 50 steps, 2 Newton
+   iterations): diagonal and dense (coupled) Newton, damped, gathered
+   ECSW layout; max |kernel - plain| <= 5e-6 x the state scale;
+8. ROM main path: the 1000-element von Karman beam of the JAX package's
+   nonlinear ROM benchmark (bench.py, BENCH_TYPE=nonlinear
+   BENCH_ENGINE=modal_rom_pallas): ``make_modal_rom`` with 256 modes
+   (Arnoldi branch), ``make_pallas_rollout()``, 4096 envs in float32,
+   2000 steps at dt=1e-4, rho_inf=0.5, one Newton iteration; the endpoint
+   ``(eta, etad)`` against the plain twin over the same span (relative
+   error <= 1e-4) and finite physical states; host set-up seconds;
+9. ECSW at full width: trained as bench.py trains it (tip force 3.0, 30
+   frames x 20 substeps on 1 env, 2 Newton iterations, snapshots [::3],
+   tau=1e-3), then the gathered kernels over 4096 envs x 2000 steps
+   against the plain twin (relative error <= 1e-4);
+10. dense Newton at full width: the main-path engine with its dense Sinv,
+    200 steps against the plain twin (<= 1e-4) and the diagonal path;
+11. ``simulate(method="modal_rom")``, engine "pallas" (float32 kernels)
+    against "xla" (float64 plain stepper) on the 8-element beam, 10 frames
+    of 5 steps (max error <= 1e-5 x the state scale);
+12. ROM timings: CUDA events, best of 3 after a warm-up; each ROM kernel
+    alone at the main path's shapes against its plain twin and the one
+    torch call that computes its product.
 
-Kernel launch counts are reset before phase 4 and read after phase 5: every
-kernel must have been launched by the main path. The second-to-last lines
-are the kernels' JSON record and the card line; the last line is the
-driver's JSON result.
+Launch counts are set to 0 just before each path and read just after it:
+the linear main path (``rollout_power``), ``rollout_pallas`` and the
+``simulate`` engines (phases 4-5); the ROM main path (window layout, phase
+8), the ECSW gathered span (9), the dense-Newton span (10) and
+``simulate(method="modal_rom", engine="pallas")`` (11). Every kernel must
+have been launched by its own path, and each ROM path must launch exactly
+its kernels, once per Newton iteration of every step. The second-to-last
+lines are the kernels' JSON record (``launches`` from the kernel's own path,
+``launches_by_path`` from every path) and the card line; the last line is
+the driver's JSON result.
+
+``--profile`` builds the ROM main path only and runs ``PROFILE_STEPS``
+steps of it under ``torch.profiler``: device time by kernel, and the
+device's busy share of the same steps timed without the profiler.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -42,12 +80,37 @@ DT, RHO_INF = 1e-4, 0.8
 SMALL = dict(B=5, m=37, steps=17)
 SIM = dict(envs=64, frames=10, substeps=20)
 VS_STEPPER_MAX = 1e-4
+# The nonlinear ROM benchmark configuration (JAX package bench.py:38-98,
+# 455-529, 1017-1062), nothing cut.
+ROM = dict(modes=256, rho_inf=0.5, n_newton=1, dense_steps=200)
+ROM_SMALL = dict(n_el=8, m=12, B=5, steps=50, amp=3e-2, n_newton=2)
+ROM_SIM = dict(envs=3, frames=10, substeps=5)
+ROM_SPAN_MAX = 1e-4  # f32 kernel vs f32 twin, endpoint relative error, 2000 steps
+ROM_SMALL_MAX = 5e-6  # the JAX package's own fused-kernel bound (x state scale)
+ROM_PIECE_MAX = 1e-4  # one launch vs its twin, each output x its max|twin|:
+# f32 sums of <= 3003 terms
+PROFILE_STEPS = 50
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
 SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/modal_rollout.cu"
 REPLACES = {
     "modal_steps": "continuum_robot_tpu/ops/pallas/modal_rollout.py:201",
     "modal_frames": "continuum_robot_tpu/ops/pallas/modal_rollout.py:392",
     "affine_steps": "continuum_robot_tpu/ops/pallas/modal_rollout.py:280",
 }
+ROM_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/rom_rollout.cu"
+ROM_REPLACES = "continuum_robot_tpu/ops/pallas/rom_rollout.py:65"
+# The path whose run gives each kernel's ``launches``.
+LINEAR_PATH = {"modal_steps": "rollout_pallas", "modal_frames": "simulate:pallas",
+               "affine_steps": "rollout_power"}
+ROM_WINDOW = ("rom_alpha_point", "rom_expand", "rom_correction_window",
+              "rom_project", "rom_update")
+ROM_GATHERED = ("rom_alpha_point", "rom_expand", "rom_correction_gathered",
+                "rom_project", "rom_update")
+ROM_DENSE = ROM_WINDOW + ("rom_newton_dense",)
+ROM_PATH = {**{k: "window" for k in ROM_WINDOW},
+            "rom_correction_gathered": "ecsw", "rom_newton_dense": "dense_newton"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -63,7 +126,7 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def bench_beam_dataframe(n: int):
+def bench_beam_dataframe(n: int, kind: str = "linear"):
     """The JAX package's bench.py beam: 0.25/6 m Nitinol elements, fixed base."""
     import pandas as pd
 
@@ -74,7 +137,7 @@ def bench_beam_dataframe(n: int):
         "moment_inertia": [np.pi * r**4 / 4] * n,
         "density": [rho] * n,
         "cross_area": [np.pi * r**2] * n,
-        "type": ["linear"] * n,
+        "type": [kind] * n,
         "boundary_condition": ["FIXED"] + ["NONE"] * (n - 1),
     })
 
@@ -87,12 +150,105 @@ def synthetic_engine(m: int, rng, damped: bool):
     lam = np.sort(10.0 ** rng.uniform(0.0, 12.0, m))
     cdamp = 0.5 + 1e-6 * lam if damped else None
     return convert.modal_engine_from_numpy(
-        np.zeros((1, m)), np.zeros((m, 1)), lam, RHO_INF, DT, cdamp
+        np.zeros((1, m)), np.zeros((m, 1)), lam, RHO_INF, DT, cdamp,
+        device=DEVICE,
     )
 
 
-def max_abs(a, b) -> float:
-    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+class OpCount:
+    """A number stand-in that counts the arithmetic done on it: the
+    operation counts of the bounds come from the plain versions' formulas."""
+
+    n = 0
+
+    def _op(self, *_):
+        OpCount.n += 1
+        return self
+
+    __add__ = __radd__ = __sub__ = __rsub__ = _op
+    __mul__ = __rmul__ = __truediv__ = __rtruediv__ = __neg__ = _op
+
+
+def count_ops(fn, n_args: int) -> int:
+    OpCount.n = 0
+    fn(*[OpCount() for _ in range(n_args)])
+    return OpCount.n
+
+
+def bound(ops: float, nbytes: float):
+    """``(bound_ms, bound_by)``: the larger of the operation and byte times
+    at the card's float32 and memory peaks."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def errors(out, ref) -> list:
+    """``[(max|out_i - ref_i|, max|ref_i|)]`` for each output of a call."""
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    return [(float((x - y).abs().max()), float(y.abs().max()))
+            for x, y in zip(out, ref)]
+
+
+def max_abs(out, ref) -> float:
+    return max(e for e, _ in errors(out, ref))
+
+
+def scaled_err(out, ref) -> float:
+    """The largest ``max|out_i - ref_i| / max|ref_i|``: each output is held
+    to its own scale, so a large acceleration cannot hide an error in a
+    small displacement."""
+    return max(e / s if s else (0.0 if e == 0 else float("inf"))
+               for e, s in errors(out, ref))
+
+
+def rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def rel_state(out, ref) -> float:
+    """The larger of ``||eta - ref|| / ||ref||`` and the same for ``etad``,
+    over the endpoint state."""
+    return max(float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+               for x, y in zip(out[:2], ref[:2]))
+
+
+def counted(kmod, fn):
+    """``(fn(), {kernel: launches})``: the counts of module ``kmod``'s
+    kernels set to 0 just before the path ``fn`` and read just after it."""
+    kmod.reset_launch_counts()
+    out = fn()
+    return out, {k.__name__: k.launches for k in kmod.KERNELS}
+
+
+def expect_launches(counts: dict, kernels, n: int, path: str) -> None:
+    """Require ``n`` launches of each of ``kernels`` and none of the rest."""
+    want = {k: (n if k in kernels else 0) for k in counts}
+    require(counts == want, f"{path}: launches {counts}, expected {want}")
+
+
+@contextlib.contextmanager
+def clocked(module, *names):
+    """While open, record the host seconds of every call of each
+    ``module.<name>``; yields ``{name: [seconds, ...]}``."""
+    real = {n: getattr(module, n) for n in names}
+    secs = {n: [] for n in names}
+
+    def wrap(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            secs[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield secs
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
 
 
 def phase_kernels(kr, dev):
@@ -134,39 +290,31 @@ def phase_kernels(kr, dev):
     return err
 
 
-def rel(a, b) -> float:
-    return float((a - b).abs().max() / b.abs().max())
+def linear_bounds(kr, n_modes):
+    """``{kernel: (bound_ms, bound_by)}`` of phase 6's calls (float32)."""
+    sc = kr.step_scalars(DT, RHO_INF, torch.float32)
+    step_ops = count_ops(
+        lambda q, v, a, p4, p1, p2, p3: kr.gen_alpha_step(
+            q, v, a, p4, (p1, p2, p3, None, None), sc), 7)
+    affine_ops = count_ops(
+        lambda q, v, a, t, b: [t * q + t * v + t * a + b for _ in range(3)], 5)
+    n = N_ENVS * n_modes
+    n_sim = SIM["envs"] * n_modes
+    return {
+        "modal_steps": bound(step_ops * n * N_STEPS, 4 * (6 * n + 4 * n_modes)),
+        "modal_frames": bound(
+            step_ops * n_sim * SIM["frames"] * SIM["substeps"],
+            4 * (3 * n_sim + 4 * n_modes + 2 * (SIM["frames"] + 1) * n_sim)),
+        "affine_steps": bound(affine_ops * n * (N_STEPS // K_POWER),
+                              4 * (6 * n + 12 * n_modes)),
+    }
 
 
-def main() -> int:
-    t_start = time.time()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    # Imported here: a directory without the package fails at this point.
-    import continuum_robot_tpu_torch as crt
+def linear_paths(crt, kr, dev, card):
+    """Phases 4-6; returns the linear kernels' records."""
     from continuum_robot_tpu_torch.models.simulate import make_modal_genalpha
-    from continuum_robot_tpu_torch.ops.cuda import _build
-    from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
     from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
 
-    dev = torch.device(DEVICE, 0)
-    card = card_line()
-    print(f"phase 1 device: {card} | {torch.cuda.get_device_name(0)} | "
-          f"torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"devices {torch.cuda.device_count()}", flush=True)
-
-    t0 = time.time()
-    _build.library()
-    build_s = time.time() - t0
-    log = _build.library_path().with_suffix(".log").read_text()
-    regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-            if "registers" in ln]
-    print(f"phase 2 build: {build_s:.1f} s; ptxas: {' | '.join(regs)}", flush=True)
-
-    err = phase_kernels(kr, dev)
-
-    # -- phase 4: the main path ------------------------------------------------
     t0 = time.time()
     model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS))
     build_model_s = time.time() - t0
@@ -185,12 +333,12 @@ def main() -> int:
     eta, etad = ms.to_modal(q, v)
     u_m = np.asarray(ms.project_force_host(u), np.float32)
 
-    kr.reset_launch_counts()
-    e2, ed2, _ = ms.rollout_power(eta, etad, u_m, N_STEPS, K=K_POWER)
-    er, edr, _ = ms.rollout_pallas(eta, etad, u_m, N_STEPS)
-    num = torch.sqrt(((e2 - er) ** 2).sum() + ((ed2 - edr) ** 2).sum())
-    den = torch.sqrt((er**2).sum() + (edr**2).sum())
-    vs_stepper_rel = float(num / den)
+    paths = {}
+    (e2, ed2, _), paths["rollout_power"] = counted(
+        kr, lambda: ms.rollout_power(eta, etad, u_m, N_STEPS, K=K_POWER))
+    (er, edr, _), paths["rollout_pallas"] = counted(
+        kr, lambda: ms.rollout_pallas(eta, etad, u_m, N_STEPS))
+    vs_stepper_rel = rel_state((e2, ed2), (er, edr))
     q2, v2 = ms.from_modal(e2, ed2)
     force_completion((q2, v2))
     finite = bool(torch.isfinite(q2).all() and torch.isfinite(v2).all())
@@ -209,10 +357,10 @@ def main() -> int:
     frame_dt = DT * SIM["substeps"]
     ys = {}
     for engine in ("pallas", "power", "xla"):
-        res = crt.simulate(model, x0, SIM["frames"] * frame_dt, frame_dt,
-                           method="modal", u=u.astype(np.float64),
-                           substeps=SIM["substeps"], rho_inf=RHO_INF,
-                           engine=engine, device=dev, dtype=torch.float32)
+        res, paths[f"simulate:{engine}"] = counted(kr, lambda: crt.simulate(
+            model, x0, SIM["frames"] * frame_dt, frame_dt, method="modal",
+            u=u.astype(np.float64), substeps=SIM["substeps"], rho_inf=RHO_INF,
+            engine=engine, device=dev, dtype=torch.float32))
         ys[engine] = force_completion(res.ys)
         require(tuple(res.ys.shape) == (SIM["frames"] + 1, SIM["envs"], 2 * n_red)
                 and bool(torch.isfinite(res.ys).all()),
@@ -224,9 +372,11 @@ def main() -> int:
     require(rel_pallas <= 1e-6, f"simulate pallas vs xla {rel_pallas:.3e}")
     require(rel_power <= 1e-4, f"simulate power vs xla {rel_power:.3e}")
 
-    launches = {fn.__name__: fn.launches for fn in kr.KERNELS}
-    print(f"main path launches: {launches}", flush=True)
-    require(all(launches.values()), f"a kernel of the path was not launched: {launches}")
+    print(f"linear paths' launches: {paths}", flush=True)
+    for name, path in LINEAR_PATH.items():
+        require(paths[path][name] > 0, f"{path} did not launch {name}: {paths[path]}")
+    require(not any(paths["simulate:xla"].values()),
+            f"the plain engine launched a kernel: {paths['simulate:xla']}")
 
     # -- phase 6: timings -----------------------------------------------------
     def best(fn, *args):
@@ -264,6 +414,7 @@ def main() -> int:
             best(kr.affine_steps_plain, PK, bK, eta, etad, a0, apps),
         ),
     }
+    bounds = linear_bounds(kr, n_red)
     print(f"phase 6 timings [{card}]: rollout_power K={K_POWER} "
           f"{env_steps / power_k * 1e3:.4e} env-steps/s ({power_k:.3f} ms) vs plain "
           f"{env_steps / power_p * 1e3:.4e} ({power_p:.3f} ms); rollout_pallas "
@@ -271,16 +422,422 @@ def main() -> int:
           f"{env_steps / step_p * 1e3:.4e} ({step_p:.3f} ms); host eigh "
           f"{eigh_s:.2f} s, map composition {compose_s:.4f} s", flush=True)
     print(f"phase 6 kernels [{card}]: " + "; ".join(
-        f"{k} {t[0]:.3f} ms vs plain {t[1]:.3f} ms" for k, t in times.items()),
-        flush=True)
-    print(f"total {time.time() - t_start:.1f} s", flush=True)
+        f"{k} {t[0]:.3f} ms vs plain {t[1]:.3f} ms (bound {bounds[k][0]:.3f} ms, "
+        f"{bounds[k][1]})" for k, t in times.items()), flush=True)
+    return {
+        name: dict(launches=paths[LINEAR_PATH[name]][name],
+                   launches_by_path={p: c[name] for p, c in paths.items()},
+                   ms=times[name][0], plain_ms=times[name][1], bound=bounds[name],
+                   library_ms=None)
+        for name in REPLACES
+    }
+
+
+# ---------------------------------------------------------------------------
+# The ROM path
+# ---------------------------------------------------------------------------
+
+
+def small_rom_engines(crt, dev):
+    """{case: engine} on the 8-element nonlinear and hybrid beams: diagonal,
+    dense coupled Newton (via convert), damped, gathered ECSW."""
+    from continuum_robot_tpu_torch import convert
+    from continuum_robot_tpu_torch.models.simulate import make_modal_rom
+
+    out = {}
+    rng = np.random.default_rng(5)
+    for kind in ("nonlinear", "mixed"):
+        n_el = ROM_SMALL["n_el"]
+        types_ = ["nonlinear"] * n_el if kind == "nonlinear" else (
+            ["linear"] * (n_el // 2) + ["nonlinear"] * (n_el - n_el // 2))
+        df = bench_beam_dataframe(n_el)
+        df["type"] = types_
+        df["length"] = 0.25
+        model = crt.DynamicEulerBernoulliBeam(df)
+        ms = make_modal_rom(model, DT, rho_inf=ROM["rho_inf"], n_modes=ROM_SMALL["m"],
+                            device=dev, dtype=torch.float32)
+        out[f"{kind}/diag"] = (model, ms)
+        out[f"{kind}/damped"] = (model, make_modal_rom(
+            model, DT, rho_inf=ROM["rho_inf"], n_modes=ROM_SMALL["m"],
+            rayleigh=(0.5, 1e-6), device=dev, dtype=torch.float32))
+        m = ms.n_modes
+        coupled = ms.Sinv + 1e-3 * np.abs(np.diag(ms.Sinv)).mean() * rng.normal(size=(m, m)) / m
+        out[f"{kind}/dense"] = (model, convert.modal_rom_engine_from_numpy(
+            ms.Phi, ms.PhiW, ms.PhiTM, coupled, ms.lam, ms.rho_inf, ms.dt, model,
+            device=dev, dtype=torch.float32))
+        u = np.zeros(model.n_pos_states)
+        u[-2] = 3.0
+        z = torch.zeros((1, m), dtype=torch.float32, device=dev)
+        _, etas, _ = ms.rollout_frames(z, z, ms.project_force_host(u), 10,
+                                       substeps=5, n_newton=2)
+        out[f"{kind}/gathered"] = (model, ms.hyper_reduce(etas[::2, 0, :], tau=1e-3))
+    return out
+
+
+def phase_rom_small(engines, rk, dev):
+    from continuum_robot_tpu_torch.utils import force_completion
+
+    worst = 0.0
+    rng = np.random.default_rng(6)
+    for case, (model, ms) in engines.items():
+        m = ms.n_modes
+        eta = torch.tensor(rng.normal(scale=ROM_SMALL["amp"], size=(ROM_SMALL["B"], m)),
+                           dtype=torch.float32, device=dev)
+        u = np.zeros(model.n_pos_states)
+        u[-2] = 5.0
+        fused = ms.make_pallas_rollout()
+        op, e, ed, a0, _ = fused.prepare(eta, torch.zeros_like(eta),
+                                         ms.project_force_host(u))
+        out = rk.rom_steps(op, e, ed, a0, ROM_SMALL["steps"], ROM_SMALL["n_newton"])
+        ref = rk.rom_steps_plain(op, e, ed, a0, ROM_SMALL["steps"], ROM_SMALL["n_newton"])
+        force_completion(out)
+        err = scaled_err(out, ref)
+        worst = max(worst, err)
+        print(f"phase 7 ROM kernel vs plain, small: {case} B={ROM_SMALL['B']} m={m} "
+              f"{ROM_SMALL['steps']} steps: max|kernel-plain|/scale {err:.3e} "
+              f"(each of eta, etad, etadd against its own scale)", flush=True)
+        require(err <= ROM_SMALL_MAX, f"ROM kernel vs plain ({case}): {err:.3e}")
+    return worst
+
+
+def timed_once(fn, dev):
+    """``(result, ms)`` of one call, by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.cuda.device(dev):
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def rom_main_path(crt, dev):
+    """The ROM main path's model, engine and inputs (phase 8's set-up):
+    ``(model, ms, eta, etad, u_m, setup seconds)``."""
+    from continuum_robot_tpu_torch.models import simulate as sim_mod
+
+    t0 = time.time()
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "nonlinear"))
+    setup = {"model": time.time() - t0}
+    with clocked(sim_mod, "reduce_matrix_dense", "_lowest_modes_sparse") as secs:
+        t0 = time.perf_counter()
+        ms = sim_mod.make_modal_rom(model, DT, rho_inf=ROM["rho_inf"],
+                                    n_modes=ROM["modes"], device=dev,
+                                    dtype=torch.float32)
+        total = time.perf_counter() - t0
+    require(len(secs["_lowest_modes_sparse"]) == 2,
+            "the full-width build did not take the Arnoldi branch")
+    setup["k0"] = sum(secs["reduce_matrix_dense"])
+    setup["arpack_right"], setup["arpack_left"] = secs["_lowest_modes_sparse"]
+    setup["compose"] = total - setup["k0"] - setup["arpack_right"] - setup["arpack_left"]
+    n_red = model.n_pos_states
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(scale=1e-6, size=(N_ENVS, n_red)),
+                     dtype=torch.float32, device=dev)
+    u = np.zeros(n_red, np.float32)
+    u[-2] = 0.1
+    eta, etad = ms.to_modal(q, torch.zeros_like(q))
+    return model, ms, eta, etad, ms.project_force_host(u).astype(np.float32), setup
+
+
+def profile_rom(crt, dev, card) -> None:
+    """``--profile``: device time by kernel over ``PROFILE_STEPS`` steps of
+    the ROM main path, and the busy share of the unprofiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, ms, eta, etad, u_m, _ = rom_main_path(crt, dev)
+    fused = ms.make_pallas_rollout()
+    span = lambda: fused(eta, etad, u_m, PROFILE_STEPS, n_newton=ROM["n_newton"])  # noqa: E731
+    span()
+    _, wall_ms = min((timed_once(span, dev) for _ in range(3)), key=lambda r: r[1])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        span()
+        torch.cuda.synchronize(dev)
+    rows = []
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            rows.append((dev_us / 1e3, ev.count,
+                         ev.key.replace("(anonymous namespace)::", "")))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profile [{card}]: {PROFILE_STEPS} steps of the ROM main path, "
+          f"unprofiled {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / wall_ms:.3f} of it)", flush=True)
+    require(rows, "the profiler recorded no device time")
+    for dev_ms, count, key in rows:
+        print(f"profile: {dev_ms / PROFILE_STEPS:.4f} ms/step, {count} launches, "
+              f"{dev_ms / count:.4f} ms/launch: {key[:150]}", flush=True)
+
+
+def rom_paths(crt, rk, dev, card, small_model):
+    """Phases 8-12; returns the ROM kernels' records."""
+    from continuum_robot_tpu_torch.models import elements
+    from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
+
+    # -- phase 8: the ROM main path at full width -------------------------------
+    model, ms, eta, etad, u_m, setup = rom_main_path(crt, dev)
+    n_red = model.n_pos_states
+    rng = np.random.default_rng(0)
+    fused = ms.make_pallas_rollout()
+
+    n_it = N_STEPS * ROM["n_newton"]
+    (out, span_first_ms), paths = counted(rk, lambda: timed_once(
+        lambda: fused(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"]), dev))
+    paths = {"window": paths}
+    expect_launches(paths["window"], ROM_WINDOW, n_it, "ROM main path")
+    op, e0, ed0, a0, _ = fused.prepare(eta, etad, u_m)
+    ref, plain_span_ms = timed_once(
+        lambda: rk.rom_steps_plain(op, e0, ed0, a0, N_STEPS, ROM["n_newton"]), dev)
+    span_rel = rel_state(out, ref)
+    q2, v2 = ms.from_modal(out[0], out[1])
+    force_completion((q2, v2))
+    finite = bool(torch.isfinite(q2).all() and torch.isfinite(v2).all())
+    window = ms.Phi_planar.shape[0]
+    print(f"phase 8 ROM main path: {N_ELEMENTS} nonlinear elements, {ms.n_modes} "
+          f"modes, window {window // 3} nodes ({window} rows), {N_ENVS} envs, "
+          f"{N_STEPS} steps, n_newton={ROM['n_newton']}, diagonal Newton "
+          f"{ms.Sinv_diag is not None}: vs_plain_rel={span_rel:.3e} finite={finite} "
+          f"q shape {tuple(q2.shape)}; launches {paths['window']}; host set-up: "
+          f"model build {setup['model']:.2f} s, K0 {setup['k0']:.2f} s, ARPACK right "
+          f"{setup['arpack_right']:.2f} s, left {setup['arpack_left']:.2f} s, "
+          f"composition {setup['compose']:.2f} s", flush=True)
+    require(finite and q2.shape == (N_ENVS, n_red), "ROM: non-finite or misshapen states")
+    require(span_rel <= ROM_SPAN_MAX, f"ROM kernel vs plain span {span_rel:.3e}")
+
+    # -- phase 9: ECSW at full width ----------------------------------------------
+    u_tr = np.zeros(n_red)
+    u_tr[-2] = 3.0
+    z = torch.zeros((1, ms.n_modes), dtype=torch.float32, device=dev)
+    t0 = time.time()
+    _, etas_tr, _ = ms.rollout_frames(z, z, ms.project_force_host(u_tr), 30,
+                                      substeps=20, n_newton=2)
+    train_s = time.time() - t0
+    t0 = time.time()
+    ms_g, info = ms.hyper_reduce(etas_tr[::3, 0, :], tau=1e-3, return_info=True)
+    nnls_s = time.time() - t0
+    fused_g = ms_g.make_pallas_rollout()
+    out_g, paths["ecsw"] = counted(
+        rk, lambda: fused_g(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"]))
+    expect_launches(paths["ecsw"], ROM_GATHERED, n_it, "ECSW gathered span")
+    op_g, eg, edg, ag, _ = fused_g.prepare(eta, etad, u_m)
+    ref_g, plain_g_ms = timed_once(
+        lambda: rk.rom_steps_plain(op_g, eg, edg, ag, N_STEPS, ROM["n_newton"]), dev)
+    g_rel = rel_state(out_g, ref_g)
+    vs_window = rel_state(out_g, out)
+    print(f"phase 9 ECSW: n_sampled={info['n_sampled']} of {N_ELEMENTS}, train "
+          f"residual {info['train_residual']:.3e} (training rollout {train_s:.2f} s, "
+          f"NNLS {nnls_s:.2f} s); gathered kernels {N_ENVS} envs x {N_STEPS} steps: "
+          f"vs_plain_rel={g_rel:.3e}, vs window engine {vs_window:.3e}", flush=True)
+    require(all(bool(torch.isfinite(x).all()) for x in out_g), "ECSW: non-finite states")
+    require(g_rel <= ROM_SPAN_MAX, f"gathered kernel vs plain span {g_rel:.3e}")
+
+    # -- phase 10: dense Newton at full width -------------------------------------
+    ms_d = dataclasses.replace(ms, Sinv_diag=None)
+    fused_d = ms_d.make_pallas_rollout()
+    out_d, paths["dense_newton"] = counted(
+        rk, lambda: fused_d(eta, etad, u_m, ROM["dense_steps"], n_newton=ROM["n_newton"]))
+    expect_launches(paths["dense_newton"], ROM_DENSE,
+                    ROM["dense_steps"] * ROM["n_newton"], "dense-Newton span")
+    op_d, ed_, edd_, ad_, _ = fused_d.prepare(eta, etad, u_m)
+    ref_d = rk.rom_steps_plain(op_d, ed_, edd_, ad_, ROM["dense_steps"], ROM["n_newton"])
+    diag_d = fused(eta, etad, u_m, ROM["dense_steps"], n_newton=ROM["n_newton"])
+    d_rel, d_vs_diag = rel_state(out_d, ref_d), rel_state(out_d, diag_d)
+    print(f"phase 10 dense Newton: {ROM['dense_steps']} steps: vs_plain_rel="
+          f"{d_rel:.3e}, vs diagonal Newton {d_vs_diag:.3e}", flush=True)
+    require(d_rel <= ROM_SPAN_MAX and d_vs_diag <= ROM_SPAN_MAX,
+            f"dense Newton: vs plain {d_rel:.3e}, vs diagonal {d_vs_diag:.3e}")
+
+    # -- phase 11: simulate(method="modal_rom") -----------------------------------
+    n_s = small_model.n_pos_states
+    x0 = np.zeros((ROM_SIM["envs"], 2 * n_s))
+    x0[:, :n_s] = rng.normal(scale=1e-4, size=(ROM_SIM["envs"], n_s))
+    u_s = np.zeros(n_s)
+    u_s[-2] = 0.1
+    frame_dt = DT * ROM_SIM["substeps"]
+    ys = {}
+    for engine in ("pallas", "xla"):
+        res, paths[f"simulate:{engine}"] = counted(rk, lambda: crt.simulate(
+            small_model, x0, ROM_SIM["frames"] * frame_dt, frame_dt,
+            method="modal_rom", u=u_s, substeps=ROM_SIM["substeps"],
+            rho_inf=ROM["rho_inf"], n_modes=ROM_SMALL["m"], n_newton=1,
+            engine=engine, device=dev))
+        ys[engine] = force_completion(res.ys)
+        require(tuple(res.ys.shape) == (ROM_SIM["frames"] + 1, ROM_SIM["envs"], 2 * n_s)
+                and bool(torch.isfinite(res.ys).all()),
+                f"simulate modal_rom engine={engine}: bad output")
+    sim_rel = rel(ys["pallas"].double(), ys["xla"])
+    print(f"phase 11 simulate modal_rom: {ROM_SIM}: pallas (f32) vs xla (f64) "
+          f"max rel {sim_rel:.3e}", flush=True)
+    require(sim_rel <= 1e-5, f"simulate modal_rom pallas vs xla {sim_rel:.3e}")
+
+    expect_launches(paths["simulate:pallas"], ROM_WINDOW,
+                    ROM_SIM["frames"] * ROM_SIM["substeps"], "simulate modal_rom pallas")
+    expect_launches(paths["simulate:xla"], (), 0, "simulate modal_rom xla")
+    print(f"ROM paths' launches: {paths}", flush=True)
+
+    # -- phase 12: timings ------------------------------------------------------
+    def best(fn):
+        return min(cuda_event_times(fn, repeats=3, warmup=1, device=dev))
+
+    env_steps = N_STEPS * N_ENVS
+    span_ms = best(lambda: fused(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"]))
+    span_g_ms = best(lambda: fused_g(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"]))
+    af0 = rk.rom_alpha_point_plain(op, e0, ed0, a0, a0)
+    g0 = rk.rom_correction_window_plain(op, rk.rom_expand_plain(op, af0))
+
+    def library_span():  # the two products of every step, results dropped
+        for _ in range(N_STEPS):
+            torch.matmul(af0, op.phiT)
+            torch.matmul(g0, op.w)
+
+    lib_span_ms = best(library_span)
+    B, m, N = N_ENVS, ms.n_modes, op.n_rows
+    E = N // 3 - 1
+    s = op_g.n_rows // 6
+    corr_ops = count_ops(lambda *a: elements.nonlinear_correction_planes(*a), 9) + 6
+    counter_op = types.SimpleNamespace(sc=rk.step_scalars(DT, ROM["rho_inf"]))
+    epi_ops = count_ops(lambda e, ed, edd, a1, gm, lam, uu, si: rk._finish(
+        counter_op, a1 - si * rk._residual(
+            types.SimpleNamespace(lam=lam, u=uu, cd=None, sc=counter_op.sc),
+            gm, e, ed, edd, a1), e, ed, edd, True), 8)
+    af_ops = count_ops(lambda e, ed, edd, a1: rk.rom_alpha_point_plain(
+        counter_op, e, ed, edd, a1), 4)
+    splits = rk.project_splits(B, m, N, dev)
+    span_ops = N_STEPS * (4 * B * m * N + B * E * corr_ops + 3 * B * (N // 3)
+                          + B * m * (af_ops + splits - 1 + epi_ops))
+    span_bound = bound(span_ops, 4 * (2 * m * N + 6 * B * m + 3 * m + 4 * E))
+    print(f"phase 12 ROM timings [{card}]: window span {span_ms:.3f} ms = "
+          f"{env_steps / span_ms * 1e3:.4e} env-steps/s (first call {span_first_ms:.3f} ms) "
+          f"vs plain twin {plain_span_ms:.3f} ms (one run) and torch.matmul of the "
+          f"two products x {N_STEPS} {lib_span_ms:.3f} ms; bound {span_bound[0]:.3f} ms "
+          f"({span_bound[1]}), kernel at {span_bound[0] / span_ms:.3f} of it; gathered "
+          f"(s={s}) span {span_g_ms:.3f} ms = {env_steps / span_g_ms * 1e3:.4e} "
+          f"env-steps/s vs plain twin {plain_g_ms:.3f} ms (one run)", flush=True)
+
+    # Each kernel alone at the main path's shapes, on a mid-span state.
+    st = out
+    a1 = st[2]
+    op_dense = fused_d.operators(st[0], u_m)
+    eta_af = rk.rom_alpha_point_plain(op, *st, a1)
+    x = rk.rom_expand_plain(op, eta_af)
+    g = rk.rom_correction_window_plain(op, x)
+    xg = rk.rom_expand_plain(op_g, eta_af)
+    partials = rk.rom_project(op, g)
+    r = rk.rom_update_plain(op_dense, rk.rom_project_plain(op_dense, g), *st, a1, True)
+    state_bytes = 4 * B * m
+    pieces = {
+        "rom_alpha_point": (
+            lambda: rk.rom_alpha_point(op, *st, a1),
+            lambda: rk.rom_alpha_point_plain(op, *st, a1), None,
+            bound(B * m * af_ops, 4 * state_bytes)),  # a1 is etadd here
+        "rom_expand": (
+            lambda: rk.rom_expand(op, eta_af), lambda: rk.rom_expand_plain(op, eta_af),
+            lambda: torch.matmul(eta_af, op.phiT),
+            bound(2 * B * m * N, state_bytes + 4 * (m * N + B * N))),
+        "rom_correction_window": (
+            lambda: rk.rom_correction_window(op, x),
+            lambda: rk.rom_correction_window_plain(op, x), None,
+            bound(B * E * corr_ops + 3 * B * (N // 3), 4 * (2 * B * N + 3 * E))),
+        "rom_correction_gathered": (
+            lambda: rk.rom_correction_gathered(op_g, xg),
+            lambda: rk.rom_correction_gathered_plain(op_g, xg), None,
+            bound(B * s * corr_ops, 4 * (2 * B * 6 * s + 3 * s))),
+        "rom_project": (  # compared as the sum of its partial products
+            lambda: rk.rom_project(op, g), lambda: rk.rom_project_plain(op, g),
+            lambda: torch.matmul(g, op.w),
+            bound(2 * B * N * m, 4 * (B * N + N * m) + splits * state_bytes)),
+        "rom_update": (
+            lambda: rk.rom_update(op, partials, *st, a1, True),
+            lambda: rk.rom_update_plain(op, partials, *st, a1, True), None,
+            bound(B * m * (splits - 1 + epi_ops),
+                  (splits + 6) * state_bytes + 4 * 3 * m)),
+        "rom_newton_dense": (
+            lambda: rk.rom_newton_dense(op_dense, r, *st, a1, True),
+            lambda: rk.rom_newton_dense_plain(op_dense, r, *st, a1, True),
+            lambda: r @ op_dense.sinvT,
+            bound(2 * B * m * m + B * m * 8, 4 * m * m + 7 * state_bytes)),
+    }
+    records = {}
+    for name, (kern, plain, lib, bnd) in pieces.items():
+        k_out, p_out = kern(), plain()
+        if name == "rom_project":
+            k_out, p_out = k_out.sum(0), p_out.sum(0)
+        err, ratio = max_abs(k_out, p_out), scaled_err(k_out, p_out)
+        require(ratio <= ROM_PIECE_MAX,
+                f"{name}: kernel vs plain {errors(k_out, p_out)} (max|k-p|, scale)")
+        records[name] = dict(
+            launches=paths[ROM_PATH[name]][name],
+            launches_by_path={p: c[name] for p, c in paths.items()},
+            max_abs_err=err, scaled_err=ratio, ms=best(kern),
+            plain_ms=best(plain), bound=bnd,
+            library_ms=None if lib is None else best(lib))
+    print(f"phase 12 ROM kernels [{card}]: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, library "
+        f"{'none' if v['library_ms'] is None else '%.4f ms' % v['library_ms']}, "
+        f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), max|k-p| {v['max_abs_err']:.3e}, "
+        f"/scale {v['scaled_err']:.3e}"
+        for k, v in records.items()), flush=True)
+    return records
+
+
+def main() -> int:
+    t_start = time.time()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    # Imported here: a directory without the package fails at this point.
+    import continuum_robot_tpu_torch as crt
+    from continuum_robot_tpu_torch.ops.cuda import _build
+    from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
+    from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
+
+    dev = torch.device(DEVICE, 0)
+    card = card_line()
+    print(f"phase 1 device: {card} | {torch.cuda.get_device_name(0)} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"devices {torch.cuda.device_count()}", flush=True)
+
+    if "--profile" in sys.argv[1:]:
+        profile_rom(crt, dev, card)
+        return 0
+
+    t0 = time.time()
+    libs = _build.build_all()
+    build_s = time.time() - t0
+    for name, path in libs.items():
+        log = path.with_suffix(".log").read_text()
+        regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
+                if "registers" in ln]
+        print(f"phase 2 build {name}: ptxas: {' | '.join(regs)}", flush=True)
+    print(f"phase 2 build: {build_s:.1f} s for {len(libs)} sources in parallel",
+          flush=True)
+
+    err = phase_kernels(kr, dev)
+    records = linear_paths(crt, kr, dev, card)
+    for name in REPLACES:
+        records[name].update(max_abs_err=err[name], source=SOURCE,
+                             replaces=REPLACES[name])
+
+    engines = small_rom_engines(crt, dev)
+    small_err = phase_rom_small(engines, rk, dev)
+    rom_records = rom_paths(crt, rk, dev, card, engines["nonlinear/diag"][0])
+    for rec in rom_records.values():
+        rec.update(source=ROM_SOURCE, replaces=ROM_REPLACES)
+    records.update(rom_records)
+    print(f"ROM small-size worst max|kernel-plain|/scale {small_err:.3e}; "
+          f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name in REPLACES
+        {"name": name, "route": "cuda", "source": rec["source"],
+         "replaces": rec["replaces"], "launches": rec["launches"],
+         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
+         "bound_by": rec["bound"][1], "library_ms": rec["library_ms"],
+         "launches_by_path": rec["launches_by_path"]}
+        for name, rec in records.items()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

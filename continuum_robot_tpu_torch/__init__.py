@@ -1,11 +1,13 @@
 """continuum-robot-tpu on PyTorch and CUDA: the port for NVIDIA Hopper.
 
 A second package beside the JAX one (``continuum_robot_tpu``), which stays
-the reference. This slice holds the model build (CSV/DataFrame -> linear
-Euler-Bernoulli beam, host float64) and the linear modal generalized-α
-engine, whose per-step and composed-map drives run as hand-written CUDA
-kernels (``ops/cuda``) on the card and as their plain PyTorch twins on the
-CPU.
+the reference. It holds the model build (CSV/DataFrame -> linear,
+nonlinear von Kármán or hybrid Euler-Bernoulli beam, host float64), the
+linear modal generalized-α engine (:class:`ModalGenAlpha`) and the
+nonlinear modal-ROM engine (:class:`ModalROMGenAlpha`, with ECSW
+hyper-reduction). Their fused drives run as hand-written CUDA kernels
+(``ops/cuda``) on the card and as plain PyTorch twins on the CPU. Entry
+points run on the card unless the caller passes ``device="cpu"``.
 
 Precision policy: importing the package turns TF32 off for float32 matmuls
 and convolutions. Reduced-precision matmul inputs were a correctness cliff
@@ -32,9 +34,11 @@ from .models import (  # noqa: E402
 )
 from .models.simulate import (  # noqa: E402
     ModalGenAlpha,
+    ModalROMGenAlpha,
     PiecewiseConstant,
     SimulationResult,
     make_modal_genalpha,
+    make_modal_rom,
     simulate,
 )
 
@@ -50,10 +54,12 @@ __all__ = [
     "IBeam",
     "ISegment",
     "ModalGenAlpha",
+    "ModalROMGenAlpha",
     "PiecewiseConstant",
     "Properties",
     "SimulationResult",
     "__version__",
     "make_modal_genalpha",
+    "make_modal_rom",
     "simulate",
 ]

@@ -1,9 +1,11 @@
 """Carry engines and parameters across from the JAX package.
 
-The JAX package's :class:`ModalGenAlpha` and ``BeamArrays`` hold host NumPy
-arrays, so their fields convert directly. Building the port's engine from
-the JAX engine's eigenbasis holds both packages to the same modes:
-eigenvector signs from two ``eigh`` calls need not agree.
+The JAX package's :class:`ModalGenAlpha`, :class:`ModalROMGenAlpha` and
+``BeamArrays`` hold host NumPy arrays, so their fields convert directly.
+Building the port's engine from the JAX engine's basis holds both packages
+to the same modes: eigenvector signs and ARPACK roundoff from two
+eigensolves need not agree. Entry points here run on the card unless the
+caller names a device (``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations
@@ -11,24 +13,70 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models import assembly
 from .models.config import BeamArrays
-from .models.simulate import ModalGenAlpha
+from .models.simulate import (
+    ModalGenAlpha,
+    ModalROMGenAlpha,
+    _planar_window,
+    resolve_device,
+)
+
+
+def _f64(x):
+    return None if x is None else np.array(x, dtype=np.float64)
 
 
 def modal_engine_from_numpy(Phi, PhiTM, lam, rho_inf: float, dt: float,
-                            cdamp=None, device="cpu",
+                            cdamp=None, device=None,
                             dtype: torch.dtype = torch.float64) -> ModalGenAlpha:
     """The port's :class:`ModalGenAlpha` from host arrays (float64).
 
-    ``device``/``dtype``: where inputs given as NumPy arrays go.
+    ``device``/``dtype``: where inputs given as NumPy arrays go (None: the
+    card).
     """
-
-    def f64(x):
-        return None if x is None else np.array(x, dtype=np.float64)
-
     return ModalGenAlpha(
-        Phi=f64(Phi), PhiTM=f64(PhiTM), lam=f64(lam), rho_inf=float(rho_inf),
-        dt=float(dt), cdamp=f64(cdamp), device=torch.device(device),
+        Phi=_f64(Phi), PhiTM=_f64(PhiTM), lam=_f64(lam), rho_inf=float(rho_inf),
+        dt=float(dt), cdamp=_f64(cdamp), device=resolve_device(device),
+        dtype=dtype,
+    )
+
+
+def modal_rom_engine_from_numpy(Phi, PhiW, PhiTM, Sinv, lam, rho_inf: float,
+                                dt: float, model, Sinv_diag=None, cdamp=None,
+                                device=None,
+                                dtype: torch.dtype = torch.float64
+                                ) -> ModalROMGenAlpha:
+    """The port's :class:`ModalROMGenAlpha` from a ROM engine's host arrays.
+
+    ``Phi``/``PhiW`` ``(n, m)``: trial and test bases of the reduced
+    system; ``PhiTM``, ``Sinv`` ``(m, m)``, ``lam``, ``Sinv_diag`` and
+    ``cdamp`` as in the engine (``Sinv_diag=None`` keeps the dense Newton
+    solve). ``model``: the port's beam, from which the planar window, its
+    element parameters and the internal force are rebuilt. A hyper-reduced
+    engine converts as its window engine followed by
+    ``.apply_ecsw(sel, xi)`` with its sample. ``device``/``dtype``: where
+    inputs given as NumPy arrays go (None: the card).
+    """
+    device = resolve_device(device)
+    arrays = model.beam_model.arrays
+    bc_info = model.beam_model.bc_info
+    V, W = _f64(Phi), _f64(PhiW)
+    Phi_p = W_p = planar_correction = window_params = None
+    elem_sl, node_sl = assembly.nonlinear_support(arrays)
+    if elem_sl is not None:
+        Phi_p, W_p, planar_correction, window_params = _planar_window(
+            arrays, bc_info, V, W, elem_sl, node_sl
+        )
+    return ModalROMGenAlpha(
+        Phi=V, PhiW=W, PhiTM=_f64(PhiTM), Sinv=_f64(Sinv),
+        rho_inf=float(rho_inf), dt=float(dt),
+        internal_force=assembly.make_reduced_internal_force(
+            arrays, bc_info.free_dofs, bc_info.n_dofs_full
+        ),
+        lam=_f64(lam), Phi_planar=Phi_p, PhiW_planar=W_p,
+        planar_correction=planar_correction, window_params=window_params,
+        Sinv_diag=_f64(Sinv_diag), cdamp=_f64(cdamp), device=device,
         dtype=dtype,
     )
 

@@ -1,12 +1,17 @@
 """Global assembly: batched element matrices -> global operators.
 
-Counterpart of ``continuum_robot_tpu/models/assembly.py`` (the mass and
-linear-stiffness operators and the boundary-condition reduction). The
-mass operator is kept block-tridiagonal ``(diag (N,3,3), off (E,3,3))``;
-dense forms are host NumPy for eigensolves and control design.
+Counterpart of ``continuum_robot_tpu/models/assembly.py``: the mass and
+linear-stiffness operators, the boundary-condition reduction, the
+state-dependent internal force (interleaved and planar layouts) and the
+planar von Kármán correction the modal-ROM engine evaluates. The mass
+operator is kept block-tridiagonal ``(diag (N,3,3), off (E,3,3))``; dense
+forms are host NumPy for eigensolves and control design.
 
-The state-dependent internal force and tangent (nonlinear elements) are not
-ported yet.
+The internal-force functions take NumPy arrays (host, returns NumPy) or
+torch tensors (returns tensors on their device and dtype) and broadcast
+over leading batch axes. The state-dependent tangent is not ported: the
+zero-state tangent the modal-ROM engine needs is built exactly in
+``simulate.reduce_matrix_dense``.
 """
 
 from __future__ import annotations
@@ -87,6 +92,226 @@ def dense_linear_stiffness_matrix(arrays: BeamArrays) -> np.ndarray:
         )
     )  # (E, 6, 6)
     return dense_from_block_tridiagonal(_sum_node_blocks(Ke), Ke[..., 0:3, 3:6])
+
+
+# ---------------------------------------------------------------------------
+# Element <-> global state plumbing, internal force
+# ---------------------------------------------------------------------------
+
+
+def _cat(parts, axis):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=axis)
+    return np.concatenate(parts, axis=axis)
+
+
+def _zeros_like_shape(ref, shape):
+    if isinstance(ref, torch.Tensor):
+        return ref.new_zeros(shape)
+    return np.zeros(shape, dtype=ref.dtype)
+
+
+def gather_element_states(q_full):
+    """``(..., 3N) -> (..., E, 6)``: each element sees its two nodes' DOFs."""
+    *batch, n_dofs = q_full.shape
+    qn = q_full.reshape(*batch, n_dofs // 3, 3)
+    return _cat([qn[..., :-1, :], qn[..., 1:, :]], -1)
+
+
+def scatter_add_element_forces(fe):
+    """``(..., E, 6) -> (..., 3N)``: node i receives element i's first
+    triple and element i-1's second triple."""
+    *batch, n_el, _ = fe.shape
+    out = _zeros_like_shape(fe, (*batch, n_el + 1, 3))
+    out[..., :-1, :] += fe[..., :, 0:3]
+    out[..., 1:, :] += fe[..., :, 3:6]
+    return out.reshape(*batch, 3 * (n_el + 1))
+
+
+def internal_force_full(arrays: BeamArrays, q_full, use_consistent: bool = False):
+    """Global internal (stiffness) force ``k(q)`` in full coordinates."""
+    fe = elements.element_internal_force(
+        gather_element_states(q_full),
+        arrays.length,
+        arrays.elastic_modulus,
+        arrays.moment_inertia,
+        arrays.cross_area,
+        arrays.nonlinear_mask,
+        use_consistent=use_consistent,
+    )
+    return scatter_add_element_forces(fe)
+
+
+def _index(idx, ref):
+    idx = np.asarray(idx, np.int64)
+    if isinstance(ref, torch.Tensor):
+        return torch.as_tensor(idx, device=ref.device)
+    return idx
+
+
+def pad_to_full(v_red, free_dofs: np.ndarray, n_dofs_full: int):
+    """Zero-pad a reduced vector back to full coordinates."""
+    out = _zeros_like_shape(v_red, (*v_red.shape[:-1], n_dofs_full))
+    out[..., _index(free_dofs, v_red)] = v_red
+    return out
+
+
+def reduce_from_full(v_full, free_dofs: np.ndarray):
+    """Extract the free DOFs from a full-coordinate vector."""
+    return v_full[..., _index(free_dofs, v_full)]
+
+
+def make_reduced_internal_force(
+    arrays: BeamArrays,
+    free_dofs: np.ndarray,
+    n_dofs_full: int,
+    use_consistent: bool = False,
+):
+    """Reduced-coordinate stiffness function ``k_red(q_red)``: zero-pad the
+    reduced state into full coordinates, evaluate, extract the free rows."""
+    free_dofs = np.asarray(free_dofs)
+
+    def k_red(q_red):
+        q_full = pad_to_full(q_red, free_dofs, n_dofs_full)
+        f_full = internal_force_full(arrays, q_full, use_consistent=use_consistent)
+        return reduce_from_full(f_full, free_dofs)
+
+    return k_red
+
+
+def make_reduced_internal_force_np(
+    arrays: BeamArrays, free_dofs: np.ndarray, n_dofs_full: int
+):
+    """Host NumPy float64 twin of :func:`make_reduced_internal_force`
+    (parity element): ``k_red(q_red)`` for a 1-D reduced state."""
+    free = np.asarray(free_dofs)
+    L = np.asarray(arrays.length, np.float64)
+    E = np.asarray(arrays.elastic_modulus, np.float64)
+    I = np.asarray(arrays.moment_inertia, np.float64)
+    A = np.asarray(arrays.cross_area, np.float64)
+    nl = np.asarray(arrays.nonlinear_mask)
+
+    def k_red(q_red: np.ndarray) -> np.ndarray:
+        q_full = np.zeros(n_dofs_full)
+        q_full[free] = np.asarray(q_red, np.float64)
+        qn = q_full.reshape(-1, 3)
+        q6 = np.concatenate([qn[:-1], qn[1:]], axis=1)  # (E, 6)
+        fe = np.asarray(elements.element_internal_force(q6, L, E, I, A, nl))
+        out = np.zeros_like(qn)
+        out[:-1] += fe[:, 0:3]
+        out[1:] += fe[:, 3:6]
+        return out.reshape(-1)[free]
+
+    return k_red
+
+
+def planar_permutation(n_nodes: int) -> np.ndarray:
+    """Row permutation: interleaved full DOFs ``[u0,w0,t0,u1,...]`` ->
+    planar ``[u0..uN, w0..wN, t0..tN]``; ``perm[c * n_nodes + i] = 3 i + c``."""
+    return np.arange(3 * n_nodes).reshape(n_nodes, 3).T.reshape(-1)
+
+
+def _param_like(x, q_p):
+    if isinstance(q_p, torch.Tensor):
+        return torch.tensor(np.asarray(x), dtype=q_p.dtype, device=q_p.device)
+    return np.asarray(x, dtype=q_p.dtype)
+
+
+def _scatter_planes(q_p, planes):
+    """Node force planes ``(..., 3, n_nodes)`` from six element slot planes
+    ``(..., E)``: node i sums element i's node-1 slot and element i-1's
+    node-2 slot."""
+    fa1, ft1, fm1, fa2, ft2, fm2 = planes
+    out = _zeros_like_shape(q_p, q_p.shape)
+    out[..., 0, :-1] += fa1
+    out[..., 1, :-1] += ft1
+    out[..., 2, :-1] += fm1
+    out[..., 0, 1:] += fa2
+    out[..., 1, 1:] += ft2
+    out[..., 2, 1:] += fm2
+    return out
+
+
+def _element_args(q_p, L, D, A):
+    u, w, t = q_p[..., 0, :], q_p[..., 1, :], q_p[..., 2, :]
+    return (u[..., :-1], w[..., :-1], t[..., :-1],
+            u[..., 1:], w[..., 1:], t[..., 1:], L, D, A)
+
+
+def _where(mask, a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.where(torch.as_tensor(mask, device=a.device), a, b)
+    return np.where(mask, a, b)
+
+
+def make_planar_internal_force(arrays: BeamArrays):
+    """Planar-layout internal force ``k(q_p)`` in full coordinates.
+
+    ``q_p``: ``(..., 3, n_nodes)`` state planes ``[u; w; theta]`` (the
+    :func:`planar_permutation` image of the interleaved state); returns
+    force planes of the same shape. Linear, nonlinear and hybrid masks.
+    """
+    nl_mask = np.asarray(arrays.nonlinear_mask)
+    all_nl = bool(nl_mask.all())
+    all_lin = not bool(nl_mask.any())
+    L_h = np.asarray(arrays.length)
+    D_h = np.asarray(arrays.elastic_modulus) * np.asarray(arrays.moment_inertia)
+    A_h = np.asarray(arrays.elastic_modulus) * np.asarray(arrays.cross_area)
+
+    def k_planar(q_p):
+        args = _element_args(q_p, *(_param_like(x, q_p) for x in (L_h, D_h, A_h)))
+        if all_nl:
+            planes = elements.nonlinear_force_planes(*args)
+        elif all_lin:
+            planes = elements.linear_force_planes(*args)
+        else:
+            nl = elements.nonlinear_force_planes(*args)
+            lin = elements.linear_force_planes(*args)
+            planes = tuple(_where(nl_mask, a, b) for a, b in zip(nl, lin))
+        return _scatter_planes(q_p, planes)
+
+    return k_planar
+
+
+def make_planar_correction_force(arrays: BeamArrays, element_slice=None):
+    """Planar-layout nonlinear correction force ``g(q_p) = k(q_p) - K0 q_p``.
+
+    Zero for linear elements; returns None for all-linear beams.
+    ``element_slice`` restricts the evaluation to a contiguous element run:
+    the caller then feeds node planes ``(..., 3, stop - start + 1)`` and
+    gets force planes of the same shape (the modal-ROM engine's window).
+    """
+    nl_mask = np.asarray(arrays.nonlinear_mask)
+    if not nl_mask.any():
+        return None
+    sl = element_slice if element_slice is not None else slice(None)
+    nl_mask = nl_mask[sl]
+    all_nl = bool(nl_mask.all())
+    L_h = np.asarray(arrays.length)[sl]
+    D_h = (np.asarray(arrays.elastic_modulus) * np.asarray(arrays.moment_inertia))[sl]
+    A_h = (np.asarray(arrays.elastic_modulus) * np.asarray(arrays.cross_area))[sl]
+
+    def g_planar(q_p):
+        args = _element_args(q_p, *(_param_like(x, q_p) for x in (L_h, D_h, A_h)))
+        planes = elements.nonlinear_correction_planes(*args)
+        if not all_nl:
+            planes = tuple(_where(nl_mask, p, 0.0) for p in planes)
+        return _scatter_planes(q_p, planes)
+
+    return g_planar
+
+
+def nonlinear_support(arrays: BeamArrays):
+    """Contiguous element run covering every nonlinear element.
+
+    Returns ``(elem_slice, node_slice)`` (interior linear elements are
+    masked by the caller), or ``(None, None)`` for all-linear beams.
+    """
+    nl = np.flatnonzero(np.asarray(arrays.nonlinear_mask))
+    if nl.size == 0:
+        return None, None
+    i0, i1 = int(nl[0]), int(nl[-1])
+    return slice(i0, i1 + 1), slice(i0, i1 + 2)
 
 
 def reduce_matrix(M, free_dofs: np.ndarray):

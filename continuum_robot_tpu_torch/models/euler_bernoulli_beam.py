@@ -2,12 +2,10 @@
 
 Counterpart of ``continuum_robot_tpu/models/euler_bernoulli_beam.py``:
 construction from CSV/DataFrame, global mass assembly (``scipy.sparse`` on
-the host), FIXED/PINNED boundary conditions with DOF removal, the
+the host), the global internal-force function (linear, nonlinear and hybrid
+elements), FIXED/PINNED boundary conditions with DOF removal, the
 bidirectional DOF mapping, and the dense linear stiffness matrix. Host
 setup runs in NumPy float64.
-
-The global stiffness *function* of nonlinear beams needs the nonlinear
-element internal force, which is not ported yet: calling it raises.
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ from typing import Callable, Dict, List, Union
 
 import numpy as np
 import pandas as pd
+import torch
 from scipy import sparse
 
 from . import assembly
@@ -30,10 +29,11 @@ from .config import BCInfo, beam_arrays_from_dataframe, load_beam_dataframe, mak
 from .segments import segments_from_dataframe
 
 
-def _internal_force_not_ported(x):
-    raise NotImplementedError(
-        "the global internal-force function is not yet ported"
-    )
+def _state(x):
+    """Tensors pass through; anything else becomes a float64 NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return np.asarray(x, np.float64)
 
 
 class EulerBernoulliBeam(IBeam):
@@ -50,8 +50,8 @@ class EulerBernoulliBeam(IBeam):
             parameters: path or DataFrame with columns ``length,
                 elastic_modulus, moment_inertia, density, cross_area, type``.
             use_consistent_nonlinear: select the variationally consistent
-                nonlinear element (recorded; the nonlinear force is not
-                ported yet).
+                nonlinear element (recorded; that element is not ported and
+                its force raises ``NotImplementedError``).
         """
         self.parameters = load_beam_dataframe(parameters)
         validate_beam_dataframe(self.parameters)
@@ -129,8 +129,20 @@ class EulerBernoulliBeam(IBeam):
         return self.M
 
     def create_stiffness_function(self) -> Callable:
-        """Global stiffness function ``q -> k(q)`` (not yet ported: raises)."""
-        return _internal_force_not_ported
+        """Global stiffness function ``q -> k(q)`` in full coordinates.
+
+        NumPy in, NumPy out (host float64); a tensor gives a tensor on its
+        own device and dtype.
+        """
+        arrays = self.arrays
+        use_consistent = self.use_consistent_nonlinear
+
+        def global_stiffness_function(x):
+            return assembly.internal_force_full(
+                arrays, _state(x), use_consistent=use_consistent
+            )
+
+        return global_stiffness_function
 
     # -- boundary conditions -------------------------------------------------
 
@@ -161,7 +173,17 @@ class EulerBernoulliBeam(IBeam):
 
         full_M = assembly.dense_mass_matrix(self.arrays)
         self.M = sparse.csr_matrix(assembly.reduce_matrix(full_M, bc_info.free_dofs))
-        self.stiffness_func = _internal_force_not_ported
+        k_red = assembly.make_reduced_internal_force(
+            self.arrays,
+            bc_info.free_dofs,
+            self.n_dofs_full,
+            use_consistent=self.use_consistent_nonlinear,
+        )
+
+        def stiffness_with_boundary(x_reduced):
+            return k_red(_state(x_reduced))
+
+        self.stiffness_func = stiffness_with_boundary
         self._update_dof_mapping()
 
     def clear_boundary_conditions(self) -> None:

@@ -47,11 +47,7 @@ class LinearSegment(ISegment):
 
 
 class NonlinearSegment(ISegment):
-    """Geometric-nonlinear (von Kármán) element.
-
-    Its mass matrix is the consistent one; its state-dependent internal
-    force is not ported yet, so the stiffness function raises.
-    """
+    """Geometric-nonlinear (von Kármán) element: state-dependent force."""
 
     def __init__(self, properties: Properties):
         super().__init__(properties)
@@ -65,9 +61,17 @@ class NonlinearSegment(ISegment):
         return elements.consistent_mass_matrix(p.length, p.density, p.cross_area)
 
     def get_stiffness_func(self) -> Union[np.ndarray, Callable]:
-        def stiffness_func(x):
-            raise NotImplementedError(
-                "the nonlinear element internal force is not yet ported"
+        p = self.properties
+
+        def stiffness_func(x) -> np.ndarray:
+            return np.asarray(
+                elements.nonlinear_internal_force(
+                    np.asarray(x),
+                    p.length,
+                    p.elastic_modulus,
+                    p.moment_inertia,
+                    p.cross_area,
+                )
             )
 
         return stiffness_func

@@ -1,18 +1,26 @@
-"""Modal generalized-alpha engine and the ``simulate`` entry point (PyTorch).
+"""Modal engines and the ``simulate`` entry point (PyTorch).
 
-Counterpart of the modal slice of ``continuum_robot_tpu/models/simulate.py``:
-:class:`ModalGenAlpha` (exact modal superposition of the linear beam's
-generalized-α recurrence), its composed-propagator drive
-(:meth:`ModalGenAlpha.rollout_power`), :class:`PiecewiseConstant` forcing,
-:func:`make_modal_genalpha`, :func:`make_modal_rollout_fn` and
-:func:`simulate` for ``method="modal"``.
+Counterpart of the modal slices of ``continuum_robot_tpu/models/simulate.py``:
 
-Host setup stays NumPy float64 (eigensolve, map composition); rollouts run
-on the device and dtype of the state tensors. The engine names of
-:func:`simulate` are those of the JAX package: ``"xla"`` is the plain
-PyTorch path, ``"pallas"`` the hand-written kernels of
-``ops/cuda/modal_rollout.py``, ``"power"`` the composed maps applied by the
-affine kernel. On CPU tensors every kernel wrapper runs its plain version.
+* :class:`ModalGenAlpha` (exact modal superposition of the linear beam's
+  generalized-α recurrence), its composed-propagator drive
+  (:meth:`ModalGenAlpha.rollout_power`), :class:`PiecewiseConstant`
+  forcing, :func:`make_modal_genalpha`, :func:`make_modal_rollout_fn`;
+* :class:`ModalROMGenAlpha` (Petrov-Galerkin modal reduction of nonlinear
+  and hybrid beams with the von Kármán correction on a restricted window),
+  :func:`make_modal_rom`, ECSW hyper-reduction
+  (:meth:`ModalROMGenAlpha.hyper_reduce`) and the fused ROM rollout
+  (:meth:`ModalROMGenAlpha.make_pallas_rollout`);
+* :func:`simulate` for ``method="modal"`` and ``method="modal_rom"``.
+
+Host setup stays NumPy float64 (eigensolves, map composition, NNLS);
+rollouts run on the device and dtype of the state tensors. Entry points
+put NumPy inputs on the card unless the caller asks for another device
+(:func:`resolve_device`). The engine names of :func:`simulate` are those
+of the JAX package: ``"xla"`` is the plain PyTorch path, ``"pallas"`` the
+hand-written kernels of ``ops/cuda``, ``"power"`` the composed maps applied
+by the affine kernel. On CPU tensors every kernel wrapper runs its plain
+version.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import assembly, elements
 from ..ops.cuda import modal_rollout as kernels
 
 # Bound of each engine's memo of composed maps and device uploads.
@@ -32,8 +41,61 @@ _MEMO_SIZE = 16
 _NOT_PORTED = (
     "rk4", "dopri5", "newmark", "generalized_alpha",
     "generalized_alpha_adaptive", "implicit_adaptive", "sdirk3",
-    "sdirk3_adaptive", "modal_rom", "modal_rom_adaptive",
+    "sdirk3_adaptive", "modal_rom_adaptive",
 )
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if the caller named
+    one, else the current CUDA card. Raises when no card is present and
+    the caller asked for nothing: the port never falls back to the CPU
+    silently (pass ``device="cpu"`` for that)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on the card by "
+            "default; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class _Uploads:
+    """Memoized device uploads of an engine's host NumPy fields.
+
+    Least recently used, at most ``_MEMO_SIZE`` entries per instance;
+    ``dataclasses.replace`` returns an instance with a fresh memo.
+    """
+
+    def _memo(self, key, build):
+        cache = self.__dict__.get("_memo_cache")
+        if cache is None:
+            cache = collections.OrderedDict()
+            object.__setattr__(self, "_memo_cache", cache)
+        if key in cache:
+            cache.move_to_end(key)
+            return cache[key]
+        val = build()
+        cache[key] = val
+        if len(cache) > _MEMO_SIZE:
+            cache.popitem(last=False)
+        return val
+
+    def _upload(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """A host field as a tensor on ``like``'s device and dtype (memoized)."""
+        return self._memo(
+            (name, like.dtype, like.device, self.n_modes),
+            lambda: torch.as_tensor(
+                np.asarray(getattr(self, name)), dtype=like.dtype,
+                device=like.device,
+            ),
+        )
+
+    def _tensor(self, x) -> torch.Tensor:
+        """Tensors pass through; arrays go to the engine's device and dtype."""
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
 
 
 @dataclasses.dataclass
@@ -202,7 +264,7 @@ def _power_frames_drive_schedule(lam, cdamp, u0_m, Ps, bs, eta, etad,
 
 
 @dataclasses.dataclass(frozen=True)
-class ModalGenAlpha:
+class ModalGenAlpha(_Uploads):
     """Generalized-alpha stepping in the mass-orthonormal modal basis.
 
     For an all-linear beam every operator of the implicit step (M, K and
@@ -216,9 +278,10 @@ class ModalGenAlpha:
 
     Fields are host NumPy float64. Rollouts run on the device and dtype of
     the state tensors they are given; ``device`` and ``dtype`` apply to
-    inputs given as NumPy arrays. Device uploads and composed maps are
-    memoized per instance (least recently used, at most 16 entries, keyed
-    on dtype, device and mode count).
+    inputs given as NumPy arrays (``device=None``: the card, see
+    :func:`resolve_device`). Device uploads and composed maps are memoized
+    per instance (least recently used, at most 16 entries, keyed on dtype,
+    device and mode count).
     """
 
     Phi: np.ndarray  # (n, m) mass-orthonormal mode shapes
@@ -227,48 +290,19 @@ class ModalGenAlpha:
     rho_inf: float
     dt: float
     cdamp: Optional[np.ndarray] = None  # (m,) modal Rayleigh damping, or None
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None
     dtype: torch.dtype = torch.float64
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     def with_dt(self, dt: float) -> "ModalGenAlpha":
         """The same engine at a different step size (fresh memo)."""
         return dataclasses.replace(self, dt=float(dt))
 
-    # -- memo and uploads ------------------------------------------------------
-
-    def _memo(self, key, build):
-        cache = self.__dict__.get("_memo_cache")
-        if cache is None:
-            cache = collections.OrderedDict()
-            object.__setattr__(self, "_memo_cache", cache)
-        if key in cache:
-            cache.move_to_end(key)
-            return cache[key]
-        val = build()
-        cache[key] = val
-        if len(cache) > _MEMO_SIZE:
-            cache.popitem(last=False)
-        return val
-
     @property
     def n_modes(self) -> int:
         return int(np.asarray(self.lam).shape[0])
-
-    def _upload(self, name: str, like: torch.Tensor) -> torch.Tensor:
-        """A host field as a tensor on ``like``'s device and dtype (memoized)."""
-        return self._memo(
-            (name, like.dtype, like.device, self.n_modes),
-            lambda: torch.as_tensor(
-                np.asarray(getattr(self, name)), dtype=like.dtype,
-                device=like.device,
-            ),
-        )
-
-    def _tensor(self, x) -> torch.Tensor:
-        """Tensors pass through; arrays go to the engine's device and dtype."""
-        if isinstance(x, torch.Tensor):
-            return x
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
 
     # -- basis transforms ------------------------------------------------------
 
@@ -703,7 +737,7 @@ def make_modal_genalpha(
     rho_inf: float = 0.8,
     n_modes: int = None,
     rayleigh: tuple = None,
-    device="cpu",
+    device=None,
     dtype: torch.dtype = torch.float64,
 ) -> ModalGenAlpha:
     """Build the modal generalized-α engine for an all-linear beam.
@@ -712,10 +746,12 @@ def make_modal_genalpha(
     (K, M). Raises for nonlinear beams or registered state-dependent
     forces. ``rayleigh``: optional ``(alpha, beta)`` structural damping
     ``C = alpha M + beta K`` (``cdamp_m = alpha + beta lam_m``).
-    ``device``/``dtype``: where inputs given as NumPy arrays go.
+    ``device``/``dtype``: where inputs given as NumPy arrays go
+    (``device=None``: the card).
     """
     from scipy.linalg import eigh
 
+    device = resolve_device(device)
     arrays = model.beam_model.arrays
     if bool(np.any(np.asarray(arrays.nonlinear_mask))):
         raise ValueError("Modal stepping requires a purely linear beam")
@@ -741,7 +777,7 @@ def make_modal_genalpha(
         cdamp = alpha + beta_r * lam
     return ModalGenAlpha(
         Phi=Phi, PhiTM=Phi.T @ M, lam=lam, rho_inf=rho_inf, dt=dt,
-        cdamp=cdamp, device=torch.device(device), dtype=dtype,
+        cdamp=cdamp, device=device, dtype=dtype,
     )
 
 
@@ -754,12 +790,12 @@ def make_modal_rollout_fn(
     u=None,
     forces_func=None,
     rayleigh: tuple = None,
-    device="cpu",
+    device=None,
     dtype: torch.dtype = torch.float64,
 ):
     """Frame-collecting modal rollout closure ``x0 -> (ts, ys)`` (plain
     torch stepping). Constant inputs project to modal coordinates on the
-    host; callables project at every step."""
+    host; callables project at every step. ``device=None``: the card."""
     if forces_func is not None:
         raise ValueError(
             "method='modal' (exact superposition) cannot include "
@@ -788,6 +824,771 @@ def make_modal_rollout_fn(
     return rollout
 
 
+def reduce_matrix_dense(arrays, free_dofs, use_consistent: bool = False) -> np.ndarray:
+    """Reduced dense tangent stiffness at q=0 (host float64).
+
+    The exact zero-state element tangents, assembled and reduced to the
+    free DOFs. The von Kármán correction has zero Jacobian at q=0, so a
+    nonlinear element's tangent is its linear planes evaluated on the six
+    unit vectors (non-symmetric: the parity element's ``f1`` has no
+    ``-EA*u2/L`` term); a linear element's is its stiffness matrix.
+    The state-dependent tangent at q != 0 is not ported.
+    """
+    if use_consistent:
+        raise NotImplementedError(
+            "the consistent (energy-gradient) nonlinear element is not yet "
+            "ported"
+        )
+    L = np.asarray(arrays.length, np.float64)
+    E = np.asarray(arrays.elastic_modulus, np.float64)
+    I = np.asarray(arrays.moment_inertia, np.float64)
+    A = np.asarray(arrays.cross_area, np.float64)
+    eye = np.eye(6)[:, :, None]  # (unit vector j, component, element)
+    cols = elements.nonlinear_linear_planes(*eye, L, E * I, E * A)  # 6 x (6, E)
+    K_nl = np.moveaxis(np.stack(cols), -1, 0)  # (E, slot i, unit j)
+    K_lin = elements.linear_stiffness_matrix(L, E, I, A)
+    Ke = np.where(np.asarray(arrays.nonlinear_mask)[:, None, None], K_nl, K_lin)
+    n_full = 3 * (Ke.shape[0] + 1)
+    K = np.zeros((n_full, n_full))
+    for e in range(Ke.shape[0]):
+        K[3 * e : 3 * e + 6, 3 * e : 3 * e + 6] += Ke[e]
+    free = np.asarray(free_dofs)
+    return K[np.ix_(free, free)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModalROMGenAlpha(_Uploads):
+    """Generalized-alpha stepping in a truncated modal (Petrov-Galerkin) subspace.
+
+    The nonlinear-beam counterpart of :class:`ModalGenAlpha`. The trial
+    basis ``Phi`` holds the lowest right eigenvectors of the exact
+    zero-state tangent pencil ``(K0, M)``, the test basis ``PhiW`` the left
+    ones, biorthonormalized so ``PhiW^T M Phi = I``: the reduced linear
+    operator is then exactly ``diag(lam)`` of real eigenvalues, stable
+    under any truncation even though the parity element's tangent is
+    non-symmetric. The modified-Newton Jacobian is prefactored on the host
+    (``Sinv``, or its diagonal ``Sinv_diag`` when the reduced operator is
+    diagonal to roundoff).
+
+    Split fast path: the modal internal force is ``lam * eta + W^T g(Phi
+    eta)``, where ``g`` is the von Kármán correction
+    (``elements.nonlinear_correction_planes``) evaluated on a node window
+    that covers every nonlinear element. ``Phi_planar``/``PhiW_planar``
+    are the bases restricted to that window in planar row order ``[u; w;
+    theta]`` (zero rows for fixed DOFs kept), or, after ECSW
+    hyper-reduction, gathered to the sampled elements' six DOF blocks
+    ``[u1, w1, t1, u2, w2, t2]`` with the weights folded into the test
+    basis.
+
+    Fields are host NumPy float64, as in the JAX package. Rollouts run on
+    the device and dtype of the state tensors; ``device`` (None: the card)
+    and ``dtype`` apply to inputs given as NumPy arrays. Registered and
+    user external forces (``external_force``, ``ext_modal``) are not ported
+    and must be None.
+    """
+
+    Phi: np.ndarray  # (n, m) trial basis (right eigenvectors of (K0, M))
+    PhiW: np.ndarray  # (n, m) test basis (left eigenvectors), PhiW^T M Phi = I
+    PhiTM: np.ndarray  # (m, n) projector PhiW^T M
+    Sinv: np.ndarray  # (m, m) inverse of (1-am) I + (1-af) beta dt^2 K0r [+ damping]
+    rho_inf: float
+    dt: float
+    internal_force: Callable  # reduced-coordinate element force k(q_red)
+    external_force: Optional[Callable] = None
+    ext_modal: Optional[Callable] = None
+    lam: Optional[np.ndarray] = None  # (m,) diag of W^T K0 Phi
+    Phi_planar: Optional[np.ndarray] = None  # (3 n_sub, m) window, or (6 s, m) sample
+    PhiW_planar: Optional[np.ndarray] = None  # same rows, test basis
+    planar_correction: Optional[Callable] = None  # (..., 3, n_sub) -> same
+    window_params: Optional[dict] = None  # {length, EI, EA, nonlinear_mask}, (n_sub - 1,)
+    guard_Phi: Optional[np.ndarray] = None  # window bases kept by hyper_reduce
+    guard_PhiW: Optional[np.ndarray] = None
+    guard_correction: Optional[Callable] = None
+    guard_train_tau: Optional[float] = None
+    sampled_params: Optional[dict] = None  # ECSW sample {length, EI, EA, nonlinear_mask, sel, xi}
+    Sinv_diag: Optional[np.ndarray] = None  # (m,) when Sinv is diagonal to roundoff
+    cdamp: Optional[np.ndarray] = None  # (m,) modal Rayleigh damping alpha + beta lam
+    device: Optional[torch.device] = None
+    dtype: torch.dtype = torch.float64
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def n_modes(self) -> int:
+        return self.Phi.shape[1]
+
+    def with_dt(self, dt: float) -> "ModalROMGenAlpha":
+        """The same engine at a different step size.
+
+        Rebuilds the prefactored effective Jacobian from the diagonal
+        reduced operator ``lam``; needs ``Sinv_diag`` (the Petrov-Galerkin
+        eigenbasis case). Coupled bases rebuild with :func:`make_modal_rom`.
+        """
+        if self.Sinv_diag is None or self.lam is None:
+            raise ValueError(
+                "with_dt requires the diagonal reduced effective Jacobian "
+                "(Sinv_diag) — rebuild coupled/augmented engines with "
+                "make_modal_rom at the new dt"
+            )
+        am, af, beta, gamma_ga = self._coeffs()
+        d = (1.0 - am) + (1.0 - af) * beta * dt * dt * np.asarray(
+            self.lam, np.float64
+        )
+        if self.cdamp is not None:
+            d = d + (1.0 - af) * gamma_ga * dt * np.asarray(
+                self.cdamp, np.float64
+            )
+        return dataclasses.replace(
+            self, dt=float(dt), Sinv=np.diag(1.0 / d),
+            Sinv_diag=np.ascontiguousarray(1.0 / d),
+        )
+
+    # -- basis transforms ------------------------------------------------------
+
+    def to_modal(self, q, v):
+        """Physical reduced (q, v) -> modal (eta, etadot) via ``PhiW^T M``."""
+        q, v = self._tensor(q), self._tensor(v)
+        PhiTM = self._upload("PhiTM", q)
+        return q @ PhiTM.T, v @ PhiTM.T
+
+    def from_modal(self, eta, etad):
+        eta, etad = self._tensor(eta), self._tensor(etad)
+        Phi = self._upload("Phi", eta)
+        return eta @ Phi.T, etad @ Phi.T
+
+    def project_force(self, u):
+        """Physical force -> modal force (test-basis projection ``PhiW^T u``)."""
+        u = self._tensor(u)
+        return u @ self._upload("PhiW", u)
+
+    def project_force_host(self, u) -> np.ndarray:
+        return self.PhiW.T @ np.asarray(_host(u), np.float64)
+
+    def _coeffs(self):
+        am = (2.0 * self.rho_inf - 1.0) / (self.rho_inf + 1.0)
+        af = self.rho_inf / (self.rho_inf + 1.0)
+        beta = 0.25 * (1.0 - am + af) ** 2
+        gamma = 0.5 - am + af
+        return am, af, beta, gamma
+
+    # -- plain stepper ---------------------------------------------------------
+
+    def _force_modal(self, eta_af, etad_af, t_af, precision=None,
+                     nl_precision=None):
+        """Modal residual force ``lam * eta_af + PhiW^T g(Phi eta_af)``.
+
+        The split fast path only; the basis transforms run as true float32
+        (or float64) ``torch.matmul`` whatever ``precision`` and
+        ``nl_precision`` say (see ``ops/cuda/rom_rollout.py``).
+        """
+        if (self.lam is None or self.external_force is not None
+                or self.ext_modal is not None):
+            raise NotImplementedError(
+                "the general (full-transform) ROM force path and external "
+                "forces are not yet ported"
+            )
+        f_m = self._upload("lam", eta_af) * eta_af
+        if self.planar_correction is not None:
+            q_p = eta_af @ self._upload("Phi_planar", eta_af).T
+            n_sub = q_p.shape[-1] // 3
+            g_p = self.planar_correction(q_p.reshape(*q_p.shape[:-1], 3, n_sub))
+            g_p = g_p.reshape(*q_p.shape[:-1], 3 * n_sub)
+            f_m = f_m + g_p @ self._upload("PhiW_planar", eta_af)
+        return f_m
+
+    def _step_fn(self, like, u_modal, n_newton: int, precision=None,
+                 nl_precision=None):
+        """One modified-Newton generalized-α step, ``step(carry, t)``."""
+        am, af, beta, gamma = self._coeffs()
+        dt = self.dt
+        if self.Sinv_diag is not None:
+            sinv_d = self._upload("Sinv_diag", like)
+
+            def solve(r):
+                return sinv_d * r
+
+        else:
+            Sinv = self._upload("Sinv", like)
+
+            def solve(r):
+                return r @ Sinv.T
+
+        u_at = ModalGenAlpha._force_at(u_modal, like)
+        t_af_off = (1.0 - af) * dt
+        cdamp = None if self.cdamp is None else self._upload("cdamp", like)
+
+        def step(carry, t):
+            eta, etad, etadd = carry
+            t_af = t + t_af_off
+            eta_pred = eta + dt * etad + (0.5 - beta) * dt * dt * etadd
+            etad_pred = etad + (1.0 - gamma) * dt * etadd
+            a1 = etadd
+            for _ in range(int(n_newton)):
+                eta1 = eta_pred + beta * dt * dt * a1
+                etad1 = etad_pred + gamma * dt * a1
+                eta_af = (1.0 - af) * eta1 + af * eta
+                etad_af = (1.0 - af) * etad1 + af * etad
+                a_am = (1.0 - am) * a1 + am * etadd
+                r = a_am + self._force_modal(
+                    eta_af, etad_af, t_af, precision, nl_precision
+                ) - u_at(t_af)
+                if cdamp is not None:
+                    r = r + cdamp * etad_af
+                a1 = a1 - solve(r)
+            eta1 = eta_pred + beta * dt * dt * a1
+            etad1 = etad_pred + gamma * dt * a1
+            return eta1, etad1, a1
+
+        return step
+
+    def initial_accel(self, eta, etad, u_modal, t0=0.0, precision=None,
+                      nl_precision=None):
+        """Petrov-Galerkin ``etadd0 = u_modal - PhiW^T k(q0)`` (minus
+        ``cdamp * etad0`` when structurally damped)."""
+        eta, etad = self._tensor(eta), self._tensor(etad)
+        r = -self._force_modal(eta, etad, t0, precision, nl_precision)
+        if self.cdamp is not None:
+            r = r - self._upload("cdamp", eta) * etad
+        return r + ModalGenAlpha._force_at(u_modal, eta)(t0)
+
+    def rollout(self, eta, etad, u_modal, n_steps: int, t0: float = 0.0,
+                n_newton: int = 1, precision=None, nl_precision=None,
+                unroll: int = 1, carry_dtype=None):
+        """``n_steps`` ROM generalized-α steps (plain torch, a Python loop);
+        returns the final ``(eta, etad, etadd)``.
+
+        ``n_newton`` modified-Newton corrections per step (1: the
+        semi-implicit throughput scheme). ``unroll`` is accepted for
+        signature parity and unused; ``carry_dtype`` is not ported.
+        """
+        if carry_dtype is not None:
+            raise NotImplementedError("carry_dtype is not yet ported")
+        eta, etad = self._tensor(eta), self._tensor(etad)
+        step = self._step_fn(eta, u_modal, n_newton, precision, nl_precision)
+        s = (eta, etad, self.initial_accel(eta, etad, u_modal, t0, precision,
+                                           nl_precision))
+        for n in range(int(n_steps)):
+            s = step(s, t0 + self.dt * n)
+        return s
+
+    def rollout_frames(self, eta, etad, u_modal, n_frames: int,
+                       substeps: int = 1, t0: float = 0.0, n_newton: int = 1,
+                       precision=None, nl_precision=None, unroll: int = 1):
+        """Frame-collecting ROM rollout, ``solve_ivp(t_eval=...)`` contract:
+        ``(ts (F+1,), etas (F+1, ..., m), etads (F+1, ..., m))`` including
+        the initial state."""
+        eta, etad = self._tensor(eta), self._tensor(etad)
+        step = self._step_fn(eta, u_modal, n_newton, precision, nl_precision)
+        s = (eta, etad, self.initial_accel(eta, etad, u_modal, t0, precision,
+                                           nl_precision))
+        h = self.dt
+        qs, vs = [eta], [etad]
+        for i in range(int(n_frames)):
+            t_frame = t0 + (i * substeps) * h
+            for j in range(int(substeps)):
+                s = step(s, t_frame + j * h)
+            qs.append(s[0])
+            vs.append(s[1])
+        ts = t0 + (h * substeps) * torch.arange(
+            int(n_frames) + 1, dtype=torch.float64, device=eta.device
+        )
+        return ts, torch.stack(qs), torch.stack(vs)
+
+    def make_pallas_rollout(self, tile: int = 256, chunk: int = 100):
+        """Fused rollout of the hand-written ROM kernels
+        (``ops/cuda/rom_rollout.FusedROMRollout``): the recurrence of
+        :meth:`rollout` with constant input and no external force. The name
+        is the JAX package's; ``tile`` and ``chunk`` are accepted for
+        signature parity and unused."""
+        if self.ext_modal is not None or self.external_force is not None:
+            raise ValueError(
+                "the fused ROM kernel supports no external forces"
+            )
+        from ..ops.cuda.rom_rollout import FusedROMRollout
+
+        return FusedROMRollout(self, tile=tile, chunk=chunk)
+
+    # -- ECSW hyper-reduction (host float64) -----------------------------------
+
+    def _split_window(self, what: str):
+        if self.lam is None or self.planar_correction is None:
+            raise ValueError(
+                f"{what} requires the split planar fast path "
+                "(parity nonlinear/hybrid beam, no external forces)"
+            )
+        if self.external_force is not None:
+            raise ValueError(
+                f"{what} does not support engines with external forces"
+            )
+        if self.window_params is None:
+            raise ValueError("engine is already hyper-reduced")
+
+    def hyper_reduce(self, snapshots, tau: float = 1e-3,
+                     return_info: bool = False):
+        """ECSW hyper-reduction: evaluate the correction on a trained sample.
+
+        Energy-Conserving Sampling and Weighting: a sparse set of window
+        elements with nonnegative weights such that the weighted sampled
+        reduced correction reproduces the full one over the training
+        ``snapshots`` (modal states ``(S, m)``) to relative tolerance
+        ``tau``, by early-stopped Lawson-Hanson NNLS (:func:`_ecsw_nnls`).
+        Returns the gathered engine (:meth:`apply_ecsw`), and with
+        ``return_info`` also ``{n_sampled, weights, train_residual,
+        snapshot_residuals, snapshot_residual_max}``. Host float64.
+        """
+        self._split_window("hyper_reduce")
+        wp = self.window_params
+        L = np.asarray(wp["length"], np.float64)
+        D = np.asarray(wp["EI"], np.float64)
+        A = np.asarray(wp["EA"], np.float64)
+        nl_mask = np.asarray(wp["nonlinear_mask"], bool)
+        Phi_p = np.asarray(self.Phi_planar, np.float64)  # (3 n_sub, m)
+        W_p = np.asarray(self.PhiW_planar, np.float64)
+        m = Phi_p.shape[1]
+        n_sub = Phi_p.shape[0] // 3
+        E = n_sub - 1
+
+        def plane_rows(c):  # rows of DOF plane c (u/w/theta)
+            return slice(c * n_sub, (c + 1) * n_sub)
+
+        S = np.asarray(_host(snapshots), np.float64)
+        if S.ndim == 1:
+            S = S[None, :]
+        if not np.isfinite(S).all():
+            raise ValueError(
+                "snapshots contain non-finite values — the training "
+                "rollout diverged; rerun it with a stable configuration "
+                "before hyper-reducing"
+            )
+        q_p = S @ Phi_p.T  # (S, 3 n_sub)
+        u_pl = q_p[:, plane_rows(0)]
+        w_pl = q_p[:, plane_rows(1)]
+        t_pl = q_p[:, plane_rows(2)]
+        planes = elements.nonlinear_correction_planes(
+            u_pl[:, :-1], w_pl[:, :-1], t_pl[:, :-1],
+            u_pl[:, 1:], w_pl[:, 1:], t_pl[:, 1:],
+            L, D, A,
+        )
+        planes = tuple(np.where(nl_mask, p, 0.0) for p in planes)
+        ga1, gt1, gm1, ga2, gt2, gm2 = planes  # (S, E) each, slot order
+        # Test-basis rows per element slot: node-1 rows e, node-2 rows e+1.
+        Wu, Ww, Wt = (W_p[plane_rows(c)] for c in range(3))
+        C = (
+            np.einsum("se,em->sem", ga1, Wu[:-1])
+            + np.einsum("se,em->sem", gt1, Ww[:-1])
+            + np.einsum("se,em->sem", gm1, Wt[:-1])
+            + np.einsum("se,em->sem", ga2, Wu[1:])
+            + np.einsum("se,em->sem", gt2, Ww[1:])
+            + np.einsum("se,em->sem", gm2, Wt[1:])
+        )  # (S, E, m)
+        n_snap = C.shape[0]
+        G = np.moveaxis(C, 1, 2).reshape(n_snap * m, E)
+        d = G.sum(axis=1)
+        xi = _ecsw_nnls(G, d, tau)
+        sel = np.flatnonzero(xi > 0)
+        if sel.size == 0:
+            raise ValueError(
+                "ECSW training selected no elements — the snapshots carry "
+                "no correction-force content (all-linear window or zero "
+                "states); hyper-reduction is meaningless here"
+            )
+
+        reduced = self.apply_ecsw(sel, xi[sel], train_tau=tau)
+        if return_info:
+            resid = G @ xi - d
+            res = float(np.linalg.norm(resid) / np.linalg.norm(d))
+            r2 = np.linalg.norm(resid.reshape(n_snap, m), axis=1)
+            d2 = np.linalg.norm(d.reshape(n_snap, m), axis=1)
+            snap_res = r2 / np.maximum(d2, 1e-300)
+            return reduced, {
+                "n_sampled": int(sel.size),
+                "weights": xi,
+                "train_residual": res,
+                "snapshot_residuals": snap_res,
+                "snapshot_residual_max": float(snap_res.max()),
+            }
+        return reduced
+
+    def apply_ecsw(self, sel, xi_sel, train_tau: float = None):
+        """Apply a trained ECSW sample: gather the bases to ``sel``.
+
+        ``sel``: element indices into the window; ``xi_sel``: their
+        positive weights. The returned engine's planar bases are the six
+        blocks ``[u1, w1, t1, u2, w2, t2]`` of width ``s = len(sel)`` (the
+        test blocks scaled by the weights), its correction evaluates only
+        the sample, and ``sampled_params`` holds the sample's element
+        parameters for the fused kernel.
+        """
+        self._split_window("apply_ecsw")
+        wp = self.window_params
+        L = np.asarray(wp["length"], np.float64)
+        D = np.asarray(wp["EI"], np.float64)
+        A = np.asarray(wp["EA"], np.float64)
+        nl_mask = np.asarray(wp["nonlinear_mask"], bool)
+        Phi_p = np.asarray(self.Phi_planar, np.float64)  # (3 n_sub, m)
+        W_p = np.asarray(self.PhiW_planar, np.float64)
+        n_sub = Phi_p.shape[0] // 3
+        E = n_sub - 1
+
+        sel = np.asarray(sel, np.int64)
+        xi_sel = np.asarray(xi_sel, np.float64)
+        if sel.ndim != 1 or xi_sel.shape != sel.shape:
+            raise ValueError("sel and xi_sel must be matching 1-D arrays")
+        if sel.size == 0 or np.any(sel < 0) or np.any(sel >= E):
+            raise ValueError(
+                f"sample indices must be a nonempty subset of [0, {E})"
+            )
+        if np.any(xi_sel <= 0):
+            raise ValueError("ECSW weights must be positive")
+
+        def gather(B, weights=None):
+            rows = [B[c * n_sub:(c + 1) * n_sub][sel + node_off]
+                    for node_off in (0, 1) for c in range(3)]
+            out = np.concatenate(rows, axis=0)  # (6 s, m) in plane blocks
+            if weights is not None:
+                out = out * np.tile(weights, 6)[:, None]
+            return np.ascontiguousarray(out)
+
+        Phi6 = gather(Phi_p)
+        W6 = gather(W_p, weights=xi_sel)
+        s = sel.size
+        L_s, D_s, A_s = L[sel], D[sel], A[sel]
+        mask_s = nl_mask[sel]
+
+        def g_sampled(q_pseudo):
+            # The flat 6 s layout read as six gathered width-s blocks.
+            q6 = q_pseudo.reshape(*q_pseudo.shape[:-2], 6, s)
+            par = [torch.as_tensor(x, dtype=q6.dtype, device=q6.device)
+                   for x in (L_s, D_s, A_s)]
+            pl = elements.nonlinear_correction_planes(
+                *(q6[..., k, :] for k in range(6)), *par
+            )
+            if not bool(mask_s.all()):
+                mj = torch.as_tensor(mask_s, device=q6.device)
+                pl = tuple(torch.where(mj, p, 0.0) for p in pl)
+            return torch.stack(pl, dim=-2).reshape(q_pseudo.shape)
+
+        return dataclasses.replace(
+            self,
+            Phi_planar=Phi6,
+            PhiW_planar=W6,
+            planar_correction=g_sampled,
+            window_params=None,  # marks the gathered layout
+            guard_Phi=self.Phi_planar,
+            guard_PhiW=self.PhiW_planar,
+            guard_correction=self.planar_correction,
+            guard_train_tau=None if train_tau is None else float(train_tau),
+            sampled_params={
+                "length": L_s, "EI": D_s, "EA": A_s,
+                "nonlinear_mask": mask_s, "sel": sel, "xi": xi_sel,
+            },
+        )
+
+
+def _ecsw_nnls(G, d, tau: float) -> np.ndarray:
+    """Sparse nonnegative weights by early-stopped Lawson-Hanson NNLS.
+
+    Solves ``min ||G xi - d||, xi >= 0`` but stops as soon as the residual
+    drops to ``tau * ||d||``: each outer iteration admits one column
+    (element), so early stopping is the sparsification. Degenerate
+    admissions (a new column whose least-squares coefficient is already
+    nonpositive) are banned rather than looped on; if the iteration budget
+    runs out first, a warning reports the residual reached.
+    """
+    import warnings
+
+    n_rows, E = G.shape
+    xi = np.zeros(E)
+    passive: list = []
+    banned: set = set()
+    r = d.copy()
+    dn = np.linalg.norm(d)
+    if dn == 0:
+        return xi
+    # The inner loop can eject admitted columns, so the outer budget must
+    # exceed one admission per column.
+    budget = 3 * min(E, n_rows) + 1
+    for _ in range(budget):
+        if np.linalg.norm(r) <= tau * dn:
+            break
+        grad = G.T @ r
+        if passive:
+            grad[passive] = -np.inf
+        if banned:
+            grad[list(banned)] = -np.inf
+        j = int(np.argmax(grad))
+        if not np.isfinite(grad[j]) or grad[j] <= 0:
+            break
+        passive.append(j)
+        while True:  # inner feasibility loop (standard Lawson-Hanson)
+            z = np.zeros(E)
+            sol, *_ = np.linalg.lstsq(G[:, passive], d, rcond=None)
+            z[np.asarray(passive)] = sol
+            if all(z[p] > 0 for p in passive):
+                xi = z
+                break
+            neg = [p for p in passive if z[p] <= 0]
+            movable = [p for p in neg if xi[p] - z[p] > 0]
+            if not movable:
+                # 0/0 step: revert the admission and never retry it.
+                if j in passive:
+                    passive.remove(j)
+                banned.add(j)
+                break
+            alpha = min(xi[p] / (xi[p] - z[p]) for p in movable)
+            xi = xi + alpha * (z - xi)
+            passive = [p for p in passive if xi[p] > 1e-12]
+            if not passive:
+                xi = np.zeros(E)
+                break
+        r = d - G @ xi
+    else:
+        res = np.linalg.norm(r) / dn
+        if res > tau:
+            warnings.warn(
+                f"ECSW NNLS iteration budget exhausted at relative "
+                f"residual {res:.2e} (target {tau:.2e}); the returned "
+                f"sample under-fits the snapshots",
+                stacklevel=2,
+            )
+    return xi
+
+
+def _check_real_spectrum(w, m_keep: int) -> None:
+    """Require reality of the retained modes only (the upper part of a
+    large parity pencil's spectrum comes in complex pairs)."""
+    im = np.abs(np.imag(w))
+    cplx = im > 1e-8 * np.abs(np.real(w)).max()
+    if cplx.any():
+        n_real = int(np.argmax(cplx))  # first complex mode index
+        raise ValueError(
+            f"retained modal range contains complex eigenvalue pairs; "
+            f"reduce n_modes to <= {n_real} for a real stable basis"
+        )
+
+
+def _canonical_signs(V, W):
+    """Flip each (right, left) column pair so the right vector's
+    largest-magnitude entry is positive: eigensolvers return vectors up to
+    sign, and a same flip of both keeps ``W^T M V = I``."""
+    idx = np.argmax(np.abs(V), axis=0)
+    s = np.sign(V[idx, np.arange(V.shape[1])])
+    s = np.where(s == 0, 1.0, s)
+    return V * s, W * s
+
+
+def _lowest_modes_sparse(K, M, k: int):
+    """Lowest-``k`` eigenpairs of the non-symmetric pencil ``(K, M)``.
+
+    Shift-invert Arnoldi at ``sigma = 0`` on the sparse operators, with a
+    deterministic start vector (ARPACK's default is random, which would
+    flip signs and perturb roundoff between identical builds); dense
+    ``eig`` if ARPACK fails to converge. Returns ``(w, V)`` sorted
+    ascending by real part (complex; the caller checks reality).
+    """
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import ArpackError, ArpackNoConvergence, eigs
+
+    try:
+        v0 = np.full(K.shape[0], 1.0 / np.sqrt(K.shape[0]))
+        w, V = eigs(
+            sp.csc_matrix(K), k=k, M=sp.csc_matrix(M), sigma=0.0,
+            which="LM", v0=v0,
+        )
+    except (ArpackError, ArpackNoConvergence):
+        from scipy.linalg import eig as dense_eig
+
+        w, V = dense_eig(K, M)
+    order = np.argsort(w.real)[:k]
+    return w[order], V[:, order]
+
+
+def make_modal_rom(
+    model,
+    dt: float,
+    rho_inf: float = 0.8,
+    n_modes: int = None,
+    forces_func: Optional[Callable] = None,
+    static_vectors=None,
+    modal_derivatives: int = 0,
+    rayleigh: tuple = None,
+    basis=None,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+) -> ModalROMGenAlpha:
+    """Build the nonlinear modal-reduction generalized-α engine (host f64).
+
+    Right/left eigenvectors of the pencil ``(K0, M)`` with K0 the exact
+    zero-state tangent (:func:`reduce_matrix_dense`), biorthonormalized to
+    ``W^T M V = I``. Three branches, as in the JAX package: symmetric K0
+    (all-linear beams) takes ``eigh``; a truncated basis with ``n_modes <=
+    n / 4`` two shift-invert Arnoldi runs (right and left); otherwise the
+    dense two-sided ``eig``. ``n_modes=None`` keeps the full basis.
+
+    ``rayleigh``: ``(alpha, beta)`` structural damping ``C = alpha M +
+    beta K0``, diagonal in this basis (``cdamp = alpha + beta lam``) and
+    exact in the residual and the effective Jacobian. ``basis``: a
+    precomputed biorthonormal ``(V, W)`` pair; skips the eigensolve.
+    ``device``/``dtype``: where inputs given as NumPy arrays go (None: the
+    card).
+
+    Not ported (raise ``NotImplementedError``): registered or user
+    external forces (``forces_func``, the model's force registry), basis
+    augmentation (``static_vectors``, ``modal_derivatives``) and the
+    consistent element.
+    """
+    from scipy.linalg import eig, eigh
+
+    device = resolve_device(device)
+    if forces_func is not None or len(model.force_registry) > 0:
+        raise NotImplementedError(
+            "external forces on the modal ROM (forces_func, registered "
+            "fluid/gravity) are not yet ported"
+        )
+    if basis is None and (static_vectors is not None or modal_derivatives > 0):
+        raise NotImplementedError(
+            "static_vectors / modal_derivatives basis augmentation is not "
+            "yet ported"
+        )
+    use_consistent = getattr(model, "use_consistent_nonlinear", False)
+    arrays = model.beam_model.arrays
+    bc_info = model.beam_model.bc_info
+    free = bc_info.free_dofs
+    n_full = bc_info.n_dofs_full
+
+    M = np.asarray(model.beam_model.M.toarray(), dtype=np.float64)
+    K0 = reduce_matrix_dense(arrays, free, use_consistent)
+
+    sym_scale = np.abs(K0).max()
+    if basis is not None:
+        V = np.asarray(basis[0], np.float64)
+        W = np.asarray(basis[1], np.float64)
+        if V.shape != W.shape or V.shape[0] != K0.shape[0]:
+            raise ValueError(
+                f"basis shapes {V.shape}/{W.shape} do not match the "
+                f"{K0.shape[0]}-DOF reduced system"
+            )
+        bi_err = float(np.abs(W.T @ M @ V - np.eye(V.shape[1])).max())
+        if bi_err > 1e-6:
+            raise ValueError(
+                f"basis is not biorthonormal (|W^T M V - I| = {bi_err:.2e})"
+                " — was it built for this beam configuration?"
+            )
+    elif np.abs(K0 - K0.T).max() <= 1e-9 * sym_scale:
+        lam, V = eigh(K0, M)  # symmetric: M-orthonormal already
+        W = V
+        if n_modes is not None:
+            V, W = V[:, :n_modes], W[:, :n_modes]
+        V, W = _canonical_signs(V, W)
+    elif n_modes is not None and n_modes <= K0.shape[0] // 4:
+        # Two shift-invert Arnoldi runs (right: (K0, M); left: (K0^T, M)),
+        # then biorthonormalize.
+        w, V = _lowest_modes_sparse(K0, M, n_modes)
+        _wl, W = _lowest_modes_sparse(K0.T, M, n_modes)
+        _check_real_spectrum(w, n_modes)
+        V, W = V.real, W.real
+        V, W = _canonical_signs(V, W)
+        D = W.T @ M @ V
+        W = W @ np.linalg.inv(D).T
+    else:
+        w, W, V = eig(K0, M, left=True, right=True)
+        order = np.argsort(w.real)
+        w, V, W = w[order], V[:, order], W[:, order]
+        m_keep = n_modes if n_modes is not None else V.shape[1]
+        _check_real_spectrum(w[:m_keep], m_keep)
+        V, W = V[:, :m_keep].real, W[:, :m_keep].real
+        V, W = _canonical_signs(V, W)
+        # W <- W inv(D)^T with D = W^T M V, so W^T M V = I exactly even
+        # under near-degenerate eigenvalue pairing.
+        D = W.T @ M @ V
+        W = W @ np.linalg.inv(D).T
+
+    am = (2.0 * rho_inf - 1.0) / (rho_inf + 1.0)
+    af = rho_inf / (rho_inf + 1.0)
+    beta = 0.25 * (1.0 - am + af) ** 2
+    gamma_ga = 0.5 - am + af
+    K0r = W.T @ K0 @ V  # = diag(eigenvalues) up to roundoff
+    m = V.shape[1]
+    S = (1.0 - am) * np.eye(m) + (1.0 - af) * beta * dt * dt * K0r
+    cdamp = None
+    if rayleigh is not None:
+        al_r, be_r = float(rayleigh[0]), float(rayleigh[1])
+        # Keep the exactly diagonal part of K0r (its off-diagonal is
+        # eigensolver roundoff).
+        cdamp = al_r + be_r * np.ascontiguousarray(np.diag(K0r))
+        S = S + (1.0 - af) * gamma_ga * dt * np.diag(cdamp)
+    Sinv = np.linalg.inv(S)
+    # A diagonal-to-roundoff effective Jacobian makes the Newton solve a
+    # per-mode multiply; the dense Sinv stays for genuinely coupled bases.
+    Sd = np.abs(np.diag(S))
+    offdiag = float(np.abs(S - np.diag(np.diag(S))).max())
+    Sinv_diag = None
+    if offdiag <= 1e-9 * float(Sd.max()):
+        Sinv_diag = np.ascontiguousarray(1.0 / np.diag(S))
+
+    internal_force = assembly.make_reduced_internal_force(arrays, free, n_full)
+    lam = np.ascontiguousarray(np.diag(K0r))
+    Phi_p = W_p = planar_correction = window_params = None
+    elem_sl, node_sl = assembly.nonlinear_support(arrays)
+    if elem_sl is not None:
+        # Fold the zero rows of constrained DOFs and the planar permutation
+        # into the bases once, restricted to the nonlinear node window.
+        Phi_p, W_p, planar_correction, window_params = _planar_window(
+            arrays, bc_info, V, W, elem_sl, node_sl
+        )
+    return ModalROMGenAlpha(
+        Phi=V,
+        PhiW=W,
+        PhiTM=W.T @ M,
+        Sinv=Sinv,
+        rho_inf=rho_inf,
+        dt=dt,
+        internal_force=internal_force,
+        lam=lam,
+        Phi_planar=Phi_p,
+        PhiW_planar=W_p,
+        planar_correction=planar_correction,
+        window_params=window_params,
+        Sinv_diag=Sinv_diag,
+        cdamp=cdamp,
+        device=device,
+        dtype=dtype,
+    )
+
+
+def _planar_window(arrays, bc_info, V, W, elem_sl, node_sl):
+    """``(Phi_planar, PhiW_planar, planar_correction, window_params)`` of the
+    node window ``node_sl``: the reduced bases zero-padded to full
+    coordinates, permuted to planar rows ``[u; w; theta]`` and restricted
+    to the window (fixed-DOF rows stay, as zeros)."""
+    n_nodes = bc_info.n_nodes
+    n_full = bc_info.n_dofs_full
+    perm = assembly.planar_permutation(n_nodes)
+    m_modes = V.shape[1]
+    free = np.asarray(bc_info.free_dofs)
+
+    def restrict(B_red):
+        B_full = np.zeros((n_full, m_modes))
+        B_full[free] = B_red
+        planes = B_full[perm].reshape(3, n_nodes, m_modes)
+        return np.ascontiguousarray(planes[:, node_sl, :].reshape(-1, m_modes))
+
+    E_mod = np.asarray(arrays.elastic_modulus, np.float64)
+    window_params = {
+        "length": np.asarray(arrays.length, np.float64)[elem_sl],
+        "EI": (E_mod * np.asarray(arrays.moment_inertia, np.float64))[elem_sl],
+        "EA": (E_mod * np.asarray(arrays.cross_area, np.float64))[elem_sl],
+        "nonlinear_mask": np.asarray(arrays.nonlinear_mask)[elem_sl],
+    }
+    return (
+        restrict(V),
+        restrict(W),
+        assembly.make_planar_correction_force(arrays, element_slice=elem_sl),
+        window_params,
+    )
+
+
 def _frames_result(ms, x0, u_modal, n_steps, substeps, drive):
     """Shared batch/squeeze plumbing of the kernel and power engines."""
     squeeze = x0.ndim == 1
@@ -800,6 +1601,44 @@ def _frames_result(ms, x0, u_modal, n_steps, substeps, drive):
     if squeeze:
         ys = ys[:, 0, :]
     return SimulationResult(ts=ts, ys=ys, stats=None)
+
+
+def _simulate_modal_rom(model, x0, n_steps, dt, u, substeps, n_newton,
+                        rho_inf, n_modes, nl_precision, static_vectors,
+                        modal_derivatives, rayleigh, engine):
+    """``simulate(method="modal_rom")``: the plain stepper (``"xla"``) or
+    the fused ROM kernels (``"pallas"``, float32 as in the JAX package)."""
+    ms = make_modal_rom(
+        model, dt / substeps, rho_inf=rho_inf, n_modes=n_modes,
+        static_vectors=static_vectors, modal_derivatives=modal_derivatives,
+        rayleigh=rayleigh, device=x0.device, dtype=x0.dtype,
+    )
+    if engine == "xla":
+        if u is None:
+            u_modal = None
+        elif callable(u):
+            u_modal = lambda t: ms.project_force(u(t))  # noqa: E731
+        else:
+            u_modal = ms.project_force_host(u)
+        n = x0.shape[-1] // 2
+        eta, etad = ms.to_modal(x0[..., :n], x0[..., n:])
+        ts, etas, etads = ms.rollout_frames(
+            eta, etad, u_modal, n_steps, substeps=substeps,
+            n_newton=n_newton, nl_precision=nl_precision,
+        )
+        qs, vs = ms.from_modal(etas, etads)
+        return SimulationResult(ts=ts, ys=torch.cat([qs, vs], dim=-1))
+
+    fused = ms.make_pallas_rollout()
+    u_modal = None if u is None else ms.project_force_host(u).astype(np.float32)
+
+    def drive(eta, etad, u_m, n_frames, substeps):
+        # The fused ROM rollout is float32, as in the JAX package.
+        return fused.frames(eta.float(), etad.float(), u_m, n_frames,
+                            substeps=substeps, n_newton=n_newton,
+                            nl_precision=nl_precision)
+
+    return _frames_result(ms, x0, u_modal, n_steps, substeps, drive)
 
 
 def simulate(
@@ -829,13 +1668,14 @@ def simulate(
 ) -> SimulationResult:
     """Run a complete rollout.
 
-    The signature is the JAX package's, so one call works in both; only
-    ``method="modal"`` is ported (linear beams, exact diagonalized
-    recurrence), and every other method raises ``NotImplementedError``.
-    The arguments that only other methods read (``rtol``, ``atol``,
-    ``n_newton``, ``linear_solver``, ``n_modes``, ``nl_precision``,
-    ``static_vectors``, ``modal_derivatives``, ``jit``) are accepted and
-    unused.
+    The signature is the JAX package's, so one call works in both. Ported
+    methods: ``"modal"`` (linear beams, exact diagonalized recurrence) and
+    ``"modal_rom"`` (nonlinear/hybrid Petrov-Galerkin reduction; ``n_modes``
+    truncates the basis, ``n_newton`` sets the modified-Newton iterations);
+    every other method raises ``NotImplementedError``. The arguments that
+    only other methods read (``rtol``, ``atol``, ``linear_solver``,
+    ``jit``) are accepted and unused; ``nl_precision`` is accepted and the
+    ROM transforms stay true float32/float64.
 
     Args:
         model: a :class:`DynamicEulerBernoulliBeam` of this package.
@@ -846,19 +1686,21 @@ def simulate(
             force``, or a :class:`PiecewiseConstant` schedule.
         substeps: generalized-α steps per output frame.
         engine: ``"xla"`` (default) — the plain PyTorch stepper;
-            ``"pallas"`` — the hand-written step kernel
-            (``ops/cuda/modal_rollout.modal_frames``, constant force only);
-            ``"power"`` — one host-composed ``substeps``-step affine map per
-            frame, applied by the affine kernel (constant or
+            ``"pallas"`` — the hand-written kernels (``method="modal"``:
+            ``ops/cuda/modal_rollout.modal_frames``; ``method="modal_rom"``:
+            the fused ROM kernels of ``ops/cuda/rom_rollout``, float32),
+            constant force only; ``"power"`` — one host-composed
+            ``substeps``-step affine map per frame, applied by the affine
+            kernel (``method="modal"``, constant or
             :class:`PiecewiseConstant` force). On CPU tensors the kernels
             run their plain versions.
         rayleigh: optional ``(alpha, beta)`` Rayleigh damping.
-        device, dtype: where the rollout runs; default to those of ``x0``
-            if it is a tensor, else the CPU and ``x0``'s NumPy dtype.
+        device, dtype: where the rollout runs. A tensor ``x0`` keeps its
+            device unless ``device`` is given; a NumPy ``x0`` goes to
+            ``device``, by default the card (raises when there is none:
+            pass ``device="cpu"`` for the CPU). ``dtype`` defaults to
+            ``x0``'s.
     """
-    x0 = torch.as_tensor(x0, device=device)
-    if dtype is not None:
-        x0 = x0.to(dtype)
     n_steps = int(round(t_final / dt))
 
     if rayleigh is not None and method not in (
@@ -897,7 +1739,7 @@ def simulate(
             )
     if method in _NOT_PORTED:
         raise NotImplementedError(f"method={method!r} is not yet ported")
-    if method != "modal":
+    if method not in ("modal", "modal_rom"):
         raise ValueError(f"Unknown method: {method}")
     if chunk is not None:
         raise ValueError(
@@ -905,6 +1747,24 @@ def simulate(
             "('generalized_alpha_adaptive' / 'sdirk3' / "
             "'modal_rom_adaptive'); fixed-step spans are already one "
             f"bounded device call per frame (got method={method!r})"
+        )
+
+    if isinstance(x0, torch.Tensor):
+        x0 = x0 if device is None else x0.to(device)
+    else:
+        x0 = torch.as_tensor(np.asarray(x0), device=resolve_device(device))
+    if dtype is not None:
+        x0 = x0.to(dtype)
+
+    if method == "modal_rom":
+        if forces_func is not None:
+            raise NotImplementedError(
+                "external forces on the modal ROM (forces_func) are not "
+                "yet ported"
+            )
+        return _simulate_modal_rom(
+            model, x0, n_steps, dt, u, substeps, n_newton, rho_inf, n_modes,
+            nl_precision, static_vectors, modal_derivatives, rayleigh, engine,
         )
 
     if engine == "xla":

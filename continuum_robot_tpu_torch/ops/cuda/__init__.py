@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) with plain PyTorch twins.
 
-Importing this package builds nothing; the kernels are compiled on first
-use by a CUDA tensor (``_build.py``).
+``modal_rollout``: the linear modal gen-α kernels; ``rom_rollout``: the
+fused modal-ROM gen-α kernels. Importing this package builds nothing; the
+kernels are compiled on first use by a CUDA tensor (``_build.py``).
 """
 
 from .modal_rollout import (

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface and include no PyTorch
-headers, so ``nvcc`` compiles them in seconds into a shared library that is
+headers, so ``nvcc`` compiles each in seconds into a shared library that is
 loaded with ``ctypes``; the Python wrappers pass device pointers and the
-current stream. The library is built from the sources in the checkout at
+current stream. A library is built from its source in the checkout at
 first use, into ``build/torch_kernels/`` at the repository root, under a
-name that hashes the sources and flags, so an edited source is rebuilt.
+name that hashes the source and flags, so an edited source is rebuilt.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: the build happens only when a CUDA tensor first
 reaches a kernel (or a caller asks for :func:`library`). A failed build
@@ -23,7 +24,11 @@ import tempfile
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "modal_rollout.cu",)
+# One shared library per source, built by its own nvcc process.
+SOURCES = {
+    "modal_rollout": CSRC / "modal_rollout.cu",
+    "rom_rollout": CSRC / "rom_rollout.cu",
+}
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3",
@@ -39,18 +44,32 @@ _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_i64 = ctypes.c_int64
 _c_dbl = ctypes.c_double
+_c_fptr = ctypes.POINTER(ctypes.c_float)
 
-# Argument types of the extern "C" functions in csrc/modal_rollout.cu.
+# Argument types of the extern "C" functions of each source.
 _SIGNATURES = {
-    "modal_steps_launch": [_c_int, _c_int, _c_i64, _c_int, _c_int]
-    + [_c_ptr] * 7 + [_c_dbl] * 5 + [_c_ptr],
-    "modal_frames_launch": [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_int]
-    + [_c_ptr] * 6 + [_c_dbl] * 5 + [_c_ptr],
-    "affine_steps_launch": [_c_int, _c_i64, _c_int, _c_int] + [_c_ptr] * 9,
+    "modal_rollout": {
+        "modal_steps_launch": [_c_int, _c_int, _c_i64, _c_int, _c_int]
+        + [_c_ptr] * 7 + [_c_dbl] * 5 + [_c_ptr],
+        "modal_frames_launch": [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_int]
+        + [_c_ptr] * 6 + [_c_dbl] * 5 + [_c_ptr],
+        "affine_steps_launch": [_c_int, _c_i64, _c_int, _c_int] + [_c_ptr] * 9,
+    },
+    "rom_rollout": {
+        "rom_alpha_point_launch": [_c_int] * 2 + [_c_ptr] * 5 + [_c_fptr, _c_ptr],
+        "rom_expand_launch": [_c_int] * 3 + [_c_ptr] * 4,
+        "rom_correction_window_launch": [_c_int] * 2 + [_c_ptr] * 6,
+        "rom_correction_gathered_launch": [_c_int] * 2 + [_c_ptr] * 6,
+        "rom_project_launch": [_c_int] * 4 + [_c_ptr] * 4,
+        "rom_update_launch": [_c_int] * 3 + [_c_ptr] * 9 + [_c_int]
+        + [_c_ptr] * 3 + [_c_fptr, _c_ptr],
+        "rom_newton_dense_launch": [_c_int] * 2 + [_c_ptr] * 6 + [_c_int]
+        + [_c_ptr] * 3 + [_c_fptr, _c_ptr],
+    },
 }
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -61,54 +80,79 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def library_path() -> pathlib.Path:
-    """Path of the built library for the current sources and flags."""
+def library_path(name: str) -> pathlib.Path:
+    """Path of the built library of source ``name`` for the current source
+    and flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"modal_rollout_{digest.hexdigest()[:16]}.so"
+    digest.update(SOURCES[name].read_bytes())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the sources with nvcc (if not built yet); returns the library path.
-
-    The compiler's output (including ``-Xptxas=-v`` register and spill
-    counts) is kept beside the library as ``<name>.log``.
-    """
-    out = library_path()
+def _start(name: str):
+    """Start nvcc for ``name`` unless it is built; ``(proc, tmp, out, cmd)``."""
+    out = library_path(name)
     if out.exists():
-        return out
+        return None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out, cmd
+
+
+def _finish(job) -> None:
+    proc, tmp, out, cmd = job
+    log, _ = proc.communicate()
+    out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
+def build(name: str) -> pathlib.Path:
+    """Compile source ``name`` with nvcc (if not built yet); returns the
+    library path. The compiler's output (including ``-Xptxas=-v`` register
+    and spill counts) is kept beside the library as ``<name>.log``."""
+    job = _start(name)
+    if job is not None:
+        _finish(job)
+    return library_path(name)
+
+
+def build_all() -> dict:
+    """Build every source at once, one nvcc process each; returns
+    ``{name: library path}``. A script that drives every kernel (such as
+    ``chip_smoke.py``, which runs under a fixed time limit) calls it first, so
+    its build takes as long as the slowest source, not the sum of all."""
+    jobs = [job for job in map(_start, SOURCES) if job is not None]
+    errors = []
+    for job in jobs:
+        try:
+            _finish(job)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: library_path(name) for name in SOURCES}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library of source ``name``, built on first call."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

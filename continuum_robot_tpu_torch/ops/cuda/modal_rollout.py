@@ -189,7 +189,7 @@ def modal_steps(lam, winv, u_modal, eta, etad, etadd=None, steps: int = 1,
     n, m = q0.numel(), q0.shape[-1]
     q1, v1, a1 = torch.empty_like(q0), torch.empty_like(q0), torch.empty_like(q0)
     if n:
-        lib = _build.library()
+        lib = _build.library("modal_rollout")
         with torch.cuda.device(eta.device):
             rc = lib.modal_steps_launch(
                 _DTYPE_CODES[eta.dtype], int(damped), n, m, int(steps),
@@ -249,7 +249,7 @@ def modal_frames(lam, winv, u_modal, eta, etad, n_frames: int = 1,
     qs = torch.empty((F + 1, *eta.shape), dtype=eta.dtype, device=eta.device)
     vs = torch.empty_like(qs)
     if n:
-        lib = _build.library()
+        lib = _build.library("modal_rollout")
         with torch.cuda.device(eta.device):
             rc = lib.modal_frames_launch(
                 _DTYPE_CODES[eta.dtype], int(damped), n, m, F, int(substeps),
@@ -304,7 +304,7 @@ def affine_steps(tmat, bvec, eta, etad, etadd, apps: int = 1):
     n = q0.numel()
     q1, v1, a1 = torch.empty_like(q0), torch.empty_like(q0), torch.empty_like(q0)
     if n:
-        lib = _build.library()
+        lib = _build.library("modal_rollout")
         with torch.cuda.device(eta.device):
             rc = lib.affine_steps_launch(
                 _DTYPE_CODES[eta.dtype], n, m, int(apps), _ptr(P), _ptr(b),

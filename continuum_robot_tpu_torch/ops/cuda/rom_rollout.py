@@ -1,0 +1,572 @@
+"""Fused modal-ROM generalized-alpha rollout: CUDA kernels and plain twins.
+
+Counterpart of ``continuum_robot_tpu/ops/pallas/rom_rollout.py``. The TPU
+kernel runs a whole span in VMEM, with both bases resident. On Hopper the
+two bases (``2 x 3 n_sub x m`` float32, 6.2 MB at 1001 nodes and 256 modes)
+do not fit a block's shared memory, so one modified-Newton iteration of one
+step is a short sequence of hand-written kernels in ``csrc/rom_rollout.cu``
+whose operands stay in the 50 MB L2:
+
+===========================  =============================================
+wrapper                      computes
+===========================  =============================================
+:func:`rom_alpha_point`      ``eta_af`` from ``(eta, etad, etadd, a1)``,
+                             elementwise
+:func:`rom_expand`           ``x = eta_af @ Phi_planar^T``, a tiled f32
+                             GEMM
+:func:`rom_correction_window`  the von Kármán correction of each window
+                             element, masked, summed into node force
+                             planes ``[u; w; theta]`` (no atomics)
+:func:`rom_correction_gathered`  the same on the ECSW sample's six
+                             per-element-node blocks (no adjacency)
+:func:`rom_project`          ``g @ PhiW_planar`` as ``S`` partial products
+                             over slices of the long reduction, a tiled
+                             f32 GEMM
+:func:`rom_update`           ``g_m`` = the partials summed in slice order;
+                             the residual and the diagonal Newton update
+                             (and the state update on the last iteration),
+                             or the residual for a dense ``Sinv``
+:func:`rom_newton_dense`     ``a1 - r @ Sinv^T`` (dense ``Sinv``), a tiled
+                             f32 GEMM with the same update
+===========================  =============================================
+
+Each wrapper has a plain PyTorch twin (``<wrapper>_plain``) with the same
+arithmetic through ``torch.matmul`` and elementwise ops. A CPU tensor runs
+the twin; a CUDA tensor launches the kernel (float32 only) or raises. Each
+wrapper counts its launches in ``<wrapper>.launches``. :func:`rom_steps`
+and :func:`rom_frames` drive a span through the wrappers,
+:func:`rom_steps_plain` and :func:`rom_frames_plain` through the twins.
+
+Precision: the kernels compute in true float32 for every ``nl_precision``
+(None, "highest", "high", "default"); the JAX package's "high" tier (bf16
+hi/lo split products) is a Mosaic workaround with no counterpart here. The
+kernels' sums run in another order than cuBLAS, so kernel and twin agree
+to float32 roundoff, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from ...models import elements
+
+_PRECISIONS = (None, "highest", "high", "default")
+
+
+@dataclasses.dataclass(frozen=True)
+class ROMOperators:
+    """Device operators of one fused ROM rollout, in the state's dtype.
+
+    ``phiT (m, N)`` and ``w (N, m)`` are the trial basis (transposed) and
+    the test basis over ``N = 3 n_sub`` planar window rows or ``N = 6 s``
+    gathered sample rows. ``sinv (m,)`` is the diagonal Newton inverse, or
+    None with ``sinvT (m, m)`` the transposed dense one. ``L, D, A, mask
+    (E,)``: element length, EI, EA and the nonlinear mask of the window
+    (``E = n_sub - 1``) or of the sample (``E = s``). ``sc``: the step
+    scalars ``(h, c_qp, c_vp, bh2, gh, af, 1-af, am, 1-am)``.
+    """
+
+    phiT: torch.Tensor
+    w: torch.Tensor
+    lam: torch.Tensor
+    u: torch.Tensor
+    cd: Optional[torch.Tensor]
+    sinv: Optional[torch.Tensor]
+    sinvT: Optional[torch.Tensor]
+    L: torch.Tensor
+    D: torch.Tensor
+    A: torch.Tensor
+    mask: torch.Tensor
+    gathered: bool
+    sc: tuple
+
+    @property
+    def n_rows(self) -> int:
+        return self.phiT.shape[1]
+
+
+def step_scalars(h: float, rho_inf: float) -> tuple:
+    """``(h, c_qp, c_vp, bh2, gh, af, 1-af, am, 1-am)`` of the gen-α step."""
+    am = (2.0 * rho_inf - 1.0) / (rho_inf + 1.0)
+    af = rho_inf / (rho_inf + 1.0)
+    beta = 0.25 * (1.0 - am + af) ** 2
+    gamma = 0.5 - am + af
+    return (h, (0.5 - beta) * h * h, (1.0 - gamma) * h, beta * h * h,
+            gamma * h, af, 1.0 - af, am, 1.0 - am)
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+
+
+def _predict(op, eta, etad, etadd):
+    h, c_qp, c_vp = op.sc[:3]
+    return eta + h * etad + c_qp * etadd, etad + c_vp * etadd
+
+
+def _eta_af(op, eta, eta_pred, a1):
+    bh2, af, omaf = op.sc[3], op.sc[5], op.sc[6]
+    return omaf * (eta_pred + bh2 * a1) + af * eta
+
+
+def _residual(op, gm, eta, etad, etadd, a1):
+    """``a_am + (lam eta_af + g_m) - u [+ cd etad_af]`` at ``a1``."""
+    gh, af, omaf, am, omam = op.sc[4:]
+    eta_pred, etad_pred = _predict(op, eta, etad, etadd)
+    r = omam * a1 + am * etadd + (op.lam * _eta_af(op, eta, eta_pred, a1) + gm) - op.u
+    if op.cd is not None:
+        r = r + op.cd * (omaf * (etad_pred + gh * a1) + af * etad)
+    return r
+
+
+def _finish(op, a1n, eta, etad, etadd, last):
+    """The new iterate, or on the last iteration the new state triple."""
+    if not last:
+        return a1n
+    eta_pred, etad_pred = _predict(op, eta, etad, etadd)
+    return eta_pred + op.sc[3] * a1n, etad_pred + op.sc[4] * a1n, a1n
+
+
+def rom_alpha_point_plain(op, eta, etad, etadd, a1):
+    """Plain twin of :func:`rom_alpha_point`."""
+    return _eta_af(op, eta, _predict(op, eta, etad, etadd)[0], a1)
+
+
+def rom_expand_plain(op, eta_af):
+    """Plain twin of :func:`rom_expand`."""
+    return eta_af @ op.phiT
+
+
+def _slots(op, blocks):
+    """The six masked correction slots of ``blocks = (u1, w1, t1, u2, w2, t2)``."""
+    g = elements.nonlinear_correction_planes(*blocks, op.L, op.D, op.A)
+    return [op.mask * gi for gi in g]
+
+
+def rom_correction_window_plain(op, x):
+    """Plain twin of :func:`rom_correction_window`."""
+    B, N = x.shape
+    p = x.reshape(B, 3, N // 3)
+    g1, g3, g4, g2, g5, g6 = _slots(
+        op, (p[:, 0, :-1], p[:, 1, :-1], p[:, 2, :-1],
+             p[:, 0, 1:], p[:, 1, 1:], p[:, 2, 1:])
+    )
+    out = torch.zeros_like(p)
+    for c, (own, nxt) in enumerate(((g1, g2), (g3, g5), (g4, g6))):
+        out[:, c, :-1] = own
+        out[:, c, 1:] += nxt
+    return out.reshape(B, N)
+
+
+def rom_correction_gathered_plain(op, x):
+    """Plain twin of :func:`rom_correction_gathered`."""
+    B, N = x.shape
+    p = x.reshape(B, 6, N // 6)
+    return torch.stack(_slots(op, p.unbind(1)), 1).reshape(B, N)
+
+
+def rom_project_plain(op, g):
+    """Plain twin of :func:`rom_project`: one slice, ``(1, B, m)``."""
+    return (g @ op.w)[None]
+
+
+def rom_update_plain(op, partials, eta, etad, etadd, a1, last):
+    """Plain twin of :func:`rom_update`."""
+    gm = partials[0]
+    for part in partials[1:]:
+        gm = gm + part
+    r = _residual(op, gm, eta, etad, etadd, a1)
+    if op.sinv is None:
+        return r
+    return _finish(op, a1 - op.sinv * r, eta, etad, etadd, last)
+
+
+def rom_newton_dense_plain(op, r, eta, etad, etadd, a1, last):
+    """Plain twin of :func:`rom_newton_dense`."""
+    return _finish(op, a1 - r @ op.sinvT, eta, etad, etadd, last)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """True for CUDA float32 state, False for CPU; raises for anything else."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"ROM kernels take CPU or CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the CUDA ROM kernels compute in float32, got {x.dtype}")
+    return True
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.contiguous().data_ptr()
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    lib = _build.library("rom_rollout")
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"{name}_launch")(
+            *args, torch.cuda.current_stream(x.device).cuda_stream
+        )
+    _build.check(lib, rc, name)
+
+
+def _scalars(op):
+    return (ctypes.c_float * 9)(*op.sc)
+
+
+def _state_out(op, eta, last):
+    n = 3 if last else 1
+    return [torch.empty_like(eta) for _ in range(n)]
+
+
+def rom_alpha_point(op: ROMOperators, eta, etad, etadd, a1):
+    """The alpha-point modal state ``eta_af = (1-af) (eta_pred + bh2 a1) +
+    af eta`` of the Newton iterate ``a1``; all ``(B, m)``."""
+    if not _on_cuda(eta):
+        return rom_alpha_point_plain(op, eta, etad, etadd, a1)
+    B, m = eta.shape
+    out = torch.empty_like(eta)
+    if B:
+        _launch("rom_alpha_point", eta, B, m, _ptr(eta), _ptr(etad),
+                _ptr(etadd), _ptr(a1), _ptr(out), _scalars(op))
+        rom_alpha_point.launches += 1
+    return out
+
+
+def rom_expand(op: ROMOperators, eta_af):
+    """``x = eta_af @ Phi^T``: ``(B, m) -> (B, N)`` node states."""
+    if not _on_cuda(eta_af):
+        return rom_expand_plain(op, eta_af)
+    B, m = eta_af.shape
+    x = torch.empty((B, op.n_rows), dtype=eta_af.dtype, device=eta_af.device)
+    if B:
+        _launch("rom_expand", eta_af, B, m, op.n_rows, _ptr(eta_af),
+                _ptr(op.phiT), _ptr(x))
+        rom_expand.launches += 1
+    return x
+
+
+def rom_correction_window(op: ROMOperators, x):
+    """Window correction: node force planes ``(B, 3 n_sub)`` from node state
+    planes ``(B, 3 n_sub)``. Node i sums element i's node-1 slots and
+    element i-1's node-2 slots; node 0 takes no node-2 slot and the last
+    node no node-1 slot."""
+    if not _on_cuda(x):
+        return rom_correction_window_plain(op, x)
+    B, N = x.shape
+    g = torch.empty_like(x)
+    if B:
+        _launch("rom_correction_window", x, B, N // 3, _ptr(x), _ptr(op.L),
+                _ptr(op.A), _ptr(op.mask), _ptr(g))
+        rom_correction_window.launches += 1
+    return g
+
+
+def rom_correction_gathered(op: ROMOperators, x):
+    """ECSW correction: the six masked slot blocks ``(B, 6 s)`` of the
+    sampled elements from their gathered node states ``(B, 6 s)``."""
+    if not _on_cuda(x):
+        return rom_correction_gathered_plain(op, x)
+    B, N = x.shape
+    g = torch.empty_like(x)
+    if B:
+        _launch("rom_correction_gathered", x, B, N // 6, _ptr(x), _ptr(op.L),
+                _ptr(op.A), _ptr(op.mask), _ptr(g))
+        rom_correction_gathered.launches += 1
+    return g
+
+
+def rom_correction(op: ROMOperators, x):
+    """The layout's correction kernel."""
+    if op.gathered:
+        return rom_correction_gathered(op, x)
+    return rom_correction_window(op, x)
+
+
+@functools.lru_cache(maxsize=None)
+def project_splits(B: int, m: int, n_rows: int, device) -> int:
+    """Slices of the project GEMM's reduction: enough 128 x 128 output tiles
+    times slices to give every SM two blocks, each slice at least 256 rows
+    long. Cached: a span asks once per launch with the same shapes."""
+    tiles = -(-B // 128) * -(-m // 128)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n_rows // 256, round(2 * n_sm / tiles)))
+
+
+def rom_project(op: ROMOperators, g):
+    """``g @ W`` as ``(S, B, m)`` partial products over ``S`` slices of the
+    ``N``-long reduction (:func:`project_splits`); :func:`rom_update` sums
+    them."""
+    if not _on_cuda(g):
+        return rom_project_plain(op, g)
+    B, N = g.shape
+    m = op.w.shape[1]
+    splits = project_splits(B, m, N, g.device)
+    partials = torch.empty((splits, B, m), dtype=g.dtype, device=g.device)
+    if B:
+        _launch("rom_project", g, B, m, N, splits, _ptr(g), _ptr(op.w),
+                _ptr(partials))
+        rom_project.launches += 1
+    return partials
+
+
+def rom_update(op: ROMOperators, partials, eta, etad, etadd, a1, last: bool):
+    """``g_m`` (the partials summed in slice order) and the residual at
+    ``a1``. With a diagonal ``Sinv`` the Newton update follows: returns
+    ``a1 - sinv r``, or on the last iteration the new ``(eta, etad,
+    etadd)``. With a dense ``Sinv`` returns the residual ``r`` for
+    :func:`rom_newton_dense`."""
+    if not _on_cuda(partials):
+        return rom_update_plain(op, partials, eta, etad, etadd, a1, last)
+    B, m = eta.shape
+    diag = op.sinv is not None
+    outs = _state_out(op, eta, last) if diag else [torch.empty_like(eta)]
+    o = outs + [None] * (3 - len(outs))
+    if B:
+        _launch("rom_update", partials, B, m, partials.shape[0], _ptr(partials),
+                _ptr(eta), _ptr(etad), _ptr(etadd), _ptr(a1), _ptr(op.lam),
+                _ptr(op.u), _ptr(op.cd), _ptr(op.sinv), int(last and diag),
+                _ptr(o[0]), _ptr(o[1]), _ptr(o[2]), _scalars(op))
+        rom_update.launches += 1
+    return tuple(outs) if len(outs) == 3 else outs[0]
+
+
+def rom_newton_dense(op: ROMOperators, r, eta, etad, etadd, a1, last: bool):
+    """Dense modified-Newton update ``a1 - r @ Sinv^T``; on the last
+    iteration returns the new ``(eta, etad, etadd)``."""
+    if not _on_cuda(r):
+        return rom_newton_dense_plain(op, r, eta, etad, etadd, a1, last)
+    B, m = eta.shape
+    outs = _state_out(op, eta, last)
+    o = outs + [None] * (3 - len(outs))
+    if B:
+        _launch("rom_newton_dense", r, B, m, _ptr(r), _ptr(op.sinvT),
+                _ptr(eta), _ptr(etad), _ptr(etadd), _ptr(a1), int(last),
+                _ptr(o[0]), _ptr(o[1]), _ptr(o[2]), _scalars(op))
+        rom_newton_dense.launches += 1
+    return tuple(outs) if last else outs[0]
+
+
+KERNELS = (rom_alpha_point, rom_expand, rom_correction_window,
+           rom_correction_gathered, rom_project, rom_update, rom_newton_dense)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every ROM kernel wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Span loops
+# ---------------------------------------------------------------------------
+
+
+def _plain_correction(op, x):
+    if op.gathered:
+        return rom_correction_gathered_plain(op, x)
+    return rom_correction_window_plain(op, x)
+
+
+_KERNEL_PIECES = (rom_alpha_point, rom_expand, rom_correction, rom_project,
+                  rom_update, rom_newton_dense)
+_PLAIN_PIECES = (rom_alpha_point_plain, rom_expand_plain, _plain_correction,
+                 rom_project_plain, rom_update_plain, rom_newton_dense_plain)
+
+
+def _step(pieces, op, state, n_newton: int):
+    """One modified-Newton generalized-α step of the fused recurrence."""
+    alpha_point, expand, correction, project, update, newton_dense = pieces
+    eta, etad, etadd = state
+    a1 = etadd
+    for it in range(int(n_newton)):
+        last = it == n_newton - 1
+        g = correction(op, expand(op, alpha_point(op, eta, etad, etadd, a1)))
+        out = update(op, project(op, g), eta, etad, etadd, a1, last)
+        if op.sinv is None:  # out is the residual
+            out = newton_dense(op, out, eta, etad, etadd, a1, last)
+        a1 = out
+    return a1  # the new (eta, etad, etadd) after the last iteration
+
+
+def _span(pieces, op, eta, etad, etadd, steps: int, n_newton: int):
+    if n_newton < 1:
+        raise ValueError(f"n_newton must be >= 1, got {n_newton}")
+    s = (eta, etad, etadd)
+    for _ in range(int(steps)):
+        s = _step(pieces, op, s, n_newton)
+    return s
+
+
+def _frames(pieces, op, eta, etad, etadd, n_frames: int, substeps: int,
+            n_newton: int):
+    s = (eta, etad, etadd)
+    qs, vs = [eta], [etad]
+    for _ in range(int(n_frames)):
+        s = _span(pieces, op, *s, substeps, n_newton)
+        qs.append(s[0])
+        vs.append(s[1])
+    return torch.stack(qs), torch.stack(vs)
+
+
+def rom_steps(op, eta, etad, etadd, steps: int, n_newton: int = 1):
+    """``steps`` fused ROM steps through the kernel wrappers; returns the
+    final ``(eta, etad, etadd)``, each ``(B, m)``."""
+    return _span(_KERNEL_PIECES, op, eta, etad, etadd, steps, n_newton)
+
+
+def rom_steps_plain(op, eta, etad, etadd, steps: int, n_newton: int = 1):
+    """Plain twin of :func:`rom_steps`."""
+    return _span(_PLAIN_PIECES, op, eta, etad, etadd, steps, n_newton)
+
+
+def rom_frames(op, eta, etad, etadd, n_frames: int, substeps: int = 1,
+               n_newton: int = 1):
+    """Frame-collecting span: ``(etas, etads)`` of shape ``(F+1, B, m)``
+    including the initial state."""
+    return _frames(_KERNEL_PIECES, op, eta, etad, etadd, n_frames, substeps,
+                   n_newton)
+
+
+def rom_frames_plain(op, eta, etad, etadd, n_frames: int, substeps: int = 1,
+                     n_newton: int = 1):
+    """Plain twin of :func:`rom_frames`."""
+    return _frames(_PLAIN_PIECES, op, eta, etad, etadd, n_frames, substeps,
+                   n_newton)
+
+
+# ---------------------------------------------------------------------------
+# The engine-facing wrapper
+# ---------------------------------------------------------------------------
+
+
+class FusedROMRollout:
+    """Fused ROM rollout of a :class:`ModalROMGenAlpha` (constant input, no
+    external force), built by :meth:`ModalROMGenAlpha.make_pallas_rollout`.
+
+    Host float64 operators are laid out once here; device uploads are
+    memoized per device and dtype. ``tile`` and ``chunk`` are accepted for
+    signature parity with the JAX package and unused: a span is a Python
+    loop of kernel launches, and the state stays in the natural ``(B, m)``
+    layout. The initial acceleration is the engine's plain
+    ``initial_accel`` (torch ops, as the JAX package computes it outside
+    its kernel).
+    """
+
+    def __init__(self, ms, tile: int = 256, chunk: int = 100):
+        if ms.lam is None or ms.planar_correction is None:
+            raise ValueError(
+                "fused ROM rollout requires the split planar fast path "
+                "(parity nonlinear/hybrid beam, no external forces)"
+            )
+        if ms.external_force is not None or ms.ext_modal is not None:
+            raise ValueError(
+                "fused ROM rollout does not support external forces; "
+                "use ModalROMGenAlpha.rollout"
+            )
+        if ms.window_params is None and ms.sampled_params is None:
+            raise ValueError(
+                "engine has neither the contiguous-window nor the "
+                "ECSW gathered-sample layout; use the plain rollout"
+            )
+        self.ms = ms
+        self.gathered = ms.sampled_params is not None
+        params = ms.sampled_params if self.gathered else ms.window_params
+        f64 = lambda x: np.ascontiguousarray(np.asarray(x, np.float64))  # noqa: E731
+        self._host = {
+            "phiT": f64(np.asarray(ms.Phi_planar).T),
+            "w": f64(ms.PhiW_planar),
+            "lam": f64(ms.lam),
+            "cd": None if ms.cdamp is None else f64(ms.cdamp),
+            "sinv": None if ms.Sinv_diag is None else f64(ms.Sinv_diag),
+            "sinvT": None if ms.Sinv_diag is not None else f64(np.asarray(ms.Sinv).T),
+            "L": f64(params["length"]),
+            "D": f64(params["EI"]),
+            "A": f64(params["EA"]),
+            "mask": f64(np.asarray(params["nonlinear_mask"], np.float64)),
+        }
+        self.m = self._host["lam"].shape[0]
+        self._device_ops = {}
+
+    def operators(self, like: torch.Tensor, u_modal=None) -> ROMOperators:
+        """The device operators on ``like``'s device and dtype, with the
+        constant modal force ``u_modal`` (None: zero)."""
+        key = (like.device, like.dtype)
+        base = self._device_ops.get(key)
+        if base is None:
+            up = {k: None if v is None else torch.tensor(
+                v, dtype=like.dtype, device=like.device)
+                for k, v in self._host.items()}
+            base = ROMOperators(
+                **up, u=None, gathered=self.gathered,
+                sc=step_scalars(float(self.ms.dt), float(self.ms.rho_inf)),
+            )
+            self._device_ops[key] = base
+        if u_modal is None:
+            u = torch.zeros(self.m, dtype=like.dtype, device=like.device)
+        else:
+            if isinstance(u_modal, torch.Tensor):
+                u_modal = u_modal.detach().cpu().numpy()
+            u = torch.as_tensor(np.asarray(u_modal, np.float64).reshape(self.m),
+                                dtype=like.dtype, device=like.device)
+        return dataclasses.replace(base, u=u)
+
+    def prepare(self, eta, etad, u_modal, precision=None, nl_precision=None):
+        """``(op, eta, etad, etadd, shape)``: the operators with the force,
+        the state flattened to ``(B, m)`` and the initial acceleration, as
+        a span starts from them (:func:`rom_steps` or its twin)."""
+        for p in (precision, nl_precision):
+            if (p.lower() if isinstance(p, str) else p) not in _PRECISIONS:
+                raise ValueError(
+                    f"precision must be one of {_PRECISIONS}, got {p!r}"
+                )
+        if callable(u_modal):
+            raise ValueError("fused ROM rollout takes a constant input force")
+        eta, etad = self.ms._tensor(eta), self.ms._tensor(etad)
+        op = self.operators(eta, u_modal)
+        shape = eta.shape
+        eta = eta.reshape(-1, self.m).contiguous()
+        etad = etad.reshape(-1, self.m).contiguous()
+        etadd = self.ms.initial_accel(eta, etad, op.u).contiguous()
+        return op, eta, etad, etadd, shape
+
+    def __call__(self, eta, etad, u_modal, n_steps: int, n_newton: int = 1,
+                 precision=None, nl_precision=None, unroll: int = 1):
+        """Advance ``(eta, etad)`` by ``n_steps`` fused ROM gen-α steps;
+        returns ``(eta, etad, etadd)``. ``u_modal``: constant modal force
+        or None. ``unroll`` is accepted for signature parity and unused."""
+        op, eta, etad, etadd, shape = self.prepare(eta, etad, u_modal,
+                                                   precision, nl_precision)
+        out = rom_steps(op, eta, etad, etadd, n_steps, n_newton)
+        return tuple(x.reshape(shape) for x in out)
+
+    def frames(self, eta, etad, u_modal, n_frames: int, substeps: int = 1,
+               n_newton: int = 1, precision=None, nl_precision=None,
+               unroll: int = 1):
+        """Frame-collecting fused rollout (``rollout_frames`` contract):
+        ``(ts (F+1,), etas (F+1, ..., m), etads (F+1, ..., m))`` including
+        the initial state."""
+        op, eta, etad, etadd, shape = self.prepare(eta, etad, u_modal,
+                                                   precision, nl_precision)
+        etas, etads = rom_frames(op, eta, etad, etadd, n_frames, substeps,
+                                 n_newton)
+        ts = (self.ms.dt * substeps) * torch.arange(
+            int(n_frames) + 1, dtype=torch.float64, device=eta.device
+        )
+        frame_shape = (int(n_frames) + 1, *shape)
+        return ts, etas.reshape(frame_shape), etads.reshape(frame_shape)

@@ -35,7 +35,7 @@ def models():
 def _engines(jmodel, rayleigh):
     ms = js.make_modal_genalpha(jmodel, DT, rho_inf=0.8, rayleigh=rayleigh)
     port = convert.modal_engine_from_numpy(
-        ms.Phi, ms.PhiTM, ms.lam, ms.rho_inf, ms.dt, ms.cdamp
+        ms.Phi, ms.PhiTM, ms.lam, ms.rho_inf, ms.dt, ms.cdamp, device="cpu"
     )
     n = jmodel.n_pos_states
     rng = np.random.default_rng(3)
@@ -168,7 +168,7 @@ def test_simulate_matches(models, engine, batch):
     # engine="pallas" is the same arithmetic as "xla" in the JAX package
     ref = js.simulate(jmodel, x0, 0.01, 1e-3,
                       engine="xla" if engine == "pallas" else engine, **kw)
-    out = ts.simulate(tmodel, x0, 0.01, 1e-3, engine=engine, **kw)
+    out = ts.simulate(tmodel, x0, 0.01, 1e-3, engine=engine, device="cpu", **kw)
     ys_ref = np.asarray(ref.ys)
     assert tuple(out.ys.shape) == ys_ref.shape
     np.testing.assert_allclose(out.ts.numpy(), np.asarray(ref.ts), rtol=1e-15)
@@ -187,7 +187,7 @@ def test_simulate_tip_impulse(models, engine):
     ref = js.simulate(jmodel, np.zeros(2 * n), 0.02, 1e-3, method="modal",
                       u=helpers.tip_impulse(n), substeps=10)
     out = ts.simulate(tmodel, np.zeros(2 * n), 0.02, 1e-3, method="modal",
-                      u=pwc, substeps=10, engine=engine)
+                      u=pwc, substeps=10, engine=engine, device="cpu")
     ys_ref = np.asarray(ref.ys)
     assert np.abs(ys_ref).max() > 0
     assert np.abs(out.ys.numpy() - ys_ref).max() <= 1e-10 * np.abs(ys_ref).max()
@@ -195,7 +195,7 @@ def test_simulate_tip_impulse(models, engine):
 
 @pytest.mark.parametrize("kwargs, exc", [
     (dict(method="rk4"), NotImplementedError),
-    (dict(method="modal_rom", engine="pallas"), NotImplementedError),
+    (dict(method="modal_rom_adaptive"), NotImplementedError),
     (dict(method="bogus"), ValueError),
     (dict(method="modal", engine="triton"), ValueError),
     (dict(method="newmark", engine="power"), ValueError),
@@ -211,7 +211,7 @@ def test_simulate_contracts(models, kwargs, exc):
     if kwargs.get("u") == "callable":
         kwargs["u"] = lambda t: np.zeros(n)
     with pytest.raises(exc) as et:
-        ts.simulate(tmodel, np.zeros(2 * n), 0.01, 1e-3, **kwargs)
+        ts.simulate(tmodel, np.zeros(2 * n), 0.01, 1e-3, device="cpu", **kwargs)
     if exc is ValueError:
         with pytest.raises(ValueError) as ej:
             js.simulate(jmodel, np.zeros(2 * n), 0.01, 1e-3, **kwargs)
@@ -232,12 +232,12 @@ def test_engine_contracts(models, tmp_path):
         tm.ForceParams(enable_fluid_effects=True, fluid_density=1000.0),
     )
     with pytest.raises(ValueError, match="registry forces"):
-        ts.make_modal_genalpha(fluid, DT)
+        ts.make_modal_genalpha(fluid, DT, device="cpu")
     mixed = tm.DynamicEulerBernoulliBeam(
         helpers.mixed_csv(4, path=str(tmp_path / "m.csv"))
     )
     with pytest.raises(ValueError, match="purely linear"):
-        ts.make_modal_genalpha(mixed, DT)
+        ts.make_modal_genalpha(mixed, DT, device="cpu")
 
 
 def test_make_modal_genalpha_matches(models):
@@ -245,7 +245,7 @@ def test_make_modal_genalpha_matches(models):
     physical trajectories (mode signs may differ; ``Phi PhiTM`` may not)."""
     jmodel, tmodel = models
     ms = js.make_modal_genalpha(jmodel, DT, rayleigh=(0.5, 1e-6))
-    port = ts.make_modal_genalpha(tmodel, DT, rayleigh=(0.5, 1e-6))
+    port = ts.make_modal_genalpha(tmodel, DT, rayleigh=(0.5, 1e-6), device="cpu")
     np.testing.assert_allclose(port.lam, ms.lam, rtol=1e-12)
     np.testing.assert_allclose(port.cdamp, ms.cdamp, rtol=1e-12)
     np.testing.assert_allclose(port.Phi @ port.PhiTM, ms.Phi @ ms.PhiTM,

@@ -126,9 +126,9 @@ def test_build_without_nvcc_raises(monkeypatch):
 
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     monkeypatch.setattr(_build, "library_path",
-                        lambda: _build.BUILD_DIR / "absent.so")
+                        lambda name: _build.BUILD_DIR / "absent.so")
     with pytest.raises(RuntimeError, match="nvcc"):
-        _build.build()
+        _build.build("modal_rollout")
 
 
 def test_state_checks():
