@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full check
-    python3 chip_smoke.py --profile  # ROM main path under torch.profiler
+    python3 chip_smoke.py                     # the full check
+    python3 chip_smoke.py --profile           # ROM main path under torch.profiler
+    python3 chip_smoke.py --profile implicit  # implicit main path under torch.profiler
 
 Phases, one line each (any failure exits non-zero):
 
@@ -42,22 +43,51 @@ Phases, one line each (any failure exits non-zero):
     of 5 steps (max error <= 1e-5 x the state scale);
 12. ROM timings: CUDA events, best of 3 after a warm-up; each ROM kernel
     alone at the main path's shapes against its plain twin and the one
-    torch call that computes its product.
+    torch call that computes its product;
+13. block-tridiagonal kernel vs plain: ``ops/cuda/btd_solve`` against
+    ``ops/banded.btd_solve`` on the card, float32 and float64, at a small
+    ragged size (13 nodes, 5 envs) and at the main path's size (the bench
+    beam's generalized-alpha system, 1001 nodes, 4096 envs); bit for bit;
+14. implicit main path, linear: the JAX package's full-order benchmark row
+    (bench.py, the implicit generalized-alpha env-steps/s line) with
+    ``linear_solver="pallas"``: ``make_newmark_operator`` on the
+    1000-element linear beam, 4096 envs in float32, ``generalized_alpha_step``
+    x 2000 at dt=1e-4, rho_inf=0.8, one Newton iteration; env-steps/s
+    (best of 3, CUDA events); checks: (a) the same span in float64 against
+    the float64 modal stepper on the same beam (<= 1e-6 relative, q and v
+    each against its own norm), (b) float32 against float64 (<= 1e-2),
+    (c) finite states;
+15. implicit main path, nonlinear: the same beam with the consistent von
+    Karman element, rho_inf=0.5, two modified-Newton iterations, 2000
+    steps, 4096 envs: float32 against float64 (<= 1e-2), and 50 float64
+    steps against ``linear_solver="dense_inv"`` (<= 1e-8);
+16. ``simulate(method="generalized_alpha"|"newmark")`` on the 8-element
+    consistent von Karman beam (0.25 m elements), 64 envs, 10 frames x 20
+    substeps, tip force 0.1: "pallas" bit for bit equal to
+    "btd"; "cr" and "dense_inv" within 1e-9 x the state scale (float64);
+17. implicit timings: the kernel per launch against its plain version, its
+    bound and the dense-inverse product (the one torch call computing the
+    same solve); 50 steps of the linear main path with "pallas" and with
+    "dense_inv" (the measurement behind ``CARD_LINEAR_SOLVER``).
 
 Launch counts are set to 0 just before each path and read just after it:
 the linear main path (``rollout_power``), ``rollout_pallas`` and the
 ``simulate`` engines (phases 4-5); the ROM main path (window layout, phase
 8), the ECSW gathered span (9), the dense-Newton span (10) and
-``simulate(method="modal_rom", engine="pallas")`` (11). Every kernel must
-have been launched by its own path, and each ROM path must launch exactly
-its kernels, once per Newton iteration of every step. The second-to-last
-lines are the kernels' JSON record (``launches`` from the kernel's own path,
-``launches_by_path`` from every path) and the card line; the last line is
-the driver's JSON result.
+``simulate(method="modal_rom", engine="pallas")`` (11); the implicit
+linear and nonlinear main paths (14, 15; the block-tridiagonal kernel once
+for the initial acceleration and once per Newton iteration: 2001 and 4001)
+and the ``simulate`` runs with ``linear_solver="pallas"`` (16). Every
+kernel must have been launched by its own path, and each ROM path must
+launch exactly its kernels, once per Newton iteration of every step. The
+second-to-last lines are the kernels' JSON record (``launches`` from the
+kernel's own path, ``launches_by_path`` from every path) and the card line;
+the last line is the JSON result naming the device.
 
-``--profile`` builds the ROM main path only and runs ``PROFILE_STEPS``
-steps of it under ``torch.profiler``: device time by kernel, and the
-device's busy share of the same steps timed without the profiler.
+``--profile`` builds the ROM main path only (``--profile implicit``: the
+linear implicit main path) and runs ``PROFILE_STEPS`` steps of it under
+``torch.profiler``: device time by kernel, and the device's busy share of
+the same steps timed without the profiler.
 """
 
 from __future__ import annotations
@@ -90,6 +120,16 @@ ROM_SMALL_MAX = 5e-6  # the JAX package's own fused-kernel bound (x state scale)
 ROM_PIECE_MAX = 1e-4  # one launch vs its twin, each output x its max|twin|:
 # f32 sums of <= 3003 terms
 PROFILE_STEPS = 50
+# The JAX package's full-order implicit benchmark rows (bench.py:1089-1140):
+# generalized-alpha, linear (rho_inf 0.8, one Newton iteration) and
+# consistent von Karman (rho_inf 0.5, two modified-Newton iterations).
+IMPLICIT = dict(rho_lin=0.8, newton_lin=1, rho_nl=0.5, newton_nl=2, dense_steps=50)
+IMP_SMALL = dict(n_nodes=13, B=5)
+IMP_SIM = dict(n_el=8, envs=64, frames=10, substeps=20, amp=1e-5)
+IMP_VS_MODAL_MAX = 1e-6  # float64 full-order vs float64 modal, same recurrence
+IMP_F32_MAX = 1e-2  # float32 span vs float64 span
+IMP_DENSE_MAX = 1e-8  # float64, prefactored sweeps vs dense inverses
+IMP_SIM_MAX = 1e-9  # simulate cr / dense_inv vs btd, x state scale, float64
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -111,6 +151,8 @@ ROM_GATHERED = ("rom_alpha_point", "rom_expand", "rom_correction_gathered",
 ROM_DENSE = ROM_WINDOW + ("rom_newton_dense",)
 ROM_PATH = {**{k: "window" for k in ROM_WINDOW},
             "rom_correction_gathered": "ecsw", "rom_newton_dense": "dense_newton"}
+BTD_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/btd_solve.cu"
+BTD_REPLACES = "continuum_robot_tpu/ops/pallas/btd_solve.py:97"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -206,11 +248,17 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def rel_parts(out, ref) -> list:
+    """``[||x - ref_x|| / ||ref_x||]`` for the first two components (eta and
+    etad, or q and v) of the endpoint state."""
+    return [float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+            for x, y in zip(out[:2], ref[:2])]
+
+
 def rel_state(out, ref) -> float:
     """The larger of ``||eta - ref|| / ||ref||`` and the same for ``etad``,
     over the endpoint state."""
-    return max(float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
-               for x, y in zip(out[:2], ref[:2]))
+    return max(rel_parts(out, ref))
 
 
 def counted(kmod, fn):
@@ -311,7 +359,8 @@ def linear_bounds(kr, n_modes):
 
 
 def linear_paths(crt, kr, dev, card):
-    """Phases 4-6; returns the linear kernels' records."""
+    """Phases 4-6; returns the linear kernels' records, the beam and its
+    modal engine."""
     from continuum_robot_tpu_torch.models.simulate import make_modal_genalpha
     from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
 
@@ -430,7 +479,7 @@ def linear_paths(crt, kr, dev, card):
                    ms=times[name][0], plain_ms=times[name][1], bound=bounds[name],
                    library_ms=None)
         for name in REPLACES
-    }
+    }, model, ms
 
 
 # ---------------------------------------------------------------------------
@@ -543,11 +592,18 @@ def rom_main_path(crt, dev):
 def profile_rom(crt, dev, card) -> None:
     """``--profile``: device time by kernel over ``PROFILE_STEPS`` steps of
     the ROM main path, and the busy share of the unprofiled steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     _, ms, eta, etad, u_m, _ = rom_main_path(crt, dev)
     fused = ms.make_pallas_rollout()
-    span = lambda: fused(eta, etad, u_m, PROFILE_STEPS, n_newton=ROM["n_newton"])  # noqa: E731
+    profile_span(lambda: fused(eta, etad, u_m, PROFILE_STEPS, n_newton=ROM["n_newton"]),
+                 dev, card, "the ROM main path")
+
+
+def profile_span(span, dev, card, what: str) -> None:
+    """Run ``span`` (``PROFILE_STEPS`` steps of ``what``) under
+    ``torch.profiler``: device time by kernel, and the device's busy share
+    of the best of three unprofiled runs."""
+    from torch.profiler import ProfilerActivity, profile
+
     span()
     _, wall_ms = min((timed_once(span, dev) for _ in range(3)), key=lambda r: r[1])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -563,7 +619,7 @@ def profile_rom(crt, dev, card) -> None:
                          ev.key.replace("(anonymous namespace)::", "")))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile [{card}]: {PROFILE_STEPS} steps of the ROM main path, "
+    print(f"profile [{card}]: {PROFILE_STEPS} steps of {what}, "
           f"unprofiled {wall_ms:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall_ms:.3f} of it)", flush=True)
     require(rows, "the profiler recorded no device time")
@@ -783,6 +839,277 @@ def rom_paths(crt, rk, dev, card, small_model):
     return records
 
 
+# ---------------------------------------------------------------------------
+# The full-order implicit path
+# ---------------------------------------------------------------------------
+
+
+def gen_alpha_system(rho_inf: float, h: float = DT):
+    """``(a, c)`` of the generalized-alpha effective Jacobian ``a M + c K``."""
+    am = (2.0 * rho_inf - 1.0) / (rho_inf + 1.0)
+    af = rho_inf / (rho_inf + 1.0)
+    beta = 0.25 * (1.0 - am + af) ** 2
+    return 1.0 - am, (1.0 - af) * beta * h * h
+
+
+def implicit_op(crt, model, rho_inf: float, solver: str, dev):
+    return crt.make_newmark_operator(model, dt=None, linear_solver=solver,
+                                     extra_systems=[gen_alpha_system(rho_inf)],
+                                     device=dev)
+
+
+def implicit_start(op, n_red: int, dtype, dev):
+    """The bench's start: q ~ N(0, 1e-6) (seed 0), v = 0, tip force 0.1,
+    consistent acceleration; ``(q, v, a, u)``."""
+    q = torch.tensor(np.random.default_rng(0).normal(scale=1e-6, size=(N_ENVS, n_red)),
+                     dtype=dtype, device=dev)
+    u = torch.zeros(n_red, dtype=dtype, device=dev)
+    u[-2] = 0.1
+    return q, torch.zeros_like(q), op.solve(q, 0.0)(u - op.internal_force(q)), u
+
+
+def implicit_span(crt, op, state, steps: int, rho_inf: float, n_newton: int):
+    """``steps`` generalized-alpha steps from ``(q, v, a, u)``; ``(q, v, a)``."""
+    q, v, a, u = state
+    for _ in range(steps):
+        q, v, a = crt.generalized_alpha_step(op, 0.0, q, v, a, DT, u,
+                                             rho_inf=rho_inf, n_newton=n_newton)
+    return q, v, a
+
+
+def implicit_path(crt, kb, op, n_red, dtype, dev, rho_inf, n_newton):
+    """One counted run of an implicit main path from the bench's start:
+    ``((q, v, a), ms, launches)``. The launches count the initial
+    acceleration's solve too; the time is the steps' alone."""
+    kb.reset_launch_counts()
+    start = implicit_start(op, n_red, dtype, dev)
+    out, span_ms = timed_once(
+        lambda: implicit_span(crt, op, start, N_STEPS, rho_inf, n_newton), dev)
+    return out, span_ms, kb.btd_solve.launches
+
+
+def finite(*xs) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in xs)
+
+
+def btd_host_factors(model, a: float, c: float):
+    """The prefactored block-Thomas factors of ``a M + c K0`` (host float64)."""
+    from continuum_robot_tpu_torch.models import assembly
+    from continuum_robot_tpu_torch.ops import banded
+
+    arrays, bc = model.beam_model.arrays, model.beam_model.bc_info
+    md, moff = assembly.mass_block_tridiagonal(arrays)
+    kd, kl, ku = assembly.tangent_block_tridiagonal(arrays, np.zeros(bc.n_dofs_full))
+    bands = banded.btd_apply_bc(a * md + c * kd, a * np.swapaxes(moff, -1, -2) + c * kl,
+                                a * moff + c * ku, bc.free_mask.reshape(-1, 3))
+    return banded.btd_factor(*bands)
+
+
+def phase_btd_kernel(kb, model, dev):
+    """Phase 13: the kernel against its plain version, bit for bit."""
+    from continuum_robot_tpu_torch.ops import banded
+
+    rng = np.random.default_rng(11)
+    n, B = IMP_SMALL["n_nodes"], IMP_SMALL["B"]
+    d = rng.normal(size=(n, 3, 3))
+    small = banded.btd_factor(d + np.swapaxes(d, -1, -2) + 10 * np.eye(3),
+                              0.3 * rng.normal(size=(n - 1, 3, 3)),
+                              0.3 * rng.normal(size=(n - 1, 3, 3)))
+    full = btd_host_factors(model, *gen_alpha_system(IMPLICIT["rho_lin"]))
+    n_full = full[0].shape[0]
+    err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for fac, shape in ((small, (B, n, 3)), (full, (N_ENVS, n_full, 3))):
+            f = tuple(torch.tensor(x, dtype=dtype, device=dev) for x in fac)
+            rhs = torch.tensor(rng.normal(size=shape), dtype=dtype, device=dev)
+            kb.reset_launch_counts()
+            out = kb.btd_solve(f, rhs)
+            require(kb.btd_solve.launches == 1, "btd_solve did not launch its kernel")
+            e = float((out - banded.btd_solve(f, rhs)).abs().max())
+            require(finite(out), "btd_solve: non-finite solution")
+            err = max(err, e)
+            print(f"phase 13 btd_solve vs plain: {str(dtype)[6:]} B={shape[0]} "
+                  f"N={shape[1]}: max|kernel-plain| {e:.3e}", flush=True)
+    require(err == 0.0, f"btd_solve: kernel and plain version differ by {err:.3e}")
+    return err
+
+
+def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
+    """Phases 13-17; returns the block-tridiagonal kernel's record."""
+    from continuum_robot_tpu_torch.models import simulate as sim_mod
+    from continuum_robot_tpu_torch.ops import banded
+    from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
+
+    err = phase_btd_kernel(kb, lin_model, dev)
+    n_red = lin_model.n_pos_states
+    paths = {}
+
+    # -- phase 14: the linear implicit main path ---------------------------------
+    rho, nn = IMPLICIT["rho_lin"], IMPLICIT["newton_lin"]
+    t0 = time.time()
+    op = implicit_op(crt, lin_model, rho, "pallas", dev)
+    op_s = time.time() - t0
+    implicit_span(crt, op, implicit_start(op, n_red, torch.float32, dev), 5, rho, nn)
+    runs = [implicit_path(crt, kb, op, n_red, torch.float32, dev, rho, nn)
+            for _ in range(3)]
+    (q32, v32, _), _, paths["implicit:linear"] = runs[0]
+    require(all(r[2] == N_STEPS * nn + 1 for r in runs),
+            f"linear implicit path: {[r[2] for r in runs]} btd_solve launches, "
+            f"expected {N_STEPS * nn + 1}")
+    span_ms = min(r[1] for r in runs)
+    (q64, v64, _), span64_ms, _ = implicit_path(crt, kb, op, n_red, torch.float64,
+                                                 dev, rho, nn)
+    q0 = implicit_start(op, n_red, torch.float64, dev)[0]
+    u64 = np.zeros(n_red)
+    u64[-2] = 0.1
+    eta, etad = lin_ms.to_modal(q0, torch.zeros_like(q0))
+    e1, ed1, _ = lin_ms.rollout_pallas(eta, etad, lin_ms.project_force_host(u64), N_STEPS)
+    qm, vm = lin_ms.from_modal(e1, ed1)
+    vs_modal = rel_parts((q64, v64), (qm, vm))
+    f32_rel = rel_parts((q32.double(), v32.double()), (q64, v64))
+    ok = finite(q32, v32, q64, v64)
+    env_steps = N_ENVS * N_STEPS
+    print(f"phase 14 implicit linear: {N_ELEMENTS} elements, {n_red} DOFs, {N_ENVS} envs, "
+          f"{N_STEPS} steps, rho_inf={rho}, n_newton={nn}, pallas: float32 span "
+          f"{span_ms:.3f} ms = {env_steps / span_ms * 1e3:.4e} env-steps/s (best of 3: "
+          f"{', '.join('%.3f' % r[1] for r in runs)} ms); float64 span {span64_ms:.3f} ms; "
+          f"(a) float64 vs modal q {vs_modal[0]:.3e} v {vs_modal[1]:.3e}, (b) float32 vs "
+          f"float64 q {f32_rel[0]:.3e} v {f32_rel[1]:.3e}, "
+          f"(c) finite {ok}; btd_solve launches {paths['implicit:linear']}; operator "
+          f"build {op_s:.2f} s (host)", flush=True)
+    require(ok and q32.shape == (N_ENVS, n_red), "implicit linear: non-finite states")
+    require(max(vs_modal) <= IMP_VS_MODAL_MAX, f"implicit vs modal {vs_modal}")
+    require(max(f32_rel) <= IMP_F32_MAX, f"implicit float32 vs float64 {f32_rel}")
+
+    # -- phase 15: the consistent von Karman implicit main path ------------------
+    rho_n, nn_n = IMPLICIT["rho_nl"], IMPLICIT["newton_nl"]
+    nl_model = crt.DynamicEulerBernoulliBeam(
+        bench_beam_dataframe(N_ELEMENTS, "nonlinear"), use_consistent_nonlinear=True)
+    t0 = time.time()
+    op_nl = implicit_op(crt, nl_model, rho_n, "pallas", dev)
+    op_nl_s = time.time() - t0
+    (qn32, vn32, _), nl_ms, paths["implicit:nonlinear"] = implicit_path(
+        crt, kb, op_nl, n_red, torch.float32, dev, rho_n, nn_n)
+    require(paths["implicit:nonlinear"] == N_STEPS * nn_n + 1,
+            f"nonlinear implicit path: {paths['implicit:nonlinear']} btd_solve "
+            f"launches, expected {N_STEPS * nn_n + 1}")
+    (qn64, vn64, _), nl64_ms, _ = implicit_path(crt, kb, op_nl, n_red, torch.float64,
+                                                 dev, rho_n, nn_n)
+    nl_f32_rel = rel_parts((qn32.double(), vn32.double()), (qn64, vn64))
+    t0 = time.time()
+    op_nl_dense = implicit_op(crt, nl_model, rho_n, "dense_inv", dev)
+    dense_build_s = time.time() - t0
+    steps_d = IMPLICIT["dense_steps"]
+    start = implicit_start(op_nl, n_red, torch.float64, dev)
+    qs, vs, _ = implicit_span(crt, op_nl, start, steps_d, rho_n, nn_n)
+    start_d = implicit_start(op_nl_dense, n_red, torch.float64, dev)
+    qd, vd, _ = implicit_span(crt, op_nl_dense, start_d, steps_d, rho_n, nn_n)
+    vs_dense = rel_state((qs, vs), (qd, vd))
+    ok = finite(qn32, vn32, qn64, vn64)
+    print(f"phase 15 implicit consistent von Karman: {N_ENVS} envs, {N_STEPS} steps, "
+          f"rho_inf={rho_n}, n_newton={nn_n} (modified Newton), pallas: float32 span "
+          f"{nl_ms:.3f} ms = {env_steps / nl_ms * 1e3:.4e} env-steps/s (one run); float64 "
+          f"span {nl64_ms:.3f} ms; float32 vs float64 q {nl_f32_rel[0]:.3e} v "
+          f"{nl_f32_rel[1]:.3e}; {steps_d} float64 "
+          f"steps vs dense_inv {vs_dense:.3e}; finite {ok}; btd_solve launches "
+          f"{paths['implicit:nonlinear']}; operator build {op_nl_s:.2f} s, dense_inv "
+          f"build {dense_build_s:.2f} s (host)", flush=True)
+    require(ok, "implicit nonlinear: non-finite states")
+    require(max(nl_f32_rel) <= IMP_F32_MAX, f"nonlinear float32 vs float64 {nl_f32_rel}")
+    require(vs_dense <= IMP_DENSE_MAX, f"nonlinear pallas vs dense_inv {vs_dense:.3e}")
+
+    # -- phase 16: simulate(method="generalized_alpha"|"newmark") -----------------
+    df = bench_beam_dataframe(IMP_SIM["n_el"], "nonlinear")
+    df["length"] = 0.25
+    small_model = crt.DynamicEulerBernoulliBeam(df, use_consistent_nonlinear=True)
+    n_s = small_model.n_pos_states
+    rng = np.random.default_rng(12)
+    x0 = np.zeros((IMP_SIM["envs"], 2 * n_s))
+    x0[:, :n_s] = rng.normal(scale=IMP_SIM["amp"], size=(IMP_SIM["envs"], n_s))
+    u_s = np.zeros(n_s)
+    u_s[-2] = 0.1
+    frame_dt = DT * IMP_SIM["substeps"]
+    sim_err = {}
+    for method in ("generalized_alpha", "newmark"):
+        ys = {}
+        for solver in ("pallas", "btd", "cr", "dense_inv"):
+            kb.reset_launch_counts()
+            res = crt.simulate(small_model, x0, IMP_SIM["frames"] * frame_dt, frame_dt,
+                               method=method, u=u_s, substeps=IMP_SIM["substeps"],
+                               linear_solver=solver, device=dev)
+            paths[f"simulate:{method}:{solver}"] = kb.btd_solve.launches
+            ys[solver] = force_completion(res.ys)
+            require(tuple(res.ys.shape) == (IMP_SIM["frames"] + 1, IMP_SIM["envs"], 2 * n_s)
+                    and finite(res.ys), f"simulate {method} {solver}: output of shape "
+                    f"{tuple(res.ys.shape)}, finite {finite(res.ys)}")
+        scale = float(ys["btd"].abs().max())
+        sim_err[method] = {s: float((ys[s] - ys["btd"]).abs().max()) / scale
+                           for s in ("pallas", "cr", "dense_inv")}
+        n_it = IMP_SIM["frames"] * IMP_SIM["substeps"] * 2 + 1  # n_newton=2
+        require(paths[f"simulate:{method}:pallas"] == n_it and not any(
+            paths[f"simulate:{method}:{s}"] for s in ("btd", "cr", "dense_inv")),
+            f"simulate {method}: launches {paths}")
+        require(sim_err[method]["pallas"] == 0.0,
+                f"simulate {method}: pallas vs btd {sim_err[method]['pallas']:.3e}")
+        require(max(sim_err[method].values()) <= IMP_SIM_MAX,
+                f"simulate {method}: {sim_err[method]}")
+    print(f"phase 16 simulate implicit: {IMP_SIM}: max|x - btd|/scale {sim_err}", flush=True)
+    print(f"implicit paths' launches: {paths}", flush=True)
+
+    # -- phase 17: timings --------------------------------------------------------
+    def best(fn):
+        return min(cuda_event_times(fn, repeats=3, warmup=1, device=dev))
+
+    a, c = gen_alpha_system(rho)
+    fac = tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                for x in btd_host_factors(lin_model, a, c))
+    n_nodes = fac[0].shape[0]
+    rhs = torch.tensor(rng.normal(size=(N_ENVS, n_nodes, 3)), dtype=torch.float32,
+                       device=dev)
+    rhs[:, 0, :] = 0.0  # the fixed node's rows, as the operator pads them
+    J = (a * np.asarray(lin_model.beam_model.M.toarray())
+         + c * sim_mod.reduce_matrix_dense(lin_model.beam_model.arrays,
+                                           lin_model.beam_model.bc_info.free_dofs))
+    inv = torch.tensor(np.linalg.inv(J), dtype=torch.float32, device=dev)
+    r_red = rhs.reshape(N_ENVS, -1)[:, 3:].contiguous()
+    x_lib = r_red @ inv.mT
+    x_ker = kb.btd_solve(fac, rhs).reshape(N_ENVS, -1)[:, 3:]
+    lib_rel = rel(x_ker, x_lib)
+    k_ms = best(lambda: kb.btd_solve(fac, rhs))
+    p_ms = best(lambda: banded.btd_solve(fac, rhs))
+    lib_ms = best(lambda: r_red @ inv.mT)
+    btd_ops = N_ENVS * ((n_nodes - 1) * (18 + 33) + 15)
+    btd_bytes = 4 * (2 * N_ENVS * 3 * n_nodes + 9 * (3 * n_nodes - 2))
+    bnd = bound(btd_ops, btd_bytes)
+    steps_t = IMPLICIT["dense_steps"]
+    op_dense = implicit_op(crt, lin_model, rho, "dense_inv", dev)
+    step_ms = {}
+    for name, o in (("pallas", op), ("dense_inv", op_dense)):
+        st = implicit_start(o, n_red, torch.float32, dev)
+        step_ms[name] = best(lambda: implicit_span(crt, o, st, steps_t, rho, nn)) / steps_t
+    print(f"phase 17 implicit timings [{card}]: btd_solve {k_ms:.4f} ms vs plain "
+          f"{p_ms:.3f} ms, dense-inverse torch.matmul {lib_ms:.4f} ms (kernel vs it "
+          f"{lib_rel:.3e} relative), bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
+          f"{bnd[0] / k_ms:.3f} of it; linear main path per step: pallas "
+          f"{step_ms['pallas']:.4f} ms, dense_inv {step_ms['dense_inv']:.4f} ms "
+          f"({steps_t} steps, best of 3); CARD_LINEAR_SOLVER="
+          f"{sim_mod.CARD_LINEAR_SOLVER}", flush=True)
+    return dict(launches=paths["implicit:linear"],
+                launches_by_path=paths, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound=bnd, library_ms=lib_ms, source=BTD_SOURCE, replaces=BTD_REPLACES)
+
+
+def profile_implicit(crt, kb, dev, card) -> None:
+    """``--profile implicit``: device time by kernel over ``PROFILE_STEPS``
+    steps of the linear implicit main path, and the busy share."""
+    rho, nn = IMPLICIT["rho_lin"], IMPLICIT["newton_lin"]
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS))
+    op = implicit_op(crt, model, rho, "pallas", dev)
+    start = implicit_start(op, model.n_pos_states, torch.float32, dev)
+    profile_span(lambda: implicit_span(crt, op, start, PROFILE_STEPS, rho, nn), dev,
+                 card, "the linear implicit main path")
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -791,6 +1118,7 @@ def main() -> int:
     # Imported here: a directory without the package fails at this point.
     import continuum_robot_tpu_torch as crt
     from continuum_robot_tpu_torch.ops.cuda import _build
+    from continuum_robot_tpu_torch.ops.cuda import btd_solve as kb
     from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
     from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
 
@@ -800,8 +1128,12 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}", flush=True)
 
-    if "--profile" in sys.argv[1:]:
-        profile_rom(crt, dev, card)
+    args = sys.argv[1:]
+    if "--profile" in args:
+        if args[args.index("--profile") + 1:][:1] == ["implicit"]:
+            profile_implicit(crt, kb, dev, card)
+        else:
+            profile_rom(crt, dev, card)
         return 0
 
     t0 = time.time()
@@ -816,7 +1148,7 @@ def main() -> int:
           flush=True)
 
     err = phase_kernels(kr, dev)
-    records = linear_paths(crt, kr, dev, card)
+    records, lin_model, lin_ms = linear_paths(crt, kr, dev, card)
     for name in REPLACES:
         records[name].update(max_abs_err=err[name], source=SOURCE,
                              replaces=REPLACES[name])
@@ -828,7 +1160,9 @@ def main() -> int:
         rec.update(source=ROM_SOURCE, replaces=ROM_REPLACES)
     records.update(rom_records)
     print(f"ROM small-size worst max|kernel-plain|/scale {small_err:.3e}; "
-          f"total {time.time() - t_start:.1f} s", flush=True)
+          f"{time.time() - t_start:.1f} s so far", flush=True)
+    records["btd_solve"] = implicit_paths(crt, kb, dev, card, lin_model, lin_ms)
+    print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": rec["source"],

@@ -3,11 +3,13 @@
 A second package beside the JAX one (``continuum_robot_tpu``), which stays
 the reference. It holds the model build (CSV/DataFrame -> linear,
 nonlinear von Kármán or hybrid Euler-Bernoulli beam, host float64), the
-linear modal generalized-α engine (:class:`ModalGenAlpha`) and the
+linear modal generalized-α engine (:class:`ModalGenAlpha`), the
 nonlinear modal-ROM engine (:class:`ModalROMGenAlpha`, with ECSW
-hyper-reduction). Their fused drives run as hand-written CUDA kernels
-(``ops/cuda``) on the card and as plain PyTorch twins on the CPU. Entry
-points run on the card unless the caller passes ``device="cpu"``.
+hyper-reduction) and the full-order implicit Newmark and generalized-α
+integrators (:func:`make_newmark_operator`, ``ops/integrators``). Their
+fused drives and the block-tridiagonal solve run as hand-written CUDA
+kernels (``ops/cuda``) on the card and as plain PyTorch twins on the CPU.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 
 Precision policy: importing the package turns TF32 off for float32 matmuls
 and convolutions. Reduced-precision matmul inputs were a correctness cliff
@@ -39,7 +41,15 @@ from .models.simulate import (  # noqa: E402
     SimulationResult,
     make_modal_genalpha,
     make_modal_rom,
+    make_newmark_operator,
     simulate,
+)
+from .ops.integrators import (  # noqa: E402
+    NewmarkOperator,
+    generalized_alpha_step,
+    integrate_generalized_alpha,
+    integrate_newmark,
+    newmark_step,
 )
 
 __version__ = "0.1.0"
@@ -55,11 +65,17 @@ __all__ = [
     "ISegment",
     "ModalGenAlpha",
     "ModalROMGenAlpha",
+    "NewmarkOperator",
     "PiecewiseConstant",
     "Properties",
     "SimulationResult",
     "__version__",
+    "generalized_alpha_step",
+    "integrate_generalized_alpha",
+    "integrate_newmark",
     "make_modal_genalpha",
     "make_modal_rom",
+    "make_newmark_operator",
+    "newmark_step",
     "simulate",
 ]

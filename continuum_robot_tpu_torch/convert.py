@@ -81,6 +81,19 @@ def modal_rom_engine_from_numpy(Phi, PhiW, PhiTM, Sinv, lam, rho_inf: float,
     )
 
 
+def btd_factors_from_numpy(dinv, lw, upper, device=None,
+                           dtype: torch.dtype = torch.float64):
+    """The port's block-Thomas factors ``(dinv, lw, upper)`` from a
+    factorization's host arrays (the JAX package's ``btd_factor`` output
+    converted with ``np.asarray``), on ``device`` (None: the card) in
+    ``dtype``: one factorization fed to both packages' solves."""
+    device = resolve_device(device)
+    return tuple(
+        torch.as_tensor(np.array(x, dtype=np.float64), device=device).to(dtype)
+        for x in (dinv, lw, upper)
+    )
+
+
 def beam_arrays_from_numpy(length, elastic_modulus, moment_inertia, density,
                            cross_area, wetted_area=None, drag_coef=None,
                            nonlinear_mask=None, dtype=np.float64) -> BeamArrays:

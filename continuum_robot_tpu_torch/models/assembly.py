@@ -9,9 +9,9 @@ forms are host NumPy for eigensolves and control design.
 
 The internal-force functions take NumPy arrays (host, returns NumPy) or
 torch tensors (returns tensors on their device and dtype) and broadcast
-over leading batch axes. The state-dependent tangent is not ported: the
-zero-state tangent the modal-ROM engine needs is built exactly in
-``simulate.reduce_matrix_dense``.
+over leading batch axes. The state-dependent tangent
+(:func:`tangent_block_tridiagonal`) feeds the implicit integrators' Newton
+solves.
 """
 
 from __future__ import annotations
@@ -244,12 +244,15 @@ def _where(mask, a, b):
     return np.where(mask, a, b)
 
 
-def make_planar_internal_force(arrays: BeamArrays):
+def make_planar_internal_force(arrays: BeamArrays, use_consistent: bool = False):
     """Planar-layout internal force ``k(q_p)`` in full coordinates.
 
     ``q_p``: ``(..., 3, n_nodes)`` state planes ``[u; w; theta]`` (the
     :func:`planar_permutation` image of the interleaved state); returns
-    force planes of the same shape. Linear, nonlinear and hybrid masks.
+    force planes of the same shape. Linear, nonlinear and hybrid masks; the
+    nonlinear element is the parity one, or the energy-consistent one with
+    ``use_consistent=True``. The element parameters (and a hybrid beam's
+    mask) go to a tensor's device and dtype once.
     """
     nl_mask = np.asarray(arrays.nonlinear_mask)
     all_nl = bool(nl_mask.all())
@@ -257,17 +260,30 @@ def make_planar_internal_force(arrays: BeamArrays):
     L_h = np.asarray(arrays.length)
     D_h = np.asarray(arrays.elastic_modulus) * np.asarray(arrays.moment_inertia)
     A_h = np.asarray(arrays.elastic_modulus) * np.asarray(arrays.cross_area)
+    nl_planes = (elements.consistent_force_planes if use_consistent
+                 else elements.nonlinear_force_planes)
+    uploads = {}
+
+    def params(q_p):
+        if not isinstance(q_p, torch.Tensor):
+            return tuple(_param_like(x, q_p) for x in (L_h, D_h, A_h)) + (nl_mask,)
+        key = (q_p.device, q_p.dtype)
+        if key not in uploads:
+            uploads[key] = tuple(_param_like(x, q_p) for x in (L_h, D_h, A_h)) + (
+                torch.as_tensor(nl_mask, device=q_p.device),)
+        return uploads[key]
 
     def k_planar(q_p):
-        args = _element_args(q_p, *(_param_like(x, q_p) for x in (L_h, D_h, A_h)))
+        *LDA, mask = params(q_p)
+        args = _element_args(q_p, *LDA)
         if all_nl:
-            planes = elements.nonlinear_force_planes(*args)
+            planes = nl_planes(*args)
         elif all_lin:
             planes = elements.linear_force_planes(*args)
         else:
-            nl = elements.nonlinear_force_planes(*args)
+            nl = nl_planes(*args)
             lin = elements.linear_force_planes(*args)
-            planes = tuple(_where(nl_mask, a, b) for a, b in zip(nl, lin))
+            planes = tuple(_where(mask, a, b) for a, b in zip(nl, lin))
         return _scatter_planes(q_p, planes)
 
     return k_planar
@@ -321,3 +337,67 @@ def reduce_matrix(M, free_dofs: np.ndarray):
             np.asarray(free_dofs, np.int64), device=M.device
         )
     return M[..., free_dofs, :][..., :, free_dofs]
+
+
+# ---------------------------------------------------------------------------
+# Tangent stiffness (for the implicit integrators)
+# ---------------------------------------------------------------------------
+
+
+def element_params(arrays: BeamArrays, like: torch.Tensor):
+    """``(L, E, I, A, nonlinear_mask)`` as tensors on ``like``'s device and
+    dtype (the mask as bool): upload once and pass them to the element
+    functions, which then copy nothing from the host."""
+    return tuple(
+        torch.tensor(np.asarray(x), dtype=like.dtype, device=like.device)
+        for x in (arrays.length, arrays.elastic_modulus, arrays.moment_inertia,
+                  arrays.cross_area)
+    ) + (torch.tensor(np.asarray(arrays.nonlinear_mask), device=like.device),)
+
+
+def element_tangent_stiffness(arrays: BeamArrays, q6, use_consistent: bool = False,
+                              params=None):
+    """Per-element tangent ``df/dq`` blocks ``(..., E, 6, 6)`` at ``q6``
+    ``(..., E, 6)``: the forward-mode Jacobian of the element force
+    (``torch.func.jacfwd``, batched over elements and leading axes with
+    ``vmap``), as the JAX package's ``jacfwd``. The elementwise Jacobian
+    keeps the global tangent block-tridiagonal.
+
+    A NumPy ``q6`` is evaluated in float64 on the CPU and returns NumPy;
+    a tensor on its device and dtype. ``params``: :func:`element_params`
+    already uploaded for that device and dtype.
+    """
+    is_np = not isinstance(q6, torch.Tensor)
+    q = torch.as_tensor(np.asarray(q6, np.float64)) if is_np else q6
+    if params is None:
+        params = element_params(arrays, q)
+
+    def one(qe, L, E, I, A, nl):
+        return torch.func.jacfwd(
+            lambda x: elements.element_internal_force(
+                x, L, E, I, A, nl, use_consistent=use_consistent
+            )
+        )(qe)
+
+    per_element = torch.func.vmap(one)
+    batch = q.shape[:-2]
+    qf = q.reshape(-1, *q.shape[-2:])
+    Kt = torch.func.vmap(per_element, in_dims=(0,) + (None,) * 5)(qf, *params)
+    Kt = Kt.reshape(*batch, *Kt.shape[-3:])
+    return Kt.numpy() if is_np else Kt
+
+
+def tangent_block_tridiagonal(arrays: BeamArrays, q_full, use_consistent: bool = False,
+                              params=None):
+    """Global tangent stiffness in block-tridiagonal form at state ``q_full``.
+
+    Returns ``(diag (..., N, 3, 3), lower (..., E, 3, 3), upper (..., E, 3,
+    3))``. The parity element's tangent is not symmetric, so lower and upper
+    bands are kept separately. NumPy in, NumPy out (float64, evaluated on
+    the CPU); tensors stay on their device.
+    """
+    Kt = element_tangent_stiffness(
+        arrays, gather_element_states(q_full), use_consistent=use_consistent,
+        params=params,
+    )
+    return _sum_node_blocks(Kt), Kt[..., 3:6, 0:3], Kt[..., 0:3, 3:6]

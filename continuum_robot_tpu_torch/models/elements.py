@@ -14,8 +14,9 @@ The nonlinear polynomials are the exact rational form of the reference's
 six sympy-generated von Kármán force expressions, in the JAX package's
 expression order, including their non-variational quirks (``f1`` has no
 ``-EA*u2/L`` term; ``f4``/``f6`` are not mirror images). The variationally
-consistent energy-gradient element (``use_consistent=True``) is not ported
-and raises ``NotImplementedError``.
+consistent element (``use_consistent=True``) is the gradient of the
+element's von Kármán strain energy, written out in closed form over the
+same 5-point Gauss rule the JAX package differentiates with ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -278,6 +279,142 @@ def linear_force_planes(u1, w1, t1, u2, w2, t2, L, D, A):
     return f_ax1, f_tr1, f_mo1, -f_ax1, -f_tr1, f_mo2
 
 
+# ---------------------------------------------------------------------------
+# Variationally consistent alternative (energy gradient)
+# ---------------------------------------------------------------------------
+
+# 5-point Gauss-Legendre rule on [0, 1]: the element energy's integrand is
+# of degree 8, so the rule is exact.
+_GAUSS_X = (
+    0.5 - 0.45308992296933193, 0.5 - 0.26923465505284155, 0.5,
+    0.5 + 0.26923465505284155, 0.5 + 0.45308992296933193,
+)
+_GAUSS_W = (
+    0.11846344252809454, 0.23931433524968324, 0.28444444444444444,
+    0.23931433524968324, 0.11846344252809454,
+)
+
+
+def _hermite(xi):
+    """First and second xi-derivatives of the four Hermite cubics at ``xi``."""
+    d1 = (6.0 * xi * xi - 6.0 * xi, 3.0 * xi * xi - 4.0 * xi + 1.0,
+          -6.0 * xi * xi + 6.0 * xi, 3.0 * xi * xi - 2.0 * xi)
+    d2 = (12.0 * xi - 6.0, 6.0 * xi - 4.0, -12.0 * xi + 6.0, 6.0 * xi - 2.0)
+    return d1, d2
+
+
+def _consistent_matrices():
+    """Constant matrices of the consistent element over the Gauss points.
+
+    With the element planes ``X = [(w1 - w2)/L, t1, t2]``, ``w' = X @ D[:, :5]``
+    and ``L w'' = X @ D[:, 5:]`` at the five points (``w = w1 H1 - t1 L H2 +
+    w2 H3 - t2 L H4`` with ``phi = -w'``; ``H3' = -H1'`` and ``H3'' =
+    -H1''``, so ``w1`` and ``w2`` enter through their difference). ``P``
+    and ``Q`` hold the weighted slopes ``gw * (H1', H2', H4')`` and ``gw *
+    (H1'', H2'', H4'')`` that the axial term ``N w'`` and the moment
+    contract with."""
+    h1 = np.array([_hermite(x)[0] for x in _GAUSS_X])  # (point, H1'..H4')
+    h2 = np.array([_hermite(x)[1] for x in _GAUSS_X])
+    sel = [0, 1, 3]
+    D = np.concatenate([h1[:, sel].T, h2[:, sel].T], axis=1) * np.array([[1.0], [-1.0], [-1.0]])
+    gw = np.array(_GAUSS_W)
+    return D, gw[:, None], gw[:, None] * h1[:, sel], gw[:, None] * h2[:, sel]
+
+
+_CONSISTENT_NP = _consistent_matrices()
+_CONSISTENT_UPLOADS = {}  # (device, dtype) -> _CONSISTENT_NP as tensors
+
+
+def _consistent_consts(ref):
+    """:data:`_CONSISTENT_NP` on the device and dtype of tensor ``ref``
+    (uploaded once), or as NumPy when ``ref`` is None."""
+    if ref is None:
+        return _CONSISTENT_NP
+    key = (ref.device, ref.dtype)
+    if key not in _CONSISTENT_UPLOADS:
+        _CONSISTENT_UPLOADS[key] = tuple(
+            torch.tensor(a, dtype=ref.dtype, device=ref.device) for a in _CONSISTENT_NP
+        )
+    return _CONSISTENT_UPLOADS[key]
+
+
+def _planes_matmul(M, planes):
+    """``M^T`` applied across stacked planes: ``(k, ...) -> (m, ...)``."""
+    return (M.T @ planes.reshape(planes.shape[0], -1)).reshape(M.shape[1], *planes.shape[1:])
+
+
+def _gauss_slopes(u1, w1, t1, u2, w2, t2, L):
+    """``(consts, 1/L, u', w', L w'')``: the element's axial strain and the
+    transverse slope and curvature at the five Gauss points, stacked on a
+    leading axis."""
+    xp = _ns(u1, w1, t1, u2, w2, t2, L)
+    consts = _consistent_consts(next(
+        (a for a in (u1, w1, t1, u2, w2, t2, L) if isinstance(a, torch.Tensor)), None))
+    invL = 1.0 / L
+    X = xp.stack(_broadcast(xp, (w1 - w2) * invL, t1, t2), 0)
+    G = _planes_matmul(consts[0], X)
+    return consts, invL, (u2 - u1) * invL, G[:5], G[5:]
+
+
+def element_strain_energy(q6, length, elastic_modulus, moment_inertia, cross_area):
+    """Von Kármán strain energy of one element by 5-point Gauss quadrature.
+
+    ``U = 1/2 \\int EA (u' + w'^2/2)^2 + EI (w'')^2 dx`` with linear axial
+    and Hermite-cubic transverse interpolation under the ``phi = -w'``
+    convention. Broadcasts over leading axes; returns ``(...,)``.
+    """
+    _, (q6, L, E, I, A) = _as_arrays(
+        q6, length, elastic_modulus, moment_inertia, cross_area
+    )
+    (_, gw, _, _), invL, up, wp, lwpp = _gauss_slopes(*(q6[..., i] for i in range(6)), L)
+    strain = up + 0.5 * wp * wp
+    wpp = lwpp * invL
+    dens = 0.5 * (E * A * strain * strain + E * I * wpp * wpp)
+    return _planes_matmul(gw, dens)[0] * L
+
+
+def consistent_force_planes(u1, w1, t1, u2, w2, t2, L, D, A):
+    """The energy-consistent element force on separate state planes, in the
+    slot order of :func:`nonlinear_force_planes`.
+
+    ``f = dU/dq`` of :func:`element_strain_energy`: at each Gauss point the
+    axial force ``N = EA (u' + w'^2/2)`` and the moment ``M = EI w''``
+    contract with the derivatives of ``u'``, ``w'`` and ``w''`` with respect
+    to the six DOFs. The five points are handled at once as small matrix
+    products over stacked planes (:func:`_consistent_matrices`).
+    """
+    (_, gw, P, Q), invL, up, wp, lwpp = _gauss_slopes(u1, w1, t1, u2, w2, t2, L)
+    N = A * (up + 0.5 * wp * wp)
+    SN = _planes_matmul(gw, N)[0]
+    Pv = _planes_matmul(P, N * wp)
+    Qv = _planes_matmul(Q, (D * invL) * lwpp)  # the moment M = EI w''
+    fw1 = Pv[0] + Qv[0] * invL
+    ft1 = -(L * Pv[1] + Qv[1])
+    ft2 = -(L * Pv[2] + Qv[2])
+    return -SN, fw1, ft1, SN, -fw1, ft2
+
+
+def nonlinear_internal_force_consistent(
+    q6, length, elastic_modulus, moment_inertia, cross_area
+):
+    """Energy-consistent von Kármán internal force ``f = dU/dq``.
+
+    The gradient of :func:`element_strain_energy`, written out
+    (:func:`consistent_force_planes`). Returns ``(..., 6)`` in ``q6`` order
+    ``[u1, w1, t1, u2, w2, t2]``.
+    """
+    xp, (q6, L, E, I, A) = _as_arrays(
+        q6, length, elastic_modulus, moment_inertia, cross_area
+    )
+    planes = consistent_force_planes(*(q6[..., i] for i in range(6)), L, E * I, E * A)
+    return xp.stack(_broadcast(xp, *planes), -1)
+
+
+# ---------------------------------------------------------------------------
+# Unified per-element dispatch (hybrid beams)
+# ---------------------------------------------------------------------------
+
+
 def element_internal_force(
     q6,
     length,
@@ -287,23 +424,22 @@ def element_internal_force(
     nonlinear_mask,
     use_consistent: bool = False,
 ):
-    """Hybrid element force: ``Ke q6`` where the mask is False, the parity
-    polynomials where it is True. Both are evaluated and selected
-    elementwise. ``use_consistent=True`` (the energy-gradient element) is
-    not ported and raises."""
-    if use_consistent:
-        raise NotImplementedError(
-            "the consistent (energy-gradient) nonlinear element is not yet "
-            "ported"
-        )
+    """Hybrid element force: ``Ke q6`` where the mask is False, the
+    nonlinear element where it is True (the parity polynomials, or the
+    energy gradient with ``use_consistent=True``). Both are evaluated and
+    selected elementwise. A tensor mask stays on its device."""
     xp, (q6, L, E, I, A) = _as_arrays(
         q6, length, elastic_modulus, moment_inertia, cross_area
     )
     K = linear_stiffness_matrix(L, E, I, A)
     f_lin = xp.einsum("...ij,...j->...i", K, q6)
-    nl = nonlinear_internal_force(q6, L, E, I, A)
+    nl_force = (nonlinear_internal_force_consistent if use_consistent
+                else nonlinear_internal_force)
+    nl = nl_force(q6, L, E, I, A)
     if xp is np:
         mask = np.asarray(nonlinear_mask)
+    elif isinstance(nonlinear_mask, torch.Tensor):
+        mask = nonlinear_mask.to(q6.device)
     else:
-        mask = torch.as_tensor(nonlinear_mask, device=q6.device)
+        mask = torch.as_tensor(np.asarray(nonlinear_mask), device=q6.device)
     return xp.where(mask[..., None], nl, f_lin)

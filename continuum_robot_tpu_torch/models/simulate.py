@@ -1,6 +1,7 @@
 """Modal engines and the ``simulate`` entry point (PyTorch).
 
-Counterpart of the modal slices of ``continuum_robot_tpu/models/simulate.py``:
+Counterpart of the modal and fixed-step implicit slices of
+``continuum_robot_tpu/models/simulate.py``:
 
 * :class:`ModalGenAlpha` (exact modal superposition of the linear beam's
   generalized-α recurrence), its composed-propagator drive
@@ -11,9 +12,15 @@ Counterpart of the modal slices of ``continuum_robot_tpu/models/simulate.py``:
   :func:`make_modal_rom`, ECSW hyper-reduction
   (:meth:`ModalROMGenAlpha.hyper_reduce`) and the fused ROM rollout
   (:meth:`ModalROMGenAlpha.make_pallas_rollout`);
-* :func:`simulate` for ``method="modal"`` and ``method="modal_rom"``.
+* :func:`make_newmark_operator`, the full-order implicit operators
+  (block-tridiagonal mass and tangent, the ``btd``/``cr``/``dense_inv``/
+  ``pallas`` linear solvers, the last through the CUDA kernel
+  ``ops/cuda/btd_solve``);
+* :func:`simulate` for ``method="modal"``, ``"modal_rom"``, ``"newmark"``
+  and ``"generalized_alpha"``.
 
-Host setup stays NumPy float64 (eigensolves, map composition, NNLS);
+Host setup stays NumPy float64 (eigensolves, map composition, NNLS,
+prefactoring);
 rollouts run on the device and dtype of the state tensors. Entry points
 put NumPy inputs on the card unless the caller asks for another device
 (:func:`resolve_device`). The engine names of :func:`simulate` are those
@@ -33,15 +40,16 @@ import numpy as np
 import torch
 
 from . import assembly, elements
+from ..ops import banded, integrators
+from ..ops.cuda import btd_solve as btd_kernel
 from ..ops.cuda import modal_rollout as kernels
 
 # Bound of each engine's memo of composed maps and device uploads.
 _MEMO_SIZE = 16
 
 _NOT_PORTED = (
-    "rk4", "dopri5", "newmark", "generalized_alpha",
-    "generalized_alpha_adaptive", "implicit_adaptive", "sdirk3",
-    "sdirk3_adaptive", "modal_rom_adaptive",
+    "rk4", "dopri5", "generalized_alpha_adaptive", "implicit_adaptive",
+    "sdirk3", "sdirk3_adaptive", "modal_rom_adaptive",
 )
 
 
@@ -827,33 +835,297 @@ def make_modal_rollout_fn(
 def reduce_matrix_dense(arrays, free_dofs, use_consistent: bool = False) -> np.ndarray:
     """Reduced dense tangent stiffness at q=0 (host float64).
 
-    The exact zero-state element tangents, assembled and reduced to the
-    free DOFs. The von Kármán correction has zero Jacobian at q=0, so a
-    nonlinear element's tangent is its linear planes evaluated on the six
-    unit vectors (non-symmetric: the parity element's ``f1`` has no
-    ``-EA*u2/L`` term); a linear element's is its stiffness matrix.
-    The state-dependent tangent at q != 0 is not ported.
+    The zero-state element tangents, assembled and reduced to the free
+    DOFs. For the parity element they are exact: the von Kármán correction
+    has zero Jacobian at q=0, so a nonlinear element's tangent is its linear
+    planes evaluated on the six unit vectors (non-symmetric: ``f1`` has no
+    ``-EA*u2/L`` term); a linear element's is its stiffness matrix. The
+    consistent element's come from :func:`assembly.element_tangent_stiffness`
+    (the forward-mode Jacobian of its force, as in the JAX package).
     """
-    if use_consistent:
-        raise NotImplementedError(
-            "the consistent (energy-gradient) nonlinear element is not yet "
-            "ported"
-        )
     L = np.asarray(arrays.length, np.float64)
     E = np.asarray(arrays.elastic_modulus, np.float64)
     I = np.asarray(arrays.moment_inertia, np.float64)
     A = np.asarray(arrays.cross_area, np.float64)
-    eye = np.eye(6)[:, :, None]  # (unit vector j, component, element)
-    cols = elements.nonlinear_linear_planes(*eye, L, E * I, E * A)  # 6 x (6, E)
-    K_nl = np.moveaxis(np.stack(cols), -1, 0)  # (E, slot i, unit j)
-    K_lin = elements.linear_stiffness_matrix(L, E, I, A)
-    Ke = np.where(np.asarray(arrays.nonlinear_mask)[:, None, None], K_nl, K_lin)
+    if use_consistent:
+        Ke = assembly.element_tangent_stiffness(
+            arrays, np.zeros((L.shape[0], 6)), use_consistent=True
+        )
+    else:
+        eye = np.eye(6)[:, :, None]  # (unit vector j, component, element)
+        cols = elements.nonlinear_linear_planes(*eye, L, E * I, E * A)  # 6 x (6, E)
+        K_nl = np.moveaxis(np.stack(cols), -1, 0)  # (E, slot i, unit j)
+        K_lin = elements.linear_stiffness_matrix(L, E, I, A)
+        Ke = np.where(np.asarray(arrays.nonlinear_mask)[:, None, None], K_nl, K_lin)
     n_full = 3 * (Ke.shape[0] + 1)
     K = np.zeros((n_full, n_full))
     for e in range(Ke.shape[0]):
         K[3 * e : 3 * e + 6, 3 * e : 3 * e + 6] += Ke[e]
     free = np.asarray(free_dofs)
     return K[np.ix_(free, free)]
+
+
+# ---------------------------------------------------------------------------
+# Full-order implicit operators (Newmark / generalized-alpha)
+# ---------------------------------------------------------------------------
+
+LINEAR_SOLVERS = ("btd", "cr", "dense_inv", "pallas")
+# linear_solver=None on the card: the faster of "pallas" and "dense_inv" in
+# chip_smoke.py's full-width timing of the implicit main path (PERF.md).
+CARD_LINEAR_SOLVER = "pallas"
+
+
+def _to_like(x, like):
+    """Host arrays in a (nested) factor structure as tensors on ``like``'s
+    device and dtype; ints and None pass through."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    if isinstance(x, tuple):
+        return tuple(_to_like(v, like) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_like(v, like) for k, v in x.items()}
+    return x
+
+
+class _OperatorUploads(_Uploads):
+    """An operator's host constants, uploaded once per (device, dtype)."""
+
+    def __init__(self, build):
+        self._build = build  # name -> host value, or a callable of ``like``
+
+    def get(self, name, like: torch.Tensor):
+        def upload():
+            val = self._build[name]
+            return val(like) if callable(val) else _to_like(val, like)
+
+        return self._memo((name, like.dtype, like.device), upload)
+
+
+def make_newmark_operator(
+    model,
+    forces_func: Optional[Callable] = None,
+    dt: float = None,
+    beta: float = 0.25,
+    use_modified_newton: bool = True,
+    linear_solver: str = None,
+    extra_systems=None,
+    matmul_precision=None,
+    device=None,
+    dtype: torch.dtype = None,
+):
+    """Build the implicit-stepper operators for a dynamic beam model.
+
+    All operators act on *reduced* coordinates; internally the Jacobian
+    solves run in zero-padded full coordinates, where the system stays
+    block-tridiagonal (``ops/banded.py``). All-linear beams and modified
+    Newton (the zero-state tangent) prefactor their effective Jacobians
+    ``a M + c K`` once on the host in float64: the plain mass system ``(1,
+    0)``, Newmark's ``(1, beta dt^2)`` when ``dt`` is given, and
+    ``extra_systems`` (generalized-α's ``(1 - am, (1 - af) beta dt^2)``).
+    Full Newton (``use_modified_newton=False`` on a nonlinear beam) factors
+    at each linearization point, per environment.
+
+    ``linear_solver``: how the prefactored solves run —
+
+    * ``"btd"`` — block-Thomas sweeps in plain PyTorch (a loop over nodes,
+      batched over environments);
+    * ``"cr"`` — block cyclic reduction, ``ceil(log2(N+1))`` batched levels;
+    * ``"dense_inv"`` — host float64 inverses of the reduced systems applied
+      with ``torch.matmul``; the mass apply (and, for all-linear beams, the
+      internal force) are dense reduced-matrix products too;
+    * ``"pallas"`` — the block-Thomas sweeps as the hand-written CUDA kernel
+      ``ops/cuda/btd_solve.btd_solve`` (the name of the JAX package's TPU
+      kernel mode); CPU tensors run its plain version, ``"btd"``'s sweep.
+
+    ``None`` takes ``"btd"`` on the CPU and :data:`CARD_LINEAR_SOLVER` on
+    the card. Solves that are not prefactored (full Newton) run the plain
+    sweep of their mode. ``matmul_precision`` is accepted for the JAX
+    signature: the dense products stay true float32/float64 (TF32 is off
+    from import). The factors, mass bands, dense matrices and element
+    arrays go to a tensor's device and dtype once, on first use.
+
+    ``forces_func(x, t)``: a torch callable of the state ``x = [q; v]``
+    returning a force over the position DOFs; None takes the model's force
+    registry (registered fluid drag and gravity are not ported and raise
+    when evaluated; an empty registry adds nothing). ``device``/``dtype``:
+    where NumPy inputs of the callables go (None: the card, float64); the
+    device also picks the ``linear_solver`` default.
+    """
+    device = resolve_device(device)
+    dtype = torch.float64 if dtype is None else dtype
+    if linear_solver is None:
+        linear_solver = "btd" if device.type == "cpu" else CARD_LINEAR_SOLVER
+    if linear_solver not in LINEAR_SOLVERS:
+        raise ValueError(
+            f"Unknown linear_solver {linear_solver!r} (use one of {LINEAR_SOLVERS})"
+        )
+    del matmul_precision  # true float32/float64 products always
+
+    arrays = model.beam_model.arrays
+    bc_info = model.beam_model.bc_info
+    free = np.asarray(bc_info.free_dofs)
+    n_full = bc_info.n_dofs_full
+    n_nodes = bc_info.n_nodes
+    mask_nodes = bc_info.free_mask.reshape(n_nodes, 3)
+    use_consistent = getattr(model, "use_consistent_nonlinear", False)
+    all_linear = not bool(np.any(np.asarray(arrays.nonlinear_mask)))
+    if forces_func is None and len(model.force_registry) > 0:
+        forces_func = model.force_registry.create_aggregated_function()
+
+    # Host float64 set-up.
+    m_diag, m_off = assembly.mass_block_tridiagonal(arrays)
+    mass_bands = banded.btd_apply_bc(
+        np.asarray(m_diag), np.swapaxes(np.asarray(m_off), -1, -2),
+        np.asarray(m_off), mask_nodes,
+    )
+    dense = linear_solver == "dense_inv"
+    M_red = np.asarray(model.beam_model.M.toarray(), np.float64) if dense else None
+    K_red = reduce_matrix_dense(arrays, free, use_consistent) if dense else None
+    tangent0 = None
+    if all_linear or use_modified_newton:
+        tangent0 = assembly.tangent_block_tridiagonal(
+            arrays, np.zeros(n_full), use_consistent=use_consistent
+        )
+
+    def factor(mass, tangent, a, c, mask):
+        """Factors of ``a M + c K`` with the constraints imposed (host NumPy
+        or device tensors)."""
+        bands = banded.btd_apply_bc(*(a * m + c * k for m, k in zip(mass, tangent)), mask)
+        if linear_solver == "cr":
+            return banded.btd_cr_factor(*bands)
+        return banded.btd_factor(*bands)
+
+    prefactored, dense_inverses = {}, {}
+    if tangent0 is not None:
+        systems = [(1.0, 0.0)]
+        if dt is not None:
+            systems.append((1.0, beta * dt * dt))
+        systems.extend(extra_systems or [])
+        for a, c in systems:
+            key = (float(a), float(c))
+            if dense:
+                dense_inverses[key] = np.linalg.inv(a * M_red + c * K_red)
+            else:
+                prefactored[key] = factor(mass_bands, tangent0, a, c, mask_nodes)
+
+    # Free DOFs: a contiguous run (every fixed-base beam) pads and slices;
+    # otherwise index tensors.
+    lo = int(free[0]) if free.size else 0
+    contiguous = np.array_equal(free, np.arange(lo, lo + free.size))
+    up = _OperatorUploads({
+        "mass_bands": mass_bands,
+        "M_red": M_red,
+        "K_red": K_red,
+        "tangent0": tangent0,
+        "mask_nodes": mask_nodes.astype(np.float64),
+        "params": lambda like: assembly.element_params(arrays, like),
+        "free": lambda like: torch.as_tensor(free, device=like.device),
+        **{("factors", k): v for k, v in prefactored.items()},
+        **{("inv", k): v for k, v in dense_inverses.items()},
+    })
+
+    def tensor(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    def pad(r):
+        if contiguous:
+            return torch.nn.functional.pad(r, (lo, n_full - lo - free.size))
+        out = r.new_zeros(*r.shape[:-1], n_full)
+        out[..., up.get("free", r)] = r
+        return out
+
+    def red(v):
+        if contiguous:
+            return v[..., lo : lo + free.size]
+        return v[..., up.get("free", v)]
+
+    def nodes(r):
+        return pad(r).reshape(*r.shape[:-1], n_nodes, 3)
+
+    def full_to_red(x, r):
+        return red(x.reshape(*r.shape[:-1], n_full))
+
+    if dense:
+
+        def mass_apply(a_red):
+            a_red = tensor(a_red)
+            return a_red @ up.get("M_red", a_red).mT
+
+    else:
+
+        def mass_apply(a_red):
+            a_red = tensor(a_red)
+            out = banded.btd_matvec(*up.get("mass_bands", a_red), nodes(a_red))
+            return full_to_red(out, a_red)
+
+    if dense and all_linear:
+
+        def internal_force(q_red):
+            q_red = tensor(q_red)
+            return q_red @ up.get("K_red", q_red).mT
+
+    else:
+        k_planar = assembly.make_planar_internal_force(arrays, use_consistent)
+
+        def internal_force(q_red):
+            # Element forces on [u; w; theta] node planes: contiguous planes
+            # for the elementwise work, one transpose each way.
+            q_red = tensor(q_red)
+            q_p = nodes(q_red).transpose(-1, -2).contiguous()
+            f = k_planar(q_p).transpose(-1, -2).reshape(*q_red.shape[:-1], n_full)
+            return red(f)
+
+    def factors_at(q_full, c, a):
+        """Per-environment factors at the linearization point ``q_full``."""
+        if tangent0 is not None:
+            tangent = up.get("tangent0", q_full)
+        else:
+            tangent = assembly.tangent_block_tridiagonal(
+                arrays, q_full, use_consistent=use_consistent,
+                params=up.get("params", q_full),
+            )
+        return factor(up.get("mass_bands", q_full), tangent, a, c,
+                      up.get("mask_nodes", q_full))
+
+    sweep = banded.btd_cr_solve if linear_solver == "cr" else banded.btd_solve
+    prefactored_sweep = btd_kernel.btd_solve if linear_solver == "pallas" else sweep
+
+    def solve(q_red, c, a=1.0):
+        key = (float(a), float(c))
+        if key in dense_inverses:
+
+            def do_solve(r_red):
+                r_red = tensor(r_red)
+                return r_red @ up.get(("inv", key), r_red).mT
+
+            return do_solve
+
+        if key in prefactored:
+
+            def do_solve(r_red):
+                r_red = tensor(r_red)
+                x = prefactored_sweep(up.get(("factors", key), r_red), nodes(r_red))
+                return full_to_red(x, r_red)
+
+            return do_solve
+
+        factors = factors_at(pad(tensor(q_red)), c, a)
+
+        def do_solve(r_red):
+            r_red = tensor(r_red)
+            return full_to_red(sweep(factors, nodes(r_red)), r_red)
+
+        return do_solve
+
+    return integrators.NewmarkOperator(
+        mass_apply=mass_apply,
+        internal_force=internal_force,
+        external_force=forces_func,
+        solve=solve,
+        tangent_frozen=tangent0 is not None,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1435,8 +1707,8 @@ def make_modal_rom(
 
     Not ported (raise ``NotImplementedError``): registered or user
     external forces (``forces_func``, the model's force registry), basis
-    augmentation (``static_vectors``, ``modal_derivatives``) and the
-    consistent element.
+    augmentation (``static_vectors``, ``modal_derivatives``) and the ROM of
+    the consistent element.
     """
     from scipy.linalg import eig, eigh
 
@@ -1451,14 +1723,18 @@ def make_modal_rom(
             "static_vectors / modal_derivatives basis augmentation is not "
             "yet ported"
         )
-    use_consistent = getattr(model, "use_consistent_nonlinear", False)
+    if getattr(model, "use_consistent_nonlinear", False):
+        raise NotImplementedError(
+            "the modal ROM of the consistent (energy-gradient) element is "
+            "not yet ported"
+        )
     arrays = model.beam_model.arrays
     bc_info = model.beam_model.bc_info
     free = bc_info.free_dofs
     n_full = bc_info.n_dofs_full
 
     M = np.asarray(model.beam_model.M.toarray(), dtype=np.float64)
-    K0 = reduce_matrix_dense(arrays, free, use_consistent)
+    K0 = reduce_matrix_dense(arrays, free)
 
     sym_scale = np.abs(K0).max()
     if basis is not None:
@@ -1641,6 +1917,36 @@ def _simulate_modal_rom(model, x0, n_steps, dt, u, substeps, n_newton,
     return _frames_result(ms, x0, u_modal, n_steps, substeps, drive)
 
 
+def _simulate_implicit(model, x0, n_steps, dt, method, u, forces_func,
+                       substeps, n_newton, linear_solver, rho_inf):
+    """``simulate(method="newmark"|"generalized_alpha")``: the full-order
+    implicit rollout on the operators of :func:`make_newmark_operator`."""
+    h = dt / substeps
+    n = x0.shape[-1] // 2
+    q0, v0 = x0[..., :n], x0[..., n:]
+    kw = dict(forces_func=forces_func, linear_solver=linear_solver,
+              device=x0.device, dtype=x0.dtype)
+    if method == "newmark":
+        op = make_newmark_operator(model, dt=h, **kw)
+        ts, qs, vs = integrators.integrate_newmark(
+            op, q0, v0, 0.0, dt, n_steps, u=u, n_newton=n_newton,
+            substeps=substeps,
+        )
+    else:
+        am = (2.0 * rho_inf - 1.0) / (rho_inf + 1.0)
+        af = rho_inf / (rho_inf + 1.0)
+        beta_ga = 0.25 * (1.0 - am + af) ** 2
+        op = make_newmark_operator(
+            model, dt=None, extra_systems=[(1.0 - am, (1.0 - af) * beta_ga * h * h)],
+            **kw,
+        )
+        ts, qs, vs = integrators.integrate_generalized_alpha(
+            op, q0, v0, 0.0, dt, n_steps, u=u, rho_inf=rho_inf,
+            n_newton=n_newton, substeps=substeps,
+        )
+    return SimulationResult(ts=ts, ys=torch.cat([qs, vs], dim=-1), stats=None)
+
+
 def simulate(
     model,
     x0,
@@ -1669,13 +1975,16 @@ def simulate(
     """Run a complete rollout.
 
     The signature is the JAX package's, so one call works in both. Ported
-    methods: ``"modal"`` (linear beams, exact diagonalized recurrence) and
+    methods: ``"modal"`` (linear beams, exact diagonalized recurrence),
     ``"modal_rom"`` (nonlinear/hybrid Petrov-Galerkin reduction; ``n_modes``
-    truncates the basis, ``n_newton`` sets the modified-Newton iterations);
-    every other method raises ``NotImplementedError``. The arguments that
-    only other methods read (``rtol``, ``atol``, ``linear_solver``,
-    ``jit``) are accepted and unused; ``nl_precision`` is accepted and the
-    ROM transforms stay true float32/float64.
+    truncates the basis, ``n_newton`` sets the modified-Newton iterations),
+    and the full-order implicit ``"newmark"`` and ``"generalized_alpha"``
+    (any beam; ``n_newton`` modified-Newton iterations per step,
+    ``linear_solver`` as in :func:`make_newmark_operator`, a torch
+    ``forces_func(x, t)``); every other method raises
+    ``NotImplementedError``. The arguments that only other methods read
+    (``rtol``, ``atol``, ``jit``) are accepted and unused; ``nl_precision``
+    is accepted and the ROM transforms stay true float32/float64.
 
     Args:
         model: a :class:`DynamicEulerBernoulliBeam` of this package.
@@ -1739,7 +2048,7 @@ def simulate(
             )
     if method in _NOT_PORTED:
         raise NotImplementedError(f"method={method!r} is not yet ported")
-    if method not in ("modal", "modal_rom"):
+    if method not in ("modal", "modal_rom", "newmark", "generalized_alpha"):
         raise ValueError(f"Unknown method: {method}")
     if chunk is not None:
         raise ValueError(
@@ -1755,6 +2064,10 @@ def simulate(
         x0 = torch.as_tensor(np.asarray(x0), device=resolve_device(device))
     if dtype is not None:
         x0 = x0.to(dtype)
+
+    if method in ("newmark", "generalized_alpha"):
+        return _simulate_implicit(model, x0, n_steps, dt, method, u, forces_func,
+                                  substeps, n_newton, linear_solver, rho_inf)
 
     if method == "modal_rom":
         if forces_func is not None:

@@ -1,5 +1,6 @@
-"""Numerical operators: the CUDA kernels of the modal engine."""
+"""Numerical operators: block-tridiagonal algebra (``banded``), the
+implicit integrators (``integrators``) and the CUDA kernels (``cuda``)."""
 
-from . import cuda
+from . import banded, cuda, integrators
 
-__all__ = ["cuda"]
+__all__ = ["banded", "cuda", "integrators"]

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) with plain PyTorch twins.
 
 ``modal_rollout``: the linear modal gen-α kernels; ``rom_rollout``: the
-fused modal-ROM gen-α kernels. Importing this package builds nothing; the
+fused modal-ROM gen-α kernels; ``btd_solve``: the block-tridiagonal solve
+of the implicit integrators. Importing this package builds nothing; the
 kernels are compiled on first use by a CUDA tensor (``_build.py``).
 """
 

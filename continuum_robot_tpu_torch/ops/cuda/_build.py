@@ -28,6 +28,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "modal_rollout": CSRC / "modal_rollout.cu",
     "rom_rollout": CSRC / "rom_rollout.cu",
+    "btd_solve": CSRC / "btd_solve.cu",
 }
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -65,6 +66,9 @@ _SIGNATURES = {
         + [_c_ptr] * 3 + [_c_fptr, _c_ptr],
         "rom_newton_dense_launch": [_c_int] * 2 + [_c_ptr] * 6 + [_c_int]
         + [_c_ptr] * 3 + [_c_fptr, _c_ptr],
+    },
+    "btd_solve": {
+        "btd_solve_launch": [_c_int] * 3 + [_c_ptr] * 6,
     },
 }
 

@@ -189,9 +189,6 @@ def test_entry_points_default_to_the_card(beams, monkeypatch, entry):
 def test_unported_parts_raise(beams, tmp_path):
     _, tb = beams["nonlinear"]
     with pytest.raises(NotImplementedError):
-        te.element_internal_force(np.zeros((1, 6)), 0.1, 1e9, 1e-9, 1e-5,
-                                  [True], use_consistent=True)
-    with pytest.raises(NotImplementedError):
         ts.make_modal_rom(tb, DT, n_modes=4, static_vectors=np.ones(24),
                           device="cpu")
     with pytest.raises(NotImplementedError):
