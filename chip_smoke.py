@@ -4,6 +4,7 @@
     python3 chip_smoke.py                     # the full check
     python3 chip_smoke.py --profile           # ROM main path under torch.profiler
     python3 chip_smoke.py --profile implicit  # implicit main path under torch.profiler
+    python3 chip_smoke.py --profile fused     # fused small-beam span under torch.profiler
 
 Phases, one line each (any failure exits non-zero):
 
@@ -68,7 +69,29 @@ Phases, one line each (any failure exits non-zero):
 17. implicit timings: the kernel per launch against its plain version, its
     bound and the dense-inverse product (the one torch call computing the
     same solve); 50 steps of the linear main path with "pallas" and with
-    "dense_inv" (the measurement behind ``CARD_LINEAR_SOLVER``).
+    "dense_inv" (the measurement behind ``CARD_LINEAR_SOLVER``);
+18. fused small-beam kernel vs plain: ``ops/cuda/fused_rollout``'s
+    ``fused_gen_alpha_steps`` against its plain twin on the card, float32
+    and float64, on random well-conditioned operators with drag and a
+    nonzero force (n=13 with 5 envs; n=36 with 37 envs, rows past 32
+    lanes) and at the main path's shape (the water beam's operators, 4096
+    envs, 20 steps); bit for bit;
+19. fused small-beam path: the JAX package's sweep of
+    examples/batched_rollouts.py on the reference's 6-segment linear
+    Nitinol cantilever in water, 4096 envs with tip displacements ~ N(0,
+    1e-3), generalized-alpha over t=0.25 s at dt=1e-3 with 20 substeps
+    (5000 implicit steps), rho_inf=0.8, two Newton iterations,
+    ``fused_rollout`` in float32 (the timed span, best of 3): checks (a)
+    the same rollout in float64 against float64 ``simulate(method=
+    "generalized_alpha")`` with the registered drag (<= 1e-9 x the state
+    scale, q and v each against its own), (b) float32 against float64 (<=
+    1e-3, q and v each against its own norm), (c) finite states;
+20. entry points: ``simulate(method="generalized_alpha"|"newmark")`` on
+    the same beam with drag and gravity, 64 envs, 10 frames x 20 substeps,
+    "pallas" bit for bit equal to "btd"; ``parallel.batched_rollout`` bit
+    for bit equal to ``simulate``; ``sweep_statistics`` finite; then the
+    fused timings: the kernel per launch at 4096 and 65536 envs against
+    its plain twin and its bound, and the float64 oracle span's time.
 
 Launch counts are set to 0 just before each path and read just after it:
 the linear main path (``rollout_power``), ``rollout_pallas`` and the
@@ -77,7 +100,10 @@ the linear main path (``rollout_power``), ``rollout_pallas`` and the
 ``simulate(method="modal_rom", engine="pallas")`` (11); the implicit
 linear and nonlinear main paths (14, 15; the block-tridiagonal kernel once
 for the initial acceleration and once per Newton iteration: 2001 and 4001)
-and the ``simulate`` runs with ``linear_solver="pallas"`` (16). Every
+and the ``simulate`` runs with ``linear_solver="pallas"`` (16); the fused
+small-beam path in float32 and float64 (19, one launch per frame: 250),
+its float64 oracle (19, the block-tridiagonal kernel 1 + 5000 x 2 times)
+and the ``simulate`` and ``batched_rollout`` runs of phase 20. Every
 kernel must have been launched by its own path, and each ROM path must
 launch exactly its kernels, once per Newton iteration of every step. The
 second-to-last lines are the kernels' JSON record (``launches`` from the
@@ -87,7 +113,8 @@ the last line is the JSON result naming the device.
 ``--profile`` builds the ROM main path only (``--profile implicit``: the
 linear implicit main path) and runs ``PROFILE_STEPS`` steps of it under
 ``torch.profiler``: device time by kernel, and the device's busy share of
-the same steps timed without the profiler.
+the same steps timed without the profiler. ``--profile fused`` does the
+same for the whole float32 span of the fused small-beam path.
 """
 
 from __future__ import annotations
@@ -130,6 +157,15 @@ IMP_VS_MODAL_MAX = 1e-6  # float64 full-order vs float64 modal, same recurrence
 IMP_F32_MAX = 1e-2  # float32 span vs float64 span
 IMP_DENSE_MAX = 1e-8  # float64, prefactored sweeps vs dense inverses
 IMP_SIM_MAX = 1e-9  # simulate cr / dense_inv vs btd, x state scale, float64
+# The fused small-beam sweep (the JAX package's examples/batched_rollouts.py:34-62)
+# on the reference's 6-segment linear Nitinol cantilever in water
+# (examples/example_utilities.py:27-83), nothing cut.
+FUSED = dict(envs=4096, t_final=0.25, dt=1e-3, substeps=20, rho_inf=0.8, n_newton=2,
+             tip_scale=1e-3, big_envs=65536)
+FUSED_SMALL = ((13, 5), (36, 37))  # (n, envs): random operators, ragged sizes
+FUSED_SIM = dict(envs=64, frames=10, substeps=20)
+FUSED_VS_SIM_MAX = 1e-9  # float64 fused vs float64 simulate, x state scale
+FUSED_F32_MAX = 1e-3  # float32 fused vs float64 fused, each of q, v by norm
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -153,6 +189,8 @@ ROM_PATH = {**{k: "window" for k in ROM_WINDOW},
             "rom_correction_gathered": "ecsw", "rom_newton_dense": "dense_newton"}
 BTD_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/btd_solve.cu"
 BTD_REPLACES = "continuum_robot_tpu/ops/pallas/btd_solve.py:97"
+FUSED_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/fused_rollout.cu"
+FUSED_REPLACES = "continuum_robot_tpu/ops/pallas/fused_rollout.py:97"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -598,10 +636,10 @@ def profile_rom(crt, dev, card) -> None:
                  dev, card, "the ROM main path")
 
 
-def profile_span(span, dev, card, what: str) -> None:
-    """Run ``span`` (``PROFILE_STEPS`` steps of ``what``) under
-    ``torch.profiler``: device time by kernel, and the device's busy share
-    of the best of three unprofiled runs."""
+def profile_span(span, dev, card, what: str, steps: int = PROFILE_STEPS) -> None:
+    """Run ``span`` (``steps`` steps of ``what``) under ``torch.profiler``:
+    device time by kernel, and the device's busy share of the best of three
+    unprofiled runs."""
     from torch.profiler import ProfilerActivity, profile
 
     span()
@@ -619,12 +657,12 @@ def profile_span(span, dev, card, what: str) -> None:
                          ev.key.replace("(anonymous namespace)::", "")))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile [{card}]: {PROFILE_STEPS} steps of {what}, "
+    print(f"profile [{card}]: {steps} steps of {what}, "
           f"unprofiled {wall_ms:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall_ms:.3f} of it)", flush=True)
     require(rows, "the profiler recorded no device time")
     for dev_ms, count, key in rows:
-        print(f"profile: {dev_ms / PROFILE_STEPS:.4f} ms/step, {count} launches, "
+        print(f"profile: {dev_ms / steps:.4f} ms/step, {count} launches, "
               f"{dev_ms / count:.4f} ms/launch: {key[:150]}", flush=True)
 
 
@@ -1110,6 +1148,236 @@ def profile_implicit(crt, kb, dev, card) -> None:
                  card, "the linear implicit main path")
 
 
+# ---------------------------------------------------------------------------
+# The fused small-beam path
+# ---------------------------------------------------------------------------
+
+
+def reference_beam(crt, gravity: bool = False):
+    """The reference's 6-segment linear Nitinol cantilever (0.25 m segments,
+    r = 5 mm, C_d = 0.82, wetted area 2 pi r L), fixed base, in water."""
+    import pandas as pd
+
+    L, E, r, rho, n = 0.25, 75e9, 0.005, 6450.0, 6
+    df = pd.DataFrame({
+        "length": [L] * n, "elastic_modulus": [E] * n,
+        "moment_inertia": [np.pi * r**4 / 4] * n, "density": [rho] * n,
+        "cross_area": [np.pi * r**2] * n, "type": ["linear"] * n,
+        "boundary_condition": ["FIXED"] + ["NONE"] * (n - 1),
+        "wetted_area": [2 * np.pi * r * L] * n, "drag_coef": [0.82] * n,
+    })
+    return crt.DynamicEulerBernoulliBeam(df, crt.ForceParams(
+        enable_fluid_effects=True, fluid_density=1000.0, enable_gravity_effects=gravity))
+
+
+def fused_start(n: int, envs: int, seed: int = 0) -> np.ndarray:
+    """The sweep's starts: x0 zero but the tip displacement ~ N(0, 1e-3)."""
+    x0 = np.zeros((envs, 2 * n))
+    x0[:, n - 2] = np.random.default_rng(seed).normal(scale=FUSED["tip_scale"], size=envs)
+    return x0
+
+
+def fused_ops_per_env_step(n: int, n_newton: int) -> int:
+    """Operations of one environment-step, counted from the kernel's code:
+    per row the predictor 6 and corrector 4; per Newton iteration 16 for
+    q1, v1, the alpha point and the drag, 3 (2n - 1) for the three matrix
+    products, 3 for the residual and 1 for the update."""
+    return n * (10 + n_newton * (6 * n + 17))
+
+
+def phase_fused_kernel(kf, beam, dev):
+    """Phase 18: the kernel against its plain twin, bit for bit; returns
+    ``(max |kernel - plain|, main-shape operands)``."""
+    rng = np.random.default_rng(18)
+    h = FUSED["dt"] / FUSED["substeps"]
+    cases = []
+    for n, B in FUSED_SMALL:
+        A = rng.normal(size=(3, n, n)) / np.sqrt(n)
+        M = A[0] @ A[0].T + np.eye(n)
+        K = 1e3 * (A[1] @ A[1].T)
+        cases.append(((M, K, np.linalg.inv(M + 1e-3 * K)), rng.uniform(0.0, 3.0, n),
+                      rng.normal(size=n), rng.normal(size=(B, 3 * n)), 1e-3))
+    M, K, Jinv, Minv = kf.fused_host_operators(beam, h, FUSED["rho_inf"])
+    n = M.shape[0]
+    x0 = fused_start(n, FUSED["envs"])
+    c = kf.drag_coefficient_vector(beam)
+    a0 = -(x0[:, :n] @ K.T) @ Minv.T  # the consistent start; v0 = 0, u = 0
+    main = ((M, K, Jinv), c, np.zeros(n), np.concatenate([x0, a0], axis=-1), h)
+    cases.append(main)
+    err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for mats, cd, u, x, hh in cases:
+            args = (tuple(torch.tensor(A, dtype=dtype, device=dev) for A in mats),
+                    torch.tensor(cd, dtype=dtype, device=dev),
+                    torch.tensor(u, dtype=dtype, device=dev),
+                    torch.tensor(x, dtype=dtype, device=dev), FUSED["substeps"], hh)
+            kw = dict(rho_inf=FUSED["rho_inf"], n_newton=FUSED["n_newton"])
+            kf.reset_launch_counts()
+            out = kf.fused_gen_alpha_steps(*args, **kw)
+            require(kf.fused_gen_alpha_steps.launches == 1,
+                    "fused_gen_alpha_steps did not launch its kernel")
+            e = float((out - kf.fused_gen_alpha_steps_plain(*args, **kw)).abs().max())
+            require(finite(out), "fused_gen_alpha_steps: non-finite states")
+            err = max(err, e)
+            print(f"phase 18 fused kernel vs plain: {str(dtype)[6:]} B={x.shape[0]} "
+                  f"n={x.shape[1] // 3} {FUSED['substeps']} steps: max|kernel-plain| "
+                  f"{e:.3e}", flush=True)
+    require(err == 0.0, f"fused_gen_alpha_steps: kernel and plain version differ by {err:.3e}")
+    return err, main
+
+
+def fused_paths(crt, kf, kb, dev, card):
+    """Phases 18-20; returns the fused kernel's record."""
+    from continuum_robot_tpu_torch.parallel import batched_rollout, sweep_statistics
+    from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
+
+    beam = reference_beam(crt)
+    n = beam.n_pos_states
+    err, (mats, c_drag, _, x_main, h) = phase_fused_kernel(kf, beam, dev)
+
+    # -- phase 19: the fused small-beam path ----------------------------------------
+    T, dt, sub = FUSED["t_final"], FUSED["dt"], FUSED["substeps"]
+    frames = int(round(T / dt))
+    kw = dict(substeps=sub, rho_inf=FUSED["rho_inf"], n_newton=FUSED["n_newton"])
+    x0 = fused_start(n, FUSED["envs"])
+    x0_32 = torch.tensor(x0, dtype=torch.float32, device=dev)
+    x0_64 = torch.tensor(x0, dtype=torch.float64, device=dev)
+
+    def span32():
+        return kf.fused_rollout(beam, x0_32, T, dt, **kw)
+
+    span32()  # warm-up: the kernel's first launch loads its library
+    paths, runs = {}, []
+    for _ in range(3):
+        ((_, ys32), span_ms), launches = counted(kf, lambda: timed_once(span32, dev))
+        runs.append(span_ms)
+        paths.setdefault("fused:float32", launches["fused_gen_alpha_steps"])
+        require(launches["fused_gen_alpha_steps"] == frames,
+                f"fused path: {launches} launches, expected {frames}")
+    (_, ys64), launches = counted(kf, lambda: kf.fused_rollout(beam, x0_64, T, dt, **kw))
+    paths["fused:float64"] = launches["fused_gen_alpha_steps"]
+    require(paths["fused:float64"] == frames, f"fused float64 path: {launches} launches, expected {frames}")
+
+    kb.reset_launch_counts()
+    kf.reset_launch_counts()
+    oracle, oracle_ms = timed_once(lambda: crt.simulate(
+        beam, x0_64, T, dt, method="generalized_alpha", device=dev, **kw), dev)
+    paths["oracle:btd_solve"] = kb.btd_solve.launches
+    require(kb.btd_solve.launches == 1 + frames * sub * FUSED["n_newton"]
+            and kf.fused_gen_alpha_steps.launches == 0,
+            f"oracle: {kb.btd_solve.launches} btd_solve and "
+            f"{kf.fused_gen_alpha_steps.launches} fused launches, expected "
+            f"{1 + frames * sub * FUSED['n_newton']} and 0")
+    def qv(ys):  # every frame's (q, v)
+        return ys[..., :n], ys[..., n:]
+
+    vs_sim = [e / scale for e, scale in errors(qv(ys64), qv(oracle.ys))]
+    f32_rel = rel_parts(qv(ys32.double()), qv(ys64))
+    ok = finite(ys32, ys64, oracle.ys)
+    env_steps = FUSED["envs"] * frames * sub
+    span_ms = min(runs)
+    print(f"phase 19 fused path: {n} DOFs, {FUSED['envs']} envs, {frames} frames x {sub} "
+          f"substeps = {frames * sub} steps, n_newton={FUSED['n_newton']}: float32 span "
+          f"{span_ms:.3f} ms = {env_steps / span_ms * 1e3:.4e} env-steps/s (best of 3: "
+          f"{', '.join('%.3f' % t for t in runs)} ms); (a) float64 vs float64 simulate "
+          f"q {vs_sim[0]:.3e} v {vs_sim[1]:.3e} (x scale; oracle {oracle_ms:.3f} ms = "
+          f"{env_steps / oracle_ms * 1e3:.4e} env-steps/s), (b) float32 vs float64 q "
+          f"{f32_rel[0]:.3e} v {f32_rel[1]:.3e} (by norm), (c) finite {ok}; ys "
+          f"{tuple(ys32.shape)}; launches {paths}", flush=True)
+    require(ok and tuple(ys32.shape) == (frames + 1, FUSED["envs"], 2 * n),
+            "fused path: non-finite or misshapen states")
+    require(max(vs_sim) <= FUSED_VS_SIM_MAX, f"fused vs simulate {vs_sim}")
+    require(max(f32_rel) <= FUSED_F32_MAX, f"fused float32 vs float64 {f32_rel}")
+
+    # -- phase 20: the entry points with drag and gravity ----------------------------
+    beam_g = reference_beam(crt, gravity=True)
+    xs = fused_start(n, FUSED_SIM["envs"], seed=20)
+    sim_T = FUSED_SIM["frames"] * dt
+    sim_kw = dict(substeps=FUSED_SIM["substeps"], n_newton=FUSED["n_newton"])
+    n_it = 1 + FUSED_SIM["frames"] * FUSED_SIM["substeps"] * FUSED["n_newton"]
+    ys = {}
+    for method in ("generalized_alpha", "newmark"):
+        for solver in ("pallas", "btd"):
+            kb.reset_launch_counts()
+            res = crt.simulate(beam_g, xs, sim_T, dt, method=method, linear_solver=solver,
+                               device=dev, **sim_kw)
+            paths[f"simulate:{method}:{solver}"] = kb.btd_solve.launches
+            ys[method, solver] = force_completion(res.ys)
+            require(tuple(res.ys.shape) == (FUSED_SIM["frames"] + 1, FUSED_SIM["envs"], 2 * n)
+                    and finite(res.ys), f"simulate {method} {solver}: bad output")
+            require(kb.btd_solve.launches == (n_it if solver == "pallas" else 0),
+                    f"simulate {method} {solver}: {kb.btd_solve.launches} launches")
+        require(torch.equal(ys[method, "pallas"], ys[method, "btd"]),
+                f"simulate {method}: pallas and btd differ by "
+                f"{float((ys[method, 'pallas'] - ys[method, 'btd']).abs().max()):.3e}")
+    kb.reset_launch_counts()
+    res_b = batched_rollout(beam_g, xs, sim_T, dt, method="generalized_alpha", device=dev,
+                            **sim_kw)
+    paths["batched_rollout:generalized_alpha"] = kb.btd_solve.launches
+    require(kb.btd_solve.launches == n_it, f"batched_rollout: {kb.btd_solve.launches} launches")
+    require(torch.equal(res_b.ys, ys["generalized_alpha", "pallas"]),
+            "batched_rollout differs from simulate")
+    stats = {k: float(v) for k, v in sweep_statistics(res_b.ys).items()}
+    require(all(np.isfinite(v) for v in stats.values()), f"sweep statistics {stats}")
+    print(f"phase 20 entry points, drag and gravity: {FUSED_SIM}: pallas == btd "
+          f"(generalized_alpha, newmark), batched_rollout == simulate; sweep statistics "
+          f"{stats}", flush=True)
+    print(f"fused paths' launches: {paths}", flush=True)
+
+    # -- timings ----------------------------------------------------------------------
+    def per_launch(args, reps=10):  # back-to-back launches, so dispatch overlaps
+        def run():
+            for _ in range(reps):
+                kf.fused_gen_alpha_steps(*args, **kw_k)
+        return min(cuda_event_times(run, repeats=3, warmup=1, device=dev)) / reps
+
+    kw_k = dict(rho_inf=FUSED["rho_inf"], n_newton=FUSED["n_newton"])
+    times, bounds = {}, {}
+    for label, envs, dtype in (("main", FUSED["envs"], torch.float32),
+                               ("main_f64", FUSED["envs"], torch.float64),
+                               ("big", FUSED["big_envs"], torch.float32)):
+        x = torch.tensor(np.tile(x_main, (envs // FUSED["envs"], 1)), dtype=dtype, device=dev)
+        args = (tuple(torch.tensor(A, dtype=dtype, device=dev) for A in mats),
+                torch.tensor(c_drag, dtype=dtype, device=dev),
+                torch.zeros(n, dtype=dtype, device=dev), x, sub, h)
+        times[label] = per_launch(args)
+        if dtype == torch.float32:  # the bound is at float32 peaks
+            bounds[label] = bound(envs * sub * fused_ops_per_env_step(n, FUSED["n_newton"]),
+                                  4 * (2 * envs * 3 * n + 3 * n * n + 2 * n))
+        if label == "main":
+            plain_ms = min(cuda_event_times(
+                lambda: kf.fused_gen_alpha_steps_plain(*args, **kw_k), repeats=3, warmup=1,
+                device=dev))
+    busy = times["main"] * frames / span_ms
+    print(f"phase 20 fused timings [{card}]: fused_gen_alpha_steps per launch ({sub} steps): "
+          f"float32 {FUSED['envs']} envs {times['main']:.4f} ms (bound {bounds['main'][0]:.4f} "
+          f"ms, {bounds['main'][1]}, kernel at {bounds['main'][0] / times['main']:.3f} of it), "
+          f"float64 {times['main_f64']:.4f} ms, float32 {FUSED['big_envs']} envs "
+          f"{times['big']:.4f} ms (bound {bounds['big'][0]:.4f} ms, kernel at "
+          f"{bounds['big'][0] / times['big']:.3f} of it); plain twin {plain_ms:.3f} ms; "
+          f"span {span_ms:.3f} ms for {frames} launches, of which the kernels' "
+          f"{times['main'] * frames:.3f} ms ({busy:.3f} of it); float64 oracle span "
+          f"{oracle_ms:.3f} ms", flush=True)
+    return dict(launches=paths["fused:float32"], launches_by_path=paths, max_abs_err=err,
+                ms=times["main"], plain_ms=plain_ms, bound=bounds["main"], library_ms=None,
+                source=FUSED_SOURCE, replaces=FUSED_REPLACES)
+
+
+def profile_fused(crt, dev, card) -> None:
+    """``--profile fused``: device time by kernel over the float32 span of
+    the fused small-beam path, and the busy share."""
+    from continuum_robot_tpu_torch.ops.cuda import fused_rollout as kf
+
+    beam = reference_beam(crt)
+    x0 = torch.tensor(fused_start(beam.n_pos_states, FUSED["envs"]), dtype=torch.float32,
+                      device=dev)
+    kw = dict(substeps=FUSED["substeps"], rho_inf=FUSED["rho_inf"],
+              n_newton=FUSED["n_newton"])
+    steps = int(round(FUSED["t_final"] / FUSED["dt"])) * FUSED["substeps"]
+    profile_span(lambda: kf.fused_rollout(beam, x0, FUSED["t_final"], FUSED["dt"], **kw),
+                 dev, card, "the fused small-beam path", steps=steps)
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1119,6 +1387,7 @@ def main() -> int:
     import continuum_robot_tpu_torch as crt
     from continuum_robot_tpu_torch.ops.cuda import _build
     from continuum_robot_tpu_torch.ops.cuda import btd_solve as kb
+    from continuum_robot_tpu_torch.ops.cuda import fused_rollout as kf
     from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
     from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
 
@@ -1130,8 +1399,11 @@ def main() -> int:
 
     args = sys.argv[1:]
     if "--profile" in args:
-        if args[args.index("--profile") + 1:][:1] == ["implicit"]:
+        which = args[args.index("--profile") + 1:][:1]
+        if which == ["implicit"]:
             profile_implicit(crt, kb, dev, card)
+        elif which == ["fused"]:
+            profile_fused(crt, dev, card)
         else:
             profile_rom(crt, dev, card)
         return 0
@@ -1162,6 +1434,8 @@ def main() -> int:
     print(f"ROM small-size worst max|kernel-plain|/scale {small_err:.3e}; "
           f"{time.time() - t_start:.1f} s so far", flush=True)
     records["btd_solve"] = implicit_paths(crt, kb, dev, card, lin_model, lin_ms)
+    print(f"implicit paths done; {time.time() - t_start:.1f} s so far", flush=True)
+    records["fused_gen_alpha_steps"] = fused_paths(crt, kf, kb, dev, card)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

@@ -5,10 +5,13 @@ the reference. It holds the model build (CSV/DataFrame -> linear,
 nonlinear von Kármán or hybrid Euler-Bernoulli beam, host float64), the
 linear modal generalized-α engine (:class:`ModalGenAlpha`), the
 nonlinear modal-ROM engine (:class:`ModalROMGenAlpha`, with ECSW
-hyper-reduction) and the full-order implicit Newmark and generalized-α
-integrators (:func:`make_newmark_operator`, ``ops/integrators``). Their
-fused drives and the block-tridiagonal solve run as hand-written CUDA
-kernels (``ops/cuda``) on the card and as plain PyTorch twins on the CPU.
+hyper-reduction), the full-order implicit Newmark and generalized-α
+integrators (:func:`make_newmark_operator`, ``ops/integrators``) with
+registered fluid drag and gravity, the fused small-beam rollout
+(``ops/cuda/fused_rollout``) and single-device batched rollouts
+(``parallel``). Their fused drives and the block-tridiagonal solve run as
+hand-written CUDA kernels (``ops/cuda``) on the card and as plain PyTorch
+twins on the CPU.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
 Precision policy: importing the package turns TF32 off for float32 matmuls

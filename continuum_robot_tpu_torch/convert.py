@@ -94,6 +94,20 @@ def btd_factors_from_numpy(dinv, lw, upper, device=None,
     )
 
 
+def fused_operators_from_numpy(M, K, Jinv, drag_coeffs, u, device=None,
+                               dtype: torch.dtype = torch.float64):
+    """The fused small-beam kernel's operands ``((M, K, Jinv), drag, u)``
+    from host arrays (the JAX package's ``fused_gen_alpha_steps`` inputs
+    converted with ``np.asarray``), on ``device`` (None: the card) in
+    ``dtype``: one operator set fed to both packages' fused steps."""
+    device = resolve_device(device)
+    M, K, Jinv, drag_coeffs, u = (
+        torch.as_tensor(np.array(x, dtype=np.float64), device=device).to(dtype)
+        for x in (M, K, Jinv, drag_coeffs, u)
+    )
+    return (M, K, Jinv), drag_coeffs, u
+
+
 def beam_arrays_from_numpy(length, elastic_modulus, moment_inertia, density,
                            cross_area, wetted_area=None, drag_coef=None,
                            nonlinear_mask=None, dtype=np.float64) -> BeamArrays:

@@ -3,10 +3,13 @@
 Counterpart of ``continuum_robot_tpu/models/forces.py``. The registries and
 their aggregation algebra (enabled-check at registration *and* evaluation,
 sum of enabled components, zero-vector fallback) are ported on torch
-tensors. ``FluidDragForce`` and ``GravityForce`` keep their constructors
-and host-side precomputation; evaluating them is not ported yet and raises
-``NotImplementedError``. The modal engine refuses registered forces anyway
-(exact superposition holds only for the linear beam).
+tensors. ``FluidDragForce`` and ``GravityForce`` precompute their index
+plans on the host and evaluate as plain torch on the state's device and
+dtype, batched over any leading axes, keeping the reference quirks of the
+JAX package (gravity's reduced-index plan, drag only where ``w`` and
+``dw_dt`` survive reduction; PARITY.md). The modal engine refuses
+registered forces (exact superposition holds only for the linear beam);
+the implicit integrators take them through the registry aggregate.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ class FluidDragForce(AbstractForce):
         self.fluid_density = fluid_density
         self.enabled = enabled
         self.fluid_coefficients = None
+        self._plan_cache = {}
         if self.is_enabled():
             self._precompute_fluid_coefficients()
 
@@ -81,11 +85,40 @@ class FluidDragForce(AbstractForce):
         }
 
     def compute_forces(self, x, t):
-        raise NotImplementedError("fluid drag evaluation is not yet ported")
+        """``-factors * v_w * |v_w|`` scattered to the ``w`` positions, over
+        the position DOFs of ``x`` (``(..., 2n)``)."""
+        x = torch.as_tensor(x)
+        n_pos = x.shape[-1] // 2
+        out = x.new_zeros(*x.shape[:-1], n_pos)
+        if not self.is_enabled() or self.fluid_coefficients is None:
+            return out
+        vel, pos, factors = self._device_plan(x)
+        v = x[..., vel]
+        out[..., pos] = -factors * v * v.abs()
+        return out
+
+    def _device_plan(self, like):
+        """The gather/scatter indices and drag factors on ``like``'s device
+        (factors in its dtype), uploaded once per device and dtype."""
+        key = (like.device, like.dtype)
+        if key not in self._plan_cache:
+            c = self.fluid_coefficients
+            self._plan_cache[key] = (
+                torch.as_tensor(c["w_vel_indices"], dtype=torch.long, device=like.device),
+                torch.as_tensor(c["w_pos_indices"], dtype=torch.long, device=like.device),
+                torch.as_tensor(c["drag_factors"], dtype=like.dtype, device=like.device),
+            )
+        return self._plan_cache[key]
 
 
 class GravityForce(AbstractForce):
-    """Deformation-aware distributed gravity (constructor and segment masses)."""
+    """Deformation-aware distributed gravity.
+
+    Per segment: rotate the global ``(gx, gy)`` by the segment's average
+    nodal rotation into local axial/transverse components, then split half
+    the segment weight onto each end node's ``u``/``w`` DOFs, vectorized
+    over segments with a precomputed (per reduced-state size) index plan.
+    """
 
     def __init__(
         self,
@@ -103,6 +136,8 @@ class GravityForce(AbstractForce):
                 "Gravity vector must have exactly 3 components [gx, gy, gz]"
             )
         self._precompute_segment_masses()
+        self._index_cache = {}
+        self._plan_cache = {}
 
     def _precompute_segment_masses(self):
         if not self.enabled:
@@ -113,8 +148,96 @@ class GravityForce(AbstractForce):
             for _, row in self.beam_params.iterrows()
         ]
 
+    def _indices_for(self, n_pos: int):
+        """Static reduced-coordinate index plan for a given state size.
+
+        Replicates the reference's bounds-checked reduced indexing (the JAX
+        package's ``GravityForce._indices_for``): segment ``i`` reads
+        rotations at ``3i+2``/``3(i+1)+2`` and loads ``3i``, ``3i+1``,
+        ``3(i+1)``, ``3(i+1)+1``, each only where it is below ``n_pos``.
+        """
+        if n_pos in self._index_cache:
+            return self._index_cache[n_pos]
+        n_seg = len(self._segment_masses)
+
+        phi_a = np.zeros(n_seg, dtype=np.int64)
+        phi_b = np.zeros(n_seg, dtype=np.int64)
+        wa = np.zeros(n_seg)
+        wb = np.zeros(n_seg)
+        for i in range(n_seg):
+            s_idx, e_idx = 3 * i + 2, 3 * (i + 1) + 2
+            s_ok, e_ok = s_idx < n_pos, e_idx < n_pos
+            if s_ok and e_ok:
+                phi_a[i], phi_b[i], wa[i], wb[i] = s_idx, e_idx, 0.5, 0.5
+            elif s_ok:
+                phi_a[i], wa[i] = s_idx, 1.0
+            elif e_ok:
+                phi_b[i], wb[i] = e_idx, 1.0
+            # else both weights stay 0 -> phi_avg = 0
+
+        seg_ids, targets, comps = [], [], []
+        for i in range(n_seg):
+            for tgt, comp in ((3 * i, 0), (3 * i + 1, 1), (3 * (i + 1), 0),
+                              (3 * (i + 1) + 1, 1)):
+                if tgt < n_pos:
+                    seg_ids.append(i)
+                    targets.append(tgt)
+                    comps.append(comp)
+
+        plan = {
+            "phi_a": phi_a,
+            "phi_b": phi_b,
+            "wa": wa,
+            "wb": wb,
+            "seg_ids": np.asarray(seg_ids, dtype=np.int64),
+            "targets": np.asarray(targets, dtype=np.int64),
+            "axial_sel": np.asarray(comps, dtype=np.int64) == 0,
+            "masses": np.asarray(self._segment_masses),
+        }
+        self._index_cache[n_pos] = plan
+        return plan
+
+    def _device_plan(self, n_pos: int, like):
+        """:meth:`_indices_for` as tensors on ``like``'s device (weights and
+        masses in its dtype), uploaded once per size, device and dtype."""
+        key = (n_pos, like.device, like.dtype)
+        if key not in self._plan_cache:
+            plan = self._indices_for(n_pos)
+            floats = ("wa", "wb", "masses")
+            self._plan_cache[key] = {
+                k: torch.as_tensor(v, dtype=like.dtype if k in floats else None,
+                                   device=like.device)
+                for k, v in plan.items()
+            }
+        return self._plan_cache[key]
+
     def compute_forces(self, x, t):
-        raise NotImplementedError("gravity evaluation is not yet ported")
+        """Per segment: rotate ``(gx, gy)`` by the averaged nodal rotation
+        into axial and transverse components and put half the segment
+        weight on each end node's ``u``/``w`` rows (scatter-add)."""
+        x = torch.as_tensor(x)
+        n_pos = x.shape[-1] // 2
+        if not self._segment_masses:
+            raise RuntimeError(
+                "Cannot compute gravity forces: beam instance does not have "
+                "segments available or segment masses were not pre-computed."
+            )
+        plan = self._device_plan(n_pos, x)
+        positions = x[..., :n_pos]
+        gx, gy = float(self.gravity_vector[0]), float(self.gravity_vector[1])
+
+        phi_avg = (plan["wa"] * positions[..., plan["phi_a"]]
+                   + plan["wb"] * positions[..., plan["phi_b"]])
+        cos_phi = torch.cos(phi_avg)
+        sin_phi = torch.sin(phi_avg)
+        masses = plan["masses"]
+        f_axial = (cos_phi * gx + sin_phi * gy) * masses * 0.5
+        f_trans = (-sin_phi * gx + cos_phi * gy) * masses * 0.5
+
+        vals = torch.where(plan["axial_sel"], f_axial[..., plan["seg_ids"]],
+                           f_trans[..., plan["seg_ids"]])
+        out = x.new_zeros(*x.shape[:-1], n_pos)
+        return out.index_add_(-1, plan["targets"], vals)
 
     def is_enabled(self) -> bool:
         return self.enabled

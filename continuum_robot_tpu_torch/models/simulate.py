@@ -946,10 +946,10 @@ def make_newmark_operator(
 
     ``forces_func(x, t)``: a torch callable of the state ``x = [q; v]``
     returning a force over the position DOFs; None takes the model's force
-    registry (registered fluid drag and gravity are not ported and raise
-    when evaluated; an empty registry adds nothing). ``device``/``dtype``:
-    where NumPy inputs of the callables go (None: the card, float64); the
-    device also picks the ``linear_solver`` default.
+    registry (registered fluid drag and gravity evaluate in torch on the
+    state's device and dtype; an empty registry adds nothing).
+    ``device``/``dtype``: where NumPy inputs of the callables go (None: the
+    card, float64); the device also picks the ``linear_solver`` default.
     """
     device = resolve_device(device)
     dtype = torch.float64 if dtype is None else dtype
@@ -1917,21 +1917,21 @@ def _simulate_modal_rom(model, x0, n_steps, dt, u, substeps, n_newton,
     return _frames_result(ms, x0, u_modal, n_steps, substeps, drive)
 
 
-def _simulate_implicit(model, x0, n_steps, dt, method, u, forces_func,
-                       substeps, n_newton, linear_solver, rho_inf):
-    """``simulate(method="newmark"|"generalized_alpha")``: the full-order
-    implicit rollout on the operators of :func:`make_newmark_operator`."""
+def make_implicit_rollout_fn(model, dt: float, n_steps: int, method: str, u=None,
+                             forces_func: Optional[Callable] = None, substeps: int = 1,
+                             n_newton: int = 2, linear_solver: str = None,
+                             rho_inf: float = 0.8, device=None,
+                             dtype: torch.dtype = None):
+    """Full-order implicit rollout closure ``x0 -> (ts, ys)`` for
+    ``method="newmark"|"generalized_alpha"`` on the operators of
+    :func:`make_newmark_operator` (``device``/``dtype`` as there)."""
     h = dt / substeps
-    n = x0.shape[-1] // 2
-    q0, v0 = x0[..., :n], x0[..., n:]
-    kw = dict(forces_func=forces_func, linear_solver=linear_solver,
-              device=x0.device, dtype=x0.dtype)
+    kw = dict(forces_func=forces_func, linear_solver=linear_solver, device=device,
+              dtype=dtype)
     if method == "newmark":
         op = make_newmark_operator(model, dt=h, **kw)
-        ts, qs, vs = integrators.integrate_newmark(
-            op, q0, v0, 0.0, dt, n_steps, u=u, n_newton=n_newton,
-            substeps=substeps,
-        )
+        integrate = integrators.integrate_newmark
+        extra = {}
     else:
         am = (2.0 * rho_inf - 1.0) / (rho_inf + 1.0)
         af = rho_inf / (rho_inf + 1.0)
@@ -1940,11 +1940,16 @@ def _simulate_implicit(model, x0, n_steps, dt, method, u, forces_func,
             model, dt=None, extra_systems=[(1.0 - am, (1.0 - af) * beta_ga * h * h)],
             **kw,
         )
-        ts, qs, vs = integrators.integrate_generalized_alpha(
-            op, q0, v0, 0.0, dt, n_steps, u=u, rho_inf=rho_inf,
-            n_newton=n_newton, substeps=substeps,
-        )
-    return SimulationResult(ts=ts, ys=torch.cat([qs, vs], dim=-1), stats=None)
+        integrate = integrators.integrate_generalized_alpha
+        extra = dict(rho_inf=rho_inf)
+
+    def rollout(x0):
+        n = x0.shape[-1] // 2
+        ts, qs, vs = integrate(op, x0[..., :n], x0[..., n:], 0.0, dt, n_steps, u=u,
+                               n_newton=n_newton, substeps=substeps, **extra)
+        return ts, torch.cat([qs, vs], dim=-1)
+
+    return rollout
 
 
 def simulate(
@@ -2066,8 +2071,12 @@ def simulate(
         x0 = x0.to(dtype)
 
     if method in ("newmark", "generalized_alpha"):
-        return _simulate_implicit(model, x0, n_steps, dt, method, u, forces_func,
-                                  substeps, n_newton, linear_solver, rho_inf)
+        ts, ys = make_implicit_rollout_fn(
+            model, dt, n_steps, method, u=u, forces_func=forces_func,
+            substeps=substeps, n_newton=n_newton, linear_solver=linear_solver,
+            rho_inf=rho_inf, device=x0.device, dtype=x0.dtype,
+        )(x0)
+        return SimulationResult(ts=ts, ys=ys, stats=None)
 
     if method == "modal_rom":
         if forces_func is not None:

@@ -2,7 +2,8 @@
 
 ``modal_rollout``: the linear modal gen-α kernels; ``rom_rollout``: the
 fused modal-ROM gen-α kernels; ``btd_solve``: the block-tridiagonal solve
-of the implicit integrators. Importing this package builds nothing; the
+of the implicit integrators; ``fused_rollout``: the fused small-beam gen-α
+steps with quadratic drag. Importing this package builds nothing; the
 kernels are compiled on first use by a CUDA tensor (``_build.py``).
 """
 

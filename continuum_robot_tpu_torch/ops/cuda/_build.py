@@ -29,6 +29,7 @@ SOURCES = {
     "modal_rollout": CSRC / "modal_rollout.cu",
     "rom_rollout": CSRC / "rom_rollout.cu",
     "btd_solve": CSRC / "btd_solve.cu",
+    "fused_rollout": CSRC / "fused_rollout.cu",
 }
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -69,6 +70,9 @@ _SIGNATURES = {
     },
     "btd_solve": {
         "btd_solve_launch": [_c_int] * 3 + [_c_ptr] * 6,
+    },
+    "fused_rollout": {
+        "fused_gen_alpha_launch": [_c_int] * 5 + [_c_dbl] * 9 + [_c_ptr] * 8,
     },
 }
 

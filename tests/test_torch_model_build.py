@@ -220,8 +220,8 @@ def test_properties_contracts(tmp_path):
 
 
 def test_force_registration_and_aggregate(tmp_path):
-    """Fluid and gravity register as in the JAX package; the empty
-    aggregate is the zero force; evaluating a force is not ported yet."""
+    """Fluid and gravity register as in the JAX package; their aggregate
+    equals the JAX package's; the empty aggregate is the zero force."""
     csv = _beam_csv(tmp_path, ["linear"] * 4)
     fp = dict(enable_fluid_effects=True, fluid_density=1000.0,
               enable_gravity_effects=True)
@@ -232,8 +232,10 @@ def test_force_registration_and_aggregate(tmp_path):
     for key in ("w_vel_indices", "w_pos_indices", "drag_factors"):
         np.testing.assert_array_equal(tf.fluid_coefficients[key],
                                       jf.fluid_coefficients[key])
-    x = torch.zeros((2, 2 * tb.n_pos_states), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tb.force_registry.create_aggregated_function()(x)
-    empty = tm.ForceRegistry().create_aggregated_function()(x)
+    x = np.random.default_rng(3).normal(scale=0.1, size=(2, 2 * tb.n_pos_states))
+    agg = tb.force_registry.create_aggregated_function()(torch.tensor(x))
+    ref = np.asarray(jb.force_registry.create_aggregated_function()(x))
+    assert agg.shape == ref.shape == (2, tb.n_pos_states)
+    assert _rel(agg, ref) <= 1e-14
+    empty = tm.ForceRegistry().create_aggregated_function()(torch.tensor(x))
     assert empty.shape == (2, tb.n_pos_states) and not empty.any()
