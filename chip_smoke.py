@@ -44,7 +44,9 @@ Phases, one line each (any failure exits non-zero):
     of 5 steps (max error <= 1e-5 x the state scale);
 12. ROM timings: CUDA events, best of 3 after a warm-up; each ROM kernel
     alone at the main path's shapes against its plain twin and the one
-    torch call that computes its product;
+    torch call that computes its product; ``rom_expand`` and
+    ``rom_project`` (3xTF32 on the tensor cores) with their bound at the
+    TF32 peak and, for reference, at the float32 CUDA-core peak;
 13. block-tridiagonal kernel vs plain: ``ops/cuda/btd_solve`` against
     ``ops/banded.btd_solve`` on the card, float32 and float64, at a small
     ragged size (13 nodes, 5 envs) and at the main path's size (the bench
@@ -107,8 +109,9 @@ and the ``simulate`` and ``batched_rollout`` runs of phase 20. Every
 kernel must have been launched by its own path, and each ROM path must
 launch exactly its kernels, once per Newton iteration of every step. The
 second-to-last lines are the kernels' JSON record (``launches`` from the
-kernel's own path, ``launches_by_path`` from every path) and the card line;
-the last line is the JSON result naming the device.
+kernel's own path, ``launches_by_path`` from every path; ``design`` for
+the tensor-core kernels) and the card line; the last line is the JSON
+result naming the device.
 
 ``--profile`` builds the ROM main path only (``--profile implicit``: the
 linear implicit main path) and runs ``PROFILE_STEPS`` steps of it under
@@ -166,8 +169,9 @@ FUSED_SMALL = ((13, 5), (36, 37))  # (n, envs): random operators, ragged sizes
 FUSED_SIM = dict(envs=64, frames=10, substeps=20)
 FUSED_VS_SIM_MAX = 1e-9  # float64 fused vs float64 simulate, x state scale
 FUSED_F32_MAX = 1e-3  # float32 fused vs float64 fused, each of q, v by norm
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3,
+# dense TF32 on the tensor cores.
+PEAK_F32_FLOPS, PEAK_BYTES, PEAK_TF32_FLOPS = 67e12, 3.35e12, 495e12
 
 SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/modal_rollout.cu"
 REPLACES = {
@@ -177,6 +181,7 @@ REPLACES = {
 }
 ROM_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/rom_rollout.cu"
 ROM_REPLACES = "continuum_robot_tpu/ops/pallas/rom_rollout.py:65"
+ROM_TC_DESIGN = "wgmma 3xTF32"  # rom_expand and rom_project: tensor cores, hi/lo split
 # The path whose run gives each kernel's ``launches``.
 LINEAR_PATH = {"modal_steps": "rollout_pallas", "modal_frames": "simulate:pallas",
                "affine_steps": "rollout_power"}
@@ -255,10 +260,12 @@ def count_ops(fn, n_args: int) -> int:
     return OpCount.n
 
 
-def bound(ops: float, nbytes: float):
+def bound(ops: float, nbytes: float, tc_ops: float = 0.0):
     """``(bound_ms, bound_by)``: the larger of the operation and byte times
-    at the card's float32 and memory peaks."""
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    at the card's float32 and memory peaks; ``tc_ops`` more operations run
+    at the tensor cores' TF32 peak."""
+    t_ops = ops / PEAK_F32_FLOPS + tc_ops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -800,14 +807,20 @@ def rom_paths(crt, rk, dev, card, small_model):
     af_ops = count_ops(lambda e, ed, edd, a1: rk.rom_alpha_point_plain(
         counter_op, e, ed, edd, a1), 4)
     splits = rk.project_splits(B, m, N, dev)
-    span_ops = N_STEPS * (4 * B * m * N + B * E * corr_ops + 3 * B * (N // 3)
-                          + B * m * (af_ops + splits - 1 + epi_ops))
-    span_bound = bound(span_ops, 4 * (2 * m * N + 6 * B * m + 3 * m + 4 * E))
+    # The two products run three TF32 passes on the tensor cores, the rest
+    # in float32 on the CUDA cores; span_f32 is the bound of all in float32.
+    gemm_ops = N_STEPS * 4 * B * m * N
+    other_ops = N_STEPS * (B * E * corr_ops + 3 * B * (N // 3)
+                           + B * m * (af_ops + splits - 1 + epi_ops))
+    span_bytes = 4 * (4 * m * N + 6 * B * m + 3 * m + 4 * E)
+    span_bound = bound(other_ops, span_bytes, tc_ops=3 * gemm_ops)
+    span_f32 = bound(other_ops + gemm_ops, span_bytes)
     print(f"phase 12 ROM timings [{card}]: window span {span_ms:.3f} ms = "
           f"{env_steps / span_ms * 1e3:.4e} env-steps/s (first call {span_first_ms:.3f} ms) "
           f"vs plain twin {plain_span_ms:.3f} ms (one run) and torch.matmul of the "
           f"two products x {N_STEPS} {lib_span_ms:.3f} ms; bound {span_bound[0]:.3f} ms "
-          f"({span_bound[1]}), kernel at {span_bound[0] / span_ms:.3f} of it; gathered "
+          f"({span_bound[1]}; all float32: {span_f32[0]:.3f} ms), kernel at "
+          f"{span_bound[0] / span_ms:.3f} of it; gathered "
           f"(s={s}) span {span_g_ms:.3f} ms = {env_steps / span_g_ms * 1e3:.4e} "
           f"env-steps/s vs plain twin {plain_g_ms:.3f} ms (one run)", flush=True)
 
@@ -817,7 +830,7 @@ def rom_paths(crt, rk, dev, card, small_model):
     op_dense = fused_d.operators(st[0], u_m)
     eta_af = rk.rom_alpha_point_plain(op, *st, a1)
     x = rk.rom_expand_plain(op, eta_af)
-    g = rk.rom_correction_window_plain(op, x)
+    g = rk.tma_rows(rk.rom_correction_window_plain(op, x))  # rows padded as on the path
     xg = rk.rom_expand_plain(op_g, eta_af)
     partials = rk.rom_project(op, g)
     r = rk.rom_update_plain(op_dense, rk.rom_project_plain(op_dense, g), *st, a1, True)
@@ -830,7 +843,7 @@ def rom_paths(crt, rk, dev, card, small_model):
         "rom_expand": (
             lambda: rk.rom_expand(op, eta_af), lambda: rk.rom_expand_plain(op, eta_af),
             lambda: torch.matmul(eta_af, op.phiT),
-            bound(2 * B * m * N, state_bytes + 4 * (m * N + B * N))),
+            bound(0, state_bytes + 4 * (2 * m * N + B * N), tc_ops=3 * 2 * B * m * N)),
         "rom_correction_window": (
             lambda: rk.rom_correction_window(op, x),
             lambda: rk.rom_correction_window_plain(op, x), None,
@@ -842,7 +855,8 @@ def rom_paths(crt, rk, dev, card, small_model):
         "rom_project": (  # compared as the sum of its partial products
             lambda: rk.rom_project(op, g), lambda: rk.rom_project_plain(op, g),
             lambda: torch.matmul(g, op.w),
-            bound(2 * B * N * m, 4 * (B * N + N * m) + splits * state_bytes)),
+            bound(0, 4 * (B * N + 2 * N * m) + splits * state_bytes,
+                  tc_ops=3 * 2 * B * N * m)),
         "rom_update": (
             lambda: rk.rom_update(op, partials, *st, a1, True),
             lambda: rk.rom_update_plain(op, partials, *st, a1, True), None,
@@ -854,6 +868,10 @@ def rom_paths(crt, rk, dev, card, small_model):
             lambda: r @ op_dense.sinvT,
             bound(2 * B * m * m + B * m * 8, 4 * m * m + 7 * state_bytes)),
     }
+    # The float32 CUDA-core bounds of the two products, for reference.
+    f32_bounds = {"rom_expand": bound(2 * B * m * N, state_bytes + 4 * (m * N + B * N)),
+                  "rom_project": bound(2 * B * N * m,
+                                       4 * (B * N + N * m) + splits * state_bytes)}
     records = {}
     for name, (kern, plain, lib, bnd) in pieces.items():
         k_out, p_out = kern(), plain()
@@ -868,11 +886,14 @@ def rom_paths(crt, rk, dev, card, small_model):
             max_abs_err=err, scaled_err=ratio, ms=best(kern),
             plain_ms=best(plain), bound=bnd,
             library_ms=None if lib is None else best(lib))
+        if name in f32_bounds:
+            records[name].update(design=ROM_TC_DESIGN, bound_f32=f32_bounds[name])
     print(f"phase 12 ROM kernels [{card}]: " + "; ".join(
         f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, library "
         f"{'none' if v['library_ms'] is None else '%.4f ms' % v['library_ms']}, "
-        f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), max|k-p| {v['max_abs_err']:.3e}, "
-        f"/scale {v['scaled_err']:.3e}"
+        f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}"
+        + (f"; float32 CUDA cores {v['bound_f32'][0]:.4f} ms" if "bound_f32" in v else "")
+        + f"), max|k-p| {v['max_abs_err']:.3e}, /scale {v['scaled_err']:.3e}"
         for k, v in records.items()), flush=True)
     return records
 
@@ -1416,6 +1437,9 @@ def main() -> int:
         regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
                 if "registers" in ln]
         print(f"phase 2 build {name}: ptxas: {' | '.join(regs)}", flush=True)
+        for ln in log.splitlines():  # e.g. wgmma serialisation
+            if "arning" in ln:
+                print(f"phase 2 build {name}: {ln.strip()}", flush=True)
     print(f"phase 2 build: {build_s:.1f} s for {len(libs)} sources in parallel",
           flush=True)
 
@@ -1444,7 +1468,8 @@ def main() -> int:
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
          "bound_by": rec["bound"][1], "library_ms": rec["library_ms"],
-         "launches_by_path": rec["launches_by_path"]}
+         "launches_by_path": rec["launches_by_path"],
+         **({"design": rec["design"]} if "design" in rec else {})}
         for name, rec in records.items()
     ]}))
     print(card)

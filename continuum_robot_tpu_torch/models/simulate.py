@@ -1372,7 +1372,10 @@ class ModalROMGenAlpha(_Uploads):
         (``ops/cuda/rom_rollout.FusedROMRollout``): the recurrence of
         :meth:`rollout` with constant input and no external force. The name
         is the JAX package's; ``tile`` and ``chunk`` are accepted for
-        signature parity and unused."""
+        signature parity and unused. On the card its two basis transforms
+        are 3xTF32 tensor-core products for every ``nl_precision``,
+        "highest" included (about 1e-6 of the output's scale against
+        float32; see ``ops/cuda/rom_rollout.py``)."""
         if self.ext_modal is not None or self.external_force is not None:
             raise ValueError(
                 "the fused ROM kernel supports no external forces"
@@ -1989,7 +1992,10 @@ def simulate(
     ``forces_func(x, t)``); every other method raises
     ``NotImplementedError``. The arguments that only other methods read
     (``rtol``, ``atol``, ``jit``) are accepted and unused; ``nl_precision``
-    is accepted and the ROM transforms stay true float32/float64.
+    is accepted and changes nothing: the ROM transforms are true
+    float32/float64 on the CPU and with ``engine="xla"``, and 3xTF32
+    tensor-core products with ``engine="pallas"`` on the card, "highest"
+    included (about 1e-6 of the output's scale against float32).
 
     Args:
         model: a :class:`DynamicEulerBernoulliBeam` of this package.

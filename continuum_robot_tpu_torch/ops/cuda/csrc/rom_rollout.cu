@@ -10,49 +10,71 @@
 // What bounds it: per Newton iteration the two basis transforms are
 // 2 * B * m * N float operations each (B envs, m modes, N = 3 n_sub planar
 // window rows or 6 s gathered sample rows); at 4096 envs, 256 modes and
-// 3003 rows that is 1.26e10 operations against ~0.15 GB of traffic, so the
-// card's float32 arithmetic rate bounds it. The TPU kernel keeps both bases
-// resident in VMEM for the whole span; on Hopper the two bases (6.2 MB at
-// that size) exceed a block's 227 KB of shared memory, so the design here is
-// one launch per piece and Newton iteration, with the bases and the (B, N)
-// intermediates streaming through the 50 MB L2:
+// 3003 rows that is 1.26e10 operations against ~0.15 GB of traffic. The TPU
+// kernel keeps both bases resident in VMEM for the whole span; on Hopper the
+// two bases (6.2 MB at that size) exceed a block's 227 KB of shared memory,
+// so the design here is one launch per piece and Newton iteration, with the
+// bases and the (B, N) intermediates streaming through the 50 MB L2:
 //
 //   alpha_point_kernel     eta_af from (eta, etad, etadd, a1), elementwise
-//   rom_expand (GEMM)      x = eta_af @ PhiT          (tiled GEMM, register
-//                          blocked, two blocks per SM)
+//   rom_expand_kernel      x = eta_af @ Phi^T         (tensor cores, 3xTF32)
 //   correction_*_kernel    the six correction slots per (env, element),
 //                          masked, summed into node planes without atomics
-//   rom_project (GEMM)     partial products of g_m = g @ W over S slices of
-//                          the long (3 n_sub) reduction
+//   rom_project_kernel     partial products of g_m = g @ W over S slices of
+//                          the long (3 n_sub) reduction (tensor cores, 3xTF32)
 //   update_kernel          g_m = the S partials summed in slice order, then
 //                          the residual and the diagonal Newton update (+ the
 //                          state update on the last iteration), or the
 //                          residual for a dense Sinv
-//   rom_newton_dense (GEMM)  a1 - r @ SinvT with the same update
+//   rom_newton_dense (GEMM)  a1 - r @ SinvT with the same update (SIMT f32)
 //
-// eta_af is formed by its own small kernel rather than inside the expand's
-// operand loads: measured on the H100, the fused form recomputed it for every
-// column block of the output and ran the expand at 0.44-0.51 ms against
-// 0.22 ms for the pure GEMM on a precomputed operand. The project's output
-// (B x m) is narrow: as 64x64 tiles it kept 4x4 register blocks that are
-// bound by shared-memory reads (0.36-0.39 ms); as 128x128 tiles it has only
-// 64 of them, so the reduction is split into S slices (S chosen to fill two
-// blocks per SM) whose partial products a small kernel sums in a fixed order
-// (0.23 ms with the sum, measured on the H100). No atomics: deterministic.
+// The two basis transforms: 3xTF32 on wgmma. The TPU kernel does not form
+// them in plain float32 either: by default it splits each operand into bf16
+// hi/lo halves and sums three matrix-unit products (hi.hi + hi.lo + lo.hi,
+// float32 accumulation), the basis halves split once on the host and the
+// per-step operand on the VPU. Here the same idea runs on Hopper's tensor
+// cores in TF32: hi = tf32_rna(x), lo = tf32_rna(x - hi), and
+// A_hi B_hi + A_hi B_lo + A_lo B_hi accumulated in float32, each term
+// accurate to ~2^-21 (bf16 hi/lo: ~2^-16). In float32 FMAs on the CUDA
+// cores (67 TFLOP/s) either product is bound at 0.094 ms at the main
+// path's size; three TF32 passes at 495 TFLOP/s bound it at 0.038 ms.
 //
-// The GEMMs are one template: BM x BN output tiles, BK-deep slices of A and
-// B staged through double-buffered shared memory (global loads for the next
-// slice go to registers while the current one is multiplied), each thread
-// accumulating a TM x TN block in registers, all in float32 FMAs. Static
-// shared memory stays under 48 KB per block, so no opt-in attribute is
-// needed. Sums run in another order than cuBLAS: results agree with the
-// plain PyTorch twin to float32 roundoff, not bit for bit.
+// Both are one "TN" GEMM, C(i, j) = sum_k A(i, k) Bt(j, k), with both
+// operands K-major as TF32 wgmma requires:
+//   expand   A = eta_af (B, m), Bt = Phi (N, m),   C = x (B, N)
+//   project  A = g (B, N),      Bt = W^T (m, N),   C = partials (S, B, m)
+// The basis halves (Bt hi and lo) are split once where the operators are
+// uploaded (rom_rollout.py: split_basis), with their TMA descriptors.
+// The per-step operand is split here, in registers: wgmma takes A from
+// registers, so each consumer thread loads its fragment of the A tile from
+// shared memory, rounds it to hi and lo, and issues the three products.
+//
+// One block per SM, persistent over (row tile, column tile, K slice) units:
+// 128 x 128 output tiles, a producer warpgroup (one thread issues the TMA
+// loads; setmaxnreg hands its registers to the consumers) feeding a 4-stage
+// ring of 32-deep K slices (one 128-byte swizzle row per tile row: the A
+// tile, the Bt hi tile and the Bt lo tile, 48 KB a stage) through mbarriers,
+// and two consumer warpgroups, each issuing wgmma m64n128k8 on 64 of the
+// tile's rows. The producer runs ahead into the next unit while the
+// consumers store a finished tile, so loads overlap the epilogue. The tensor
+// cores' float32 accumulation truncates, so each slice's 8 lo products and
+// its 4 hi.hi products are summed apart and each group is added to the
+// tile's sum in float32 with rounding to nearest. TMA reads the global tensors with
+// 16-byte row pitches (the wrappers pad rows to a multiple of 4 floats) and
+// their true extents, so it zero-fills past the last row and column and pad
+// columns are never read into a sum. The project splits its N-long
+// reduction into S slices (S chosen so units fill the SMs) whose partial
+// products update_kernel sums in a fixed order: no atomics, deterministic.
+// Kernel and twin (float32 torch.matmul) agree to ~1e-6 of the output's
+// scale, not bit for bit.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw device
-// pointers and the stream and checks the returned cudaError_t.
+// pointers, 128-byte tensor maps and the stream and checks the returned code.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -61,14 +83,388 @@ struct Scalars {
   float h, c_qp, c_vp, bh2, gh, af, omaf, am, omam;
 };
 
+__host__ __device__ inline unsigned cdiv(int a, int b) {
+  return static_cast<unsigned>((a + b - 1) / b);
+}
+inline unsigned cdiv64(int64_t a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
+
 // ---------------------------------------------------------------------------
-// Tiled float32 GEMM: C(i, j) = sum_k A(i, k) B(k, j), B row-major (K, N).
+// Tensor-core GEMM, 3xTF32: C(i, j) = sum_k A(i, k) Bt(j, k)
 // ---------------------------------------------------------------------------
 
-// Block z of the grid's third dimension sums k in [z k_chunk, (z+1) k_chunk).
+constexpr int kTile = 128;          // output tile rows and columns
+constexpr int kSliceK = 32;         // K per stage: one 128-byte swizzle row
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;       // warpgroups, 64 tile rows each
+constexpr int kGemmThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+// Registers a thread of each role keeps (setmaxnreg): per SM sub-partition
+// one producer warp and two consumer warps fit 16384 registers.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kTileBytes = kTile * kSliceK * 4;      // 16 KB
+constexpr int kStageBytes = 3 * kTileBytes;          // A, Bt hi, Bt lo
+constexpr int kGemmSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+// Codes above every cudaError_t: the tensor-map encoder failed or is missing.
+constexpr int kEncodeError = 100000;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 = K coordinate, c1 = row) of `map` into shared memory.
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Round to TF32, nearest with ties away from zero: the low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Shared-memory descriptor of a K-major tile whose rows are 128-byte swizzle
+// rows (the TMA 128B swizzle, tile base 1024-byte aligned): start address,
+// leading offset unused (1), stride 1024 bytes between 8-row groups, layout
+// 128B swizzle. Advancing K by 8 TF32 values adds 32 bytes to the start.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator accesses across wgmma.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = A (64 x 8, TF32 in registers) * B (8 x 128, K-major TF32 in shared
+// memory at `desc`) + (accumulate ? d : 0), one warpgroup.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// The work of one block: units u = blockIdx.x, blockIdx.x + gridDim.x, ...
+// of (column tile, row tile, K split); split z sums k in
+// [z k_chunk, min(K, (z+1) k_chunk)), k_chunk a multiple of kSliceK, and
+// writes out + z * split_stride. Rows past M and columns past Nc are not
+// stored; TMA zero-fills A and Bt past K.
+__device__ __forceinline__ void gemm_3xtf32(const CUtensorMap* map_a, const CUtensorMap* map_bhi,
+                                            const CUtensorMap* map_blo, int M, int Nc, int K,
+                                            int k_chunk, int splits, float* __restrict__ out,
+                                            int64_t ld_out, int64_t split_stride) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the 128B swizzle needs 1024-byte tiles
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + kStages * kStageBytes;  // kStages mbarriers of 8 bytes
+  const uint32_t empty0 = full0 + kStages * 8;
+
+  const int tiles_n = static_cast<int>(cdiv(Nc, kTile));
+  const int tiles_m = static_cast<int>(cdiv(M, kTile));
+  const int units = tiles_n * tiles_m * splits;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                    // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 4 * kConsumers);      // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one lane issues the TMA loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp != 4 * kConsumers || lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int tn = u % tiles_n;
+      const int tm = (u / tiles_n) % tiles_m;
+      const int z = u / (tiles_n * tiles_m);
+      const int k_end = min(K, (z + 1) * k_chunk);
+      for (int k0 = z * k_chunk; k0 < k_end; k0 += kSliceK) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1u);
+        const uint32_t full = full0 + 8 * stage;
+        const uint32_t tile = base + stage * kStageBytes;
+        mbar_expect_tx(full, kStageBytes);
+        tma_load(map_a, tile, full, k0, tm * kTile);
+        tma_load(map_bhi, tile + kTileBytes, full, k0, tn * kTile);
+        tma_load(map_blo, tile + 2 * kTileBytes, full, k0, tn * kTile);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg, warp wq of it: tile rows r0 = 64 wg + 16 wq + lane/4
+  // and r0 + 8. Its A fragment of a k8 step kk holds A(r0, c), A(r0 + 8, c),
+  // A(r0, c + 4), A(r0 + 8, c + 4) at c = 8 kk + lane % 4; its accumulator
+  // d[4 j + {0, 1, 2, 3}] is C at rows (r0, r0, r0 + 8, r0 + 8) and columns
+  // 8 j + 2 (lane % 4) + {0, 1, 0, 1}.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = warp / 4;
+  const int t = lane % 4;
+  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int swz = r0 & 7;  // the row's 128B swizzle: 16-byte chunk c4 sits at c4 ^ swz
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tn = u % tiles_n;
+    const int tm = (u / tiles_n) % tiles_m;
+    const int z = u / (tiles_n * tiles_m);
+    const int k_end = min(K, (z + 1) * k_chunk);
+    // d: the tile's sum, added in float32 (round to nearest); p: a group
+    // of a slice's tensor-core products, first its 8 lo terms (hi.lo and
+    // lo.hi), then its 4 hi.hi terms. The tensor cores align each k8 step's
+    // products and the accumulator to the largest and truncate to float32,
+    // so summing all of K in them is biased (the project at the main path's
+    // shape: 2.1e-6 of the output's scale, against 4.4e-7 with per-slice
+    // sums; measured) and lo terms summed with hi.hi ones lose their low
+    // bits (the card-only ROM test's ECSW span: 7.1e-6 of the scale, over
+    // its 5e-6 limit, until they were split); hence the two groups, each
+    // added to d on its own.
+    float d[64], p[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = p[i] = 0.f;
+    for (int k0 = z * k_chunk; k0 < k_end; k0 += kSliceK) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t tile = base + stage * kStageBytes;
+      const float* As = reinterpret_cast<const float*>(smem + stage * kStageBytes);
+      uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = r0 + 8 * (q & 1);
+          const int c4 = 2 * kk + (q >> 1);  // 16-byte chunk of column 8 kk + t (+ 4)
+          const float x = As[r * kSliceK + ((c4 ^ swz) << 2) + t];
+          a_hi[kk][q] = tf32_rna(x);
+          a_lo[kk][q] = tf32_rna(x - __uint_as_float(a_hi[kk][q]));
+        }
+      }
+#pragma unroll
+      for (int group = 0; group < 2; ++group) {
+        fence_acc(p);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t b_hi = tile + kTileBytes + 32 * kk;
+          if (group == 0) {
+            wgmma_tf32(p, a_hi[kk], smem_desc(b_hi + kTileBytes), kk > 0);  // hi.lo
+            wgmma_tf32(p, a_lo[kk], smem_desc(b_hi));                        // lo.hi
+          } else {
+            wgmma_tf32(p, a_hi[kk], smem_desc(b_hi), kk > 0);               // hi.hi
+          }
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(p);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) d[i] += p[i];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+
+    float* o = out + z * split_stride;
+    const bool pairs = (ld_out % 2) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = tm * kTile + r0 + 8 * h;
+      if (i >= M) continue;
+      float* row = o + static_cast<int64_t>(i) * ld_out;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = tn * kTile + 8 * j + 2 * t;
+        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if (pairs && c + 1 < Nc) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+        } else {
+          if (c < Nc) row[c] = v0;
+          if (c + 1 < Nc) row[c + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+rom_expand_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_bhi,
+                  const __grid_constant__ CUtensorMap map_blo, int B, int N, int m,
+                  float* __restrict__ x, int64_t ld_x) {
+  gemm_3xtf32(&map_a, &map_bhi, &map_blo, B, N, m, (m + kSliceK - 1) / kSliceK * kSliceK, 1, x,
+              ld_x, 0);
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+rom_project_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_bhi,
+                   const __grid_constant__ CUtensorMap map_blo, int B, int m, int N,
+                   int k_chunk, int splits, float* __restrict__ partials) {
+  gemm_3xtf32(&map_a, &map_bhi, &map_blo, B, m, N, k_chunk, splits, partials, m,
+              static_cast<int64_t>(B) * m);
+}
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint(ByVersion)
+// so the library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major float32 (rows, cols) matrix with row pitch
+// `ld` floats (a multiple of 4), read as (128 rows x 32 columns) boxes with
+// the 128B swizzle; zero fill past the extents.
+int encode_map(CUtensorMap* map, const float* p, int rows, int cols, int64_t ld) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kEncodeError;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
+  const cuuint32_t box[2] = {kSliceK, kTile};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+// Per device: its SM count, and whether each 3xTF32 kernel may use kGemmSmem
+// bytes of dynamic shared memory (set once, read on every launch).
+constexpr int kMaxDevices = 64;
+int g_sm_count[kMaxDevices];
+bool g_smem_set[2][kMaxDevices];
+
+// Launch a 3xTF32 kernel (`which`: 0 expand, 1 project) persistently, one
+// block per SM and at most one per unit: A's tensor map encoded here, the
+// basis halves' maps copied from the caller's 128-byte blobs.
+template <class Kernel, class... Args>
+int launch_3xtf32(Kernel kernel, int which, int units, const float* a, int a_rows, int a_cols,
+                  int64_t ld_a, const void* map_hi, const void* map_lo, cudaStream_t stream,
+                  Args... args) {
+  CUtensorMap ma, mhi, mlo;
+  int rc = encode_map(&ma, a, a_rows, a_cols, ld_a);
+  if (rc != 0) return rc;
+  std::memcpy(&mhi, map_hi, sizeof(CUtensorMap));
+  std::memcpy(&mlo, map_lo, sizeof(CUtensorMap));
+  int dev = 0;
+  rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0) return rc;
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_sm_count[dev] == 0) {
+    rc = static_cast<int>(
+        cudaDeviceGetAttribute(&g_sm_count[dev], cudaDevAttrMultiProcessorCount, dev));
+    if (rc != 0) return rc;
+  }
+  if (!g_smem_set[which][dev]) {
+    rc = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem));
+    if (rc != 0) return rc;
+    g_smem_set[which][dev] = true;
+  }
+  const int blocks = units < g_sm_count[dev] ? units : g_sm_count[dev];
+  kernel<<<blocks, kGemmThreads, kGemmSmem, stream>>>(ma, mhi, mlo, args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Tiled float32 SIMT GEMM (the dense Newton update only):
+// C(i, j) = sum_k A(i, k) B(k, j), B row-major (K, N).
+// ---------------------------------------------------------------------------
+
 template <int BM, int BN, int BK, int TM, int TN, int MIN_BLOCKS, class AOp, class Epi>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
-gemm_kernel(int M, int N, int K, int k_chunk, AOp a, const float* __restrict__ b, Epi epi) {
+gemm_kernel(int M, int N, int K, AOp a, const float* __restrict__ b, Epi epi) {
   constexpr int kThreads = (BM / TM) * (BN / TN);
   constexpr int kALoads = BM * BK / kThreads;
   constexpr int kBLoads = BK * BN / kThreads;
@@ -85,8 +481,6 @@ gemm_kernel(int M, int N, int K, int k_chunk, AOp a, const float* __restrict__ b
   const int ty = tid / (BN / TN);
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
 
   float ra[kALoads];
   float rb[kBLoads];
@@ -102,14 +496,14 @@ gemm_kernel(int M, int N, int K, int k_chunk, AOp a, const float* __restrict__ b
       const int idx = tid + l * kThreads;
       const int r = idx / BK, kk = idx % BK;
       const int gi = row0 + r, gk = k0 + kk;
-      ra[l] = (gi < M && gk < k_end) ? a(gi, gk) : 0.f;
+      ra[l] = (gi < M && gk < K) ? a(gi, gk) : 0.f;
     }
 #pragma unroll
     for (int l = 0; l < kBLoads; ++l) {
       const int idx = tid + l * kThreads;
       const int kk = idx / BN, c = idx % BN;
       const int gk = k0 + kk, gj = col0 + c;
-      rb[l] = (gk < k_end && gj < N) ? b[static_cast<int64_t>(gk) * N + gj] : 0.f;
+      rb[l] = (gk < K && gj < N) ? b[static_cast<int64_t>(gk) * N + gj] : 0.f;
     }
   };
   auto store = [&](int buf) {
@@ -125,13 +519,13 @@ gemm_kernel(int M, int N, int K, int k_chunk, AOp a, const float* __restrict__ b
     }
   };
 
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
-  load(k_begin);
+  const int n_tiles = (K + BK - 1) / BK;
+  load(0);
   store(0);
   __syncthreads();
   for (int t = 0; t < n_tiles; ++t) {
     const int cur = t & 1;
-    if (t + 1 < n_tiles) load(k_begin + (t + 1) * BK);
+    if (t + 1 < n_tiles) load((t + 1) * BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float av[TM], bv[TN];
@@ -174,15 +568,12 @@ gemm_kernel(int M, int N, int K, int k_chunk, AOp a, const float* __restrict__ b
   }
 }
 
-// Expand and project: 128x128 tiles of 8x8 register blocks, two blocks per SM
-// (at most 128 registers a thread) to hide the barrier of each slice.
-constexpr int kBigBM = 128, kBigBN = 128, kBigBK = 8, kBigTM = 8, kBigTN = 8, kBigMinBlocks = 2;
-// Dense Newton: (B x m) output with a short (m) reduction; 64x64 tiles keep
-// every SM busy without splitting it.
+// Dense Newton: (B x m) output with a short (m) reduction; 64x64 tiles of
+// 4x4 register blocks keep every SM busy without splitting it.
 constexpr int kSmlBM = 64, kSmlBN = 64, kSmlBK = 8, kSmlTM = 4, kSmlTN = 4, kSmlMinBlocks = 1;
 
 // ---------------------------------------------------------------------------
-// Operand loaders and epilogues
+// Elementwise pieces and epilogues
 // ---------------------------------------------------------------------------
 
 // The gen-alpha predictor: eta_pred = eta + h etad + c_qp etadd.
@@ -208,23 +599,6 @@ struct RowMajorOperand {
   int ld;
   __device__ __forceinline__ float operator()(int i, int k) const {
     return p[static_cast<int64_t>(i) * ld + k];
-  }
-};
-
-struct StoreEpilogue {
-  float* __restrict__ out;
-  int ld;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    out[static_cast<int64_t>(i) * ld + j] = v;
-  }
-};
-
-// Partial product of slice blockIdx.z into out (S, M, N).
-struct PartialEpilogue {
-  float* __restrict__ out;
-  int M, N;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    out[(static_cast<int64_t>(blockIdx.z) * M + i) * N + j] = v;
   }
 };
 
@@ -343,22 +717,22 @@ __device__ __forceinline__ void correction(float u1, float w1, float t1, float u
 
 constexpr int kCorrThreads = 256;
 
-// Window layout: x and g are (B, 3 n_sub) node planes [u; w; theta]. A block
-// of 256 threads covers 255 nodes of one env: thread t evaluates element
-// base + t - 1 and, after a barrier, writes node base + t - 1 as its own
-// node-1 slots plus the node-2 slots of the element before it, read from
-// shared memory. Node 0 takes no node-2 slot and the last node no node-1
-// slot (their elements do not exist); no atomics, deterministic sums.
+// Window layout: x and g are (B, 3 n_sub) node planes [u; w; theta], rows
+// ldx and ldg floats apart. A block of 256 threads covers 255 nodes of one
+// env: thread t evaluates element base + t - 1 and, after a barrier, writes
+// node base + t - 1 as its own node-1 slots plus the node-2 slots of the
+// element before it, read from shared memory. Node 0 takes no node-2 slot
+// and the last node no node-1 slot (their elements do not exist); no
+// atomics, deterministic sums.
 __global__ void __launch_bounds__(kCorrThreads)
-correction_window_kernel(int n_sub, const float* __restrict__ x, const float* __restrict__ L,
-                         const float* __restrict__ A, const float* __restrict__ mask,
-                         float* __restrict__ g) {
+correction_window_kernel(int n_sub, const float* __restrict__ x, int64_t ldx,
+                         const float* __restrict__ L, const float* __restrict__ A,
+                         const float* __restrict__ mask, float* __restrict__ g, int64_t ldg) {
   __shared__ float next_slots[3][kCorrThreads];
   const int t = threadIdx.x;
   const int e = blockIdx.x * (kCorrThreads - 1) + t - 1;  // element, and node written
   const int n_el = n_sub - 1;
-  const int64_t row = static_cast<int64_t>(blockIdx.y) * 3 * n_sub;
-  const float* xu = x + row;
+  const float* xu = x + static_cast<int64_t>(blockIdx.y) * ldx;
   const float* xw = xu + n_sub;
   const float* xt = xw + n_sub;
   float slot[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -369,7 +743,7 @@ correction_window_kernel(int n_sub, const float* __restrict__ x, const float* __
   next_slots[2][t] = slot[5];
   __syncthreads();
   if (t >= 1 && e < n_sub) {
-    float* gu = g + row;
+    float* gu = g + static_cast<int64_t>(blockIdx.y) * ldg;
     gu[e] = slot[0] + next_slots[0][t - 1];
     gu[n_sub + e] = slot[1] + next_slots[1][t - 1];
     gu[2 * n_sub + e] = slot[2] + next_slots[2][t - 1];
@@ -377,19 +751,19 @@ correction_window_kernel(int n_sub, const float* __restrict__ x, const float* __
 }
 
 // Gathered (ECSW) layout: x and g are (B, 6 s) blocks [u1, w1, t1, u2, w2, t2]
-// of the s sampled elements; one thread per (env, element), no adjacency.
+// of the s sampled elements, rows ldx and ldg floats apart; one thread per
+// (env, element), no adjacency.
 __global__ void __launch_bounds__(kCorrThreads)
-correction_gathered_kernel(int s, const float* __restrict__ x, const float* __restrict__ L,
-                           const float* __restrict__ A, const float* __restrict__ mask,
-                           float* __restrict__ g) {
+correction_gathered_kernel(int s, const float* __restrict__ x, int64_t ldx,
+                           const float* __restrict__ L, const float* __restrict__ A,
+                           const float* __restrict__ mask, float* __restrict__ g, int64_t ldg) {
   const int j = blockIdx.x * kCorrThreads + threadIdx.x;
   if (j >= s) return;
-  const int64_t row = static_cast<int64_t>(blockIdx.y) * 6 * s;
-  const float* xb = x + row;
+  const float* xb = x + static_cast<int64_t>(blockIdx.y) * ldx;
   float slot[6];
   correction(xb[j], xb[s + j], xb[2 * s + j], xb[3 * s + j], xb[4 * s + j], xb[5 * s + j],
              L[j], A[j], mask[j], slot);
-  float* gb = g + row;
+  float* gb = g + static_cast<int64_t>(blockIdx.y) * ldg;
 #pragma unroll
   for (int k = 0; k < 6; ++k) gb[k * s + j] = slot[k];
 }
@@ -405,28 +779,25 @@ __global__ void update_kernel(int M, int N, int splits, const float* __restrict_
   upd(static_cast<int>(idx / N), static_cast<int>(idx % N), gm);
 }
 
-inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
-inline unsigned cdiv64(int64_t a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
-
 inline Scalars scalars_of(const float* sc) {
   return Scalars{sc[0], sc[1], sc[2], sc[3], sc[4], sc[5], sc[6], sc[7], sc[8]};
-}
-
-template <int BM, int BN, int BK, int TM, int TN, int MIN_BLOCKS, class AOp, class Epi>
-int launch_gemm(int M, int N, int K, AOp a, const float* b, Epi epi, cudaStream_t stream,
-                int splits = 1) {
-  const int k_chunk = static_cast<int>(cdiv(static_cast<int>(cdiv(K, splits)), BK)) * BK;
-  const dim3 grid(cdiv(N, BN), cdiv(M, BM), static_cast<unsigned>(splits));
-  gemm_kernel<BM, BN, BK, TM, TN, MIN_BLOCKS, AOp, Epi>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(M, N, K, k_chunk, a, b, epi);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // B envs, m modes, N basis rows. Each function returns the cudaError_t of its
-// launch (0 on success). sc: the nine step scalars (see Scalars).
+// launch (0 on success), or kEncodeError + the CUresult of a failed tensor
+// map. sc: the nine step scalars (see Scalars).
 extern "C" {
+
+// The 128-byte tensor map of a (rows, cols) float32 basis half with row
+// pitch ld (a multiple of 4 floats) into `out`.
+int rom_tensor_map(void* out, const float* p, int rows, int cols, int64_t ld) {
+  CUtensorMap map;
+  const int rc = encode_map(&map, p, rows, cols, ld);
+  if (rc == 0) std::memcpy(out, &map, sizeof(CUtensorMap));
+  return rc;
+}
 
 int rom_alpha_point_launch(int B, int m, const float* eta, const float* etad,
                            const float* etadd, const float* a1, float* out, const float* sc,
@@ -438,35 +809,44 @@ int rom_alpha_point_launch(int B, int m, const float* eta, const float* etad,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rom_expand_launch(int B, int m, int N, const float* eta_af, const float* phiT, float* x,
+// eta_af (B, m) with row pitch ld_a; phi_hi/phi_lo: the maps of Phi's
+// halves (N, m); x (B, N) with row pitch ld_x.
+int rom_expand_launch(int B, int m, int N, const float* eta_af, int64_t ld_a,
+                      const void* phi_hi, const void* phi_lo, float* x, int64_t ld_x,
                       void* stream) {
-  return launch_gemm<kBigBM, kBigBN, kBigBK, kBigTM, kBigTN, kBigMinBlocks>(
-      B, N, m, RowMajorOperand{eta_af, m}, phiT, StoreEpilogue{x, N},
-      static_cast<cudaStream_t>(stream));
+  const int units = static_cast<int>(cdiv(B, kTile) * cdiv(N, kTile));
+  return launch_3xtf32(rom_expand_kernel, 0, units, eta_af, B, m, ld_a, phi_hi, phi_lo,
+                       static_cast<cudaStream_t>(stream), B, N, m, x, ld_x);
 }
 
-int rom_correction_window_launch(int B, int n_sub, const float* x, const float* L,
-                                 const float* A, const float* mask, float* g, void* stream) {
+int rom_correction_window_launch(int B, int n_sub, const float* x, int64_t ldx, const float* L,
+                                 const float* A, const float* mask, float* g, int64_t ldg,
+                                 void* stream) {
   const dim3 grid(cdiv(n_sub, kCorrThreads - 1), static_cast<unsigned>(B));
   correction_window_kernel<<<grid, kCorrThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_sub, x, L, A, mask, g);
+      n_sub, x, ldx, L, A, mask, g, ldg);
   return static_cast<int>(cudaGetLastError());
 }
 
-int rom_correction_gathered_launch(int B, int s, const float* x, const float* L,
-                                   const float* A, const float* mask, float* g, void* stream) {
+int rom_correction_gathered_launch(int B, int s, const float* x, int64_t ldx, const float* L,
+                                   const float* A, const float* mask, float* g, int64_t ldg,
+                                   void* stream) {
   const dim3 grid(cdiv(s, kCorrThreads), static_cast<unsigned>(B));
   correction_gathered_kernel<<<grid, kCorrThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, x, L, A, mask, g);
+      s, x, ldx, L, A, mask, g, ldg);
   return static_cast<int>(cudaGetLastError());
 }
 
-// partials: (splits, B, m) products of S slices of the N-long reduction.
-int rom_project_launch(int B, int m, int N, int splits, const float* g, const float* w,
-                       float* partials, void* stream) {
-  return launch_gemm<kBigBM, kBigBN, kBigBK, kBigTM, kBigTN, kBigMinBlocks>(
-      B, m, N, RowMajorOperand{g, N}, w, PartialEpilogue{partials, B, m},
-      static_cast<cudaStream_t>(stream), splits);
+// g (B, N) with row pitch ld_g; wt_hi/wt_lo: the maps of W^T's halves
+// (m, N); partials: (splits, B, m) products of S slices of the N-long
+// reduction.
+int rom_project_launch(int B, int m, int N, int splits, const float* g, int64_t ld_g,
+                       const void* wt_hi, const void* wt_lo, float* partials, void* stream) {
+  const int k_chunk =
+      static_cast<int>(cdiv(static_cast<int>(cdiv(N, splits)), kSliceK)) * kSliceK;
+  const int units = static_cast<int>(cdiv(B, kTile) * cdiv(m, kTile)) * splits;
+  return launch_3xtf32(rom_project_kernel, 1, units, g, B, N, ld_g, wt_hi, wt_lo,
+                       static_cast<cudaStream_t>(stream), B, m, N, k_chunk, splits, partials);
 }
 
 // sinv null: out0 receives the residual (dense Sinv follows). Otherwise the
@@ -489,12 +869,15 @@ int rom_newton_dense_launch(int B, int m, const float* r, const float* sinvT, co
                             float* out0, float* out1, float* out2, const float* sc,
                             void* stream) {
   const Update up{eta, etad, etadd, a1, out0, out1, out2, m, last, scalars_of(sc)};
-  return launch_gemm<kSmlBM, kSmlBN, kSmlBK, kSmlTM, kSmlTN, kSmlMinBlocks>(
-      B, m, m, RowMajorOperand{r, m}, sinvT, NewtonEpilogue{up},
-      static_cast<cudaStream_t>(stream));
+  const dim3 grid(cdiv(m, kSmlBN), cdiv(B, kSmlBM));
+  gemm_kernel<kSmlBM, kSmlBN, kSmlBK, kSmlTM, kSmlTN, kSmlMinBlocks>
+      <<<grid, (kSmlBM / kSmlTM) * (kSmlBN / kSmlTN), 0, static_cast<cudaStream_t>(stream)>>>(
+          B, m, m, RowMajorOperand{r, m}, sinvT, NewtonEpilogue{up});
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* cuda_error_string(int code) {
+  if (code >= kEncodeError) return "cuTensorMapEncodeTiled failed or is unavailable";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -12,16 +12,16 @@ wrapper                      computes
 ===========================  =============================================
 :func:`rom_alpha_point`      ``eta_af`` from ``(eta, etad, etadd, a1)``,
                              elementwise
-:func:`rom_expand`           ``x = eta_af @ Phi_planar^T``, a tiled f32
-                             GEMM
+:func:`rom_expand`           ``x = eta_af @ Phi_planar^T``, a 3xTF32
+                             tensor-core GEMM (``wgmma``)
 :func:`rom_correction_window`  the von Kármán correction of each window
                              element, masked, summed into node force
                              planes ``[u; w; theta]`` (no atomics)
 :func:`rom_correction_gathered`  the same on the ECSW sample's six
                              per-element-node blocks (no adjacency)
 :func:`rom_project`          ``g @ PhiW_planar`` as ``S`` partial products
-                             over slices of the long reduction, a tiled
-                             f32 GEMM
+                             over slices of the long reduction, a 3xTF32
+                             tensor-core GEMM (``wgmma``)
 :func:`rom_update`           ``g_m`` = the partials summed in slice order;
                              the residual and the diagonal Newton update
                              (and the state update on the last iteration),
@@ -37,11 +37,26 @@ wrapper counts its launches in ``<wrapper>.launches``. :func:`rom_steps`
 and :func:`rom_frames` drive a span through the wrappers,
 :func:`rom_steps_plain` and :func:`rom_frames_plain` through the twins.
 
-Precision: the kernels compute in true float32 for every ``nl_precision``
-(None, "highest", "high", "default"); the JAX package's "high" tier (bf16
-hi/lo split products) is a Mosaic workaround with no counterpart here. The
-kernels' sums run in another order than cuBLAS, so kernel and twin agree
-to float32 roundoff, not bit for bit.
+Precision: the two basis transforms run on the tensor cores as a 3-pass
+TF32 split, the counterpart of the TPU kernel's bf16 hi/lo products (its
+default "split" tier): each operand x is split into ``hi = tf32(x)``
+(round to nearest, ties away from zero, as ``cvt.rna.tf32.f32``) and
+``lo = tf32(x - hi)``, and ``A_hi B_hi + A_hi B_lo + A_lo B_hi`` is summed
+in float32, each term accurate to about ``2^-21``. The bases are split
+once, where :class:`FusedROMRollout` uploads them to the card
+(:func:`split_basis`); the per-step operand is split in the kernel. This
+holds for every ``nl_precision`` (None, "highest", "high", "default"):
+"highest" too, where the JAX kernel computes these products in full
+float32 (``Precision.HIGHEST``), so on the card "highest" gets 3xTF32, not
+true float32. The other kernels compute in float32 FMAs. Kernel and twin
+(float32 ``torch.matmul``) agree to about 1e-6 of each output's scale
+(1.8e-6 and 4.4e-7 for one launch of each at the ROM main path's shapes on
+an H100, ``chip_smoke.py`` phase 12), not bit for bit.
+
+Layout: the tensor-core kernels read their operands through TMA, which
+needs 16-byte row pitches, so the kernel path keeps ``(B, N)`` node states
+and forces in buffers whose rows are padded to a multiple of 4 floats and
+hands out ``[:, :N]`` views; the pad columns are never read into a sum.
 """
 
 from __future__ import annotations
@@ -60,6 +75,95 @@ from ...models import elements
 _PRECISIONS = (None, "highest", "high", "default")
 
 
+def tf32_split(x: torch.Tensor):
+    """``(hi, lo)`` of float32 ``x``: ``hi`` is ``x`` rounded to TF32 (to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32``) and ``lo`` is
+    ``x - hi`` rounded the same way; both float32 with their low 13 mantissa
+    bits zero, and ``hi + lo = x`` to ``2^-22`` of ``|x|``."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _padded_empty(rows: int, cols: int, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised ``(rows, cols)`` view of a buffer whose rows are
+    padded to a multiple of 4 floats (the 16-byte pitch TMA reads)."""
+    buf = torch.empty((rows, _pad4(cols)), dtype=like.dtype, device=like.device)
+    return buf[:, :cols]
+
+
+def tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if TMA can read it (unit column stride, a row pitch of a
+    multiple of 4 floats, a 16-byte aligned base), else a copy into a padded
+    buffer."""
+    ok = (x.stride(1) == 1 and (x.stride(0) % 4 == 0 or x.shape[0] == 1)
+          and x.data_ptr() % 16 == 0)
+    if ok:
+        return x
+    out = _padded_empty(*x.shape, x)
+    out.copy_(x)
+    return out
+
+
+def _pitch(x: torch.Tensor) -> int:
+    """Row pitch in elements of a ``(rows, cols)`` tensor with unit column
+    stride."""
+    if x.stride(1) != 1:
+        raise ValueError("the ROM kernels take rows with unit column stride")
+    return x.stride(0) if x.shape[0] > 1 else _pad4(x.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitBasis:
+    """The bases' TF32 halves in the K-major layouts the tensor-core GEMMs
+    read, with their TMA descriptors (built once per device).
+
+    ``phi = (hi, lo)``: ``Phi (N, m)`` for the expand; ``wt = (hi, lo)``:
+    ``W^T (m, N)`` for the project. Each half is a view of a buffer with rows
+    padded to a multiple of 4 floats. ``maps``: the 128-byte tensor maps of
+    ``phi[0], phi[1], wt[0], wt[1]``, which point into these buffers.
+    """
+
+    phi: tuple
+    wt: tuple
+    maps: tuple
+
+
+def _tensor_map(half: torch.Tensor):
+    buf = (ctypes.c_uint8 * 128)()
+    lib = _build.library("rom_rollout")
+    rows, cols = half.shape
+    with torch.cuda.device(half.device):
+        rc = lib.rom_tensor_map(ctypes.addressof(buf), half.data_ptr(), rows, cols,
+                                _pitch(half))
+    _build.check(lib, rc, "rom_tensor_map")
+    return buf
+
+
+def split_basis(phiT: torch.Tensor, w: torch.Tensor) -> SplitBasis:
+    """The TF32 halves of the float32 bases ``phiT (m, N)`` and ``w (N, m)``
+    on the card, K-major and row-padded, and their tensor maps."""
+
+    def halves(x):
+        out = []
+        for part in tf32_split(x):
+            buf = _padded_empty(*x.shape, x)
+            buf.copy_(part)
+            out.append(buf)
+        return tuple(out)
+
+    phi, wt = halves(phiT.T), halves(w.T)
+    return SplitBasis(phi=phi, wt=wt, maps=tuple(map(_tensor_map, phi + wt)))
+
+
 @dataclasses.dataclass(frozen=True)
 class ROMOperators:
     """Device operators of one fused ROM rollout, in the state's dtype.
@@ -70,7 +174,9 @@ class ROMOperators:
     None with ``sinvT (m, m)`` the transposed dense one. ``L, D, A, mask
     (E,)``: element length, EI, EA and the nonlinear mask of the window
     (``E = n_sub - 1``) or of the sample (``E = s``). ``sc``: the step
-    scalars ``(h, c_qp, c_vp, bh2, gh, af, 1-af, am, 1-am)``.
+    scalars ``(h, c_qp, c_vp, bh2, gh, af, 1-af, am, 1-am)``. ``split``:
+    the bases' TF32 halves for the tensor-core kernels (float32 on the card
+    only; None elsewhere).
     """
 
     phiT: torch.Tensor
@@ -86,6 +192,7 @@ class ROMOperators:
     mask: torch.Tensor
     gathered: bool
     sc: tuple
+    split: Optional[SplitBasis] = None
 
     @property
     def n_rows(self) -> int:
@@ -246,45 +353,63 @@ def rom_alpha_point(op: ROMOperators, eta, etad, etadd, a1):
     return out
 
 
+def _split(op: ROMOperators) -> SplitBasis:
+    if op.split is None:
+        raise ValueError("the tensor-core ROM kernels need the operators' TF32 "
+                         "basis halves (FusedROMRollout.operators on the card)")
+    return op.split
+
+
 def rom_expand(op: ROMOperators, eta_af):
-    """``x = eta_af @ Phi^T``: ``(B, m) -> (B, N)`` node states."""
+    """``x = eta_af @ Phi^T``: ``(B, m) -> (B, N)`` node states (on the
+    card a view of a row-padded buffer)."""
     if not _on_cuda(eta_af):
         return rom_expand_plain(op, eta_af)
     B, m = eta_af.shape
-    x = torch.empty((B, op.n_rows), dtype=eta_af.dtype, device=eta_af.device)
+    maps = _split(op).maps
+    x = _padded_empty(B, op.n_rows, eta_af)
     if B:
-        _launch("rom_expand", eta_af, B, m, op.n_rows, _ptr(eta_af),
-                _ptr(op.phiT), _ptr(x))
+        a = tma_rows(eta_af)
+        _launch("rom_expand", eta_af, B, m, op.n_rows, a.data_ptr(), _pitch(a),
+                ctypes.addressof(maps[0]), ctypes.addressof(maps[1]),
+                x.data_ptr(), _pitch(x))
         rom_expand.launches += 1
     return x
+
+
+def _correction(name: str, op: ROMOperators, x, per_env: int):
+    B, N = x.shape
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    g = _padded_empty(B, N, x)
+    if B:
+        _launch(name, x, B, N // per_env, x.data_ptr(), _pitch(x), _ptr(op.L),
+                _ptr(op.A), _ptr(op.mask), g.data_ptr(), _pitch(g))
+    return g
 
 
 def rom_correction_window(op: ROMOperators, x):
     """Window correction: node force planes ``(B, 3 n_sub)`` from node state
     planes ``(B, 3 n_sub)``. Node i sums element i's node-1 slots and
     element i-1's node-2 slots; node 0 takes no node-2 slot and the last
-    node no node-1 slot."""
+    node no node-1 slot. On the card ``x`` may have padded rows and ``g``
+    is a view of a row-padded buffer."""
     if not _on_cuda(x):
         return rom_correction_window_plain(op, x)
-    B, N = x.shape
-    g = torch.empty_like(x)
-    if B:
-        _launch("rom_correction_window", x, B, N // 3, _ptr(x), _ptr(op.L),
-                _ptr(op.A), _ptr(op.mask), _ptr(g))
+    g = _correction("rom_correction_window", op, x, 3)
+    if x.shape[0]:
         rom_correction_window.launches += 1
     return g
 
 
 def rom_correction_gathered(op: ROMOperators, x):
     """ECSW correction: the six masked slot blocks ``(B, 6 s)`` of the
-    sampled elements from their gathered node states ``(B, 6 s)``."""
+    sampled elements from their gathered node states ``(B, 6 s)``, rows as
+    in :func:`rom_correction_window`."""
     if not _on_cuda(x):
         return rom_correction_gathered_plain(op, x)
-    B, N = x.shape
-    g = torch.empty_like(x)
-    if B:
-        _launch("rom_correction_gathered", x, B, N // 6, _ptr(x), _ptr(op.L),
-                _ptr(op.A), _ptr(op.mask), _ptr(g))
+    g = _correction("rom_correction_gathered", op, x, 6)
+    if x.shape[0]:
         rom_correction_gathered.launches += 1
     return g
 
@@ -296,14 +421,20 @@ def rom_correction(op: ROMOperators, x):
     return rom_correction_window(op, x)
 
 
+_TILE = 128  # rows and columns of the tensor-core kernels' output tiles
+
+
 @functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def project_splits(B: int, m: int, n_rows: int, device) -> int:
-    """Slices of the project GEMM's reduction: enough 128 x 128 output tiles
-    times slices to give every SM two blocks, each slice at least 256 rows
-    long. Cached: a span asks once per launch with the same shapes."""
-    tiles = -(-B // 128) * -(-m // 128)
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_rows // 256, round(2 * n_sm / tiles)))
+    """Slices of the project GEMM's reduction: output tiles (128 x 128)
+    times slices fill the SMs in one wave of the persistent kernel (one
+    block per SM), each slice at least 256 rows long."""
+    tiles = -(-B // _TILE) * -(-m // _TILE)
+    return max(1, min(n_rows // 256, _sm_count(device) // tiles))
 
 
 def rom_project(op: ROMOperators, g):
@@ -314,11 +445,14 @@ def rom_project(op: ROMOperators, g):
         return rom_project_plain(op, g)
     B, N = g.shape
     m = op.w.shape[1]
+    maps = _split(op).maps
     splits = project_splits(B, m, N, g.device)
     partials = torch.empty((splits, B, m), dtype=g.dtype, device=g.device)
     if B:
-        _launch("rom_project", g, B, m, N, splits, _ptr(g), _ptr(op.w),
-                _ptr(partials))
+        a = tma_rows(g)
+        _launch("rom_project", g, B, m, N, splits, a.data_ptr(), _pitch(a),
+                ctypes.addressof(maps[2]), ctypes.addressof(maps[3]),
+                partials.data_ptr())
         rom_project.launches += 1
     return partials
 
@@ -512,9 +646,11 @@ class FusedROMRollout:
             up = {k: None if v is None else torch.tensor(
                 v, dtype=like.dtype, device=like.device)
                 for k, v in self._host.items()}
+            on_card = like.device.type == "cuda" and like.dtype == torch.float32
             base = ROMOperators(
                 **up, u=None, gathered=self.gathered,
                 sc=step_scalars(float(self.ms.dt), float(self.ms.rho_inf)),
+                split=split_basis(up["phiT"], up["w"]) if on_card else None,
             )
             self._device_ops[key] = base
         if u_modal is None:

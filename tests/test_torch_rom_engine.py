@@ -17,7 +17,7 @@ import continuum_robot_tpu.models as jm
 import continuum_robot_tpu_torch.models as tm
 from continuum_robot_tpu.models import simulate as js
 from continuum_robot_tpu_torch import convert
-from tests import helpers
+import helpers
 
 torch.set_num_threads(1)
 

@@ -24,7 +24,7 @@ from continuum_robot_tpu.models import simulate as js
 from continuum_robot_tpu_torch.models import simulate as ts
 from continuum_robot_tpu_torch.ops.cuda import _build
 from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
-from tests.test_torch_rom_engine import (  # noqa: F401  (beams: a fixture)
+from test_torch_rom_engine import (  # noqa: F401  (beams: a fixture)
     B, DT, M, RHO, _engines, _inputs, _reduced, _snapshots, beams,
 )
 
