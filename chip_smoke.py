@@ -32,13 +32,16 @@ Phases, one line each (any failure exits non-zero):
    (Arnoldi branch), ``make_pallas_rollout()``, 4096 envs in float32,
    2000 steps at dt=1e-4, rho_inf=0.5, one Newton iteration; the endpoint
    ``(eta, etad)`` against the plain twin over the same span (relative
-   error <= 1e-4) and finite physical states; host set-up seconds;
+   error <= 1e-4) and finite physical states; host set-up seconds; then
+   the same span with ``nl_precision="highest"`` (the float32 expand and
+   project) against the same twin (<= 1e-4);
 9. ECSW at full width: trained as bench.py trains it (tip force 3.0, 30
    frames x 20 substeps on 1 env, 2 Newton iterations, snapshots [::3],
    tau=1e-3), then the gathered kernels over 4096 envs x 2000 steps
    against the plain twin (relative error <= 1e-4);
 10. dense Newton at full width: the main-path engine with its dense Sinv,
-    200 steps against the plain twin (<= 1e-4) and the diagonal path;
+    200 steps against the plain twin (<= 1e-4) and the diagonal path, and
+    the span's time (best of 3, CUDA events) and env-steps/s;
 11. ``simulate(method="modal_rom")``, engine "pallas" (float32 kernels)
     against "xla" (float64 plain stepper) on the 8-element beam, 10 frames
     of 5 steps (max error <= 1e-5 x the state scale);
@@ -47,10 +50,16 @@ Phases, one line each (any failure exits non-zero):
     torch call that computes its product; ``rom_expand`` and
     ``rom_project`` (3xTF32 on the tensor cores) with their bound at the
     TF32 peak and, for reference, at the float32 CUDA-core peak;
+    ``rom_expand_f32`` and ``rom_project_f32`` (the "highest" tier) within
+    5e-7 of their twin's scale; each kernel's device time per launch
+    (``torch.profiler``, ten launches) and the host's dispatch time of
+    three wrappers (no synchronisation, 200 calls);
 13. block-tridiagonal kernel vs plain: ``ops/cuda/btd_solve`` against
-    ``ops/banded.btd_solve`` on the card, float32 and float64, at a small
-    ragged size (13 nodes, 5 envs) and at the main path's size (the bench
-    beam's generalized-alpha system, 1001 nodes, 4096 envs); bit for bit;
+    ``ops/banded.btd_solve`` on the card, float32 and float64, at ragged
+    sizes (B in 1, 31, 33, 4096 across the 32-env blocks; N in 1, 2, one
+    chunk -1 and +1; rows of a padded and an unpadded pitch) and at the
+    main path's size (the bench beam's generalized-alpha system, 1001
+    nodes, 4096 envs); bit for bit;
 14. implicit main path, linear: the JAX package's full-order benchmark row
     (bench.py, the implicit generalized-alpha env-steps/s line) with
     ``linear_solver="pallas"``: ``make_newmark_operator`` on the
@@ -68,10 +77,11 @@ Phases, one line each (any failure exits non-zero):
     consistent von Karman beam (0.25 m elements), 64 envs, 10 frames x 20
     substeps, tip force 0.1: "pallas" bit for bit equal to
     "btd"; "cr" and "dense_inv" within 1e-9 x the state scale (float64);
-17. implicit timings: the kernel per launch against its plain version, its
-    bound and the dense-inverse product (the one torch call computing the
-    same solve); 50 steps of the linear main path with "pallas" and with
-    "dense_inv" (the measurement behind ``CARD_LINEAR_SOLVER``);
+17. implicit timings: the kernel per launch (a lone launch and its device
+    time) against its plain version, its bound and the dense-inverse
+    product (the one torch call computing the same solve); 50 steps of the
+    linear main path with "pallas" and with "dense_inv" (the measurement
+    behind ``CARD_LINEAR_SOLVER``);
 18. fused small-beam kernel vs plain: ``ops/cuda/fused_rollout``'s
     ``fused_gen_alpha_steps`` against its plain twin on the card, float32
     and float64, on random well-conditioned operators with drag and a
@@ -98,7 +108,8 @@ Phases, one line each (any failure exits non-zero):
 Launch counts are set to 0 just before each path and read just after it:
 the linear main path (``rollout_power``), ``rollout_pallas`` and the
 ``simulate`` engines (phases 4-5); the ROM main path (window layout, phase
-8), the ECSW gathered span (9), the dense-Newton span (10) and
+8) and its "highest" span (8), the ECSW gathered span (9), the
+dense-Newton span (10) and
 ``simulate(method="modal_rom", engine="pallas")`` (11); the implicit
 linear and nonlinear main paths (14, 15; the block-tridiagonal kernel once
 for the initial acceleration and once per Newton iteration: 2001 and 4001)
@@ -114,10 +125,12 @@ the tensor-core kernels) and the card line; the last line is the JSON
 result naming the device.
 
 ``--profile`` builds the ROM main path only (``--profile implicit``: the
-linear implicit main path) and runs ``PROFILE_STEPS`` steps of it under
-``torch.profiler``: device time by kernel, and the device's busy share of
-the same steps timed without the profiler. ``--profile fused`` does the
-same for the whole float32 span of the fused small-beam path.
+linear implicit main path, and a lone ``btd_solve`` launch) and runs
+``PROFILE_STEPS`` steps of it under ``torch.profiler``: device time by
+kernel, and the device's busy share of the same steps timed without the
+profiler. ``--profile dense`` does the same for the dense-Newton span,
+``--profile fused`` for the whole float32 span of the fused small-beam
+path.
 """
 
 from __future__ import annotations
@@ -149,6 +162,7 @@ ROM_SPAN_MAX = 1e-4  # f32 kernel vs f32 twin, endpoint relative error, 2000 ste
 ROM_SMALL_MAX = 5e-6  # the JAX package's own fused-kernel bound (x state scale)
 ROM_PIECE_MAX = 1e-4  # one launch vs its twin, each output x its max|twin|:
 # f32 sums of <= 3003 terms
+ROM_F32_PIECE_MAX = 5e-7  # the float32 ("highest") expand and project, the same way
 PROFILE_STEPS = 50
 # The JAX package's full-order implicit benchmark rows (bench.py:1089-1140):
 # generalized-alpha, linear (rho_inf 0.8, one Newton iteration) and
@@ -189,10 +203,17 @@ ROM_WINDOW = ("rom_alpha_point", "rom_expand", "rom_correction_window",
               "rom_project", "rom_update")
 ROM_GATHERED = ("rom_alpha_point", "rom_expand", "rom_correction_gathered",
                 "rom_project", "rom_update")
-ROM_DENSE = ROM_WINDOW + ("rom_newton_dense",)
+ROM_DENSE = ("rom_alpha_point", "rom_expand", "rom_correction_window",
+             "rom_project", "rom_newton_dense")
+ROM_HIGHEST = ("rom_alpha_point", "rom_expand_f32", "rom_correction_window",
+               "rom_project_f32", "rom_update")
 ROM_PATH = {**{k: "window" for k in ROM_WINDOW},
-            "rom_correction_gathered": "ecsw", "rom_newton_dense": "dense_newton"}
+            "rom_correction_gathered": "ecsw", "rom_newton_dense": "dense_newton",
+            "rom_expand_f32": "highest", "rom_project_f32": "highest"}
+ROM_DESIGN = {"rom_expand": ROM_TC_DESIGN, "rom_project": ROM_TC_DESIGN,
+              "rom_expand_f32": "SIMT float32", "rom_project_f32": "SIMT float32"}
 BTD_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/btd_solve.cu"
+BTD_CHUNK = {torch.float32: 64, torch.float64: 32}  # nodes a ring slot holds
 BTD_REPLACES = "continuum_robot_tpu/ops/pallas/btd_solve.py:97"
 FUSED_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/fused_rollout.cu"
 FUSED_REPLACES = "continuum_robot_tpu/ops/pallas/fused_rollout.py:97"
@@ -634,6 +655,42 @@ def rom_main_path(crt, dev):
     return model, ms, eta, etad, ms.project_force_host(u).astype(np.float32), setup
 
 
+def device_ms(fn, dev, n: int = 10) -> float:
+    """Device milliseconds per call of ``fn``: its CUDA kernels' time under
+    ``torch.profiler`` over ``n`` calls after a warm-up, divided by the calls
+    the trace holds (the most launches of one kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(dev)
+    total, launches = 0.0, 0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            total += ev.self_cuda_time_total if dev_us is None else dev_us
+            launches = max(launches, ev.count)
+    require(total > 0, "the profiler recorded no device time")
+    # Per call as the trace recorded them (a one-kernel call: per launch).
+    return total / 1e3 / launches
+
+
+def dispatch_us(fn, dev, n: int = 200) -> float:
+    """Host microseconds per call of ``fn`` without synchronising: the
+    wrapper's dispatch, as a span of many launches pays it."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    return (t1 - t0) / n * 1e6
+
+
 def profile_rom(crt, dev, card) -> None:
     """``--profile``: device time by kernel over ``PROFILE_STEPS`` steps of
     the ROM main path, and the busy share of the unprofiled steps."""
@@ -641,6 +698,14 @@ def profile_rom(crt, dev, card) -> None:
     fused = ms.make_pallas_rollout()
     profile_span(lambda: fused(eta, etad, u_m, PROFILE_STEPS, n_newton=ROM["n_newton"]),
                  dev, card, "the ROM main path")
+
+
+def profile_dense(crt, dev, card) -> None:
+    """``--profile dense``: the same for the dense-Newton span."""
+    _, ms, eta, etad, u_m, _ = rom_main_path(crt, dev)
+    fused_d = dataclasses.replace(ms, Sinv_diag=None).make_pallas_rollout()
+    profile_span(lambda: fused_d(eta, etad, u_m, PROFILE_STEPS, n_newton=ROM["n_newton"]),
+                 dev, card, "the dense-Newton span")
 
 
 def profile_span(span, dev, card, what: str, steps: int = PROFILE_STEPS) -> None:
@@ -707,6 +772,18 @@ def rom_paths(crt, rk, dev, card, small_model):
           f"composition {setup['compose']:.2f} s", flush=True)
     require(finite and q2.shape == (N_ENVS, n_red), "ROM: non-finite or misshapen states")
     require(span_rel <= ROM_SPAN_MAX, f"ROM kernel vs plain span {span_rel:.3e}")
+    # The "highest" tier: the float32 transforms. The twin is the same for
+    # every tier (float32 torch.matmul), so ``ref`` holds it too.
+    out_h, paths["highest"] = counted(
+        rk, lambda: fused(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"],
+                          nl_precision="highest"))
+    expect_launches(paths["highest"], ROM_HIGHEST, n_it, "ROM highest span")
+    h_rel, h_vs_tc = rel_state(out_h, ref), rel_state(out_h, out)
+    print(f"phase 8 ROM highest span: {N_ENVS} envs, {N_STEPS} steps: vs_plain_rel="
+          f"{h_rel:.3e}, vs the 3xTF32 span {h_vs_tc:.3e}; launches "
+          f"{paths['highest']}", flush=True)
+    require(all(bool(torch.isfinite(x).all()) for x in out_h), "ROM highest: non-finite")
+    require(h_rel <= ROM_SPAN_MAX, f"ROM highest kernel vs plain span {h_rel:.3e}")
 
     # -- phase 9: ECSW at full width ----------------------------------------------
     u_tr = np.zeros(n_red)
@@ -746,8 +823,13 @@ def rom_paths(crt, rk, dev, card, small_model):
     ref_d = rk.rom_steps_plain(op_d, ed_, edd_, ad_, ROM["dense_steps"], ROM["n_newton"])
     diag_d = fused(eta, etad, u_m, ROM["dense_steps"], n_newton=ROM["n_newton"])
     d_rel, d_vs_diag = rel_state(out_d, ref_d), rel_state(out_d, diag_d)
-    print(f"phase 10 dense Newton: {ROM['dense_steps']} steps: vs_plain_rel="
-          f"{d_rel:.3e}, vs diagonal Newton {d_vs_diag:.3e}", flush=True)
+    dense_ms = min(cuda_event_times(
+        lambda: fused_d(eta, etad, u_m, ROM["dense_steps"], n_newton=ROM["n_newton"]),
+        repeats=3, warmup=1, device=dev))
+    print(f"phase 10 dense Newton [{card}]: {ROM['dense_steps']} steps: vs_plain_rel="
+          f"{d_rel:.3e}, vs diagonal Newton {d_vs_diag:.3e}; span {dense_ms:.3f} ms = "
+          f"{ROM['dense_steps'] * N_ENVS / dense_ms * 1e3:.4e} env-steps/s (best of 3)",
+          flush=True)
     require(d_rel <= ROM_SPAN_MAX and d_vs_diag <= ROM_SPAN_MAX,
             f"dense Newton: vs plain {d_rel:.3e}, vs diagonal {d_vs_diag:.3e}")
 
@@ -785,6 +867,8 @@ def rom_paths(crt, rk, dev, card, small_model):
 
     env_steps = N_STEPS * N_ENVS
     span_ms = best(lambda: fused(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"]))
+    span_h_ms = best(lambda: fused(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"],
+                                   nl_precision="highest"))
     span_g_ms = best(lambda: fused_g(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"]))
     af0 = rk.rom_alpha_point_plain(op, e0, ed0, a0, a0)
     g0 = rk.rom_correction_window_plain(op, rk.rom_expand_plain(op, af0))
@@ -814,13 +898,15 @@ def rom_paths(crt, rk, dev, card, small_model):
                            + B * m * (af_ops + splits - 1 + epi_ops))
     span_bytes = 4 * (4 * m * N + 6 * B * m + 3 * m + 4 * E)
     span_bound = bound(other_ops, span_bytes, tc_ops=3 * gemm_ops)
-    span_f32 = bound(other_ops + gemm_ops, span_bytes)
+    span_f32 = bound(other_ops + gemm_ops, span_bytes)  # the "highest" span's bound
     print(f"phase 12 ROM timings [{card}]: window span {span_ms:.3f} ms = "
           f"{env_steps / span_ms * 1e3:.4e} env-steps/s (first call {span_first_ms:.3f} ms) "
           f"vs plain twin {plain_span_ms:.3f} ms (one run) and torch.matmul of the "
           f"two products x {N_STEPS} {lib_span_ms:.3f} ms; bound {span_bound[0]:.3f} ms "
           f"({span_bound[1]}; all float32: {span_f32[0]:.3f} ms), kernel at "
-          f"{span_bound[0] / span_ms:.3f} of it; gathered "
+          f"{span_bound[0] / span_ms:.3f} of it; \"highest\" span {span_h_ms:.3f} ms = "
+          f"{env_steps / span_h_ms * 1e3:.4e} env-steps/s, at {span_f32[0] / span_h_ms:.3f} "
+          f"of its float32 bound; gathered "
           f"(s={s}) span {span_g_ms:.3f} ms = {env_steps / span_g_ms * 1e3:.4e} "
           f"env-steps/s vs plain twin {plain_g_ms:.3f} ms (one run)", flush=True)
 
@@ -828,12 +914,19 @@ def rom_paths(crt, rk, dev, card, small_model):
     st = out
     a1 = st[2]
     op_dense = fused_d.operators(st[0], u_m)
+    op_h = fused.operators(st[0], u_m, "highest")
     eta_af = rk.rom_alpha_point_plain(op, *st, a1)
     x = rk.rom_expand_plain(op, eta_af)
     g = rk.tma_rows(rk.rom_correction_window_plain(op, x))  # rows padded as on the path
     xg = rk.rom_expand_plain(op_g, eta_af)
     partials = rk.rom_project(op, g)
-    r = rk.rom_update_plain(op_dense, rk.rom_project_plain(op_dense, g), *st, a1, True)
+    r = rk._partials_residual(op_dense, partials, *st, a1)  # for the library call
+    splits_f32 = rk.project_splits_f32(B, m, N, dev)
+    dense_ops = (count_ops(lambda e, ed, edd, a1_, gm, lam, uu: rk._residual(
+        types.SimpleNamespace(lam=lam, u=uu, cd=None, sc=counter_op.sc),
+        gm, e, ed, edd, a1_), 7)
+        + count_ops(lambda e, ed, edd, a1_, dr: rk._finish(
+            counter_op, a1_ - dr, e, ed, edd, True), 5) + splits - 1)
     state_bytes = 4 * B * m
     pieces = {
         "rom_alpha_point": (
@@ -862,11 +955,20 @@ def rom_paths(crt, rk, dev, card, small_model):
             lambda: rk.rom_update_plain(op, partials, *st, a1, True), None,
             bound(B * m * (splits - 1 + epi_ops),
                   (splits + 6) * state_bytes + 4 * 3 * m)),
-        "rom_newton_dense": (
-            lambda: rk.rom_newton_dense(op_dense, r, *st, a1, True),
-            lambda: rk.rom_newton_dense_plain(op_dense, r, *st, a1, True),
+        "rom_newton_dense": (  # the partials' sum, the residual, the product, the update
+            lambda: rk.rom_newton_dense(op_dense, partials, *st, a1, True),
+            lambda: rk.rom_newton_dense_plain(op_dense, partials, *st, a1, True),
             lambda: r @ op_dense.sinvT,
-            bound(2 * B * m * m + B * m * 8, 4 * m * m + 7 * state_bytes)),
+            bound(2 * B * m * m + B * m * dense_ops,
+                  4 * (m * m + 3 * m) + (splits + 4 + 3) * state_bytes)),
+        "rom_expand_f32": (
+            lambda: rk.rom_expand_f32(op_h, eta_af), lambda: rk.rom_expand_plain(op_h, eta_af),
+            lambda: torch.matmul(eta_af, op_h.phiT),
+            bound(2 * B * m * N, state_bytes + 4 * (m * N + B * N))),
+        "rom_project_f32": (  # compared as the sum of its partial products
+            lambda: rk.rom_project_f32(op_h, g), lambda: rk.rom_project_plain(op_h, g),
+            lambda: torch.matmul(g, op_h.w),
+            bound(2 * B * N * m, 4 * (B * N + N * m) + splits_f32 * state_bytes)),
     }
     # The float32 CUDA-core bounds of the two products, for reference.
     f32_bounds = {"rom_expand": bound(2 * B * m * N, state_bytes + 4 * (m * N + B * N)),
@@ -875,21 +977,30 @@ def rom_paths(crt, rk, dev, card, small_model):
     records = {}
     for name, (kern, plain, lib, bnd) in pieces.items():
         k_out, p_out = kern(), plain()
-        if name == "rom_project":
+        if name in ("rom_project", "rom_project_f32"):
             k_out, p_out = k_out.sum(0), p_out.sum(0)
         err, ratio = max_abs(k_out, p_out), scaled_err(k_out, p_out)
-        require(ratio <= ROM_PIECE_MAX,
+        limit = ROM_F32_PIECE_MAX if name.endswith("_f32") else ROM_PIECE_MAX
+        require(ratio <= limit,
                 f"{name}: kernel vs plain {errors(k_out, p_out)} (max|k-p|, scale)")
         records[name] = dict(
             launches=paths[ROM_PATH[name]][name],
             launches_by_path={p: c[name] for p, c in paths.items()},
-            max_abs_err=err, scaled_err=ratio, ms=best(kern),
+            max_abs_err=err, scaled_err=ratio, ms=best(kern), device_ms=device_ms(kern, dev),
             plain_ms=best(plain), bound=bnd,
             library_ms=None if lib is None else best(lib))
+        if name in ROM_DESIGN:
+            records[name]["design"] = ROM_DESIGN[name]
         if name in f32_bounds:
-            records[name].update(design=ROM_TC_DESIGN, bound_f32=f32_bounds[name])
+            records[name]["bound_f32"] = f32_bounds[name]
+    host = {name: dispatch_us(pieces[name][0], dev)
+            for name in ("rom_alpha_point", "rom_update", "rom_newton_dense")}
+    print(f"phase 12 ROM dispatch [{card}]: host us per wrapper call (200 calls, no "
+          f"synchronisation): " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()),
+          flush=True)
     print(f"phase 12 ROM kernels [{card}]: " + "; ".join(
-        f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, library "
+        f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f}) vs plain {v['plain_ms']:.4f} ms, "
+        f"library "
         f"{'none' if v['library_ms'] is None else '%.4f ms' % v['library_ms']}, "
         f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}"
         + (f"; float32 CUDA cores {v['bound_f32'][0]:.4f} ms" if "bound_f32" in v else "")
@@ -964,31 +1075,58 @@ def btd_host_factors(model, a: float, c: float):
     return banded.btd_factor(*bands)
 
 
+def random_btd_factors(n: int, rng):
+    """Block-Thomas factors of a random diagonally dominant system of ``n``
+    nodes (host float64)."""
+    from continuum_robot_tpu_torch.ops import banded
+
+    d = rng.normal(size=(n, 3, 3))
+    return banded.btd_factor(d + np.swapaxes(d, -1, -2) + 10 * np.eye(3),
+                             0.3 * rng.normal(size=(n - 1, 3, 3)),
+                             0.3 * rng.normal(size=(n - 1, 3, 3)))
+
+
+def padded_rows(x: torch.Tensor, kb) -> torch.Tensor:
+    """``(B, N, 3)`` ``x`` in rows padded to the kernel's pitch (NaN in the
+    pad), as the implicit operator hands them to it."""
+    b, n, _ = x.shape
+    buf = torch.full((b, kb.padded_width(3 * n)), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    return buf[:, :3 * n].copy_(x.reshape(b, -1)).reshape(b, n, 3)
+
+
 def phase_btd_kernel(kb, model, dev):
-    """Phase 13: the kernel against its plain version, bit for bit."""
+    """Phase 13: the kernel against its plain version, bit for bit, at
+    ragged sizes and the main path's."""
     from continuum_robot_tpu_torch.ops import banded
 
     rng = np.random.default_rng(11)
-    n, B = IMP_SMALL["n_nodes"], IMP_SMALL["B"]
-    d = rng.normal(size=(n, 3, 3))
-    small = banded.btd_factor(d + np.swapaxes(d, -1, -2) + 10 * np.eye(3),
-                              0.3 * rng.normal(size=(n - 1, 3, 3)),
-                              0.3 * rng.normal(size=(n - 1, 3, 3)))
     full = btd_host_factors(model, *gen_alpha_system(IMPLICIT["rho_lin"]))
     n_full = full[0].shape[0]
     err = 0.0
     for dtype in (torch.float32, torch.float64):
-        for fac, shape in ((small, (B, n, 3)), (full, (N_ENVS, n_full, 3))):
-            f = tuple(torch.tensor(x, dtype=dtype, device=dev) for x in fac)
-            rhs = torch.tensor(rng.normal(size=shape), dtype=dtype, device=dev)
-            kb.reset_launch_counts()
-            out = kb.btd_solve(f, rhs)
-            require(kb.btd_solve.launches == 1, "btd_solve did not launch its kernel")
-            e = float((out - banded.btd_solve(f, rhs)).abs().max())
-            require(finite(out), "btd_solve: non-finite solution")
-            err = max(err, e)
-            print(f"phase 13 btd_solve vs plain: {str(dtype)[6:]} B={shape[0]} "
-                  f"N={shape[1]}: max|kernel-plain| {e:.3e}", flush=True)
+        chunk = BTD_CHUNK[dtype]
+        cases = [(random_btd_factors(n, rng), n, b)
+                 for n in (1, 2, chunk - 1, chunk + 1) for b in (1, 31, 33, N_ENVS)]
+        cases += [(full, n_full, b) for b in (1, 31, 33, N_ENVS)]
+        worst = {}
+        for fac, n, b in cases:
+            f = kb.pack_factors(tuple(torch.tensor(x, dtype=dtype, device=dev) for x in fac))
+            rhs = torch.tensor(rng.normal(size=(b, n, 3)), dtype=dtype, device=dev)
+            ref = banded.btd_solve(f, rhs)
+            for pitch, r in (("unpadded", rhs), ("padded", padded_rows(rhs, kb))):
+                kb.reset_launch_counts()
+                out = kb.btd_solve(f, r)
+                require(kb.btd_solve.launches == 1, "btd_solve did not launch its kernel")
+                require(finite(out), f"btd_solve: non-finite solution (N={n}, B={b}, {pitch})")
+                e = float((out - ref).abs().max())
+                worst[(n, b, pitch)] = e
+                err = max(err, e)
+        print(f"phase 13 btd_solve vs plain: {str(dtype)[6:]}, chunk {chunk} nodes, "
+              f"N in {sorted({k[0] for k in worst})} x B in {sorted({k[1] for k in worst})} "
+              f"x padded/unpadded rows: max|kernel-plain| {max(worst.values()):.3e} "
+              f"(main path N={n_full} B={N_ENVS}: "
+              f"{worst[(n_full, N_ENVS, 'padded')]:.3e})", flush=True)
     require(err == 0.0, f"btd_solve: kernel and plain version differ by {err:.3e}")
     return err
 
@@ -1126,6 +1264,8 @@ def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
     rhs = torch.tensor(rng.normal(size=(N_ENVS, n_nodes, 3)), dtype=torch.float32,
                        device=dev)
     rhs[:, 0, :] = 0.0  # the fixed node's rows, as the operator pads them
+    rhs = padded_rows(rhs, kb)  # and in rows of the kernel's pitch, as it hands them
+    fac = kb.pack_factors(fac)  # packed once, as the operator uploads them
     J = (a * np.asarray(lin_model.beam_model.M.toarray())
          + c * sim_mod.reduce_matrix_dense(lin_model.beam_model.arrays,
                                            lin_model.beam_model.bc_info.free_dofs))
@@ -1135,6 +1275,7 @@ def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
     x_ker = kb.btd_solve(fac, rhs).reshape(N_ENVS, -1)[:, 3:]
     lib_rel = rel(x_ker, x_lib)
     k_ms = best(lambda: kb.btd_solve(fac, rhs))
+    k_dev_ms = device_ms(lambda: kb.btd_solve(fac, rhs), dev)
     p_ms = best(lambda: banded.btd_solve(fac, rhs))
     lib_ms = best(lambda: r_red @ inv.mT)
     btd_ops = N_ENVS * ((n_nodes - 1) * (18 + 33) + 15)
@@ -1146,7 +1287,8 @@ def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
     for name, o in (("pallas", op), ("dense_inv", op_dense)):
         st = implicit_start(o, n_red, torch.float32, dev)
         step_ms[name] = best(lambda: implicit_span(crt, o, st, steps_t, rho, nn)) / steps_t
-    print(f"phase 17 implicit timings [{card}]: btd_solve {k_ms:.4f} ms vs plain "
+    print(f"phase 17 implicit timings [{card}]: btd_solve {k_ms:.4f} ms a lone launch, "
+          f"device {k_dev_ms:.4f} ms, vs plain "
           f"{p_ms:.3f} ms, dense-inverse torch.matmul {lib_ms:.4f} ms (kernel vs it "
           f"{lib_rel:.3e} relative), bound {bnd[0]:.4f} ms ({bnd[1]}), kernel at "
           f"{bnd[0] / k_ms:.3f} of it; linear main path per step: pallas "
@@ -1154,19 +1296,34 @@ def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
           f"({steps_t} steps, best of 3); CARD_LINEAR_SOLVER="
           f"{sim_mod.CARD_LINEAR_SOLVER}", flush=True)
     return dict(launches=paths["implicit:linear"],
-                launches_by_path=paths, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                launches_by_path=paths, max_abs_err=err, ms=k_ms, device_ms=k_dev_ms,
+                plain_ms=p_ms,
                 bound=bnd, library_ms=lib_ms, source=BTD_SOURCE, replaces=BTD_REPLACES)
 
 
 def profile_implicit(crt, kb, dev, card) -> None:
     """``--profile implicit``: device time by kernel over ``PROFILE_STEPS``
-    steps of the linear implicit main path, and the busy share."""
+    steps of the linear implicit main path, and the busy share; then one
+    ``btd_solve`` at the path's shapes, a lone launch and its device time."""
+    from continuum_robot_tpu_torch.utils import cuda_event_times
+
     rho, nn = IMPLICIT["rho_lin"], IMPLICIT["newton_lin"]
     model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS))
     op = implicit_op(crt, model, rho, "pallas", dev)
     start = implicit_start(op, model.n_pos_states, torch.float32, dev)
     profile_span(lambda: implicit_span(crt, op, start, PROFILE_STEPS, rho, nn), dev,
                  card, "the linear implicit main path")
+    a, c = gen_alpha_system(rho)
+    fac = kb.pack_factors(tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                                for x in btd_host_factors(model, a, c)))
+    n = fac[0].shape[0]
+    rhs = padded_rows(torch.tensor(np.random.default_rng(0).normal(size=(N_ENVS, n, 3)),
+                                   dtype=torch.float32, device=dev), kb)
+    lone = min(cuda_event_times(lambda: kb.btd_solve(fac, rhs), repeats=5, warmup=1,
+                                device=dev))
+    print(f"profile [{card}]: btd_solve {N_ENVS} x {n} nodes float32: a lone launch "
+          f"{lone:.4f} ms, device {device_ms(lambda: kb.btd_solve(fac, rhs), dev):.4f} ms",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1423,6 +1580,8 @@ def main() -> int:
         which = args[args.index("--profile") + 1:][:1]
         if which == ["implicit"]:
             profile_implicit(crt, kb, dev, card)
+        elif which == ["dense"]:
+            profile_dense(crt, dev, card)
         elif which == ["fused"]:
             profile_fused(crt, dev, card)
         else:
@@ -1469,6 +1628,7 @@ def main() -> int:
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
          "bound_by": rec["bound"][1], "library_ms": rec["library_ms"],
          "launches_by_path": rec["launches_by_path"],
+         **({"device_ms": rec["device_ms"]} if "device_ms" in rec else {}),
          **({"design": rec["design"]} if "design" in rec else {})}
         for name, rec in records.items()
     ]}))

@@ -766,9 +766,9 @@ def make_modal_genalpha(
     if len(model.force_registry) > 0:
         raise ValueError(
             "Modal stepping (exact superposition) cannot include "
-            "state-dependent registry forces — use make_modal_rom / "
-            "simulate(method='modal_rom'): fluid drag and gravity ride "
-            "its split fast path as reduced corrections"
+            "state-dependent registry forces — use the full-order "
+            "simulate(method='newmark') or 'generalized_alpha', which "
+            "evaluate fluid drag and gravity at every step"
         )
 
     K = np.asarray(model.beam_model.get_stiffness_matrix(), dtype=np.float64)
@@ -807,9 +807,8 @@ def make_modal_rollout_fn(
     if forces_func is not None:
         raise ValueError(
             "method='modal' (exact superposition) cannot include "
-            "state-dependent forces; use method='modal_rom' — fluid "
-            "drag/gravity ride its split fast path as reduced "
-            "corrections — or 'newmark'/'generalized_alpha'"
+            "state-dependent forces; use method='newmark' or "
+            "'generalized_alpha'"
         )
     ms = make_modal_genalpha(model, dt / substeps, rho_inf=rho_inf,
                              rayleigh=rayleigh, device=device, dtype=dtype)
@@ -1012,6 +1011,13 @@ def make_newmark_operator(
     # otherwise index tensors.
     lo = int(free[0]) if free.size else 0
     contiguous = np.array_equal(free, np.arange(lo, lo + free.size))
+
+    def factors_upload(fac):
+        """Host factors as uploaded; the kernel's are packed once, there."""
+        if linear_solver != "pallas":
+            return fac
+        return lambda like: btd_kernel.pack_factors(_to_like(fac, like))
+
     up = _OperatorUploads({
         "mass_bands": mass_bands,
         "M_red": M_red,
@@ -1020,7 +1026,7 @@ def make_newmark_operator(
         "mask_nodes": mask_nodes.astype(np.float64),
         "params": lambda like: assembly.element_params(arrays, like),
         "free": lambda like: torch.as_tensor(free, device=like.device),
-        **{("factors", k): v for k, v in prefactored.items()},
+        **{("factors", k): factors_upload(v) for k, v in prefactored.items()},
         **{("inv", k): v for k, v in dense_inverses.items()},
     })
 
@@ -1029,10 +1035,12 @@ def make_newmark_operator(
             return x
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-    def pad(r):
+    def pad(r, width=n_full):
+        """``r`` in full coordinates, zero at the fixed DOFs, in rows of
+        ``width`` elements (the first ``n_full`` of them)."""
         if contiguous:
-            return torch.nn.functional.pad(r, (lo, n_full - lo - free.size))
-        out = r.new_zeros(*r.shape[:-1], n_full)
+            return torch.nn.functional.pad(r, (lo, width - lo - free.size))
+        out = r.new_zeros(*r.shape[:-1], width)
         out[..., up.get("free", r)] = r
         return out
 
@@ -1041,8 +1049,8 @@ def make_newmark_operator(
             return v[..., lo : lo + free.size]
         return v[..., up.get("free", v)]
 
-    def nodes(r):
-        return pad(r).reshape(*r.shape[:-1], n_nodes, 3)
+    def nodes(r, width=n_full):
+        return pad(r, width)[..., :n_full].reshape(*r.shape[:-1], n_nodes, 3)
 
     def full_to_red(x, r):
         return red(x.reshape(*r.shape[:-1], n_full))
@@ -1090,7 +1098,11 @@ def make_newmark_operator(
                       up.get("mask_nodes", q_full))
 
     sweep = banded.btd_cr_solve if linear_solver == "cr" else banded.btd_solve
-    prefactored_sweep = btd_kernel.btd_solve if linear_solver == "pallas" else sweep
+    prefactored_sweep, prefactored_width = sweep, n_full
+    if linear_solver == "pallas":
+        # The kernel's right-hand sides are rows padded to a 16-byte pitch.
+        prefactored_sweep = btd_kernel.btd_solve
+        prefactored_width = btd_kernel.padded_width(n_full)
 
     def solve(q_red, c, a=1.0):
         key = (float(a), float(c))
@@ -1106,7 +1118,8 @@ def make_newmark_operator(
 
             def do_solve(r_red):
                 r_red = tensor(r_red)
-                x = prefactored_sweep(up.get(("factors", key), r_red), nodes(r_red))
+                x = prefactored_sweep(up.get(("factors", key), r_red),
+                                      nodes(r_red, prefactored_width))
                 return full_to_red(x, r_red)
 
             return do_solve
@@ -1373,9 +1386,9 @@ class ModalROMGenAlpha(_Uploads):
         :meth:`rollout` with constant input and no external force. The name
         is the JAX package's; ``tile`` and ``chunk`` are accepted for
         signature parity and unused. On the card its two basis transforms
-        are 3xTF32 tensor-core products for every ``nl_precision``,
-        "highest" included (about 1e-6 of the output's scale against
-        float32; see ``ops/cuda/rom_rollout.py``)."""
+        are float32 products for ``nl_precision="highest"`` and 3xTF32
+        tensor-core products for the other tiers (about 1e-6 of the
+        output's scale against float32; see ``ops/cuda/rom_rollout.py``)."""
         if self.ext_modal is not None or self.external_force is not None:
             raise ValueError(
                 "the fused ROM kernel supports no external forces"
@@ -1991,11 +2004,11 @@ def simulate(
     ``linear_solver`` as in :func:`make_newmark_operator`, a torch
     ``forces_func(x, t)``); every other method raises
     ``NotImplementedError``. The arguments that only other methods read
-    (``rtol``, ``atol``, ``jit``) are accepted and unused; ``nl_precision``
-    is accepted and changes nothing: the ROM transforms are true
-    float32/float64 on the CPU and with ``engine="xla"``, and 3xTF32
-    tensor-core products with ``engine="pallas"`` on the card, "highest"
-    included (about 1e-6 of the output's scale against float32).
+    (``rtol``, ``atol``, ``jit``) are accepted and unused. ``nl_precision``
+    picks the ROM transforms' tier on the card with ``engine="pallas"``:
+    "highest" is float32, the other tiers 3xTF32 tensor-core products
+    (about 1e-6 of the output's scale against float32); on the CPU and
+    with ``engine="xla"`` they are true float32/float64 for every tier.
 
     Args:
         model: a :class:`DynamicEulerBernoulliBeam` of this package.

@@ -69,11 +69,14 @@ _SIGNATURES = {
         "rom_project_launch": [_c_int] * 4 + [_c_ptr, _c_i64] + [_c_ptr] * 4,
         "rom_update_launch": [_c_int] * 3 + [_c_ptr] * 9 + [_c_int]
         + [_c_ptr] * 3 + [_c_fptr, _c_ptr],
-        "rom_newton_dense_launch": [_c_int] * 2 + [_c_ptr] * 6 + [_c_int]
+        "rom_newton_dense_launch": [_c_int] * 3 + [_c_ptr] * 9 + [_c_i64, _c_int]
         + [_c_ptr] * 3 + [_c_fptr, _c_ptr],
+        "rom_expand_f32_launch": [_c_int] * 3 + [_c_ptr, _c_i64] + [_c_ptr] * 2
+        + [_c_i64, _c_ptr],
+        "rom_project_f32_launch": [_c_int] * 4 + [_c_ptr, _c_i64] + [_c_ptr] * 3,
     },
     "btd_solve": {
-        "btd_solve_launch": [_c_int] * 3 + [_c_ptr] * 6,
+        "btd_solve_launch": [_c_int] * 3 + [_c_i64] * 2 + [_c_ptr] * 5,
     },
     "fused_rollout": {
         "fused_gen_alpha_launch": [_c_int] * 5 + [_c_dbl] * 9 + [_c_ptr] * 8,

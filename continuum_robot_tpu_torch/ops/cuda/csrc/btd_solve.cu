@@ -9,30 +9,49 @@
 //
 // Layout: r and x are the env-major (B, 3N) rows of the implicit operator (row b
 // holds node 0's three DOFs, then node 1's, ...), straight from its zero padding with
-// no transpose; the factors are row-major 3x3 blocks, (N, 9), (N-1, 9), (N-1, 9). The
-// TPU kernel's (3N8, TB) transpose, 8-node groups, identity padding and unrolled group
-// recursion are Mosaic layout rules with no counterpart here.
+// no transpose, with a row pitch of a multiple of 16 bytes (the operator pads its rows
+// to a multiple of 4 elements; the wrapper copies other rows into such a buffer). The
+// factors are packed once, at upload (btd_solve.py: pack_factors), into 16-byte
+// aligned blocks of 12 elements, each 3x3 row padded by a zero: fwd (N, 12) holds
+// W_{n-1} at node n (zero at node 0), bwd (N, 24) holds Dinv_n then U_n (zero at node
+// N-1). With the zero blocks y_0 = r_0 - 0 and x_{N-1} = Dinv (y - 0), so every node
+// takes the same step; subtracting a zero that is +0 leaves every value bit for bit.
+// The TPU kernel's (3N8, TB) transpose, 8-node groups, identity padding and unrolled
+// group recursion are Mosaic layout rules with no counterpart here.
 //
-// Design: one thread per environment walks the nodes; a block holds 32 environments,
-// swept by its first warp, and four warps that copy. The node recursion is a dependent
-// chain, so the block streams its rows through shared memory in chunks of 128 nodes (64
-// in double) with cp.async, double-buffered: the loads of the next chunk (coalesced: a
-// warp's lanes read consecutive elements of one row) are in flight while the current
-// chunk is swept.
-// Each chunk's factors are staged beside it; the sweeping threads read the same factor
-// element, a shared-memory broadcast, one node ahead of the chain. The forward sweep
-// writes y in place in the staged chunk and stores it to the output; the backward sweep
-// reads y back from there (in place, as the TPU kernel does) and overwrites it with x.
-// The last chunk's y never leaves shared memory. Staged rows are padded by one element
-// so the warp's 32 rows fall in 32 different banks.
+// Design: one thread per environment walks the nodes, 32 environments per block
+// (4096 envs: 128 blocks, one per SM). The node recursion is a dependent chain, so the
+// block streams chunks of 64 nodes (32 in double) through a ring of 7 shared-memory
+// slots, and its three warps have one job each:
+//   warp 0, the sweep: waits for a chunk, sweeps it in place (y over r going forward,
+//     x over y going back), and signals it done; nothing else;
+//   warp 1, the loads: one thread issues bulk copies (cp.async.bulk, 16-byte
+//     granules) of the chunk's rows, one per environment, and of its packed factors,
+//     completing on the slot's "full" mbarrier;
+//   warp 2, the stores: one thread waits for a swept chunk and bulk-copies its rows
+//     out, then frees the slot ("empty").
+// Per-slot mbarriers (full, done, empty) replace block-wide barriers, so the load of
+// chunk k + 1 .. k + 6 and the store of chunk k - 1 overlap the sweep of chunk k, and
+// the sweeping warp (on its own SM sub-partition) never stops for a copy. Job j sweeps
+// chunk j forward for j < n and chunk 2n - 1 - j backward after; chunk k always sits
+// in slot k % 7, so the forward sweep's last 7 chunks (448 of 1001 nodes) are never
+// stored: the backward sweep finds their y in shared memory. Earlier chunks store y to
+// the output rows and load it back. The sweep reads its rows as 16-byte vectors (a
+// group of 4 nodes in float, 2 in double: three loads) and each 3x3 factor as three
+// 16-byte rows, broadcast to the warp; staged rows are 196 (98) elements apart, an odd
+// number of 16-byte units, so the warp's vector accesses meet no bank conflict.
 //
 // Bound: the least traffic is one read of r and one write of x, 2 * B * 3N elements
-// (98.4 MB in float32 at B=4096, N=1001: 0.029 ms at 3.35 TB/s); the arithmetic is 51
-// operations per node per environment (2.1e8 in all, 3 us at 67 TFLOP/s), so the kernel
-// is bound by bytes. At B=4096 there is one sweeping warp per SM: the chain of 2N
-// dependent node steps, each a few dozen instructions from that warp, sets the
-// time (sweeps alone, without the copies, take two thirds of it on an H100), and y
-// moves through device memory once more each way.
+// (98.4 MB in float32 at B=4096, N=1001: 0.029 ms at 3.35 TB/s; y's round trip for
+// the stored chunks adds traffic, on the copying warps); the arithmetic is 51
+// operations per node per environment (2.1e8 in all, 3 us at 67 TFLOP/s). With one
+// environment per thread and 31 environments per SM, the sweeping warp bounds the
+// kernel: about 24 instructions a node forward and 42 back (3 + 6 vector factor
+// loads, 3/G vector row loads and stores, 18 + 36 unfused float operations), some
+// 66,000 issue cycles for the 1001-node chain (~0.037 ms at 1.8 GHz), with the
+// dependent latency of a node (4 + 8 chained operations) under it; the copies hide
+// behind it. On an H100 the kernel takes 0.069 ms on the device (chip_smoke.py,
+// phase 17): 2.4x its byte bound, 1.9x that issue estimate.
 //
 // Rounding: every multiply and add goes through the _rn intrinsics, which the compiler
 // never contracts into a fused multiply-add, and each row of a 3x3 product is summed as
@@ -42,7 +61,6 @@
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw device
 // pointers and the stream, and checks the returned cudaError_t.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -55,19 +73,80 @@ __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, 
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 
-constexpr int kEnvs = 32;   // environments per block: warp 0 sweeps them
-constexpr int kWarps = 4;   // all four warps copy and store
-constexpr int kThreads = 32 * kWarps;
+constexpr int kEnvs = 32;            // environments per block: warp 0's lanes
+constexpr int kThreads = 3 * 32;     // the sweep, the loads, the stores
+constexpr int kSlots = 7;            // ring slots of one chunk each
 
-// Nodes per staged chunk: as many as two buffers of float rows fit (117 KB of
-// shared memory either way); longer chunks mean fewer block-wide barriers.
+// Per type: nodes per chunk, the staged row's length (elements), the nodes a
+// 16-byte vector of rows covers.
 template <typename T>
-struct Chunk {
-  static constexpr int kNodes = sizeof(T) == 4 ? 128 : 64;
-  static constexpr int kStride = 3 * kNodes + 1;  // staged row, padded against bank conflicts
-  static constexpr int kFactors = 18 * kNodes;    // staged factors: 2 x 9 per node
-  static constexpr size_t kBytes = (2 * kEnvs * kStride + 2 * kFactors) * sizeof(T);
+struct Cfg;
+template <>
+struct Cfg<float> {
+  static constexpr int kNodes = 64;
+  static constexpr int kStride = 3 * 64 + 4;  // 49 16-byte units: odd
+  static constexpr int kGroup = 4;            // 12 floats = three float4
 };
+template <>
+struct Cfg<double> {
+  static constexpr int kNodes = 32;
+  static constexpr int kStride = 3 * 32 + 2;  // 49 16-byte units: odd
+  static constexpr int kGroup = 2;            // 6 doubles = three double2
+};
+
+// A slot: kEnvs staged rows, then 24 factor elements per node.
+template <typename T>
+struct Slot {
+  static constexpr int kRows = kEnvs * Cfg<T>::kStride;
+  static constexpr int kElems = kRows + 24 * Cfg<T>::kNodes;
+  static constexpr int kBytes = kElems * static_cast<int>(sizeof(T));
+  static constexpr int kSmem = kSlots * kBytes + 3 * kSlots * 8;  // + the mbarriers
+};
+static_assert(Slot<float>::kBytes % 16 == 0 && Slot<double>::kBytes % 16 == 0, "slots");
+static_assert(Slot<float>::kSmem <= 232448 && Slot<double>::kSmem <= 232448, "smem");
+
+// 16-byte vector loads and stores of consecutive elements.
+__device__ __forceinline__ void unpack(const float4& v, float* d) {
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+__device__ __forceinline__ void unpack(const double2& v, double* d) {
+  d[0] = v.x;
+  d[1] = v.y;
+}
+__device__ __forceinline__ float4 pack(const float* s, float) {
+  return make_float4(s[0], s[1], s[2], s[3]);
+}
+__device__ __forceinline__ double2 pack(const double* s, double) {
+  return make_double2(s[0], s[1]);
+}
+template <typename T>
+struct V16;
+template <>
+struct V16<float> {
+  using type = float4;
+};
+template <>
+struct V16<double> {
+  using type = double2;
+};
+template <typename T>
+using Vec16 = typename V16<T>::type;
+
+template <int K, typename T>
+__device__ __forceinline__ void ld16(T* dst, const T* src) {
+  constexpr int n = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < K / n; ++i) unpack(reinterpret_cast<const Vec16<T>*>(src)[i], dst + n * i);
+}
+template <int K, typename T>
+__device__ __forceinline__ void st16(T* dst, const T* src) {
+  constexpr int n = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < K / n; ++i) reinterpret_cast<Vec16<T>*>(dst)[i] = pack(src + n * i, T(0));
+}
 
 // One row of a 3x3 product: m[0]*v0 + m[1]*v1 + m[2]*v2, summed from the left.
 template <typename T>
@@ -75,229 +154,298 @@ __device__ __forceinline__ T row(const T* m, T v0, T v1, T v2) {
   return add(add(mul(m[0], v0), mul(m[1], v1)), mul(m[2], v2));
 }
 
-// Block-cooperative asynchronous copy of count elements, global -> shared.
+// One forward node: y = c - W y, written over the node's three rows c.
 template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src, int count) {
-  for (int i = threadIdx.x; i < count; i += kThreads)
-    __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
+__device__ __forceinline__ void forward_node(const T* w, T* c, T& y0, T& y1, T& y2) {
+  const T a0 = sub(c[0], row(w, y0, y1, y2));
+  const T a1 = sub(c[1], row(w + 4, y0, y1, y2));
+  const T a2 = sub(c[2], row(w + 8, y0, y1, y2));
+  c[0] = y0 = a0;
+  c[1] = y1 = a1;
+  c[2] = y2 = a2;
 }
 
-// Asynchronous copy of nb rows of count elements (global row stride row_len) into
-// staged rows: warp w takes rows w, w + kWarps, ..., its lanes consecutive elements.
+// One backward node: x = Dinv (y - U x), written over the node's rows y;
+// f holds Dinv then U.
 template <typename T>
-__device__ __forceinline__ void copy_rows_async(T* rows, const T* src, int64_t row_len, int nb,
-                                                int count) {
-  const int lane = threadIdx.x & 31;
-  for (int e = threadIdx.x >> 5; e < nb; e += kWarps)
-    for (int i = lane; i < count; i += 32)
-      __pipeline_memcpy_async(rows + e * Chunk<T>::kStride + i, src + e * row_len + i,
-                              sizeof(T));
+__device__ __forceinline__ void backward_node(const T* f, T* c, T& x0, T& x1, T& x2) {
+  const T a0 = sub(c[0], row(f + 12, x0, x1, x2));
+  const T a1 = sub(c[1], row(f + 16, x0, x1, x2));
+  const T a2 = sub(c[2], row(f + 20, x0, x1, x2));
+  c[0] = x0 = row(f, a0, a1, a2);
+  c[1] = x1 = row(f + 4, a0, a1, a2);
+  c[2] = x2 = row(f + 8, a0, a1, a2);
 }
 
-// Store of nb staged rows of count elements to global, split as copy_rows_async.
+// The sweeps over one staged row r (3 elements per node, swept in place)
+// of a chunk of cn nodes, factors f (F = 12 forward, 24 backward per node).
+// They are the warp's whole critical path, so every load runs ahead of the
+// arithmetic that needs it and no branch splits the steady state: nodes go
+// in pairs of groups of G nodes (a group's rows are three 16-byte vectors),
+// the next group's rows and the next node's factors load while a node is
+// computed, into two register sets used in turn (so no register copies),
+// and look-ahead indices are clamped inside the slot rather than tested.
+// The nodes past the last whole pair of groups (the chunk's ragged end)
+// take a plain loop.
 template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, int64_t row_len, const T* rows, int nb,
-                                           int count) {
-  const int lane = threadIdx.x & 31;
-  for (int e = threadIdx.x >> 5; e < nb; e += kWarps)
-    for (int i = lane; i < count; i += 32)
-      dst[e * row_len + i] = rows[e * Chunk<T>::kStride + i];
-}
-
-template <typename T>
-__device__ __forceinline__ void load9(T* dst, const T* src) {
+__device__ __forceinline__ void sweep_forward(T* r, const T* f, int cn, T& y0, T& y1, T& y2) {
+  constexpr int G = Cfg<T>::kGroup, F = 12;
+  const int whole = cn - cn % (2 * G);
+  T fa[F], fb[F], ca[3 * G], cb[3 * G];
+  ld16<F>(fa, f);
+  ld16<3 * G>(ca, r);
+  for (int j0 = 0; j0 < whole; j0 += 2 * G) {
+    // Group a: nodes j0 .. j0 + G - 1; group b's rows load meanwhile.
+    ld16<3 * G>(cb, r + 3 * (j0 + G));
 #pragma unroll
-  for (int k = 0; k < 9; ++k) dst[k] = src[k];
+    for (int q = 0; q < G; q += 2) {
+      ld16<F>(fb, f + F * (j0 + q + 1));
+      forward_node(fa, ca + 3 * q, y0, y1, y2);
+      ld16<F>(fa, f + F * (j0 + q + 2));
+      forward_node(fb, ca + 3 * q + 3, y0, y1, y2);
+    }
+    st16<3 * G>(r + 3 * j0, ca);
+    // Group b: the next pair's first rows load meanwhile (past the chunk's
+    // last pair they are unused: the reads stay in the slot).
+    ld16<3 * G>(ca, r + 3 * (j0 + 2 * G));
+#pragma unroll
+    for (int q = 0; q < G; q += 2) {
+      ld16<F>(fb, f + F * min(j0 + G + q + 1, cn - 1));
+      forward_node(fa, cb + 3 * q, y0, y1, y2);
+      ld16<F>(fa, f + F * min(j0 + G + q + 2, cn - 1));
+      forward_node(fb, cb + 3 * q + 3, y0, y1, y2);
+    }
+    st16<3 * G>(r + 3 * (j0 + G), cb);
+  }
+  for (int j = whole; j < cn; ++j) {
+    ld16<F>(fa, f + F * j);
+    T c[3] = {r[3 * j], r[3 * j + 1], r[3 * j + 2]};
+    forward_node(fa, c, y0, y1, y2);
+    r[3 * j] = c[0];
+    r[3 * j + 1] = c[1];
+    r[3 * j + 2] = c[2];
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    btd_solve_kernel(int B, int N, const T* __restrict__ dinv, const T* __restrict__ lw,
-                     const T* __restrict__ up, const T* __restrict__ rhs, T* out) {
-  constexpr int kChunk = Chunk<T>::kNodes, kStride = Chunk<T>::kStride;
-  constexpr int kFactors = Chunk<T>::kFactors;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  T* const fac0 = smem + 2 * kEnvs * kStride;
-  // Buffer s: staged rows at smem + s * kEnvs * kStride, factors at fac0 + s * kFactors.
+__device__ __forceinline__ void sweep_backward(T* r, const T* f, int cn, T& x0, T& x1, T& x2) {
+  constexpr int G = Cfg<T>::kGroup, F = 24;
+  const int whole = cn - cn % (2 * G);
+  T fa[F], fb[F], ca[3 * G], cb[3 * G];
+  for (int j = cn - 1; j >= whole; --j) {
+    ld16<F>(fa, f + F * j);
+    T c[3] = {r[3 * j], r[3 * j + 1], r[3 * j + 2]};
+    backward_node(fa, c, x0, x1, x2);
+    r[3 * j] = c[0];
+    r[3 * j + 1] = c[1];
+    r[3 * j + 2] = c[2];
+  }
+  if (whole == 0) return;
+  ld16<F>(fa, f + F * (whole - 1));
+  ld16<3 * G>(ca, r + 3 * (whole - G));
+  for (int j0 = whole - 2 * G; j0 >= 0; j0 -= 2 * G) {
+    // Group a: nodes j0 + 2G - 1 .. j0 + G; group b's rows load meanwhile.
+    ld16<3 * G>(cb, r + 3 * j0);
+#pragma unroll
+    for (int q = G - 1; q > 0; q -= 2) {
+      ld16<F>(fb, f + F * (j0 + G + q - 1));
+      backward_node(fa, ca + 3 * q, x0, x1, x2);
+      ld16<F>(fa, f + F * (j0 + G + q - 2));
+      backward_node(fb, ca + 3 * q - 3, x0, x1, x2);
+    }
+    st16<3 * G>(r + 3 * (j0 + G), ca);
+    // Group b: nodes j0 + G - 1 .. j0; the next pair's first rows load
+    // meanwhile (clamped at node 0: unused there).
+    ld16<3 * G>(ca, r + 3 * max(j0 - G, 0));
+#pragma unroll
+    for (int q = G - 1; q > 0; q -= 2) {
+      ld16<F>(fb, f + F * (j0 + q - 1));
+      backward_node(fa, cb + 3 * q, x0, x1, x2);
+      ld16<F>(fa, f + F * max(j0 + q - 2, 0));
+      backward_node(fb, cb + 3 * q - 3, x0, x1, x2);
+    }
+    st16<3 * G>(r + 3 * j0, cb);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Bulk copies (16-byte aligned, a multiple of 16 bytes).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    btd_solve_kernel(int B, int N, int64_t ld_in, int64_t ld_out, const T* __restrict__ fwd,
+                     const T* __restrict__ bwd, const T* __restrict__ rhs, T* out) {
+  constexpr int C = Cfg<T>::kNodes;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* const slots = reinterpret_cast<T*>(smem_raw);
+  const uint32_t slots_u32 = smem_u32(smem_raw);
+  const uint32_t bars = slots_u32 + kSlots * Slot<T>::kBytes;
+  // full[s] (the loads landed), done[s] (the sweep finished), empty[s] (the
+  // stores have read the slot): one phase per use of slot s.
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto done = [&](int s) { return bars + 8 * (kSlots + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * kSlots + s); };
+  auto rows = [&](int s) { return slots + s * Slot<T>::kElems; };
+  auto factors = [&](int s) { return slots + s * Slot<T>::kElems + Slot<T>::kRows; };
 
   const int env0 = blockIdx.x * kEnvs;
   const int nb = min(kEnvs, B - env0);
-  const int t = threadIdx.x;
-  const int64_t row_len = 3LL * N;
-  const T* rhs_blk = rhs + env0 * row_len;
-  T* out_blk = out + env0 * row_len;
-  const int n_chunks = (N + kChunk - 1) / kChunk;
+  const int n_chunks = (N + C - 1) / C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // ---- forward sweep: chunk k in buffer k & 1 ----
-  // Node n uses lw[n - 1], staged at fac + 9 * (n - n0); node 0 uses none.
-  auto stage_fwd = [&](int k) {
-    const int s = k & 1, n0 = k * kChunk, cn = min(kChunk, N - n0);
-    copy_rows_async(smem + s * kEnvs * kStride, rhs_blk + 3LL * n0, row_len, nb, 3 * cn);
-    const int j0 = n0 == 0 ? 1 : 0;
-    copy_async(fac0 + s * kFactors + 9 * j0, lw + 9LL * (n0 + j0 - 1), 9 * (cn - j0));
-    __pipeline_commit();
-  };
-
-  T y0 = T(0), y1 = T(0), y2 = T(0);
-  stage_fwd(0);
-  for (int k = 0; k < n_chunks; ++k) {
-    if (k + 1 < n_chunks) {
-      stage_fwd(k + 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(done(s), 32);
+      mbar_init(empty(s), 1);
     }
-    __syncthreads();
-    const int s = k & 1, n0 = k * kChunk, cn = min(kChunk, N - n0);
-    T* const rows = smem + s * kEnvs * kStride;
-    if (t < nb) {
-      T* r = rows + t * kStride;
-      const T* w = fac0 + s * kFactors;
-      int j = 0;
-      if (n0 == 0) {  // y_0 = r_0
-        y0 = r[0];
-        y1 = r[1];
-        y2 = r[2];
-        j = 1;
-      }
-      // Node j's operands are loaded one node ahead, so their shared-memory
-      // latency overlaps the dependent chain of the node before.
-      T m[9], c0 = T(0), c1 = T(0), c2 = T(0);
-      if (j < cn) {
-        load9(m, w + 9 * j);
-        c0 = r[3 * j];
-        c1 = r[3 * j + 1];
-        c2 = r[3 * j + 2];
-      }
-#pragma unroll 2
-      for (; j < cn; ++j) {
-        T mn[9], n0v = T(0), n1v = T(0), n2v = T(0);
-        if (j + 1 < cn) {
-          load9(mn, w + 9 * (j + 1));
-          n0v = r[3 * j + 3];
-          n1v = r[3 * j + 4];
-          n2v = r[3 * j + 5];
-        }
-        const T a0 = sub(c0, row(m, y0, y1, y2));
-        const T a1 = sub(c1, row(m + 3, y0, y1, y2));
-        const T a2 = sub(c2, row(m + 6, y0, y1, y2));
-        r[3 * j] = a0;
-        r[3 * j + 1] = a1;
-        r[3 * j + 2] = a2;
-        y0 = a0;
-        y1 = a1;
-        y2 = a2;
-#pragma unroll
-        for (int q = 0; q < 9; ++q) m[q] = mn[q];
-        c0 = n0v;
-        c1 = n1v;
-        c2 = n2v;
-      }
-    }
-    __syncthreads();
-    // The last chunk's y stays in shared memory for the backward sweep.
-    if (k + 1 < n_chunks) store_rows(out_blk + 3LL * n0, row_len, rows, nb, 3 * cn);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  // ---- backward sweep: iteration it takes chunk n_chunks - 1 - it, in buffer
-  // (it + last) & 1, so that iteration 0 finds the forward sweep's last chunk ----
-  // Node n uses dinv[n] at fac + 9 * (n - n0) and up[n] (n < N - 1) at
-  // fac + 9 * kChunk + 9 * (n - n0).
-  const int last = (n_chunks - 1) & 1;
-  auto stage_bwd = [&](int it, bool with_rows) {
-    const int s = (it + last) & 1, n0 = (n_chunks - 1 - it) * kChunk;
-    const int cn = min(kChunk, N - n0);
-    if (with_rows)
-      copy_rows_async(smem + s * kEnvs * kStride, out_blk + 3LL * n0, row_len, nb, 3 * cn);
-    copy_async(fac0 + s * kFactors, dinv + 9LL * n0, 9 * cn);
-    copy_async(fac0 + s * kFactors + 9 * kChunk, up + 9LL * n0, 9 * min(cn, N - 1 - n0));
-    __pipeline_commit();
-  };
+  // Job j: chunk k forward (j < n) or backward, in slot k % kSlots. A chunk
+  // of the forward sweep's last kSlots stays resident: its y is neither
+  // stored nor loaded back. Each role waits on every phase of its barriers in
+  // job order, so one parity bit per slot follows them.
+  const int n_jobs = 2 * n_chunks;
+  auto chunk_of = [&](int j) { return j < n_chunks ? j : n_jobs - 1 - j; };
+  auto resident = [&](int k) { return k >= n_chunks - kSlots; };
+  // A chunk's rows: 3 cn elements rounded up to 16 bytes (the row pitches
+  // leave room for them).
+  auto row_bytes = [&](int cn) { return (3u * cn * sizeof(T) + 15u) & ~15u; };
 
-  T x0 = T(0), x1 = T(0), x2 = T(0);
-  stage_bwd(0, false);
-  for (int it = 0; it < n_chunks; ++it) {
-    if (it + 1 < n_chunks) {
-      stage_bwd(it + 1, true);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
+  if (warp == 0) {  // the sweep
+    uint32_t parity = 0;
+    T y0 = T(0), y1 = T(0), y2 = T(0), x0 = T(0), x1 = T(0), x2 = T(0);
+    for (int j = 0; j < n_jobs; ++j) {
+      const int k = chunk_of(j), s = k % kSlots;
+      const int cn = min(C, N - k * C);
+      mbar_wait(full(s), (parity >> s) & 1u);
+      parity ^= 1u << s;
+      if (lane < nb) {
+        T* const r = rows(s) + lane * Cfg<T>::kStride;
+        if (j < n_chunks) {
+          sweep_forward(r, factors(s), cn, y0, y1, y2);
+        } else {
+          sweep_backward(r, factors(s), cn, x0, x1, x2);
+        }
+      }
+      // The stores read this slot through the async proxy.
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(done(s));
     }
-    __syncthreads();
-    const int s = (it + last) & 1, n0 = (n_chunks - 1 - it) * kChunk;
-    const int cn = min(kChunk, N - n0);
-    T* const rows = smem + s * kEnvs * kStride;
-    if (t < nb) {
-      T* r = rows + t * kStride;
-      const T* d = fac0 + s * kFactors;
-      const T* u = d + 9 * kChunk;
-      int j = cn - 1;
-      if (n0 + j == N - 1) {  // x_{N-1} = Dinv_{N-1} y_{N-1}
-        const T* m = d + 9 * j;
-        const T a0 = r[3 * j], a1 = r[3 * j + 1], a2 = r[3 * j + 2];
-        x0 = row(m, a0, a1, a2);
-        x1 = row(m + 3, a0, a1, a2);
-        x2 = row(m + 6, a0, a1, a2);
-        r[3 * j] = x0;
-        r[3 * j + 1] = x1;
-        r[3 * j + 2] = x2;
-        --j;
+  } else if (warp == 1 && lane == 0) {  // the loads
+    uint32_t parity = 0, used = 0;
+    for (int j = 0; j < n_jobs; ++j) {
+      const bool forward = j < n_chunks;
+      const int k = chunk_of(j), s = k % kSlots;
+      const int n0 = k * C, cn = min(C, N - n0);
+      if ((used >> s) & 1u) {  // the slot's last job has been swept and stored
+        mbar_wait(empty(s), (parity >> s) & 1u);
+        parity ^= 1u << s;
       }
-      // Operands one node ahead, as in the forward sweep.
-      T mu[9], md[9], c0 = T(0), c1 = T(0), c2 = T(0);
-      if (j >= 0) {
-        load9(mu, u + 9 * j);
-        load9(md, d + 9 * j);
-        c0 = r[3 * j];
-        c1 = r[3 * j + 1];
-        c2 = r[3 * j + 2];
-      }
-#pragma unroll 2
-      for (; j >= 0; --j) {
-        T nu[9], nd[9], n0v = T(0), n1v = T(0), n2v = T(0);
-        if (j > 0) {
-          load9(nu, u + 9 * (j - 1));
-          load9(nd, d + 9 * (j - 1));
-          n0v = r[3 * j - 3];
-          n1v = r[3 * j - 2];
-          n2v = r[3 * j - 1];
-        }
-        const T a0 = sub(c0, row(mu, x0, x1, x2));
-        const T a1 = sub(c1, row(mu + 3, x0, x1, x2));
-        const T a2 = sub(c2, row(mu + 6, x0, x1, x2));
-        x0 = row(md, a0, a1, a2);
-        x1 = row(md + 3, a0, a1, a2);
-        x2 = row(md + 6, a0, a1, a2);
-        r[3 * j] = x0;
-        r[3 * j + 1] = x1;
-        r[3 * j + 2] = x2;
-#pragma unroll
-        for (int q = 0; q < 9; ++q) {
-          mu[q] = nu[q];
-          md[q] = nd[q];
-        }
-        c0 = n0v;
-        c1 = n1v;
-        c2 = n2v;
+      used |= 1u << s;
+      const bool with_rows = forward || !resident(k);
+      const uint32_t fac_bytes = (forward ? 12u : 24u) * cn * sizeof(T);
+      const uint32_t rb = row_bytes(cn);
+      mbar_expect_tx(full(s), fac_bytes + (with_rows ? nb * rb : 0u));
+      bulk_load(smem_u32(factors(s)), forward ? fwd + 12LL * n0 : bwd + 24LL * n0, fac_bytes,
+                full(s));
+      if (with_rows) {
+        // Backward: y as the stores left it in the output rows.
+        if (!forward) asm volatile("fence.proxy.async.global;" ::: "memory");
+        const T* src = forward ? rhs : out;
+        const int64_t ld = forward ? ld_in : ld_out;
+        for (int b = 0; b < nb; ++b)
+          bulk_load(smem_u32(rows(s) + b * Cfg<T>::kStride), src + (env0 + b) * ld + 3LL * n0,
+                    rb, full(s));
       }
     }
-    __syncthreads();
-    store_rows(out_blk + 3LL * n0, row_len, rows, nb, 3 * cn);
-    __syncthreads();
+  } else if (warp == 2 && lane == 0) {  // the stores
+    uint32_t parity = 0;
+    for (int j = 0; j < n_jobs; ++j) {
+      const bool forward = j < n_chunks;
+      const int k = chunk_of(j), s = k % kSlots;
+      const int n0 = k * C, cn = min(C, N - n0);
+      mbar_wait(done(s), (parity >> s) & 1u);
+      parity ^= 1u << s;
+      if (!forward || !resident(k)) {
+        const uint32_t rb = row_bytes(cn);
+        for (int b = 0; b < nb; ++b)
+          bulk_store(out + (env0 + b) * ld_out + 3LL * n0,
+                     smem_u32(rows(s) + b * Cfg<T>::kStride), rb);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        // Done writing, not only reading: a stored y is loaded back later.
+        asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+      }
+      mbar_arrive(empty(s));
+    }
   }
 }
 
+// Per device, whether each instance may use its dynamic shared memory (set
+// once, read on every launch).
+constexpr int kMaxDevices = 64;
+bool g_smem_set[2][kMaxDevices];
+
 template <typename T>
-int launch(int B, int N, const void* dinv, const void* lw, const void* up, const void* rhs,
-           void* out, cudaStream_t stream) {
-  constexpr size_t smem = Chunk<T>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      btd_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  btd_solve_kernel<T><<<(B + kEnvs - 1) / kEnvs, kThreads, smem, stream>>>(
-      B, N, static_cast<const T*>(dinv), static_cast<const T*>(lw), static_cast<const T*>(up),
+int launch(int B, int N, int64_t ld_in, int64_t ld_out, const void* fwd, const void* bwd,
+           const void* rhs, void* out, cudaStream_t stream) {
+  constexpr int which = sizeof(T) == 4 ? 0 : 1;
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0) return rc;
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!g_smem_set[which][dev]) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        btd_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, Slot<T>::kSmem));
+    if (rc != 0) return rc;
+    g_smem_set[which][dev] = true;
+  }
+  btd_solve_kernel<T><<<(B + kEnvs - 1) / kEnvs, kThreads, Slot<T>::kSmem, stream>>>(
+      B, N, ld_in, ld_out, static_cast<const T*>(fwd), static_cast<const T*>(bwd),
       static_cast<const T*>(rhs), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -305,15 +453,17 @@ int launch(int B, int N, const void* dinv, const void* lw, const void* up, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. B >= 1 right-hand sides of N >= 1 nodes; rhs and
-// out are (B, 3N), dinv (N, 9), lw and up (N - 1, 9), all contiguous on one device.
-// Returns the cudaError_t of the launch (0 on success).
+// out are (B, 3N) rows with pitches ld_in and ld_out (elements; 16-byte multiples,
+// with room for 3N rounded up to 16 bytes), 16-byte aligned; fwd (N, 12) and bwd
+// (N, 24) the packed factors; all on one device. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" {
 
-int btd_solve_launch(int dtype, int B, int N, const void* dinv, const void* lw, const void* up,
-                     const void* rhs, void* out, void* stream) {
+int btd_solve_launch(int dtype, int B, int N, int64_t ld_in, int64_t ld_out, const void* fwd,
+                     const void* bwd, const void* rhs, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(B, N, dinv, lw, up, rhs, out, st);
-  return launch<double>(B, N, dinv, lw, up, rhs, out, st);
+  if (dtype == 0) return launch<float>(B, N, ld_in, ld_out, fwd, bwd, rhs, out, st);
+  return launch<double>(B, N, ld_in, ld_out, fwd, bwd, rhs, out, st);
 }
 
 const char* cuda_error_string(int code) {

@@ -24,9 +24,12 @@
 //                          the long (3 n_sub) reduction (tensor cores, 3xTF32)
 //   update_kernel          g_m = the S partials summed in slice order, then
 //                          the residual and the diagonal Newton update (+ the
-//                          state update on the last iteration), or the
-//                          residual for a dense Sinv
-//   rom_newton_dense (GEMM)  a1 - r @ SinvT with the same update (SIMT f32)
+//                          state update on the last iteration)
+//   newton_dense_kernel    the same g_m and residual, kept in shared memory,
+//                          then a1 - r @ SinvT with the same update (a dense
+//                          Sinv: one launch in place of rom_update's)
+//   gemm_kernel            float32 SIMT instances of expand and project for
+//                          nl_precision="highest"
 //
 // The two basis transforms: 3xTF32 on wgmma. The TPU kernel does not form
 // them in plain float32 either: by default it splits each operand into bf16
@@ -38,6 +41,11 @@
 // accurate to ~2^-21 (bf16 hi/lo: ~2^-16). In float32 FMAs on the CUDA
 // cores (67 TFLOP/s) either product is bound at 0.094 ms at the main
 // path's size; three TF32 passes at 495 TFLOP/s bound it at 0.038 ms.
+// nl_precision="highest" asks for full float32, as the TPU kernel's
+// Precision.HIGHEST gives it: for that tier the wrappers launch the float32
+// SIMT GEMMs below (gemm_kernel: 128 x 128 tiles of 8 x 8 register blocks,
+// two blocks per SM; the project split over S slices of its reduction,
+// summed in slice order by update_kernel), reading the unsplit bases.
 //
 // Both are one "TN" GEMM, C(i, j) = sum_k A(i, k) Bt(j, k), with both
 // operands K-major as TF32 wgmma requires:
@@ -67,6 +75,25 @@
 // products update_kernel sums in a fixed order: no atomics, deterministic.
 // Kernel and twin (float32 torch.matmul) agree to ~1e-6 of the output's
 // scale, not bit for bit.
+//
+// The dense Newton update (newton_dense_kernel): (B x m) outputs over a
+// short (m) reduction, 2 B m^2 float32 FMA operations (0.54 GFLOP at B =
+// 4096, m = 256: 8 us at the float32 peak) against 9 B m + m^2 floats of
+// traffic (S = 2 partials, four state inputs, three outputs on the last
+// iteration: 11.3 us at 3.35 TB/s), so both bounds are close. It stays float32 for every tier: the TPU kernel's
+// Newton dot is Precision.HIGHEST unless the caller asks for "default". A
+// block owns 32 envs x 256 modes (128 blocks at B = 4096: one wave on 132
+// SMs, r formed once). It streams SinvT (m x m, L2-resident) in 32-row
+// slices through a 3-stage cp.async ring while 256 threads each accumulate
+// 8 x 4 outputs in registers (per k: 3 shared loads, the two of r
+// broadcast, for 32 FMAs); it forms r (in update_kernel's order) a 32-mode
+// slice at a time into shared memory, transposed, one slice ahead of the
+// product, so the loads of r's inputs overlap the FMAs; and it applies the
+// Newton update from registers with 16-byte accesses. r never reaches
+// device memory. On an H100 it takes 0.031 ms on the device, 2.8x its byte
+// bound (chip_smoke.py phase 12). Forming r at each thread's own outputs
+// before the product, so that the state is read once, was no faster: that
+// formation cannot overlap the FMAs.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw device
 // pointers, 128-byte tensor maps and the stream and checks the returned code.
@@ -420,10 +447,11 @@ int encode_map(CUtensorMap* map, const float* p, int rows, int cols, int64_t ld)
 }
 
 // Per device: its SM count, and whether each 3xTF32 kernel may use kGemmSmem
-// bytes of dynamic shared memory (set once, read on every launch).
+// bytes of dynamic shared memory and the dense Newton kernel all of a block's
+// (set once, read on every launch).
 constexpr int kMaxDevices = 64;
 int g_sm_count[kMaxDevices];
-bool g_smem_set[2][kMaxDevices];
+bool g_smem_set[3][kMaxDevices];
 
 // Launch a 3xTF32 kernel (`which`: 0 expand, 1 project) persistently, one
 // block per SM and at most one per unit: A's tensor map encoded here, the
@@ -458,13 +486,14 @@ int launch_3xtf32(Kernel kernel, int which, int units, const float* a, int a_row
 }
 
 // ---------------------------------------------------------------------------
-// Tiled float32 SIMT GEMM (the dense Newton update only):
-// C(i, j) = sum_k A(i, k) B(k, j), B row-major (K, N).
+// Tiled float32 SIMT GEMM (nl_precision="highest"): C(i, j) = sum_k A(i, k)
+// B(k, j), B row-major (K, N). Block z of the grid's third dimension sums k
+// in [z k_chunk, (z + 1) k_chunk).
 // ---------------------------------------------------------------------------
 
 template <int BM, int BN, int BK, int TM, int TN, int MIN_BLOCKS, class AOp, class Epi>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
-gemm_kernel(int M, int N, int K, AOp a, const float* __restrict__ b, Epi epi) {
+gemm_kernel(int M, int N, int K, int k_chunk, AOp a, const float* __restrict__ b, Epi epi) {
   constexpr int kThreads = (BM / TM) * (BN / TN);
   constexpr int kALoads = BM * BK / kThreads;
   constexpr int kBLoads = BK * BN / kThreads;
@@ -481,6 +510,8 @@ gemm_kernel(int M, int N, int K, AOp a, const float* __restrict__ b, Epi epi) {
   const int ty = tid / (BN / TN);
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
 
   float ra[kALoads];
   float rb[kBLoads];
@@ -496,14 +527,14 @@ gemm_kernel(int M, int N, int K, AOp a, const float* __restrict__ b, Epi epi) {
       const int idx = tid + l * kThreads;
       const int r = idx / BK, kk = idx % BK;
       const int gi = row0 + r, gk = k0 + kk;
-      ra[l] = (gi < M && gk < K) ? a(gi, gk) : 0.f;
+      ra[l] = (gi < M && gk < k_end) ? a(gi, gk) : 0.f;
     }
 #pragma unroll
     for (int l = 0; l < kBLoads; ++l) {
       const int idx = tid + l * kThreads;
       const int kk = idx / BN, c = idx % BN;
       const int gk = k0 + kk, gj = col0 + c;
-      rb[l] = (gk < K && gj < N) ? b[static_cast<int64_t>(gk) * N + gj] : 0.f;
+      rb[l] = (gk < k_end && gj < N) ? b[static_cast<int64_t>(gk) * N + gj] : 0.f;
     }
   };
   auto store = [&](int buf) {
@@ -519,13 +550,13 @@ gemm_kernel(int M, int N, int K, AOp a, const float* __restrict__ b, Epi epi) {
     }
   };
 
-  const int n_tiles = (K + BK - 1) / BK;
-  load(0);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  load(k_begin);
   store(0);
   __syncthreads();
   for (int t = 0; t < n_tiles; ++t) {
     const int cur = t & 1;
-    if (t + 1 < n_tiles) load((t + 1) * BK);
+    if (t + 1 < n_tiles) load(k_begin + (t + 1) * BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float av[TM], bv[TN];
@@ -568,9 +599,19 @@ gemm_kernel(int M, int N, int K, AOp a, const float* __restrict__ b, Epi epi) {
   }
 }
 
-// Dense Newton: (B x m) output with a short (m) reduction; 64x64 tiles of
-// 4x4 register blocks keep every SM busy without splitting it.
-constexpr int kSmlBM = 64, kSmlBN = 64, kSmlBK = 8, kSmlTM = 4, kSmlTN = 4, kSmlMinBlocks = 1;
+// Expand and project: 128x128 tiles of 8x8 register blocks, two blocks per SM
+// (at most 128 registers a thread) to hide the barrier of each slice.
+constexpr int kBigBM = 128, kBigBN = 128, kBigBK = 8, kBigTM = 8, kBigTN = 8, kBigMinBlocks = 2;
+
+template <int BM, int BN, int BK, int TM, int TN, int MIN_BLOCKS, class AOp, class Epi>
+int launch_gemm(int M, int N, int K, AOp a, const float* b, Epi epi, cudaStream_t stream,
+                int splits = 1) {
+  const int k_chunk = static_cast<int>(cdiv(static_cast<int>(cdiv(K, splits)), BK)) * BK;
+  const dim3 grid(cdiv(N, BN), cdiv(M, BM), static_cast<unsigned>(splits));
+  gemm_kernel<BM, BN, BK, TM, TN, MIN_BLOCKS, AOp, Epi>
+      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(M, N, K, k_chunk, a, b, epi);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // ---------------------------------------------------------------------------
 // Elementwise pieces and epilogues
@@ -596,9 +637,26 @@ __global__ void alpha_point_kernel(int64_t n, const float* __restrict__ eta,
 
 struct RowMajorOperand {
   const float* __restrict__ p;
-  int ld;
+  int64_t ld;
   __device__ __forceinline__ float operator()(int i, int k) const {
     return p[static_cast<int64_t>(i) * ld + k];
+  }
+};
+
+struct StoreEpilogue {
+  float* __restrict__ out;
+  int64_t ld;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    out[static_cast<int64_t>(i) * ld + j] = v;
+  }
+};
+
+// Partial product of slice blockIdx.z into out (S, M, N).
+struct PartialEpilogue {
+  float* __restrict__ out;
+  int M, N;
+  __device__ __forceinline__ void operator()(int i, int j, float v) const {
+    out[(static_cast<int64_t>(blockIdx.z) * M + i) * N + j] = v;
   }
 };
 
@@ -608,7 +666,7 @@ struct Update {
   const float* etad;
   const float* etadd;
   const float* a1;  // the Newton iterate (may alias etadd)
-  float* out0;      // a1_new, the residual, or eta_new on the last iteration
+  float* out0;      // a1_new, or eta_new on the last iteration
   float* out1;      // etad_new (last iteration)
   float* out2;      // etadd_new (last iteration)
   int m;
@@ -628,40 +686,45 @@ struct Update {
   }
 };
 
-// Residual update: r = a_am + (lam eta_af + g_m) - u [+ cd etad_af]; then
-// a1 - sinv r (diagonal), or r itself when sinv is null (dense Sinv).
-struct ResidualUpdate {
+// g_m at element idx of (B, m) = n: the S partial products summed in slice
+// order.
+__device__ __forceinline__ float slice_sum(const float* __restrict__ partials, int splits,
+                                           int64_t n, int64_t idx) {
+  float gm = partials[idx];
+#pragma unroll 4
+  for (int z = 1; z < splits; ++z) gm += partials[z * n + idx];
+  return gm;
+}
+
+// The state (eta, etad, etadd, a1) at one element.
+struct State4 {
+  float eta, etad, etadd, a1;
+};
+
+// The residual r = a_am + (lam eta_af + g_m) - u [+ cd etad_af] at element
+// idx (mode j) of the state, and the predictors it passes through.
+struct Residual {
   Update up;
   const float* __restrict__ lam;
   const float* __restrict__ u;
-  const float* __restrict__ cd;    // null: undamped
-  const float* __restrict__ sinv;  // null: write the residual
-  __device__ __forceinline__ void operator()(int i, int j, float gm) const {
-    const Scalars& s = up.s;
-    const int64_t idx = static_cast<int64_t>(i) * up.m + j;
-    const float eta = up.eta[idx], etad = up.etad[idx], etadd = up.etadd[idx];
-    const float a1 = up.a1[idx];
-    const float eta_pred = eta_pred_of(s, eta, etad, etadd);
-    const float etad_pred = etad + s.c_vp * etadd;
-    const float eta_af = s.omaf * (eta_pred + s.bh2 * a1) + s.af * eta;
-    float r = s.omam * a1 + s.am * etadd + (lam[j] * eta_af + gm) - u[j];
-    if (cd != nullptr) r = r + cd[j] * (s.omaf * (etad_pred + s.gh * a1) + s.af * etad);
-    if (sinv == nullptr) {
-      up.out0[idx] = r;
-      return;
-    }
-    up.finish(idx, a1 - sinv[j] * r, eta_pred, etad_pred);
-  }
-};
+  const float* __restrict__ cd;  // null: undamped
 
-// Dense Newton epilogue: a1_new = a1 - (r SinvT)(i, j).
-struct NewtonEpilogue {
-  Update up;
-  __device__ __forceinline__ void operator()(int i, int j, float dr) const {
+  __device__ __forceinline__ State4 load(int64_t idx) const {
+    return State4{up.eta[idx], up.etad[idx], up.etadd[idx], up.a1[idx]};
+  }
+  __device__ __forceinline__ float of(const State4& x, int j, float gm, float& eta_pred,
+                                      float& etad_pred) const {
     const Scalars& s = up.s;
-    const int64_t idx = static_cast<int64_t>(i) * up.m + j;
-    const float eta = up.eta[idx], etad = up.etad[idx], etadd = up.etadd[idx];
-    up.finish(idx, up.a1[idx] - dr, eta_pred_of(s, eta, etad, etadd), etad + s.c_vp * etadd);
+    eta_pred = eta_pred_of(s, x.eta, x.etad, x.etadd);
+    etad_pred = x.etad + s.c_vp * x.etadd;
+    const float eta_af = s.omaf * (eta_pred + s.bh2 * x.a1) + s.af * x.eta;
+    float r = s.omam * x.a1 + s.am * x.etadd + (lam[j] * eta_af + gm) - u[j];
+    if (cd != nullptr) r = r + cd[j] * (s.omaf * (etad_pred + s.gh * x.a1) + s.af * x.etad);
+    return r;
+  }
+  __device__ __forceinline__ float operator()(int64_t idx, int j, float gm, float& eta_pred,
+                                              float& etad_pred) const {
+    return of(load(idx), j, gm, eta_pred, etad_pred);
   }
 };
 
@@ -768,15 +831,241 @@ correction_gathered_kernel(int s, const float* __restrict__ x, int64_t ldx,
   for (int k = 0; k < 6; ++k) gb[k * s + j] = slot[k];
 }
 
-// g_m(i, j) = the S partial products summed in slice order, then the update.
+// g_m(i, j) = the S partial products summed in slice order, the residual,
+// then the diagonal Newton update a1 - sinv r.
 __global__ void update_kernel(int M, int N, int splits, const float* __restrict__ partials,
-                              ResidualUpdate upd) {
+                              Residual res, const float* __restrict__ sinv) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t n = static_cast<int64_t>(M) * N;
   if (idx >= n) return;
-  float gm = partials[idx];
-  for (int z = 1; z < splits; ++z) gm += partials[z * n + idx];
-  upd(static_cast<int>(idx / N), static_cast<int>(idx % N), gm);
+  const int j = static_cast<int>(idx % N);
+  float eta_pred, etad_pred;
+  const float r = res(idx, j, slice_sum(partials, splits, n, idx), eta_pred, etad_pred);
+  res.up.finish(idx, res.up.a1[idx] - sinv[j] * r, eta_pred, etad_pred);
+}
+
+// ---------------------------------------------------------------------------
+// Dense Newton: a1 - r SinvT with r formed in the block (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kNdRows = 32;        // envs per block
+constexpr int kNdCols = 256;       // modes (output columns) per block
+constexpr int kNdK = 32;           // rows of SinvT per ring stage
+constexpr int kNdStages = 3;
+constexpr int kNdThreads = 256;    // 4 groups of 8 rows x 64 groups of 4 columns
+constexpr int kNdRStride = kNdRows + 4;  // floats per k of the transposed r tile
+constexpr int kNdStageFloats = kNdK * kNdCols;
+constexpr int kNdMaxSmem = 232448;  // a block's shared memory on sm_90
+
+__host__ __device__ inline int nd_k_rows(int m) { return (m + kNdK - 1) / kNdK * kNdK; }
+inline size_t nd_smem(int m) {
+  return 4 * (static_cast<size_t>(nd_k_rows(m)) * kNdRStride + kNdStages * kNdStageFloats);
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The inputs of r at 4 elements of a k slice: the state and the first 4
+// partial products (a fifth and later are read when r is formed).
+struct SliceInputs {
+  State4 x[4];
+  float p[4][4];
+};
+
+// Block (bx, by): envs 32 bx.., modes 256 by... SinvT is (m, m) with row
+// pitch ld_s floats (a multiple of 4, 16-byte aligned rows). r is formed a
+// 32-mode slice at a time, one slice ahead of the product: the inputs of
+// slice kt + 1 load while slice kt is multiplied, so their latency hides
+// behind the FMAs. Thread t forms modes 32 kt + t % 32 of rows t / 32 + 8 q.
+__global__ void __launch_bounds__(kNdThreads, 1)
+newton_dense_kernel(int B, int m, int splits, const float* __restrict__ partials, Residual res,
+                    const float* __restrict__ sinvT, int64_t ld_s) {
+  extern __shared__ __align__(16) float nd_smem_f[];
+  const int k_rows = nd_k_rows(m);
+  float* const rT = nd_smem_f;                          // (k_rows, kNdRStride): r transposed
+  float* const ring = nd_smem_f + k_rows * kNdRStride;  // kNdStages x (kNdK, kNdCols)
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kNdRows;
+  const int col0 = blockIdx.y * kNdCols;
+  const int n_kt = k_rows / kNdK;
+  const int64_t n = static_cast<int64_t>(B) * m;
+  const Update& up = res.up;
+
+  // Stage kt: rows 32 kt.. of SinvT, columns col0..; rows past m and columns
+  // past the row pitch are zero-filled.
+  auto load_stage = [&](int kt) {
+    float* const dst = ring + (kt % kNdStages) * kNdStageFloats;
+    for (int c = tid; c < kNdStageFloats / 4; c += kNdThreads) {
+      const int kk = c / (kNdCols / 4), j4 = 4 * (c % (kNdCols / 4));
+      const int k = kt * kNdK + kk, j = col0 + j4;
+      const bool in = k < m && j < ld_s;
+      cp_async16(smem_u32(dst + kk * kNdCols + j4),
+                 in ? sinvT + static_cast<int64_t>(k) * ld_s + j : sinvT, in ? 16 : 0);
+    }
+  };
+  // Slice kt of r: element q of this thread is row i = tid / 32 + 8 q, mode k.
+  const int lane_k = tid % 32, row_q = tid / 32;
+  auto slice_in = [&](int kt, int q) {
+    const int k = kt * kNdK + lane_k, i = row_q + 8 * q;
+    return k < m && row0 + i < B;
+  };
+  auto slice_idx = [&](int kt, int q) {
+    return static_cast<int64_t>(row0 + row_q + 8 * q) * m + kt * kNdK + lane_k;
+  };
+  auto form_load = [&](int kt, SliceInputs& in) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = slice_in(kt, q);
+      const int64_t idx = ok ? slice_idx(kt, q) : 0;
+      in.x[q] = ok ? res.load(idx) : State4{0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int z = 0; z < 4; ++z) in.p[q][z] = ok && z < splits ? partials[z * n + idx] : 0.f;
+    }
+  };
+  // r in update_kernel's order: the partials summed in slice order, then
+  // the residual; rows past B and modes past m are zero.
+  auto form_store = [&](int kt, const SliceInputs& in) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float r = 0.f;
+      if (slice_in(kt, q)) {
+        const int64_t idx = slice_idx(kt, q);
+        float gm = in.p[q][0];
+#pragma unroll
+        for (int z = 1; z < 4; ++z)
+          if (z < splits) gm += in.p[q][z];
+        for (int z = 4; z < splits; ++z) gm += partials[z * n + idx];
+        float eta_pred, etad_pred;
+        r = res.of(in.x[q], kt * kNdK + lane_k, gm, eta_pred, etad_pred);
+      }
+      rT[(kt * kNdK + lane_k) * kNdRStride + row_q + 8 * q] = r;
+    }
+  };
+
+  for (int kt = 0; kt < kNdStages - 1; ++kt) {
+    if (kt < n_kt) load_stage(kt);
+    cp_async_commit();
+  }
+  SliceInputs next;
+  form_load(0, next);
+  form_store(0, next);
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int tx = tid % (kNdCols / 4), ty = tid / (kNdCols / 4);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kNdStages - 2>();
+    // Slice kt of SinvT has landed for every thread, every thread is done
+    // with slice kt - 1 (whose stage is refilled next), and slice kt of r is
+    // formed.
+    __syncthreads();
+    if (kt + kNdStages - 1 < n_kt) load_stage(kt + kNdStages - 1);
+    cp_async_commit();
+    if (kt + 1 < n_kt) form_load(kt + 1, next);
+    const float* const S = ring + (kt % kNdStages) * kNdStageFloats + 4 * tx;
+    const float* const R = rT + kt * kNdK * kNdRStride + 8 * ty;
+#pragma unroll 8
+    for (int kk = 0; kk < kNdK; ++kk) {
+      const float4 r0 = *reinterpret_cast<const float4*>(R + kk * kNdRStride);
+      const float4 r1 = *reinterpret_cast<const float4*>(R + kk * kNdRStride + 4);
+      const float4 b4 = *reinterpret_cast<const float4*>(S + kk * kNdCols);
+      const float av[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    // Slice kt + 1 of r goes to rows of rT no thread reads before the next
+    // barrier.
+    if (kt + 1 < n_kt) form_store(kt + 1, next);
+  }
+
+  // The Newton update from registers: this thread's outputs are rows 8 ty ..
+  // 8 ty + 7, modes 4 tx .. 4 tx + 3; their state is loaded before any
+  // output is stored (the compiler may not move loads across stores), as
+  // 16-byte vectors when the rows allow it (m a multiple of 4, aligned
+  // arrays): a warp then reads and writes 512 contiguous bytes an
+  // instruction, where scalar accesses 16 bytes apart waste sectors.
+  const int gj0 = col0 + 4 * tx;
+  auto aligned = [](const float* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = (m & 3) == 0 && aligned(up.eta) && aligned(up.etad) && aligned(up.etadd) &&
+                   aligned(up.a1) && aligned(up.out0) &&
+                   (!up.last || (aligned(up.out1) && aligned(up.out2)));
+  State4 x[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gi = row0 + 8 * ty + i;
+    if (vec) {
+      float4 v[4] = {};
+      if (gi < B && gj0 < m) {
+        const int64_t idx = static_cast<int64_t>(gi) * m + gj0;
+        v[0] = *reinterpret_cast<const float4*>(up.eta + idx);
+        v[1] = *reinterpret_cast<const float4*>(up.etad + idx);
+        v[2] = *reinterpret_cast<const float4*>(up.etadd + idx);
+        v[3] = *reinterpret_cast<const float4*>(up.a1 + idx);
+      }
+      x[i][0] = State4{v[0].x, v[1].x, v[2].x, v[3].x};
+      x[i][1] = State4{v[0].y, v[1].y, v[2].y, v[3].y};
+      x[i][2] = State4{v[0].z, v[1].z, v[2].z, v[3].z};
+      x[i][3] = State4{v[0].w, v[1].w, v[2].w, v[3].w};
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = gi < B && gj0 + j < m;
+        x[i][j] = in ? res.load(static_cast<int64_t>(gi) * m + gj0 + j)
+                     : State4{0.f, 0.f, 0.f, 0.f};
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gi = row0 + 8 * ty + i;
+    if (gi >= B || gj0 >= m) continue;
+    float o[3][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const State4& v = x[i][j];
+      const float a1n = v.a1 - acc[i][j];
+      o[0][j] = up.last ? eta_pred_of(up.s, v.eta, v.etad, v.etadd) + up.s.bh2 * a1n : a1n;
+      o[1][j] = v.etad + up.s.c_vp * v.etadd + up.s.gh * a1n;
+      o[2][j] = a1n;
+    }
+    const int64_t idx = static_cast<int64_t>(gi) * m + gj0;
+    if (vec) {
+      *reinterpret_cast<float4*>(up.out0 + idx) = make_float4(o[0][0], o[0][1], o[0][2], o[0][3]);
+      if (up.last) {
+        *reinterpret_cast<float4*>(up.out1 + idx) =
+            make_float4(o[1][0], o[1][1], o[1][2], o[1][3]);
+        *reinterpret_cast<float4*>(up.out2 + idx) =
+            make_float4(o[2][0], o[2][1], o[2][2], o[2][3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (gj0 + j >= m) continue;
+        up.out0[idx + j] = o[0][j];
+        if (up.last) {
+          up.out1[idx + j] = o[1][j];
+          up.out2[idx + j] = o[2][j];
+        }
+      }
+    }
+  }
 }
 
 inline Scalars scalars_of(const float* sc) {
@@ -849,9 +1138,8 @@ int rom_project_launch(int B, int m, int N, int splits, const float* g, int64_t 
                        static_cast<cudaStream_t>(stream), B, m, N, k_chunk, splits, partials);
 }
 
-// sinv null: out0 receives the residual (dense Sinv follows). Otherwise the
-// diagonal Newton update: out0 = a1_new, or with last != 0 out0..2 = the new
-// (eta, etad, etadd).
+// The diagonal Newton update: out0 = a1_new, or with last != 0 out0..2 =
+// the new (eta, etad, etadd).
 int rom_update_launch(int B, int m, int splits, const float* partials, const float* eta,
                       const float* etad, const float* etadd, const float* a1,
                       const float* lam, const float* u, const float* cd, const float* sinv,
@@ -860,20 +1148,54 @@ int rom_update_launch(int B, int m, int splits, const float* partials, const flo
   const Update up{eta, etad, etadd, a1, out0, out1, out2, m, last, scalars_of(sc)};
   const int64_t n = static_cast<int64_t>(B) * m;
   update_kernel<<<cdiv64(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      B, m, splits, partials, ResidualUpdate{up, lam, u, cd, sinv});
+      B, m, splits, partials, Residual{up, lam, u, cd}, sinv);
   return static_cast<int>(cudaGetLastError());
 }
 
-int rom_newton_dense_launch(int B, int m, const float* r, const float* sinvT, const float* eta,
-                            const float* etad, const float* etadd, const float* a1, int last,
-                            float* out0, float* out1, float* out2, const float* sc,
-                            void* stream) {
+// The dense Newton update from the project's (splits, B, m) partials: out0 =
+// a1 - r SinvT, or with last != 0 out0..2 = the new (eta, etad, etadd).
+// sinvT: (m, m) with row pitch ld_s (a multiple of 4 floats).
+int rom_newton_dense_launch(int B, int m, int splits, const float* partials, const float* eta,
+                            const float* etad, const float* etadd, const float* a1,
+                            const float* lam, const float* u, const float* cd,
+                            const float* sinvT, int64_t ld_s, int last, float* out0,
+                            float* out1, float* out2, const float* sc, void* stream) {
+  const size_t smem = nd_smem(m);
+  if (smem > static_cast<size_t>(kNdMaxSmem) || ld_s % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0) return rc;
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!g_smem_set[2][dev]) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        newton_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kNdMaxSmem));
+    if (rc != 0) return rc;
+    g_smem_set[2][dev] = true;
+  }
   const Update up{eta, etad, etadd, a1, out0, out1, out2, m, last, scalars_of(sc)};
-  const dim3 grid(cdiv(m, kSmlBN), cdiv(B, kSmlBM));
-  gemm_kernel<kSmlBM, kSmlBN, kSmlBK, kSmlTM, kSmlTN, kSmlMinBlocks>
-      <<<grid, (kSmlBM / kSmlTM) * (kSmlBN / kSmlTN), 0, static_cast<cudaStream_t>(stream)>>>(
-          B, m, m, RowMajorOperand{r, m}, sinvT, NewtonEpilogue{up});
+  const dim3 grid(cdiv(B, kNdRows), cdiv(m, kNdCols));
+  newton_dense_kernel<<<grid, kNdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      B, m, splits, partials, Residual{up, lam, u, cd}, sinvT, ld_s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// nl_precision="highest": the float32 SIMT GEMMs. Expand: eta_af (B, m)
+// with row pitch ld_a, phiT (m, N) contiguous, x (B, N) with row pitch ld_x.
+int rom_expand_f32_launch(int B, int m, int N, const float* eta_af, int64_t ld_a,
+                          const float* phiT, float* x, int64_t ld_x, void* stream) {
+  return launch_gemm<kBigBM, kBigBN, kBigBK, kBigTM, kBigTN, kBigMinBlocks>(
+      B, N, m, RowMajorOperand{eta_af, ld_a}, phiT, StoreEpilogue{x, ld_x},
+      static_cast<cudaStream_t>(stream));
+}
+
+// Project: g (B, N) with row pitch ld_g, w (N, m) contiguous; partials:
+// (splits, B, m) products of S slices of the N-long reduction.
+int rom_project_f32_launch(int B, int m, int N, int splits, const float* g, int64_t ld_g,
+                           const float* w, float* partials, void* stream) {
+  return launch_gemm<kBigBM, kBigBN, kBigBK, kBigTM, kBigTN, kBigMinBlocks>(
+      B, m, N, RowMajorOperand{g, ld_g}, w, PartialEpilogue{partials, B, m},
+      static_cast<cudaStream_t>(stream), splits);
 }
 
 const char* cuda_error_string(int code) {

@@ -24,10 +24,14 @@ wrapper                      computes
                              tensor-core GEMM (``wgmma``)
 :func:`rom_update`           ``g_m`` = the partials summed in slice order;
                              the residual and the diagonal Newton update
-                             (and the state update on the last iteration),
-                             or the residual for a dense ``Sinv``
-:func:`rom_newton_dense`     ``a1 - r @ Sinv^T`` (dense ``Sinv``), a tiled
-                             f32 GEMM with the same update
+                             (and the state update on the last iteration)
+:func:`rom_newton_dense`     for a dense ``Sinv``: the same ``g_m`` and
+                             residual ``r``, kept in shared memory, then
+                             ``a1 - r @ Sinv^T`` and the same update, a
+                             float32 FMA GEMM; one launch in place of
+                             :func:`rom_update`'s
+:func:`rom_expand_f32`,      the two transforms as float32 SIMT GEMMs, for
+:func:`rom_project_f32`      ``nl_precision="highest"``
 ===========================  =============================================
 
 Each wrapper has a plain PyTorch twin (``<wrapper>_plain``) with the same
@@ -37,21 +41,26 @@ wrapper counts its launches in ``<wrapper>.launches``. :func:`rom_steps`
 and :func:`rom_frames` drive a span through the wrappers,
 :func:`rom_steps_plain` and :func:`rom_frames_plain` through the twins.
 
-Precision: the two basis transforms run on the tensor cores as a 3-pass
-TF32 split, the counterpart of the TPU kernel's bf16 hi/lo products (its
-default "split" tier): each operand x is split into ``hi = tf32(x)``
-(round to nearest, ties away from zero, as ``cvt.rna.tf32.f32``) and
-``lo = tf32(x - hi)``, and ``A_hi B_hi + A_hi B_lo + A_lo B_hi`` is summed
-in float32, each term accurate to about ``2^-21``. The bases are split
-once, where :class:`FusedROMRollout` uploads them to the card
-(:func:`split_basis`); the per-step operand is split in the kernel. This
-holds for every ``nl_precision`` (None, "highest", "high", "default"):
-"highest" too, where the JAX kernel computes these products in full
-float32 (``Precision.HIGHEST``), so on the card "highest" gets 3xTF32, not
-true float32. The other kernels compute in float32 FMAs. Kernel and twin
-(float32 ``torch.matmul``) agree to about 1e-6 of each output's scale
-(1.8e-6 and 4.4e-7 for one launch of each at the ROM main path's shapes on
-an H100, ``chip_smoke.py`` phase 12), not bit for bit.
+Precision: ``nl_precision`` picks the tier of the two basis transforms,
+as the JAX package's fused kernel does. "highest" is full float32 (the
+JAX kernel's ``Precision.HIGHEST``): :func:`rom_expand` and
+:func:`rom_project` hand over to :func:`rom_expand_f32` and
+:func:`rom_project_f32`, tiled float32 FMA GEMMs on the unsplit bases.
+None, "high" and "default" run on the tensor cores as a 3-pass TF32 split,
+the counterpart of the TPU kernel's bf16 hi/lo products (its "split" tier,
+and more accurate than its "default", one bf16 pass): each operand x is
+split into ``hi = tf32(x)`` (round to nearest, ties away from zero, as
+``cvt.rna.tf32.f32``) and ``lo = tf32(x - hi)``, and ``A_hi B_hi + A_hi
+B_lo + A_lo B_hi`` is summed in float32, each term accurate to about
+``2^-21``. The bases are split once, where :class:`FusedROMRollout`
+uploads them to the card for a tensor-core tier (:func:`split_basis`); the
+per-step operand is split in the kernel. The other kernels compute in
+float32 FMAs for every tier (the JAX kernel's Newton dot is
+``Precision.HIGHEST`` unless the caller asks for "default"). Kernel and
+twin (float32 ``torch.matmul``) agree to about 1e-6 of each output's scale
+for the tensor-core tier (1.8e-6 and 4.4e-7 for one launch of each at the
+ROM main path's shapes on an H100, ``chip_smoke.py`` phase 12) and to
+float32 roundoff for "highest", not bit for bit.
 
 Layout: the tensor-core kernels read their operands through TMA, which
 needs 16-byte row pitches, so the kernel path keeps ``(B, N)`` node states
@@ -174,9 +183,13 @@ class ROMOperators:
     None with ``sinvT (m, m)`` the transposed dense one. ``L, D, A, mask
     (E,)``: element length, EI, EA and the nonlinear mask of the window
     (``E = n_sub - 1``) or of the sample (``E = s``). ``sc``: the step
-    scalars ``(h, c_qp, c_vp, bh2, gh, af, 1-af, am, 1-am)``. ``split``:
-    the bases' TF32 halves for the tensor-core kernels (float32 on the card
-    only; None elsewhere).
+    scalars ``(h, c_qp, c_vp, bh2, gh, af, 1-af, am, 1-am)``, and ``csc``
+    the same as the C float array the kernels take (built once).
+    ``nl_precision``: the transforms' tier, normalised ("highest" runs them
+    in float32 on the card). ``split``: the bases' TF32 halves for the
+    tensor-core kernels (float32 on the card for a tier other than
+    "highest"; None elsewhere). On the card a dense ``sinvT`` is a view of
+    a row-padded buffer.
     """
 
     phiT: torch.Tensor
@@ -193,6 +206,12 @@ class ROMOperators:
     gathered: bool
     sc: tuple
     split: Optional[SplitBasis] = None
+    nl_precision: Optional[str] = None
+    csc: object = dataclasses.field(default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.csc is None:
+            object.__setattr__(self, "csc", (ctypes.c_float * 9)(*self.sc))
 
     @property
     def n_rows(self) -> int:
@@ -285,19 +304,24 @@ def rom_project_plain(op, g):
     return (g @ op.w)[None]
 
 
-def rom_update_plain(op, partials, eta, etad, etadd, a1, last):
-    """Plain twin of :func:`rom_update`."""
+def _partials_residual(op, partials, eta, etad, etadd, a1):
+    """The residual at ``a1`` with ``g_m`` = the partials summed in slice
+    order."""
     gm = partials[0]
     for part in partials[1:]:
         gm = gm + part
-    r = _residual(op, gm, eta, etad, etadd, a1)
-    if op.sinv is None:
-        return r
+    return _residual(op, gm, eta, etad, etadd, a1)
+
+
+def rom_update_plain(op, partials, eta, etad, etadd, a1, last):
+    """Plain twin of :func:`rom_update`."""
+    r = _partials_residual(op, partials, eta, etad, etadd, a1)
     return _finish(op, a1 - op.sinv * r, eta, etad, etadd, last)
 
 
-def rom_newton_dense_plain(op, r, eta, etad, etadd, a1, last):
+def rom_newton_dense_plain(op, partials, eta, etad, etadd, a1, last):
     """Plain twin of :func:`rom_newton_dense`."""
+    r = _partials_residual(op, partials, eta, etad, etadd, a1)
     return _finish(op, a1 - r @ op.sinvT, eta, etad, etadd, last)
 
 
@@ -321,22 +345,41 @@ def _ptr(t) -> int:
     return 0 if t is None else t.contiguous().data_ptr()
 
 
+_lib = None  # the loaded kernel library, after the first launch
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of device ``index`` as an integer handle."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def _launch(name: str, x: torch.Tensor, *args) -> None:
-    lib = _build.library("rom_rollout")
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, f"{name}_launch")(
-            *args, torch.cuda.current_stream(x.device).cuda_stream
-        )
-    _build.check(lib, rc, name)
-
-
-def _scalars(op):
-    return (ctypes.c_float * 9)(*op.sc)
+    """Launch ``<name>_launch`` on ``x``'s device and current stream. The
+    host path is kept short, since a span is thousands of small launches:
+    the library is looked up once, and the device is entered only when it
+    is not the current one."""
+    global _lib
+    if _lib is None:
+        _lib = _build.library("rom_rollout")
+    fn = getattr(_lib, name + "_launch")
+    index = x.device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
+    if rc:
+        _build.check(_lib, rc, name)
 
 
 def _state_out(op, eta, last):
-    n = 3 if last else 1
-    return [torch.empty_like(eta) for _ in range(n)]
+    """The update's outputs: the new iterate, or the new state triple (one
+    allocation)."""
+    return list(torch.empty((3 if last else 1, *eta.shape), dtype=eta.dtype,
+                            device=eta.device).unbind(0))
 
 
 def rom_alpha_point(op: ROMOperators, eta, etad, etadd, a1):
@@ -348,7 +391,7 @@ def rom_alpha_point(op: ROMOperators, eta, etad, etadd, a1):
     out = torch.empty_like(eta)
     if B:
         _launch("rom_alpha_point", eta, B, m, _ptr(eta), _ptr(etad),
-                _ptr(etadd), _ptr(a1), _ptr(out), _scalars(op))
+                _ptr(etadd), _ptr(a1), _ptr(out), op.csc)
         rom_alpha_point.launches += 1
     return out
 
@@ -360,11 +403,18 @@ def _split(op: ROMOperators) -> SplitBasis:
     return op.split
 
 
+def _highest(op: ROMOperators) -> bool:
+    return op.nl_precision == "highest"
+
+
 def rom_expand(op: ROMOperators, eta_af):
     """``x = eta_af @ Phi^T``: ``(B, m) -> (B, N)`` node states (on the
-    card a view of a row-padded buffer)."""
+    card a view of a row-padded buffer). The tensor-core kernel, or for
+    ``nl_precision="highest"`` :func:`rom_expand_f32`."""
     if not _on_cuda(eta_af):
         return rom_expand_plain(op, eta_af)
+    if _highest(op):
+        return rom_expand_f32(op, eta_af)
     B, m = eta_af.shape
     maps = _split(op).maps
     x = _padded_empty(B, op.n_rows, eta_af)
@@ -437,12 +487,23 @@ def project_splits(B: int, m: int, n_rows: int, device) -> int:
     return max(1, min(n_rows // 256, _sm_count(device) // tiles))
 
 
+def project_splits_f32(B: int, m: int, n_rows: int, device) -> int:
+    """Slices of :func:`rom_project_f32`'s reduction: enough 128 x 128
+    output tiles times slices to give every SM two blocks, each slice at
+    least 256 rows long."""
+    tiles = -(-B // _TILE) * -(-m // _TILE)
+    return max(1, min(n_rows // 256, round(2 * _sm_count(device) / tiles)))
+
+
 def rom_project(op: ROMOperators, g):
     """``g @ W`` as ``(S, B, m)`` partial products over ``S`` slices of the
     ``N``-long reduction (:func:`project_splits`); :func:`rom_update` sums
-    them."""
+    them. The tensor-core kernel, or for ``nl_precision="highest"``
+    :func:`rom_project_f32`."""
     if not _on_cuda(g):
         return rom_project_plain(op, g)
+    if _highest(op):
+        return rom_project_f32(op, g)
     B, N = g.shape
     m = op.w.shape[1]
     maps = _split(op).maps
@@ -457,45 +518,86 @@ def rom_project(op: ROMOperators, g):
     return partials
 
 
+def rom_expand_f32(op: ROMOperators, eta_af):
+    """:func:`rom_expand` in full float32 (``nl_precision="highest"``): a
+    tiled float32 FMA GEMM on the unsplit ``Phi^T``."""
+    if not _on_cuda(eta_af):
+        return rom_expand_plain(op, eta_af)
+    B, m = eta_af.shape
+    x = _padded_empty(B, op.n_rows, eta_af)
+    if B:
+        a = eta_af if eta_af.stride(1) == 1 else eta_af.contiguous()
+        _launch("rom_expand_f32", eta_af, B, m, op.n_rows, a.data_ptr(), _pitch(a),
+                _ptr(op.phiT), x.data_ptr(), _pitch(x))
+        rom_expand_f32.launches += 1
+    return x
+
+
+def rom_project_f32(op: ROMOperators, g):
+    """:func:`rom_project` in full float32 (``nl_precision="highest"``):
+    ``(S, B, m)`` partial products of a tiled float32 FMA GEMM on the
+    unsplit ``W`` over ``S`` slices (:func:`project_splits_f32`)."""
+    if not _on_cuda(g):
+        return rom_project_plain(op, g)
+    B, N = g.shape
+    m = op.w.shape[1]
+    splits = project_splits_f32(B, m, N, g.device)
+    partials = torch.empty((splits, B, m), dtype=g.dtype, device=g.device)
+    if B:
+        a = g if g.stride(1) == 1 else g.contiguous()
+        _launch("rom_project_f32", g, B, m, N, splits, a.data_ptr(), _pitch(a),
+                _ptr(op.w), partials.data_ptr())
+        rom_project_f32.launches += 1
+    return partials
+
+
 def rom_update(op: ROMOperators, partials, eta, etad, etadd, a1, last: bool):
-    """``g_m`` (the partials summed in slice order) and the residual at
-    ``a1``. With a diagonal ``Sinv`` the Newton update follows: returns
-    ``a1 - sinv r``, or on the last iteration the new ``(eta, etad,
-    etadd)``. With a dense ``Sinv`` returns the residual ``r`` for
-    :func:`rom_newton_dense`."""
+    """``g_m`` (the partials summed in slice order), the residual at ``a1``
+    and the diagonal Newton update: returns ``a1 - sinv r``, or on the last
+    iteration the new ``(eta, etad, etadd)``."""
     if not _on_cuda(partials):
         return rom_update_plain(op, partials, eta, etad, etadd, a1, last)
-    B, m = eta.shape
-    diag = op.sinv is not None
-    outs = _state_out(op, eta, last) if diag else [torch.empty_like(eta)]
-    o = outs + [None] * (3 - len(outs))
-    if B:
-        _launch("rom_update", partials, B, m, partials.shape[0], _ptr(partials),
-                _ptr(eta), _ptr(etad), _ptr(etadd), _ptr(a1), _ptr(op.lam),
-                _ptr(op.u), _ptr(op.cd), _ptr(op.sinv), int(last and diag),
-                _ptr(o[0]), _ptr(o[1]), _ptr(o[2]), _scalars(op))
-        rom_update.launches += 1
-    return tuple(outs) if len(outs) == 3 else outs[0]
-
-
-def rom_newton_dense(op: ROMOperators, r, eta, etad, etadd, a1, last: bool):
-    """Dense modified-Newton update ``a1 - r @ Sinv^T``; on the last
-    iteration returns the new ``(eta, etad, etadd)``."""
-    if not _on_cuda(r):
-        return rom_newton_dense_plain(op, r, eta, etad, etadd, a1, last)
     B, m = eta.shape
     outs = _state_out(op, eta, last)
     o = outs + [None] * (3 - len(outs))
     if B:
-        _launch("rom_newton_dense", r, B, m, _ptr(r), _ptr(op.sinvT),
-                _ptr(eta), _ptr(etad), _ptr(etadd), _ptr(a1), int(last),
-                _ptr(o[0]), _ptr(o[1]), _ptr(o[2]), _scalars(op))
+        _launch("rom_update", partials, B, m, partials.shape[0], _ptr(partials),
+                _ptr(eta), _ptr(etad), _ptr(etadd), _ptr(a1), _ptr(op.lam),
+                _ptr(op.u), _ptr(op.cd), _ptr(op.sinv), int(last),
+                _ptr(o[0]), _ptr(o[1]), _ptr(o[2]), op.csc)
+        rom_update.launches += 1
+    return tuple(outs) if last else outs[0]
+
+
+DENSE_MAX_MODES = 928  # the dense Newton kernel's r tile and ring fill 227 KB
+
+
+def rom_newton_dense(op: ROMOperators, partials, eta, etad, etadd, a1, last: bool):
+    """Dense modified-Newton update from the project's partials: ``g_m``
+    summed in slice order and the residual ``r`` at ``a1`` (as
+    :func:`rom_update` forms them), then ``a1 - r @ Sinv^T``; on the last
+    iteration returns the new ``(eta, etad, etadd)``. One launch; ``r``
+    stays in the kernel's shared memory."""
+    if not _on_cuda(partials):
+        return rom_newton_dense_plain(op, partials, eta, etad, etadd, a1, last)
+    B, m = eta.shape
+    if m > DENSE_MAX_MODES:
+        raise ValueError(f"the dense Newton kernel takes at most {DENSE_MAX_MODES} "
+                         f"modes, got {m}")
+    outs = _state_out(op, eta, last)
+    o = outs + [None] * (3 - len(outs))
+    if B:
+        _launch("rom_newton_dense", partials, B, m, partials.shape[0], _ptr(partials),
+                _ptr(eta), _ptr(etad), _ptr(etadd), _ptr(a1), _ptr(op.lam),
+                _ptr(op.u), _ptr(op.cd), op.sinvT.data_ptr(), _pitch(op.sinvT),
+                int(last), _ptr(o[0]), _ptr(o[1]), _ptr(o[2]), op.csc)
         rom_newton_dense.launches += 1
     return tuple(outs) if last else outs[0]
 
 
 KERNELS = (rom_alpha_point, rom_expand, rom_correction_window,
-           rom_correction_gathered, rom_project, rom_update, rom_newton_dense)
+           rom_correction_gathered, rom_project, rom_update, rom_newton_dense,
+           rom_expand_f32, rom_project_f32)
 for _fn in KERNELS:
     _fn.launches = 0
 
@@ -526,15 +628,13 @@ _PLAIN_PIECES = (rom_alpha_point_plain, rom_expand_plain, _plain_correction,
 def _step(pieces, op, state, n_newton: int):
     """One modified-Newton generalized-α step of the fused recurrence."""
     alpha_point, expand, correction, project, update, newton_dense = pieces
+    newton = update if op.sinv is not None else newton_dense
     eta, etad, etadd = state
     a1 = etadd
     for it in range(int(n_newton)):
         last = it == n_newton - 1
         g = correction(op, expand(op, alpha_point(op, eta, etad, etadd, a1)))
-        out = update(op, project(op, g), eta, etad, etadd, a1, last)
-        if op.sinv is None:  # out is the residual
-            out = newton_dense(op, out, eta, etad, etadd, a1, last)
-        a1 = out
+        a1 = newton(op, project(op, g), eta, etad, etadd, a1, last)
     return a1  # the new (eta, etad, etadd) after the last iteration
 
 
@@ -636,23 +736,37 @@ class FusedROMRollout:
         }
         self.m = self._host["lam"].shape[0]
         self._device_ops = {}
+        self._splits = {}
 
-    def operators(self, like: torch.Tensor, u_modal=None) -> ROMOperators:
+    def operators(self, like: torch.Tensor, u_modal=None,
+                  nl_precision=None) -> ROMOperators:
         """The device operators on ``like``'s device and dtype, with the
-        constant modal force ``u_modal`` (None: zero)."""
+        constant modal force ``u_modal`` (None: zero) and the transforms'
+        tier ``nl_precision`` (normalised, as :meth:`prepare` passes it).
+        The bases' TF32 halves are built on first use by a tensor-core tier
+        on the card; "highest" reads the unsplit bases."""
         key = (like.device, like.dtype)
+        on_card = like.device.type == "cuda" and like.dtype == torch.float32
         base = self._device_ops.get(key)
         if base is None:
             up = {k: None if v is None else torch.tensor(
                 v, dtype=like.dtype, device=like.device)
                 for k, v in self._host.items()}
-            on_card = like.device.type == "cuda" and like.dtype == torch.float32
+            if on_card and up["sinvT"] is not None:  # 16-byte rows for cp.async
+                m = self.m
+                sinvT = torch.zeros((m, _pad4(m)), dtype=like.dtype,
+                                    device=like.device)[:, :m]
+                up["sinvT"] = sinvT.copy_(up["sinvT"])
             base = ROMOperators(
                 **up, u=None, gathered=self.gathered,
                 sc=step_scalars(float(self.ms.dt), float(self.ms.rho_inf)),
-                split=split_basis(up["phiT"], up["w"]) if on_card else None,
             )
             self._device_ops[key] = base
+        split = None
+        if on_card and nl_precision != "highest":
+            split = self._splits.get(key)
+            if split is None:
+                split = self._splits[key] = split_basis(base.phiT, base.w)
         if u_modal is None:
             u = torch.zeros(self.m, dtype=like.dtype, device=like.device)
         else:
@@ -660,21 +774,24 @@ class FusedROMRollout:
                 u_modal = u_modal.detach().cpu().numpy()
             u = torch.as_tensor(np.asarray(u_modal, np.float64).reshape(self.m),
                                 dtype=like.dtype, device=like.device)
-        return dataclasses.replace(base, u=u)
+        return dataclasses.replace(base, u=u, split=split, nl_precision=nl_precision)
 
     def prepare(self, eta, etad, u_modal, precision=None, nl_precision=None):
-        """``(op, eta, etad, etadd, shape)``: the operators with the force,
-        the state flattened to ``(B, m)`` and the initial acceleration, as
-        a span starts from them (:func:`rom_steps` or its twin)."""
+        """``(op, eta, etad, etadd, shape)``: the operators with the force
+        and the transforms' tier (``nl_precision``, normalised), the state
+        flattened to ``(B, m)`` and the initial acceleration, as a span
+        starts from them (:func:`rom_steps` or its twin)."""
+        precision, nl_precision = (p.lower() if isinstance(p, str) else p
+                                   for p in (precision, nl_precision))
         for p in (precision, nl_precision):
-            if (p.lower() if isinstance(p, str) else p) not in _PRECISIONS:
+            if p not in _PRECISIONS:
                 raise ValueError(
                     f"precision must be one of {_PRECISIONS}, got {p!r}"
                 )
         if callable(u_modal):
             raise ValueError("fused ROM rollout takes a constant input force")
         eta, etad = self.ms._tensor(eta), self.ms._tensor(etad)
-        op = self.operators(eta, u_modal)
+        op = self.operators(eta, u_modal, nl_precision)
         shape = eta.shape
         eta = eta.reshape(-1, self.m).contiguous()
         etad = etad.reshape(-1, self.m).contiguous()

@@ -196,3 +196,92 @@ def test_kernel_bit_equal_to_plain_on_card(cuda_device, dtype, n_nodes, batch):
     out = kb.btd_solve(f, rhs)
     assert kb.btd_solve.launches == 1
     assert torch.equal(out, tb.btd_solve(f, rhs))
+
+
+def test_packed_factors_hold_the_same_blocks():
+    """The kernel's packed factors: the same nine values per 3x3 block, each
+    row padded by a zero; node 0's forward block and node N-1's upper block
+    zero."""
+    for n in (1, 2, 9):
+        f = tb.btd_factor(*(torch.tensor(a) for a in _system(n, seed=n)[1]))
+        p = kb.pack_factors(f)
+        assert isinstance(p, tuple) and all(a is b for a, b in zip(p, f))
+        assert kb.pack_factors(p) is p
+        fwd, bwd = p.fwd.reshape(n, 3, 4), p.bwd.reshape(n, 2, 3, 4)
+        assert fwd.is_contiguous() and bwd.is_contiguous()
+        for blocks in (fwd, bwd[:, 0], bwd[:, 1]):
+            assert not blocks[..., 3].any()
+        assert torch.equal(fwd[1:, :, :3], f[1]) and not fwd[0].any()
+        assert torch.equal(bwd[:, 0, :, :3], f[0])
+        assert torch.equal(bwd[:-1, 1, :, :3], f[2]) and not bwd[-1, 1].any()
+
+
+def test_padded_pitch_rows_solve_the_same():
+    """Right-hand sides in rows of a padded pitch (as the implicit operator
+    hands them to the kernel) give the same solution, bit for bit; the
+    kernel reads such rows in place and copies others."""
+    rng, bands, _ = _system(7, seed=9)
+    f = kb.pack_factors(tb.btd_factor(*(torch.tensor(a) for a in bands)))
+    rhs = torch.tensor(rng.normal(size=(5, 7, 3)))
+    buf = torch.full((5, kb.padded_width(21)), float("nan"), dtype=torch.float64)
+    padded = buf[:, :21].copy_(rhs.reshape(5, 21)).reshape(5, 7, 3)
+    assert padded.stride() == (24, 3, 1)
+    assert torch.equal(kb.btd_solve(f, padded), kb.btd_solve(f, rhs))
+    assert kb._kernel_rows(padded.reshape(5, 21))
+    assert not kb._kernel_rows(rhs.reshape(5, 21))  # pitch 21: copied
+    assert not kb._kernel_rows(rhs[-1:].reshape(1, 21))  # no room for 24
+    assert kb._kernel_rows(torch.zeros(1, 24)[:, :21])
+
+
+def test_operator_pads_the_kernels_rows(monkeypatch):
+    """``make_newmark_operator(linear_solver="pallas")`` hands the solve
+    rows padded to a multiple of 4 elements and packed factors; its solves
+    equal "btd"'s bit for bit."""
+    import helpers
+    import continuum_robot_tpu_torch.models as tm
+    from continuum_robot_tpu_torch.models import simulate as ts
+
+    beam = tm.DynamicEulerBernoulliBeam(helpers.nonlinear_csv(6, include_fluid=False))
+    seen = []
+    real = kb.btd_solve
+
+    def spy(factors, rhs):
+        seen.append((type(factors), rhs.stride()))
+        return real(factors, rhs)
+
+    monkeypatch.setattr(kb, "btd_solve", spy)
+    rng = np.random.default_rng(10)
+    r = torch.tensor(rng.normal(size=(4, beam.n_pos_states)))
+    out = ts.make_newmark_operator(beam, dt=1e-4, linear_solver="pallas",
+                                   device="cpu").solve(None, 0.0)(r)
+    n_full = 3 * (beam.n_pos_states // 3 + 1)
+    assert seen == [(kb.BTDFactors, (kb.padded_width(n_full), 3, 1))]
+    ref = ts.make_newmark_operator(beam, dt=1e-4, linear_solver="btd",
+                                   device="cpu").solve(None, 0.0)(r)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_ragged_shapes_bit_equal_on_card(cuda_device, dtype, padded):
+    """B across the 32-env blocks, N across the chunk (64 nodes in float32,
+    32 in float64) and the main path's 1001 nodes, rows of either pitch."""
+    chunk = 64 if dtype == torch.float32 else 32
+    rng = np.random.default_rng(12)
+    for n in (1, 2, chunk - 1, chunk + 1, 1001):
+        d = rng.normal(size=(n, 3, 3))
+        bands = (d + np.swapaxes(d, -1, -2) + 10 * np.eye(3),
+                 0.3 * rng.normal(size=(n - 1, 3, 3)), 0.3 * rng.normal(size=(n - 1, 3, 3)))
+        f = kb.pack_factors(tuple(torch.tensor(np.asarray(x), dtype=dtype, device=cuda_device)
+                                  for x in tb.btd_factor(*bands)))
+        for b in (1, 31, 33, 4096):
+            rhs = torch.tensor(rng.normal(size=(b, n, 3)), dtype=dtype, device=cuda_device)
+            if padded:
+                buf = torch.full((b, kb.padded_width(3 * n)), float("nan"), dtype=dtype,
+                                 device=cuda_device)
+                rhs = buf[:, :3 * n].copy_(rhs.reshape(b, -1)).reshape(b, n, 3)
+            kb.reset_launch_counts()
+            out = kb.btd_solve(f, rhs)
+            assert kb.btd_solve.launches == 1
+            assert torch.equal(out, tb.btd_solve(f, rhs)), (n, b)

@@ -106,7 +106,7 @@ def test_fused_contracts_and_cpu_dispatch(beams, monkeypatch):
     rk.reset_launch_counts()
     out = fused(eta, eta, None, 3)
     assert all(torch.equal(x, torch.zeros_like(eta)) for x in out)
-    assert [fn.launches for fn in rk.KERNELS] == [0] * 7
+    assert [fn.launches for fn in rk.KERNELS] == [0] * 9
     with pytest.raises(ValueError, match="precision"):
         fused(eta, eta, None, 1, nl_precision="bf16")
     with pytest.raises(ValueError, match="constant"):
