@@ -3,6 +3,7 @@
 
     python3 chip_compare.py --tree DIR            # one checkout: a JSON line
     python3 chip_compare.py --ab PARENT_DIR       # parent, this, this, parent
+    python3 chip_compare.py --splits              # the float32 project's slice count
 
 ``--tree`` imports ``continuum_robot_tpu_torch`` from ``DIR`` (its kernels
 build from ``DIR``'s sources into ``DIR/build``) and measures, at the main
@@ -11,8 +12,16 @@ paths' shapes in float32 on the card:
 - the dense-Newton ROM span (``chip_smoke.py`` phase 10: 256 modes, 4096
   envs, 200 steps; best of 3 by CUDA events) and its device time per
   kernel (``torch.profiler``, 20 steps);
-- the ROM window span, 200 steps, and the host's dispatch time of three
-  ROM wrappers (200 calls without synchronising);
+- the ROM window span and the "highest" span (``nl_precision="highest"``),
+  200 steps each, and the host's dispatch time of three ROM wrappers (200
+  calls without synchronising);
+- the four basis-transform GEMMs alone on a mid-span state: ``rom_expand``
+  and ``rom_project`` (3xTF32), ``rom_expand_f32`` and ``rom_project_f32``
+  (float32): a lone launch (best of 5), its device time, its host dispatch,
+  and ``torch.matmul`` of the same product beside each;
+- a SHA-256 of the tensor-core pair's outputs and one of the float32
+  pair's, on seeded random operands at the main path's shapes, so that two
+  trees' outputs can be compared bit for bit;
 - ``rom_newton_dense`` alone (a lone launch, best of 5, and its device
   time) beside ``r @ Sinv^T`` by ``torch.matmul``;
 - ``btd_solve`` alone at 4096 x 1001 nodes (a lone launch and its device
@@ -21,13 +30,21 @@ paths' shapes in float32 on the card:
   paths (50 steps, best of 3).
 
 ``--ab`` runs ``--tree`` in four processes, parent, this checkout, this
-checkout, parent, and prints their lines and the card; compare the two
-trees only within one such call.
+checkout, parent, and prints their lines, whether the four runs' digests
+agree, and the card; compare the two trees only within one such call.
+
+``--splits`` launches this checkout's ``rom_project_f32`` kernel with S =
+1..12 slices on the operands of the card-only test
+``test_float32_gemms_on_card`` (same seeds) at a few of its shapes and
+4096 x 256 x 1000, and prints each S's error against ``torch.matmul`` and
+against the float64 product, as fractions of the output's scale, beside
+the slice count ``project_splits_f32`` picks.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
@@ -100,6 +117,8 @@ def measure(tree: str) -> dict:
     res["dense_profile"] = _device_by_kernel(
         lambda: fused_d(eta, etad, u_m, 20, n_newton=nn), dev, 20)
     res["window_span_ms"] = best(lambda: fused(eta, etad, u_m, steps, n_newton=nn))
+    res["highest_span_ms"] = best(lambda: fused(eta, etad, u_m, steps, n_newton=nn,
+                                                nl_precision="highest"))
 
     # One iteration's pieces on a mid-span state.
     st = fused(eta, etad, u_m, 50, n_newton=nn)
@@ -129,6 +148,52 @@ def measure(tree: str) -> dict:
     res["r_at_sinvT"] = {"ms": best(lib, 5), "device_ms": sum(
         v[0] for v in _device_by_kernel(lib, dev, 1).values())}
 
+    # The basis-transform GEMMs alone, each beside torch.matmul of its product.
+    op_h = fused.operators(st[0], u_m, "highest")
+    eta_af = rk.rom_alpha_point_plain(op, *st, a1)
+
+    def device(fn):
+        return sum(v[0] for v in _device_by_kernel(fn, dev, 1).values())
+
+    gemms = {
+        "rom_expand": (lambda: rk.rom_expand(op, eta_af), lambda: eta_af @ op.phiT),
+        "rom_project": (lambda: rk.rom_project(op, g), lambda: g @ op.w),
+        "rom_expand_f32": (lambda: rk.rom_expand_f32(op_h, eta_af),
+                           lambda: eta_af @ op_h.phiT),
+        "rom_project_f32": (lambda: rk.rom_project_f32(op_h, g), lambda: g @ op_h.w),
+    }
+    for name, (kern, lib) in gemms.items():
+        res[name] = {"ms": best(kern, 5), "device_ms": device(kern),
+                     "dispatch_us": cs.dispatch_us(kern, dev),
+                     "matmul_ms": best(lib, 5), "matmul_device_ms": device(lib)}
+
+    # Digests of the outputs on seeded operands at the main path's shapes.
+    rng = np.random.default_rng(7)
+    B, m, N = cs.N_ENVS, op.w.shape[1], op.n_rows
+
+    def normal(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    phiT, w = normal(m, N), normal(N, m)
+    z = torch.zeros(1, device=dev)
+    op_r = rk.ROMOperators(phiT=phiT, w=w, lam=z, u=z, cd=None, sinv=z, sinvT=None, L=z,
+                           D=z, A=z, mask=z, gathered=False, sc=(0.0,) * 9,
+                           split=rk.split_basis(phiT, w))
+    af_r, g_r = normal(B, m), rk.tma_rows(normal(B, N))
+
+    def digest(*outs):
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    res["tf32_sha256"] = digest(rk.rom_expand(op_r, af_r), rk.rom_project(op_r, g_r))
+    # The parent's float32 kernels read the unsplit bases from phiT and w.
+    unsplit = "tf32" in inspect.signature(rk.split_basis).parameters
+    op_rh = dataclasses.replace(op_r, nl_precision="highest", split=rk.split_basis(
+        phiT, w, tf32=False) if unsplit else None)
+    res["f32_sha256"] = digest(rk.rom_expand_f32(op_rh, af_r), rk.rom_project_f32(op_rh, g_r))
+
     # btd_solve alone, as the implicit operator calls it.
     model = crt.DynamicEulerBernoulliBeam(cs.bench_beam_dataframe(cs.N_ELEMENTS))
     a, c = cs.gen_alpha_system(cs.IMPLICIT["rho_lin"])
@@ -157,16 +222,62 @@ def measure(tree: str) -> dict:
     return res
 
 
+SPLIT_SHAPES = ((4096, 256, 3003), (4096, 256, 1000), (4096, 256, 600), (4096, 13, 3003),
+                (129, 256, 3003), (5, 37, 3003))
+
+
+def splits_table() -> None:
+    """``--splits``: see the module's docstring."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
+
+    dev = torch.device("cuda", 0)
+    for B, m, N in SPLIT_SHAPES:
+        rng = np.random.default_rng(B + m + N)  # the card-only test's draws, in its order
+        phiT = torch.tensor(rng.normal(size=(m, N)), dtype=torch.float32, device=dev)
+        w = torch.tensor(rng.normal(size=(N, m)), dtype=torch.float32, device=dev)
+        basis = rk.split_basis(phiT, w, tf32=False)  # owns the buffer its maps point into
+        wt = basis.wt_maps[0]
+        rng.normal(size=(B, m))  # the test's eta_af
+        g = rk.tma_rows(torch.tensor(rng.normal(size=(B, N)), dtype=torch.float32, device=dev))
+        twin, ref = g @ w, g.double() @ w.double()
+        scale = float(ref.abs().max())
+        row = []
+        for S in range(1, 13):
+            if N // S < 32:
+                break
+            p = torch.empty((S, B, m), device=dev)
+            rk._launch("rom_project_f32", g, B, m, N, S, g.data_ptr(), g.stride(0),
+                       ctypes.addressof(wt), p.data_ptr())
+            gm = p[0]
+            for q in p[1:]:  # slice order, as rom_update sums them
+                gm = gm + q
+            row.append(f"S={S} twin {float((gm - twin).abs().max()) / scale:.2e} "
+                       f"f64 {float((gm.double() - ref).abs().max()) / scale:.2e}")
+        print(f"{B} x {m} x {N}: project_splits_f32 S={rk.project_splits_f32(B, m, N, dev)}, "
+              f"torch.matmul vs f64 {float((twin.double() - ref).abs().max()) / scale:.2e} | "
+              + " | ".join(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree")
     ap.add_argument("--ab")
+    ap.add_argument("--splits", action="store_true")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
         return 1
+    if args.splits:
+        splits_table()
+        return 0
     if args.tree:
         t0 = time.time()
         res = measure(os.path.abspath(args.tree))
@@ -177,13 +288,20 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
+    digests = []
     for tree in (args.ab, HERE, HERE, args.ab):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
             return proc.returncode
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        res = json.loads(line)
+        digests.append((res["tf32_sha256"], res["f32_sha256"]))
+    print(f"tensor-core outputs bit-equal in all four runs: "
+          f"{len({d[0] for d in digests}) == 1}; float32 outputs: "
+          f"{len({d[1] for d in digests}) == 1}", flush=True)
     print(card)
     return 0
 

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                     # the full check
     python3 chip_smoke.py --profile           # ROM main path under torch.profiler
+    python3 chip_smoke.py --profile highest   # its "highest" span under torch.profiler
     python3 chip_smoke.py --profile implicit  # implicit main path under torch.profiler
     python3 chip_smoke.py --profile fused     # fused small-beam span under torch.profiler
 
@@ -34,7 +35,8 @@ Phases, one line each (any failure exits non-zero):
    ``(eta, etad)`` against the plain twin over the same span (relative
    error <= 1e-4) and finite physical states; host set-up seconds; then
    the same span with ``nl_precision="highest"`` (the float32 expand and
-   project) against the same twin (<= 1e-4);
+   project) against the same twin (<= 1e-4), its time (first call) beside
+   its all-float32 bound;
 9. ECSW at full width: trained as bench.py trains it (tip force 3.0, 30
    frames x 20 substeps on 1 env, 2 Newton iterations, snapshots [::3],
    tau=1e-3), then the gathered kernels over 4096 envs x 2000 steps
@@ -128,7 +130,8 @@ result naming the device.
 linear implicit main path, and a lone ``btd_solve`` launch) and runs
 ``PROFILE_STEPS`` steps of it under ``torch.profiler``: device time by
 kernel, and the device's busy share of the same steps timed without the
-profiler. ``--profile dense`` does the same for the dense-Newton span,
+profiler. ``--profile highest`` does the same for the ROM main path's
+"highest" span, ``--profile dense`` for the dense-Newton span,
 ``--profile fused`` for the whole float32 span of the fused small-beam
 path.
 """
@@ -196,6 +199,8 @@ REPLACES = {
 ROM_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/rom_rollout.cu"
 ROM_REPLACES = "continuum_robot_tpu/ops/pallas/rom_rollout.py:65"
 ROM_TC_DESIGN = "wgmma 3xTF32"  # rom_expand and rom_project: tensor cores, hi/lo split
+# rom_expand_f32 and rom_project_f32: the same persistent TMA ring, FFMA consumers
+ROM_F32_DESIGN = "persistent TMA ring, FFMA float32 8x8"
 # The path whose run gives each kernel's ``launches``.
 LINEAR_PATH = {"modal_steps": "rollout_pallas", "modal_frames": "simulate:pallas",
                "affine_steps": "rollout_power"}
@@ -211,7 +216,7 @@ ROM_PATH = {**{k: "window" for k in ROM_WINDOW},
             "rom_correction_gathered": "ecsw", "rom_newton_dense": "dense_newton",
             "rom_expand_f32": "highest", "rom_project_f32": "highest"}
 ROM_DESIGN = {"rom_expand": ROM_TC_DESIGN, "rom_project": ROM_TC_DESIGN,
-              "rom_expand_f32": "SIMT float32", "rom_project_f32": "SIMT float32"}
+              "rom_expand_f32": ROM_F32_DESIGN, "rom_project_f32": ROM_F32_DESIGN}
 BTD_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/btd_solve.cu"
 BTD_CHUNK = {torch.float32: 64, torch.float64: 32}  # nodes a ring slot holds
 BTD_REPLACES = "continuum_robot_tpu/ops/pallas/btd_solve.py:97"
@@ -691,13 +696,15 @@ def dispatch_us(fn, dev, n: int = 200) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def profile_rom(crt, dev, card) -> None:
-    """``--profile``: device time by kernel over ``PROFILE_STEPS`` steps of
-    the ROM main path, and the busy share of the unprofiled steps."""
+def profile_rom(crt, dev, card, nl_precision=None) -> None:
+    """``--profile`` (``--profile highest``: ``nl_precision="highest"``):
+    device time by kernel over ``PROFILE_STEPS`` steps of the ROM main path,
+    and the busy share of the unprofiled steps."""
     _, ms, eta, etad, u_m, _ = rom_main_path(crt, dev)
     fused = ms.make_pallas_rollout()
-    profile_span(lambda: fused(eta, etad, u_m, PROFILE_STEPS, n_newton=ROM["n_newton"]),
-                 dev, card, "the ROM main path")
+    what = "the ROM main path" + (f" at nl_precision={nl_precision!r}" if nl_precision else "")
+    profile_span(lambda: fused(eta, etad, u_m, PROFILE_STEPS, n_newton=ROM["n_newton"],
+                               nl_precision=nl_precision), dev, card, what)
 
 
 def profile_dense(crt, dev, card) -> None:
@@ -738,9 +745,39 @@ def profile_span(span, dev, card, what: str, steps: int = PROFILE_STEPS) -> None
               f"{dev_ms / count:.4f} ms/launch: {key[:150]}", flush=True)
 
 
+def rom_span_bounds(rk, op, B: int, steps: int) -> dict:
+    """Bounds of a ROM window span of ``steps`` steps over ``B`` envs (one
+    Newton iteration a step): ``"tf32"`` with its two products at the TF32
+    peak (three passes) and the rest at the float32 peak, ``"f32"`` all in
+    float32 (the "highest" tier); and the counts behind them."""
+    from continuum_robot_tpu_torch.models import elements
+
+    m, N = op.w.shape[1], op.n_rows
+    E = N // 3 - 1
+    corr_ops = count_ops(lambda *a: elements.nonlinear_correction_planes(*a), 9) + 6
+    counter_op = types.SimpleNamespace(sc=op.sc)
+    epi_ops = count_ops(lambda e, ed, edd, a1, gm, lam, uu, si: rk._finish(
+        counter_op, a1 - si * rk._residual(
+            types.SimpleNamespace(lam=lam, u=uu, cd=None, sc=counter_op.sc),
+            gm, e, ed, edd, a1), e, ed, edd, True), 8)
+    af_ops = count_ops(lambda e, ed, edd, a1: rk.rom_alpha_point_plain(
+        counter_op, e, ed, edd, a1), 4)
+    splits = rk.project_splits(B, m, N, op.w.device)
+    splits_f32 = rk.project_splits_f32(B, m, N, op.w.device)
+    gemm_ops = steps * 4 * B * m * N
+
+    def other_ops(s):  # all but the products, with s partials summed
+        return steps * (B * E * corr_ops + 3 * B * (N // 3)
+                        + B * m * (af_ops + s - 1 + epi_ops))
+
+    span_bytes = 4 * (4 * m * N + 6 * B * m + 3 * m + 4 * E)
+    return dict(tf32=bound(other_ops(splits), span_bytes, tc_ops=3 * gemm_ops),
+                f32=bound(other_ops(splits_f32) + gemm_ops, span_bytes), corr_ops=corr_ops,
+                epi_ops=epi_ops, af_ops=af_ops, splits=splits, counter_op=counter_op)
+
+
 def rom_paths(crt, rk, dev, card, small_model):
     """Phases 8-12; returns the ROM kernels' records."""
-    from continuum_robot_tpu_torch.models import elements
     from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
 
     # -- phase 8: the ROM main path at full width -------------------------------
@@ -774,14 +811,16 @@ def rom_paths(crt, rk, dev, card, small_model):
     require(span_rel <= ROM_SPAN_MAX, f"ROM kernel vs plain span {span_rel:.3e}")
     # The "highest" tier: the float32 transforms. The twin is the same for
     # every tier (float32 torch.matmul), so ``ref`` holds it too.
-    out_h, paths["highest"] = counted(
-        rk, lambda: fused(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"],
-                          nl_precision="highest"))
+    (out_h, h_first_ms), paths["highest"] = counted(rk, lambda: timed_once(
+        lambda: fused(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"],
+                      nl_precision="highest"), dev))
     expect_launches(paths["highest"], ROM_HIGHEST, n_it, "ROM highest span")
     h_rel, h_vs_tc = rel_state(out_h, ref), rel_state(out_h, out)
-    print(f"phase 8 ROM highest span: {N_ENVS} envs, {N_STEPS} steps: vs_plain_rel="
-          f"{h_rel:.3e}, vs the 3xTF32 span {h_vs_tc:.3e}; launches "
-          f"{paths['highest']}", flush=True)
+    spans = rom_span_bounds(rk, op, N_ENVS, N_STEPS)
+    print(f"phase 8 ROM highest span [{card}]: {N_ENVS} envs, {N_STEPS} steps: "
+          f"vs_plain_rel={h_rel:.3e}, vs the 3xTF32 span {h_vs_tc:.3e}; {h_first_ms:.3f} ms "
+          f"(first call) against its all-float32 bound {spans['f32'][0]:.3f} ms "
+          f"({spans['f32'][1]}); launches {paths['highest']}", flush=True)
     require(all(bool(torch.isfinite(x).all()) for x in out_h), "ROM highest: non-finite")
     require(h_rel <= ROM_SPAN_MAX, f"ROM highest kernel vs plain span {h_rel:.3e}")
 
@@ -882,23 +921,11 @@ def rom_paths(crt, rk, dev, card, small_model):
     B, m, N = N_ENVS, ms.n_modes, op.n_rows
     E = N // 3 - 1
     s = op_g.n_rows // 6
-    corr_ops = count_ops(lambda *a: elements.nonlinear_correction_planes(*a), 9) + 6
-    counter_op = types.SimpleNamespace(sc=rk.step_scalars(DT, ROM["rho_inf"]))
-    epi_ops = count_ops(lambda e, ed, edd, a1, gm, lam, uu, si: rk._finish(
-        counter_op, a1 - si * rk._residual(
-            types.SimpleNamespace(lam=lam, u=uu, cd=None, sc=counter_op.sc),
-            gm, e, ed, edd, a1), e, ed, edd, True), 8)
-    af_ops = count_ops(lambda e, ed, edd, a1: rk.rom_alpha_point_plain(
-        counter_op, e, ed, edd, a1), 4)
-    splits = rk.project_splits(B, m, N, dev)
     # The two products run three TF32 passes on the tensor cores, the rest
     # in float32 on the CUDA cores; span_f32 is the bound of all in float32.
-    gemm_ops = N_STEPS * 4 * B * m * N
-    other_ops = N_STEPS * (B * E * corr_ops + 3 * B * (N // 3)
-                           + B * m * (af_ops + splits - 1 + epi_ops))
-    span_bytes = 4 * (4 * m * N + 6 * B * m + 3 * m + 4 * E)
-    span_bound = bound(other_ops, span_bytes, tc_ops=3 * gemm_ops)
-    span_f32 = bound(other_ops + gemm_ops, span_bytes)  # the "highest" span's bound
+    span_bound, span_f32 = spans["tf32"], spans["f32"]  # the latter the "highest" span's
+    corr_ops, epi_ops, af_ops = spans["corr_ops"], spans["epi_ops"], spans["af_ops"]
+    splits, counter_op = spans["splits"], spans["counter_op"]
     print(f"phase 12 ROM timings [{card}]: window span {span_ms:.3f} ms = "
           f"{env_steps / span_ms * 1e3:.4e} env-steps/s (first call {span_first_ms:.3f} ms) "
           f"vs plain twin {plain_span_ms:.3f} ms (one run) and torch.matmul of the "
@@ -906,7 +933,7 @@ def rom_paths(crt, rk, dev, card, small_model):
           f"({span_bound[1]}; all float32: {span_f32[0]:.3f} ms), kernel at "
           f"{span_bound[0] / span_ms:.3f} of it; \"highest\" span {span_h_ms:.3f} ms = "
           f"{env_steps / span_h_ms * 1e3:.4e} env-steps/s, at {span_f32[0] / span_h_ms:.3f} "
-          f"of its float32 bound; gathered "
+          f"of its all-float32 bound {span_f32[0]:.3f} ms; gathered "
           f"(s={s}) span {span_g_ms:.3f} ms = {env_steps / span_g_ms * 1e3:.4e} "
           f"env-steps/s vs plain twin {plain_g_ms:.3f} ms (one run)", flush=True)
 
@@ -921,13 +948,13 @@ def rom_paths(crt, rk, dev, card, small_model):
     xg = rk.rom_expand_plain(op_g, eta_af)
     partials = rk.rom_project(op, g)
     r = rk._partials_residual(op_dense, partials, *st, a1)  # for the library call
-    splits_f32 = rk.project_splits_f32(B, m, N, dev)
     dense_ops = (count_ops(lambda e, ed, edd, a1_, gm, lam, uu: rk._residual(
         types.SimpleNamespace(lam=lam, u=uu, cd=None, sc=counter_op.sc),
         gm, e, ed, edd, a1_), 7)
         + count_ops(lambda e, ed, edd, a1_, dr: rk._finish(
             counter_op, a1_ - dr, e, ed, edd, True), 5) + splits - 1)
     state_bytes = 4 * B * m
+    splits_f32 = rk.project_splits_f32(B, m, N, dev)
     pieces = {
         "rom_alpha_point": (
             lambda: rk.rom_alpha_point(op, *st, a1),
@@ -1582,6 +1609,8 @@ def main() -> int:
             profile_implicit(crt, kb, dev, card)
         elif which == ["dense"]:
             profile_dense(crt, dev, card)
+        elif which == ["highest"]:
+            profile_rom(crt, dev, card, "highest")
         elif which == ["fused"]:
             profile_fused(crt, dev, card)
         else:

@@ -28,8 +28,8 @@
 //   newton_dense_kernel    the same g_m and residual, kept in shared memory,
 //                          then a1 - r @ SinvT with the same update (a dense
 //                          Sinv: one launch in place of rom_update's)
-//   gemm_kernel            float32 SIMT instances of expand and project for
-//                          nl_precision="highest"
+//   rom_expand_f32_kernel, float32 FFMA instances of expand and project for
+//   rom_project_f32_kernel nl_precision="highest"
 //
 // The two basis transforms: 3xTF32 on wgmma. The TPU kernel does not form
 // them in plain float32 either: by default it splits each operand into bf16
@@ -42,39 +42,54 @@
 // cores (67 TFLOP/s) either product is bound at 0.094 ms at the main
 // path's size; three TF32 passes at 495 TFLOP/s bound it at 0.038 ms.
 // nl_precision="highest" asks for full float32, as the TPU kernel's
-// Precision.HIGHEST gives it: for that tier the wrappers launch the float32
-// SIMT GEMMs below (gemm_kernel: 128 x 128 tiles of 8 x 8 register blocks,
-// two blocks per SM; the project split over S slices of its reduction,
-// summed in slice order by update_kernel), reading the unsplit bases.
+// Precision.HIGHEST gives it: float32 products, float32 sums in K order,
+// no TF32 and no tensor cores (whose float32 accumulation truncates, see
+// Tf32Consumer). For that tier the same GEMM body runs an FFMA consumer on
+// the unsplit bases: that tier is bound by the 0.094 ms above.
 //
 // Both are one "TN" GEMM, C(i, j) = sum_k A(i, k) Bt(j, k), with both
 // operands K-major as TF32 wgmma requires:
 //   expand   A = eta_af (B, m), Bt = Phi (N, m),   C = x (B, N)
 //   project  A = g (B, N),      Bt = W^T (m, N),   C = partials (S, B, m)
-// The basis halves (Bt hi and lo) are split once where the operators are
-// uploaded (rom_rollout.py: split_basis), with their TMA descriptors.
-// The per-step operand is split here, in registers: wgmma takes A from
-// registers, so each consumer thread loads its fragment of the A tile from
-// shared memory, rounds it to hi and lo, and issues the three products.
+// The basis halves (Bt hi and lo), or for "highest" the unsplit bases, are
+// laid out once where the operators are uploaded (rom_rollout.py:
+// split_basis), with their TMA descriptors. The per-step operand is split
+// here, in registers: wgmma takes A from registers, so each 3xTF32 consumer
+// thread loads its fragment of the A tile from shared memory, rounds it to
+// hi and lo, and issues the three products.
 //
 // One block per SM, persistent over (row tile, column tile, K slice) units:
 // 128 x 128 output tiles, a producer warpgroup (one thread issues the TMA
-// loads; setmaxnreg hands its registers to the consumers) feeding a 4-stage
-// ring of 32-deep K slices (one 128-byte swizzle row per tile row: the A
-// tile, the Bt hi tile and the Bt lo tile, 48 KB a stage) through mbarriers,
-// and two consumer warpgroups, each issuing wgmma m64n128k8 on 64 of the
-// tile's rows. The producer runs ahead into the next unit while the
-// consumers store a finished tile, so loads overlap the epilogue. The tensor
-// cores' float32 accumulation truncates, so each slice's 8 lo products and
-// its 4 hi.hi products are summed apart and each group is added to the
-// tile's sum in float32 with rounding to nearest. TMA reads the global tensors with
-// 16-byte row pitches (the wrappers pad rows to a multiple of 4 floats) and
-// their true extents, so it zero-fills past the last row and column and pad
-// columns are never read into a sum. The project splits its N-long
-// reduction into S slices (S chosen so units fill the SMs) whose partial
-// products update_kernel sums in a fixed order: no atomics, deterministic.
-// Kernel and twin (float32 torch.matmul) agree to ~1e-6 of the output's
-// scale, not bit for bit.
+// loads; setmaxnreg hands its registers to the consumers) feeding a ring of
+// 32-deep K slices (one 128-byte swizzle row per tile row) through
+// mbarriers, and two consumer warpgroups of a kind chosen at compile time
+// (gemm_persistent<Consumer>):
+// - Tf32Consumer: a 4-stage ring of the A tile, the Bt hi tile and the Bt
+//   lo tile (48 KB a stage); each warpgroup issues wgmma m64n128k8 on 64 of
+//   the tile's rows. The tensor cores' float32 accumulation truncates, so
+//   each slice's 8 lo products and its 4 hi.hi products are summed apart
+//   and each group is added to the tile's sum in float32 with rounding to
+//   nearest. Kernel and twin (float32 torch.matmul) agree to ~1e-6 of the
+//   output's scale, not bit for bit.
+// - F32Consumer: a 6-stage ring of the A tile and the Bt tile (32 KB a
+//   stage); each thread owns 8 x 8 outputs in registers and reads its
+//   operands as bank-conflict-free 16-byte shared loads along K (the map is
+//   at the struct), loading the next 4 k while the current 256 FMAs issue;
+//   16-byte stores in the epilogue. Float32 roundoff of a K-ordered sum.
+//   On an H100 its FMAs run at ~0.67 of an SM's float32 peak, bound by the
+//   compiled FFMA stream, not by its loads or the ring: variants without
+//   the shared loads or without the waits are no faster, and a third of
+//   the FFMAs read two registers of one bank (chip_variants.py).
+// The producer runs ahead into the next unit while the consumers store a
+// finished tile, so loads overlap the epilogue. TMA reads the global
+// tensors with 16-byte row pitches (the wrappers pad rows to a multiple of
+// 4 floats) and their true extents, so it zero-fills past the last row and
+// column and pad columns are never read into a sum. The project splits its
+// N-long reduction into S slices whose partial products update_kernel sums
+// in a fixed order (no atomics, deterministic): for 3xTF32 S fills the SMs
+// in one round (S = 2 at the main path); in float32, where a slice is one
+// sequential float32 sum whose roundoff grows with its length, S gives two
+// rounds (S = 4 slices of 768 rows at the main path).
 //
 // The dense Newton update (newton_dense_kernel): (B x m) outputs over a
 // short (m) reduction, 2 B m^2 float32 FMA operations (0.54 GFLOP at B =
@@ -116,22 +131,27 @@ __host__ __device__ inline unsigned cdiv(int a, int b) {
 inline unsigned cdiv64(int64_t a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
 // ---------------------------------------------------------------------------
-// Tensor-core GEMM, 3xTF32: C(i, j) = sum_k A(i, k) Bt(j, k)
+// The persistent TN GEMM, C(i, j) = sum_k A(i, k) Bt(j, k): one body (the
+// mbarrier ring, the producer's TMA loop, the unit scheduler), two consumers
+// chosen at compile time (3xTF32 on wgmma; float32 FFMA)
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 128;          // output tile rows and columns
 constexpr int kSliceK = 32;         // K per stage: one 128-byte swizzle row
-constexpr int kStages = 4;
-constexpr int kConsumers = 2;       // warpgroups, 64 tile rows each
+constexpr int kConsumers = 2;       // warpgroups
 constexpr int kGemmThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 // Registers a thread of each role keeps (setmaxnreg): per SM sub-partition
 // one producer warp and two consumer warps fit 16384 registers.
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kTileBytes = kTile * kSliceK * 4;      // 16 KB
-constexpr int kStageBytes = 3 * kTileBytes;          // A, Bt hi, Bt lo
-constexpr int kGemmSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
 // Codes above every cudaError_t: the tensor-map encoder failed or is missing.
 constexpr int kEncodeError = 100000;
+
+// Dynamic shared memory of a ring of `stages` stages of `tiles` tiles each:
+// the 1024-byte alignment slack and a full and an empty mbarrier a stage.
+constexpr int gemm_smem(int stages, int tiles) {
+  return stages * tiles * kTileBytes + 1024 + 2 * stages * 8;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -235,15 +255,253 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
+// The 3xTF32 consumer: a stage holds the A tile, the Bt hi tile and the Bt lo
+// tile (48 KB); each consumer warpgroup issues wgmma m64n128k8 on 64 of the
+// tile's rows. Warpgroup wg, warp wq of it: tile rows r0 = 64 wg + 16 wq +
+// lane/4 and r0 + 8. Its A fragment of a k8 step kk holds A(r0, c), A(r0 +
+// 8, c), A(r0, c + 4), A(r0 + 8, c + 4) at c = 8 kk + lane % 4; its
+// accumulator d[4 j + {0, 1, 2, 3}] is C at rows (r0, r0, r0 + 8, r0 + 8)
+// and columns 8 j + 2 (lane % 4) + {0, 1, 0, 1}.
+struct Tf32Consumer {
+  static constexpr int kBTiles = 2;
+  static constexpr int kStages = 4;
+  int t, r0, swz;
+  // d: the tile's sum, added in float32 (round to nearest); p: a group of a
+  // slice's tensor-core products, first its 8 lo terms (hi.lo and lo.hi),
+  // then its 4 hi.hi terms. The tensor cores align each k8 step's products
+  // and the accumulator to the largest and truncate to float32, so summing
+  // all of K in them is biased (the project at the main path's shape:
+  // 2.1e-6 of the output's scale, against 4.4e-7 with per-slice sums;
+  // measured) and lo terms summed with hi.hi ones lose their low bits (the
+  // card-only ROM test's ECSW span: 7.1e-6 of the scale, over its 5e-6
+  // limit, until they were split); hence the two groups, each added to d on
+  // its own.
+  float d[64], p[64];
+
+  __device__ __forceinline__ Tf32Consumer(int warp, int lane)
+      : t(lane % 4), r0(64 * (warp / 4) + 16 * (warp % 4) + lane / 4), swz(r0 & 7) {}
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = p[i] = 0.f;
+  }
+
+  // One 32-deep K slice: `stage` (generic) and `tile` (shared) address it.
+  __device__ __forceinline__ void slice(const uint8_t* stage, uint32_t tile) {
+    const float* As = reinterpret_cast<const float*>(stage);
+    uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = r0 + 8 * (q & 1);
+        const int c4 = 2 * kk + (q >> 1);  // 16-byte chunk of column 8 kk + t (+ 4)
+        const float x = As[r * kSliceK + ((c4 ^ swz) << 2) + t];  // chunk c4 sits at c4 ^ swz
+        a_hi[kk][q] = tf32_rna(x);
+        a_lo[kk][q] = tf32_rna(x - __uint_as_float(a_hi[kk][q]));
+      }
+    }
+#pragma unroll
+    for (int group = 0; group < 2; ++group) {
+      fence_acc(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t b_hi = tile + kTileBytes + 32 * kk;
+        if (group == 0) {
+          wgmma_tf32(p, a_hi[kk], smem_desc(b_hi + kTileBytes), kk > 0);  // hi.lo
+          wgmma_tf32(p, a_lo[kk], smem_desc(b_hi));                        // lo.hi
+        } else {
+          wgmma_tf32(p, a_hi[kk], smem_desc(b_hi), kk > 0);               // hi.hi
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(p);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[i] += p[i];
+    }
+  }
+
+  // The tile at (row0, col0) of o (row pitch ld): rows past M and columns
+  // past Nc are not stored.
+  __device__ __forceinline__ void store(float* o, int64_t ld, int row0, int col0, int M,
+                                        int Nc) const {
+    const bool pairs = (ld % 2) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + r0 + 8 * h;
+      if (i >= M) continue;
+      float* row = o + static_cast<int64_t>(i) * ld;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = col0 + 8 * j + 2 * t;
+        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if (pairs && c + 1 < Nc) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+        } else {
+          if (c < Nc) row[c] = v0;
+          if (c + 1 < Nc) row[c + 1] = v1;
+        }
+      }
+    }
+  }
+};
+
+// The float32 FFMA consumer: a stage holds the A tile and the unsplit Bt
+// tile (32 KB). Each of the 8 consumer warps owns 32 x 64 outputs, each
+// thread 8 x 8 in registers, summed with fmaf in float32, in K order.
+//
+// Thread map (consumer warp w = 0..7, lane l): rows R + 4 i (i < 8), R =
+// 32 (w % 4) + l / 8; columns C + 32 h + q (h < 2, q < 4), C = 64 (w / 4) +
+// 4 (l % 8), so an output row's 4-runs are 16-byte stores. Operands are
+// read as 16-byte shared loads of one row and 4 k (a k-chunk c; under the
+// 128B swizzle chunk c of tile row r sits at chunk c ^ (r & 7), in bank
+// quad c ^ (r & 7)):
+// - a warp's load of A reads rows R + 4 i of its 4 row groups l / 8, whose
+//   r & 7 differ, each row broadcast to 8 lanes: 4 bank quads;
+// - a warp's load of Bt reads, in its q-th load, row C + 32 h + ((q + rot)
+//   & 3) with rot = (l % 8) / 2, so r & 7 = 4 (l % 2) + ((q + rot) & 3)
+//   takes each of its 8 values once over the 8 column groups, each row
+//   broadcast to 4 lanes: 8 bank quads. Without the rotation the rows 4
+//   (l % 8) + q would take two values of r & 7 (a 4-way conflict).
+// So no load has a bank conflict. Accumulator
+// acc[i][4 h + q] is column C + 32 h + ((q + rot) & 3); the epilogue undoes
+// the rotation with selects. The next k-chunk's 16 fragments load while the
+// current chunk's 256 FMAs issue.
+struct F32Consumer {
+  static constexpr int kBTiles = 1;
+  // A stage is 1.05 MFLOP, ~2 us of FMAs an SM: 6 stages keep 5 slices in
+  // flight against L2 latency and let the producer load 6 of the expand's 8
+  // slices of the next unit while the consumers store a tile (192 KB, the
+  // 3xTF32 ring's footprint).
+  static constexpr int kStages = 6;
+  int R, C, rot;
+  // Byte offsets in a tile, the swizzle bits included, of A rows R and R + 4
+  // (rows R + 4 i: + 1024 (i / 2)) and of Bt rows C + ((q + rot) & 3)
+  // (+ 4096 h): chunk c of each is at offset ^ (c << 4).
+  uint32_t a_off[2], b_off[4];
+  float acc[8][8];
+
+  __device__ __forceinline__ F32Consumer(int warp, int lane)
+      : R(32 * (warp % 4) + lane / 8), C(64 * (warp / 4) + 4 * (lane % 8)), rot((lane % 8) / 2) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = R + 4 * e;
+      a_off[e] = static_cast<uint32_t>(r * 128 + ((r & 7) << 4));
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = C + ((q + rot) & 3);
+      b_off[q] = static_cast<uint32_t>(r * 128 + ((r & 7) << 4));
+    }
+  }
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  __device__ __forceinline__ void load(const uint8_t* stage, int c, float4 (&a)[8],
+                                       float4 (&b)[8]) const {
+    const uint8_t* Bs = stage + kTileBytes;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a[i] = *reinterpret_cast<const float4*>(stage + ((a_off[i & 1] ^ (c << 4)) + 1024 * (i >> 1)));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      b[j] = *reinterpret_cast<const float4*>(Bs + ((b_off[j & 3] ^ (c << 4)) + 4096 * (j >> 2)));
+  }
+
+  __device__ __forceinline__ void fma4(const float4 (&a)[8], const float4 (&b)[8]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+  }
+
+  __device__ __forceinline__ void slice(const uint8_t* stage, uint32_t) {
+    float4 a[2][8], b[2][8];
+    load(stage, 0, a[0], b[0]);
+#pragma unroll
+    for (int c = 0; c < kSliceK / 4; ++c) {
+      if (c + 1 < kSliceK / 4) load(stage, c + 1, a[(c + 1) & 1], b[(c + 1) & 1]);
+      fma4(a[c & 1], b[c & 1]);
+    }
+  }
+
+  // The tile at (row0, col0) of o (row pitch ld): 16-byte stores where the
+  // pitch and base allow, scalar ones at a ragged edge; rows past M and
+  // columns past Nc are not stored.
+  __device__ __forceinline__ void store(float* o, int64_t ld, int row0, int col0, int M,
+                                        int Nc) const {
+    const bool vec = (ld % 4) == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = row0 + R + 4 * i;
+      if (r >= M) continue;
+      float* row = o + static_cast<int64_t>(r) * ld;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = col0 + C + 32 * h;
+        // Column c + q sits in acc[i][4 h + ((q - rot) & 3)].
+        const float* s = acc[i] + 4 * h;
+        float u[4], v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) u[q] = (rot & 1) ? s[(q + 3) & 3] : s[q];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = (rot & 2) ? u[(q + 2) & 3] : u[q];
+        if (vec && c + 3 < Nc) {
+          *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (c + q < Nc) row[c + q] = v[q];
+        }
+      }
+    }
+  }
+};
+
+// The shape of one GEMM launch: C is M x Nc over a K-long reduction cut
+// into `splits` slices of k_chunk (a multiple of kSliceK); slice z writes
+// out + z * split_stride, rows ld_out floats apart.
+struct GemmShape {
+  int M, Nc, K, k_chunk, splits;
+  float* out;
+  int64_t ld_out, split_stride;
+};
+
 // The work of one block: units u = blockIdx.x, blockIdx.x + gridDim.x, ...
-// of (column tile, row tile, K split); split z sums k in
-// [z k_chunk, min(K, (z+1) k_chunk)), k_chunk a multiple of kSliceK, and
-// writes out + z * split_stride. Rows past M and columns past Nc are not
-// stored; TMA zero-fills A and Bt past K.
-__device__ __forceinline__ void gemm_3xtf32(const CUtensorMap* map_a, const CUtensorMap* map_bhi,
-                                            const CUtensorMap* map_blo, int M, int Nc, int K,
-                                            int k_chunk, int splits, float* __restrict__ out,
-                                            int64_t ld_out, int64_t split_stride) {
+// of (column tile, row tile, K split). A producer warpgroup (one lane issues
+// the TMA loads; setmaxnreg hands its registers to the consumers) fills a
+// ring of Consumer::kStages stages of 32-deep K slices, one 128-byte swizzle
+// row per tile row: the A tile and Consumer::kBTiles Bt tiles, through
+// full/empty mbarriers; it runs ahead into the next unit while the consumers
+// store a finished tile, so loads overlap the epilogue. TMA reads the global
+// tensors with 16-byte row pitches and their true extents, so it zero-fills
+// past the last row and column and pad columns are never read into a sum.
+template <class Consumer>
+__device__ __forceinline__ void gemm_persistent(const CUtensorMap* map_a,
+                                                const CUtensorMap* map_b,
+                                                const CUtensorMap* map_b_lo,
+                                                const GemmShape& s) {
+  constexpr int kStages = Consumer::kStages;
+  constexpr int kStageBytes = (1 + Consumer::kBTiles) * kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the 128B swizzle needs 1024-byte tiles
@@ -251,16 +509,16 @@ __device__ __forceinline__ void gemm_3xtf32(const CUtensorMap* map_a, const CUte
   const uint32_t full0 = base + kStages * kStageBytes;  // kStages mbarriers of 8 bytes
   const uint32_t empty0 = full0 + kStages * 8;
 
-  const int tiles_n = static_cast<int>(cdiv(Nc, kTile));
-  const int tiles_m = static_cast<int>(cdiv(M, kTile));
-  const int units = tiles_n * tiles_m * splits;
+  const int tiles_n = static_cast<int>(cdiv(s.Nc, kTile));
+  const int tiles_m = static_cast<int>(cdiv(s.M, kTile));
+  const int units = tiles_n * tiles_m * s.splits;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);                    // the producer's expect_tx
-      mbar_init(empty0 + 8 * s, 4 * kConsumers);      // one arrival per consumer warp
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full0 + 8 * st, 1);                    // the producer's expect_tx
+      mbar_init(empty0 + 8 * st, 4 * kConsumers);      // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -275,15 +533,16 @@ __device__ __forceinline__ void gemm_3xtf32(const CUtensorMap* map_a, const CUte
       const int tn = u % tiles_n;
       const int tm = (u / tiles_n) % tiles_m;
       const int z = u / (tiles_n * tiles_m);
-      const int k_end = min(K, (z + 1) * k_chunk);
-      for (int k0 = z * k_chunk; k0 < k_end; k0 += kSliceK) {
+      const int k_end = min(s.K, (z + 1) * s.k_chunk);
+      for (int k0 = z * s.k_chunk; k0 < k_end; k0 += kSliceK) {
         mbar_wait(empty0 + 8 * stage, phase ^ 1u);
         const uint32_t full = full0 + 8 * stage;
         const uint32_t tile = base + stage * kStageBytes;
         mbar_expect_tx(full, kStageBytes);
         tma_load(map_a, tile, full, k0, tm * kTile);
-        tma_load(map_bhi, tile + kTileBytes, full, k0, tn * kTile);
-        tma_load(map_blo, tile + 2 * kTileBytes, full, k0, tn * kTile);
+        tma_load(map_b, tile + kTileBytes, full, k0, tn * kTile);
+        if constexpr (Consumer::kBTiles == 2)
+          tma_load(map_b_lo, tile + 2 * kTileBytes, full, k0, tn * kTile);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1u;
@@ -293,72 +552,19 @@ __device__ __forceinline__ void gemm_3xtf32(const CUtensorMap* map_a, const CUte
     return;
   }
 
-  // Consumer warpgroup wg, warp wq of it: tile rows r0 = 64 wg + 16 wq + lane/4
-  // and r0 + 8. Its A fragment of a k8 step kk holds A(r0, c), A(r0 + 8, c),
-  // A(r0, c + 4), A(r0 + 8, c + 4) at c = 8 kk + lane % 4; its accumulator
-  // d[4 j + {0, 1, 2, 3}] is C at rows (r0, r0, r0 + 8, r0 + 8) and columns
-  // 8 j + 2 (lane % 4) + {0, 1, 0, 1}.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-  const int wg = warp / 4;
-  const int t = lane % 4;
-  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4;
-  const int swz = r0 & 7;  // the row's 128B swizzle: 16-byte chunk c4 sits at c4 ^ swz
+  Consumer c(warp, lane);
   int stage = 0;
   uint32_t phase = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int tn = u % tiles_n;
     const int tm = (u / tiles_n) % tiles_m;
     const int z = u / (tiles_n * tiles_m);
-    const int k_end = min(K, (z + 1) * k_chunk);
-    // d: the tile's sum, added in float32 (round to nearest); p: a group
-    // of a slice's tensor-core products, first its 8 lo terms (hi.lo and
-    // lo.hi), then its 4 hi.hi terms. The tensor cores align each k8 step's
-    // products and the accumulator to the largest and truncate to float32,
-    // so summing all of K in them is biased (the project at the main path's
-    // shape: 2.1e-6 of the output's scale, against 4.4e-7 with per-slice
-    // sums; measured) and lo terms summed with hi.hi ones lose their low
-    // bits (the card-only ROM test's ECSW span: 7.1e-6 of the scale, over
-    // its 5e-6 limit, until they were split); hence the two groups, each
-    // added to d on its own.
-    float d[64], p[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = p[i] = 0.f;
-    for (int k0 = z * k_chunk; k0 < k_end; k0 += kSliceK) {
+    const int k_end = min(s.K, (z + 1) * s.k_chunk);
+    c.clear();
+    for (int k0 = z * s.k_chunk; k0 < k_end; k0 += kSliceK) {
       mbar_wait(full0 + 8 * stage, phase);
-      const uint32_t tile = base + stage * kStageBytes;
-      const float* As = reinterpret_cast<const float*>(smem + stage * kStageBytes);
-      uint32_t a_hi[4][4], a_lo[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = r0 + 8 * (q & 1);
-          const int c4 = 2 * kk + (q >> 1);  // 16-byte chunk of column 8 kk + t (+ 4)
-          const float x = As[r * kSliceK + ((c4 ^ swz) << 2) + t];
-          a_hi[kk][q] = tf32_rna(x);
-          a_lo[kk][q] = tf32_rna(x - __uint_as_float(a_hi[kk][q]));
-        }
-      }
-#pragma unroll
-      for (int group = 0; group < 2; ++group) {
-        fence_acc(p);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint32_t b_hi = tile + kTileBytes + 32 * kk;
-          if (group == 0) {
-            wgmma_tf32(p, a_hi[kk], smem_desc(b_hi + kTileBytes), kk > 0);  // hi.lo
-            wgmma_tf32(p, a_lo[kk], smem_desc(b_hi));                        // lo.hi
-          } else {
-            wgmma_tf32(p, a_hi[kk], smem_desc(b_hi), kk > 0);               // hi.hi
-          }
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_acc(p);
-#pragma unroll
-        for (int i = 0; i < 64; ++i) d[i] += p[i];
-      }
+      c.slice(smem + stage * kStageBytes, base + stage * kStageBytes);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * stage);
       if (++stage == kStages) {
@@ -366,36 +572,21 @@ __device__ __forceinline__ void gemm_3xtf32(const CUtensorMap* map_a, const CUte
         phase ^= 1u;
       }
     }
-
-    float* o = out + z * split_stride;
-    const bool pairs = (ld_out % 2) == 0;  // float2 stores stay 8-byte aligned
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = tm * kTile + r0 + 8 * h;
-      if (i >= M) continue;
-      float* row = o + static_cast<int64_t>(i) * ld_out;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = tn * kTile + 8 * j + 2 * t;
-        const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
-        if (pairs && c + 1 < Nc) {
-          *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
-        } else {
-          if (c < Nc) row[c] = v0;
-          if (c + 1 < Nc) row[c + 1] = v1;
-        }
-      }
-    }
+    c.store(s.out + z * s.split_stride, s.ld_out, tm * kTile, tn * kTile, s.M, s.Nc);
   }
 }
+
+// The expand covers all of K (m) in one unit; the project splits its N-long
+// reduction into `splits` slices of k_chunk.
+__host__ __device__ inline int whole_k(int K) { return (K + kSliceK - 1) / kSliceK * kSliceK; }
 
 __global__ void __launch_bounds__(kGemmThreads, 1)
 rom_expand_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_bhi,
                   const __grid_constant__ CUtensorMap map_blo, int B, int N, int m,
                   float* __restrict__ x, int64_t ld_x) {
-  gemm_3xtf32(&map_a, &map_bhi, &map_blo, B, N, m, (m + kSliceK - 1) / kSliceK * kSliceK, 1, x,
-              ld_x, 0);
+  gemm_persistent<Tf32Consumer>(&map_a, &map_bhi, &map_blo,
+                                GemmShape{B, N, m, whole_k(m), 1, x, ld_x, 0});
 }
 
 __global__ void __launch_bounds__(kGemmThreads, 1)
@@ -403,8 +594,26 @@ rom_project_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_bhi,
                    const __grid_constant__ CUtensorMap map_blo, int B, int m, int N,
                    int k_chunk, int splits, float* __restrict__ partials) {
-  gemm_3xtf32(&map_a, &map_bhi, &map_blo, B, m, N, k_chunk, splits, partials, m,
-              static_cast<int64_t>(B) * m);
+  gemm_persistent<Tf32Consumer>(
+      &map_a, &map_bhi, &map_blo,
+      GemmShape{B, m, N, k_chunk, splits, partials, m, static_cast<int64_t>(B) * m});
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+rom_expand_f32_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b, int B, int N, int m,
+                      float* __restrict__ x, int64_t ld_x) {
+  gemm_persistent<F32Consumer>(&map_a, &map_b, nullptr,
+                               GemmShape{B, N, m, whole_k(m), 1, x, ld_x, 0});
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+rom_project_f32_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_b, int B, int m, int N,
+                       int k_chunk, int splits, float* __restrict__ partials) {
+  gemm_persistent<F32Consumer>(
+      &map_a, &map_b, nullptr,
+      GemmShape{B, m, N, k_chunk, splits, partials, m, static_cast<int64_t>(B) * m});
 }
 
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint(ByVersion)
@@ -446,25 +655,26 @@ int encode_map(CUtensorMap* map, const float* p, int rows, int cols, int64_t ld)
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-// Per device: its SM count, and whether each 3xTF32 kernel may use kGemmSmem
-// bytes of dynamic shared memory and the dense Newton kernel all of a block's
-// (set once, read on every launch).
+// Per device: its SM count, and whether each GEMM kernel (0 expand, 1
+// project, 3 expand_f32, 4 project_f32) may use its ring's dynamic shared
+// memory and the dense Newton kernel (2) all of a block's (set once, read
+// on every launch).
 constexpr int kMaxDevices = 64;
 int g_sm_count[kMaxDevices];
-bool g_smem_set[3][kMaxDevices];
+bool g_smem_set[5][kMaxDevices];
 
-// Launch a 3xTF32 kernel (`which`: 0 expand, 1 project) persistently, one
-// block per SM and at most one per unit: A's tensor map encoded here, the
-// basis halves' maps copied from the caller's 128-byte blobs.
-template <class Kernel, class... Args>
-int launch_3xtf32(Kernel kernel, int which, int units, const float* a, int a_rows, int a_cols,
-                  int64_t ld_a, const void* map_hi, const void* map_lo, cudaStream_t stream,
-                  Args... args) {
-  CUtensorMap ma, mhi, mlo;
+// Launch a GEMM kernel persistently, one block per SM and at most one per
+// unit: A's tensor map encoded here, the basis maps (map_b_lo: the 3xTF32
+// consumer's second) copied from the caller's 128-byte blobs.
+template <class Consumer, class Kernel, class... Args>
+int launch_gemm(Kernel kernel, int which, int units, const float* a, int a_rows, int a_cols,
+                int64_t ld_a, const void* map_b, const void* map_b_lo, cudaStream_t stream,
+                Args... args) {
+  constexpr int kSmem = gemm_smem(Consumer::kStages, 1 + Consumer::kBTiles);
+  CUtensorMap ma, mb;
   int rc = encode_map(&ma, a, a_rows, a_cols, ld_a);
   if (rc != 0) return rc;
-  std::memcpy(&mhi, map_hi, sizeof(CUtensorMap));
-  std::memcpy(&mlo, map_lo, sizeof(CUtensorMap));
+  std::memcpy(&mb, map_b, sizeof(CUtensorMap));
   int dev = 0;
   rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
@@ -476,140 +686,18 @@ int launch_3xtf32(Kernel kernel, int which, int units, const float* a, int a_row
   }
   if (!g_smem_set[which][dev]) {
     rc = static_cast<int>(
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem));
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
     if (rc != 0) return rc;
     g_smem_set[which][dev] = true;
   }
   const int blocks = units < g_sm_count[dev] ? units : g_sm_count[dev];
-  kernel<<<blocks, kGemmThreads, kGemmSmem, stream>>>(ma, mhi, mlo, args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Tiled float32 SIMT GEMM (nl_precision="highest"): C(i, j) = sum_k A(i, k)
-// B(k, j), B row-major (K, N). Block z of the grid's third dimension sums k
-// in [z k_chunk, (z + 1) k_chunk).
-// ---------------------------------------------------------------------------
-
-template <int BM, int BN, int BK, int TM, int TN, int MIN_BLOCKS, class AOp, class Epi>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
-gemm_kernel(int M, int N, int K, int k_chunk, AOp a, const float* __restrict__ b, Epi epi) {
-  constexpr int kThreads = (BM / TM) * (BN / TN);
-  constexpr int kALoads = BM * BK / kThreads;
-  constexpr int kBLoads = BK * BN / kThreads;
-  constexpr int kRowStride = BM / (TM / 4);  // rows of one thread: 4-runs this far apart
-  constexpr int kColStride = BN / (TN / 4);
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tiles are float4 runs");
-  static_assert(BM * BK % kThreads == 0 && BK * BN % kThreads == 0, "tile loads");
-
-  __shared__ __align__(16) float As[2][BK][BM + 4];  // +4: conflict-free transposed stores
-  __shared__ __align__(16) float Bs[2][BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
-
-  float ra[kALoads];
-  float rb[kBLoads];
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int l = 0; l < kALoads; ++l) {
-      const int idx = tid + l * kThreads;
-      const int r = idx / BK, kk = idx % BK;
-      const int gi = row0 + r, gk = k0 + kk;
-      ra[l] = (gi < M && gk < k_end) ? a(gi, gk) : 0.f;
-    }
-#pragma unroll
-    for (int l = 0; l < kBLoads; ++l) {
-      const int idx = tid + l * kThreads;
-      const int kk = idx / BN, c = idx % BN;
-      const int gk = k0 + kk, gj = col0 + c;
-      rb[l] = (gk < k_end && gj < N) ? b[static_cast<int64_t>(gk) * N + gj] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int l = 0; l < kALoads; ++l) {
-      const int idx = tid + l * kThreads;
-      As[buf][idx % BK][idx / BK] = ra[l];
-    }
-#pragma unroll
-    for (int l = 0; l < kBLoads; ++l) {
-      const int idx = tid + l * kThreads;
-      Bs[buf][idx / BN][idx % BN] = rb[l];
-    }
-  };
-
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
-  load(k_begin);
-  store(0);
-  __syncthreads();
-  for (int t = 0; t < n_tiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < n_tiles) load(k_begin + (t + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int c = 0; c < TM / 4; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(&As[cur][kk][c * kRowStride + ty * 4]);
-        av[4 * c + 0] = v.x;
-        av[4 * c + 1] = v.y;
-        av[4 * c + 2] = v.z;
-        av[4 * c + 3] = v.w;
-      }
-#pragma unroll
-      for (int c = 0; c < TN / 4; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(&Bs[cur][kk][c * kColStride + tx * 4]);
-        bv[4 * c + 0] = v.x;
-        bv[4 * c + 1] = v.y;
-        bv[4 * c + 2] = v.z;
-        bv[4 * c + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    // The other buffer was last read in iteration t-1, which every thread has
-    // left (barrier below), so it can be refilled while others read `cur`.
-    if (t + 1 < n_tiles) store(cur ^ 1);
-    __syncthreads();
+  if constexpr (Consumer::kBTiles == 2) {
+    CUtensorMap mlo;
+    std::memcpy(&mlo, map_b_lo, sizeof(CUtensorMap));
+    kernel<<<blocks, kGemmThreads, kSmem, stream>>>(ma, mb, mlo, args...);
+  } else {
+    kernel<<<blocks, kGemmThreads, kSmem, stream>>>(ma, mb, args...);
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gi = row0 + (i / 4) * kRowStride + ty * 4 + (i % 4);
-    if (gi >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gj = col0 + (j / 4) * kColStride + tx * 4 + (j % 4);
-      if (gj < N) epi(gi, gj, acc[i][j]);
-    }
-  }
-}
-
-// Expand and project: 128x128 tiles of 8x8 register blocks, two blocks per SM
-// (at most 128 registers a thread) to hide the barrier of each slice.
-constexpr int kBigBM = 128, kBigBN = 128, kBigBK = 8, kBigTM = 8, kBigTN = 8, kBigMinBlocks = 2;
-
-template <int BM, int BN, int BK, int TM, int TN, int MIN_BLOCKS, class AOp, class Epi>
-int launch_gemm(int M, int N, int K, AOp a, const float* b, Epi epi, cudaStream_t stream,
-                int splits = 1) {
-  const int k_chunk = static_cast<int>(cdiv(static_cast<int>(cdiv(K, splits)), BK)) * BK;
-  const dim3 grid(cdiv(N, BN), cdiv(M, BM), static_cast<unsigned>(splits));
-  gemm_kernel<BM, BN, BK, TM, TN, MIN_BLOCKS, AOp, Epi>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(M, N, K, k_chunk, a, b, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,31 +722,6 @@ __global__ void alpha_point_kernel(int64_t n, const float* __restrict__ eta,
   const float e = eta[i];
   out[i] = s.omaf * (eta_pred_of(s, e, etad[i], etadd[i]) + s.bh2 * a1[i]) + s.af * e;
 }
-
-struct RowMajorOperand {
-  const float* __restrict__ p;
-  int64_t ld;
-  __device__ __forceinline__ float operator()(int i, int k) const {
-    return p[static_cast<int64_t>(i) * ld + k];
-  }
-};
-
-struct StoreEpilogue {
-  float* __restrict__ out;
-  int64_t ld;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    out[static_cast<int64_t>(i) * ld + j] = v;
-  }
-};
-
-// Partial product of slice blockIdx.z into out (S, M, N).
-struct PartialEpilogue {
-  float* __restrict__ out;
-  int M, N;
-  __device__ __forceinline__ void operator()(int i, int j, float v) const {
-    out[(static_cast<int64_t>(blockIdx.z) * M + i) * N + j] = v;
-  }
-};
 
 // The state at one (env, mode) element, and the output pointers of an update.
 struct Update {
@@ -1104,8 +1167,8 @@ int rom_expand_launch(int B, int m, int N, const float* eta_af, int64_t ld_a,
                       const void* phi_hi, const void* phi_lo, float* x, int64_t ld_x,
                       void* stream) {
   const int units = static_cast<int>(cdiv(B, kTile) * cdiv(N, kTile));
-  return launch_3xtf32(rom_expand_kernel, 0, units, eta_af, B, m, ld_a, phi_hi, phi_lo,
-                       static_cast<cudaStream_t>(stream), B, N, m, x, ld_x);
+  return launch_gemm<Tf32Consumer>(rom_expand_kernel, 0, units, eta_af, B, m, ld_a, phi_hi,
+                                   phi_lo, static_cast<cudaStream_t>(stream), B, N, m, x, ld_x);
 }
 
 int rom_correction_window_launch(int B, int n_sub, const float* x, int64_t ldx, const float* L,
@@ -1134,8 +1197,9 @@ int rom_project_launch(int B, int m, int N, int splits, const float* g, int64_t 
   const int k_chunk =
       static_cast<int>(cdiv(static_cast<int>(cdiv(N, splits)), kSliceK)) * kSliceK;
   const int units = static_cast<int>(cdiv(B, kTile) * cdiv(m, kTile)) * splits;
-  return launch_3xtf32(rom_project_kernel, 1, units, g, B, N, ld_g, wt_hi, wt_lo,
-                       static_cast<cudaStream_t>(stream), B, m, N, k_chunk, splits, partials);
+  return launch_gemm<Tf32Consumer>(rom_project_kernel, 1, units, g, B, N, ld_g, wt_hi, wt_lo,
+                                   static_cast<cudaStream_t>(stream), B, m, N, k_chunk, splits,
+                                   partials);
 }
 
 // The diagonal Newton update: out0 = a1_new, or with last != 0 out0..2 =
@@ -1180,22 +1244,26 @@ int rom_newton_dense_launch(int B, int m, int splits, const float* partials, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// nl_precision="highest": the float32 SIMT GEMMs. Expand: eta_af (B, m)
-// with row pitch ld_a, phiT (m, N) contiguous, x (B, N) with row pitch ld_x.
+// nl_precision="highest": the float32 FFMA GEMMs on the unsplit bases.
+// Expand: eta_af (B, m) with row pitch ld_a, phi: the map of Phi (N, m); x
+// (B, N) with row pitch ld_x.
 int rom_expand_f32_launch(int B, int m, int N, const float* eta_af, int64_t ld_a,
-                          const float* phiT, float* x, int64_t ld_x, void* stream) {
-  return launch_gemm<kBigBM, kBigBN, kBigBK, kBigTM, kBigTN, kBigMinBlocks>(
-      B, N, m, RowMajorOperand{eta_af, ld_a}, phiT, StoreEpilogue{x, ld_x},
-      static_cast<cudaStream_t>(stream));
+                          const void* phi, float* x, int64_t ld_x, void* stream) {
+  const int units = static_cast<int>(cdiv(B, kTile) * cdiv(N, kTile));
+  return launch_gemm<F32Consumer>(rom_expand_f32_kernel, 3, units, eta_af, B, m, ld_a, phi,
+                                  nullptr, static_cast<cudaStream_t>(stream), B, N, m, x, ld_x);
 }
 
-// Project: g (B, N) with row pitch ld_g, w (N, m) contiguous; partials:
-// (splits, B, m) products of S slices of the N-long reduction.
+// Project: g (B, N) with row pitch ld_g, wt: the map of W^T (m, N);
+// partials: (splits, B, m) products of S slices of the N-long reduction.
 int rom_project_f32_launch(int B, int m, int N, int splits, const float* g, int64_t ld_g,
-                           const float* w, float* partials, void* stream) {
-  return launch_gemm<kBigBM, kBigBN, kBigBK, kBigTM, kBigTN, kBigMinBlocks>(
-      B, m, N, RowMajorOperand{g, ld_g}, w, PartialEpilogue{partials, B, m},
-      static_cast<cudaStream_t>(stream), splits);
+                           const void* wt, float* partials, void* stream) {
+  const int k_chunk =
+      static_cast<int>(cdiv(static_cast<int>(cdiv(N, splits)), kSliceK)) * kSliceK;
+  const int units = static_cast<int>(cdiv(B, kTile) * cdiv(m, kTile)) * splits;
+  return launch_gemm<F32Consumer>(rom_project_f32_kernel, 4, units, g, B, N, ld_g, wt, nullptr,
+                                  static_cast<cudaStream_t>(stream), B, m, N, k_chunk, splits,
+                                  partials);
 }
 
 const char* cuda_error_string(int code) {

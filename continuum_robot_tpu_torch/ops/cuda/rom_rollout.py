@@ -30,8 +30,9 @@ wrapper                      computes
                              ``a1 - r @ Sinv^T`` and the same update, a
                              float32 FMA GEMM; one launch in place of
                              :func:`rom_update`'s
-:func:`rom_expand_f32`,      the two transforms as float32 SIMT GEMMs, for
-:func:`rom_project_f32`      ``nl_precision="highest"``
+:func:`rom_expand_f32`,      the two transforms as float32 FFMA GEMMs on
+:func:`rom_project_f32`      the same persistent TMA-fed body, for
+                             ``nl_precision="highest"``
 ===========================  =============================================
 
 Each wrapper has a plain PyTorch twin (``<wrapper>_plain``) with the same
@@ -45,7 +46,9 @@ Precision: ``nl_precision`` picks the tier of the two basis transforms,
 as the JAX package's fused kernel does. "highest" is full float32 (the
 JAX kernel's ``Precision.HIGHEST``): :func:`rom_expand` and
 :func:`rom_project` hand over to :func:`rom_expand_f32` and
-:func:`rom_project_f32`, tiled float32 FMA GEMMs on the unsplit bases.
+:func:`rom_project_f32`, float32 FMA GEMMs on the unsplit bases (no TF32,
+no tensor cores), fed by the same persistent TMA ring as the tensor-core
+kernels.
 None, "high" and "default" run on the tensor cores as a 3-pass TF32 split,
 the counterpart of the TPU kernel's bf16 hi/lo products (its "split" tier,
 and more accurate than its "default", one bf16 pass): each operand x is
@@ -54,7 +57,9 @@ split into ``hi = tf32(x)`` (round to nearest, ties away from zero, as
 B_lo + A_lo B_hi`` is summed in float32, each term accurate to about
 ``2^-21``. The bases are split once, where :class:`FusedROMRollout`
 uploads them to the card for a tensor-core tier (:func:`split_basis`); the
-per-step operand is split in the kernel. The other kernels compute in
+per-step operand is split in the kernel; for "highest" the unsplit bases
+are uploaded in the same K-major, row-padded layout (:func:`k_major_bases`).
+The other kernels compute in
 float32 FMAs for every tier (the JAX kernel's Newton dot is
 ``Precision.HIGHEST`` unless the caller asks for "default"). Kernel and
 twin (float32 ``torch.matmul``) agree to about 1e-6 of each output's scale
@@ -62,7 +67,7 @@ for the tensor-core tier (1.8e-6 and 4.4e-7 for one launch of each at the
 ROM main path's shapes on an H100, ``chip_smoke.py`` phase 12) and to
 float32 roundoff for "highest", not bit for bit.
 
-Layout: the tensor-core kernels read their operands through TMA, which
+Layout: the GEMM kernels read their operands through TMA, which
 needs 16-byte row pitches, so the kernel path keeps ``(B, N)`` node states
 and forces in buffers whose rows are padded to a multiple of 4 floats and
 hands out ``[:, :N]`` views; the pad columns are never read into a sum.
@@ -132,18 +137,28 @@ def _pitch(x: torch.Tensor) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SplitBasis:
-    """The bases' TF32 halves in the K-major layouts the tensor-core GEMMs
-    read, with their TMA descriptors (built once per device).
+    """The bases in the K-major layouts the GEMM kernels read, with their TMA
+    descriptors (built once per device and tier).
 
-    ``phi = (hi, lo)``: ``Phi (N, m)`` for the expand; ``wt = (hi, lo)``:
-    ``W^T (m, N)`` for the project. Each half is a view of a buffer with rows
-    padded to a multiple of 4 floats. ``maps``: the 128-byte tensor maps of
-    ``phi[0], phi[1], wt[0], wt[1]``, which point into these buffers.
+    ``phi``: parts of ``Phi (N, m)`` for the expand; ``wt``: parts of ``W^T
+    (m, N)`` for the project. Two parts each, ``(hi, lo)``, for the 3xTF32
+    kernels; one, the unsplit float32 basis, for the float32 ones
+    ("highest"). Each part is a view of a buffer with rows padded to a
+    multiple of 4 floats. ``maps``: the 128-byte tensor maps of ``phi +
+    wt``, which point into these buffers.
     """
 
     phi: tuple
     wt: tuple
     maps: tuple
+
+    @property
+    def phi_maps(self) -> tuple:
+        return self.maps[:len(self.phi)]
+
+    @property
+    def wt_maps(self) -> tuple:
+        return self.maps[len(self.phi):]
 
 
 def _tensor_map(half: torch.Tensor):
@@ -157,19 +172,27 @@ def _tensor_map(half: torch.Tensor):
     return buf
 
 
-def split_basis(phiT: torch.Tensor, w: torch.Tensor) -> SplitBasis:
-    """The TF32 halves of the float32 bases ``phiT (m, N)`` and ``w (N, m)``
-    on the card, K-major and row-padded, and their tensor maps."""
+def k_major_bases(phiT: torch.Tensor, w: torch.Tensor, tf32: bool = True):
+    """``(phi, wt)``: the parts of ``Phi = phiT^T (N, m)`` and ``W^T (m, N)``
+    as the GEMM kernels read them, K-major and each a view of a buffer with
+    rows padded to a multiple of 4 floats: the TF32 halves ``(hi, lo)``
+    (:func:`tf32_split`), or with ``tf32=False`` the unsplit basis alone."""
 
-    def halves(x):
+    def parts(x):
         out = []
-        for part in tf32_split(x):
+        for part in tf32_split(x) if tf32 else (x,):
             buf = _padded_empty(*x.shape, x)
             buf.copy_(part)
             out.append(buf)
         return tuple(out)
 
-    phi, wt = halves(phiT.T), halves(w.T)
+    return parts(phiT.T), parts(w.T)
+
+
+def split_basis(phiT: torch.Tensor, w: torch.Tensor, tf32: bool = True) -> SplitBasis:
+    """The float32 bases ``phiT (m, N)`` and ``w (N, m)`` on the card as
+    :func:`k_major_bases` lays them out, with their tensor maps."""
+    phi, wt = k_major_bases(phiT, w, tf32)
     return SplitBasis(phi=phi, wt=wt, maps=tuple(map(_tensor_map, phi + wt)))
 
 
@@ -186,10 +209,10 @@ class ROMOperators:
     scalars ``(h, c_qp, c_vp, bh2, gh, af, 1-af, am, 1-am)``, and ``csc``
     the same as the C float array the kernels take (built once).
     ``nl_precision``: the transforms' tier, normalised ("highest" runs them
-    in float32 on the card). ``split``: the bases' TF32 halves for the
-    tensor-core kernels (float32 on the card for a tier other than
-    "highest"; None elsewhere). On the card a dense ``sinvT`` is a view of
-    a row-padded buffer.
+    in float32 on the card). ``split``: the bases as the GEMM kernels read
+    them on the card (float32): their TF32 halves, or for "highest" the
+    unsplit bases (:class:`SplitBasis`); None on the CPU. On the card a
+    dense ``sinvT`` is a view of a row-padded buffer.
     """
 
     phiT: torch.Tensor
@@ -396,10 +419,12 @@ def rom_alpha_point(op: ROMOperators, eta, etad, etadd, a1):
     return out
 
 
-def _split(op: ROMOperators) -> SplitBasis:
-    if op.split is None:
-        raise ValueError("the tensor-core ROM kernels need the operators' TF32 "
-                         "basis halves (FusedROMRollout.operators on the card)")
+def _split(op: ROMOperators, parts: int = 2) -> SplitBasis:
+    """The operators' K-major bases in ``parts`` parts each (2: the TF32
+    halves; 1: unsplit, for the float32 kernels)."""
+    if op.split is None or len(op.split.phi) != parts:
+        raise ValueError(f"the ROM GEMM kernels need the operators' basis halves in "
+                         f"{parts} part(s) (FusedROMRollout.operators on the card)")
     return op.split
 
 
@@ -416,7 +441,7 @@ def rom_expand(op: ROMOperators, eta_af):
     if _highest(op):
         return rom_expand_f32(op, eta_af)
     B, m = eta_af.shape
-    maps = _split(op).maps
+    maps = _split(op).phi_maps
     x = _padded_empty(B, op.n_rows, eta_af)
     if B:
         a = tma_rows(eta_af)
@@ -489,8 +514,16 @@ def project_splits(B: int, m: int, n_rows: int, device) -> int:
 
 def project_splits_f32(B: int, m: int, n_rows: int, device) -> int:
     """Slices of :func:`rom_project_f32`'s reduction: enough 128 x 128
-    output tiles times slices to give every SM two blocks, each slice at
-    least 256 rows long."""
+    output tiles times slices to fill the SMs twice, each slice at least
+    256 rows long.
+
+    More than :func:`project_splits` gives, because a slice is one
+    sequential float32 sum, whose roundoff grows with its length: at 4096 x
+    256 x 3003 on an H100, on the card-only test's random operands, two
+    slices of 1504 rows read 1.46e-6 of the output's scale off the float32
+    twin (the test allows 1e-6), four slices of 768 rows 7.3e-7
+    (``chip_compare.py --splits``). Four slices take two rounds of 24-slice
+    units on 132 SMs, the slices an SM of one round of 47-slice units."""
     tiles = -(-B // _TILE) * -(-m // _TILE)
     return max(1, min(n_rows // 256, round(2 * _sm_count(device) / tiles)))
 
@@ -506,13 +539,13 @@ def rom_project(op: ROMOperators, g):
         return rom_project_f32(op, g)
     B, N = g.shape
     m = op.w.shape[1]
-    maps = _split(op).maps
+    maps = _split(op).wt_maps
     splits = project_splits(B, m, N, g.device)
     partials = torch.empty((splits, B, m), dtype=g.dtype, device=g.device)
     if B:
         a = tma_rows(g)
         _launch("rom_project", g, B, m, N, splits, a.data_ptr(), _pitch(a),
-                ctypes.addressof(maps[2]), ctypes.addressof(maps[3]),
+                ctypes.addressof(maps[0]), ctypes.addressof(maps[1]),
                 partials.data_ptr())
         rom_project.launches += 1
     return partials
@@ -520,33 +553,36 @@ def rom_project(op: ROMOperators, g):
 
 def rom_expand_f32(op: ROMOperators, eta_af):
     """:func:`rom_expand` in full float32 (``nl_precision="highest"``): a
-    tiled float32 FMA GEMM on the unsplit ``Phi^T``."""
+    float32 FMA GEMM on the unsplit ``Phi`` (the operators' one-part
+    :class:`SplitBasis`), fed by TMA like the tensor-core kernel."""
     if not _on_cuda(eta_af):
         return rom_expand_plain(op, eta_af)
     B, m = eta_af.shape
+    phi_map = _split(op, 1).phi_maps[0]
     x = _padded_empty(B, op.n_rows, eta_af)
     if B:
-        a = eta_af if eta_af.stride(1) == 1 else eta_af.contiguous()
+        a = tma_rows(eta_af)
         _launch("rom_expand_f32", eta_af, B, m, op.n_rows, a.data_ptr(), _pitch(a),
-                _ptr(op.phiT), x.data_ptr(), _pitch(x))
+                ctypes.addressof(phi_map), x.data_ptr(), _pitch(x))
         rom_expand_f32.launches += 1
     return x
 
 
 def rom_project_f32(op: ROMOperators, g):
     """:func:`rom_project` in full float32 (``nl_precision="highest"``):
-    ``(S, B, m)`` partial products of a tiled float32 FMA GEMM on the
-    unsplit ``W`` over ``S`` slices (:func:`project_splits_f32`)."""
+    ``(S, B, m)`` partial products of a float32 FMA GEMM on the unsplit
+    ``W^T`` over ``S`` slices (:func:`project_splits_f32`)."""
     if not _on_cuda(g):
         return rom_project_plain(op, g)
     B, N = g.shape
     m = op.w.shape[1]
+    wt_map = _split(op, 1).wt_maps[0]
     splits = project_splits_f32(B, m, N, g.device)
     partials = torch.empty((splits, B, m), dtype=g.dtype, device=g.device)
     if B:
-        a = g if g.stride(1) == 1 else g.contiguous()
+        a = tma_rows(g)
         _launch("rom_project_f32", g, B, m, N, splits, a.data_ptr(), _pitch(a),
-                _ptr(op.w), partials.data_ptr())
+                ctypes.addressof(wt_map), partials.data_ptr())
         rom_project_f32.launches += 1
     return partials
 
@@ -743,8 +779,9 @@ class FusedROMRollout:
         """The device operators on ``like``'s device and dtype, with the
         constant modal force ``u_modal`` (None: zero) and the transforms'
         tier ``nl_precision`` (normalised, as :meth:`prepare` passes it).
-        The bases' TF32 halves are built on first use by a tensor-core tier
-        on the card; "highest" reads the unsplit bases."""
+        On the card the bases' K-major layouts and tensor maps are built on
+        first use by a tier: the TF32 halves for a tensor-core tier, the
+        unsplit bases for "highest" (:func:`split_basis`)."""
         key = (like.device, like.dtype)
         on_card = like.device.type == "cuda" and like.dtype == torch.float32
         base = self._device_ops.get(key)
@@ -763,10 +800,11 @@ class FusedROMRollout:
             )
             self._device_ops[key] = base
         split = None
-        if on_card and nl_precision != "highest":
-            split = self._splits.get(key)
+        if on_card:
+            tf32 = nl_precision != "highest"
+            split = self._splits.get((key, tf32))
             if split is None:
-                split = self._splits[key] = split_basis(base.phiT, base.w)
+                split = self._splits[key, tf32] = split_basis(base.phiT, base.w, tf32)
         if u_modal is None:
             u = torch.zeros(self.m, dtype=like.dtype, device=like.device)
         else:

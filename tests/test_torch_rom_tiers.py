@@ -7,14 +7,17 @@ package's fused kernel at "highest" in interpret mode (``5e-6 x`` each
 output's scale, as ``test_torch_rom_fused.py``); the dense Newton twin,
 which now takes the project's partials, equals the composition it replaces
 (``rom_update_plain``'s dense branch, then the product) bit for bit; an
-undamped dense-``Sinv`` span matches the JAX package; the float32
-instances' slice count; the step scalars' C array built once. On the card
-only: the float32 expand and project within ``1e-6`` of the float32 twin's
-scale (both sides' float32 roundoff) and ``2e-6`` of the float64
-product's, a "highest" span launching
-them and no tensor-core kernel, and the fused dense Newton kernel against
-its twin within ``1e-4`` of each output's scale (``chip_smoke.py``'s
-per-launch limit).
+undamped dense-``Sinv`` span matches the JAX package; the "highest"
+tier's K-major, row-padded bases (built by the host function the card path
+uses); the float32 project's slice count; the step
+scalars' C array built once. On the card only: the float32 expand and
+project within ``1e-6`` of the float32 twin's scale (both sides' float32
+roundoff) and ``2e-6`` of the float64 product's at ragged shapes (every
+edge of the ring and the scheduler: more units than SMs, 1, 2 and more
+slices), two launches equal bit for bit, pad columns filled with NaN that
+reach no output, a "highest" span launching them and no tensor-core
+kernel, and the fused dense Newton kernel against its twin within ``1e-4``
+of each output's scale (``chip_smoke.py``'s per-launch limit).
 """
 
 import dataclasses
@@ -138,7 +141,7 @@ def test_newton_dense_plain_is_the_old_composition(dtype, damped, last):
 
 
 @pytest.mark.parametrize("n_sm,B_,m,N,splits", [
-    (132, 4096, 256, 3003, 4),   # the main path: 64 tiles, two blocks per SM
+    (132, 4096, 256, 3003, 4),   # the main path: 64 tiles x 4 slices, two rounds
     (132, 4096, 256, 246, 1),    # ECSW: too short to split
     (132, 5, 12, 27, 1),
     (8, 4096, 256, 3003, 1),
@@ -146,6 +149,30 @@ def test_newton_dense_plain_is_the_old_composition(dtype, damped, last):
 def test_project_splits_f32(monkeypatch, n_sm, B_, m, N, splits):
     monkeypatch.setattr(rk, "_sm_count", lambda device: n_sm)
     assert rk.project_splits_f32(B_, m, N, "cuda:0") == splits
+
+
+@pytest.mark.parametrize("m,N", [(12, 27), (13, 129), (37, 27), (256, 3003)])
+@pytest.mark.parametrize("tf32", [False, True])
+def test_k_major_bases_padded(m, N, tf32):
+    """``k_major_bases``, as ``split_basis`` builds the card's operators, on
+    CPU tensors: Phi and W^T K-major, row pitches a multiple of 4 floats,
+    the pad columns outside the logical views; one unsplit part for
+    "highest", the TF32 halves otherwise."""
+    rng = np.random.default_rng(m + N)
+    phiT = torch.tensor(rng.normal(size=(m, N)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(N, m)), dtype=torch.float32)
+    phi, wt = rk.k_major_bases(phiT, w, tf32=tf32)
+    assert len(phi) == len(wt) == (2 if tf32 else 1)
+    for parts, ref in ((phi, phiT.T), (wt, w.T)):
+        for part in parts:
+            rows, cols = ref.shape
+            assert part.shape == (rows, cols) and part.stride() == (rk._pad4(cols), 1)
+            assert part.untyped_storage().nbytes() == 4 * rows * rk._pad4(cols)
+        if tf32:
+            for part, half in zip(parts, rk.tf32_split(ref)):
+                assert torch.equal(part, half)
+        else:
+            assert torch.equal(parts[0], ref)
 
 
 def test_step_scalars_c_array_built_once():
@@ -184,18 +211,29 @@ def _scaled(out, ref) -> float:
     return float((out - ref).abs().max() / ref.abs().max())
 
 
+def _highest_op(m, N, device, rng):
+    phiT = torch.tensor(rng.normal(size=(m, N)), dtype=torch.float32, device=device)
+    w = torch.tensor(rng.normal(size=(N, m)), dtype=torch.float32, device=device)
+    z = torch.zeros(1, device=device)
+    return rk.ROMOperators(phiT=phiT, w=w, lam=z, u=z, cd=None, sinv=z, sinvT=None, L=z,
+                           D=z, A=z, mask=z, gathered=False, sc=(0.0,) * 9,
+                           split=rk.split_basis(phiT, w, tf32=False), nl_precision="highest")
+
+
+# Ragged shapes reach every edge of the ring and the scheduler: a partial
+# row or column tile, K not a multiple of the 32-deep slice, more units than
+# SMs (the expand at B = 4096, N = 3003: 768 units; the project at 4096 x
+# 256 x 3003: 256), S = 1 (N = 27, 129), 2 (4096 x 256 x 600), 4 (4096 x
+# 256 x 3003), 8 (4096 x 12, 13 or 37 x 3003) and 11 (B = 5 or 129, N =
+# 3003) slices.
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [27, 3003])
-@pytest.mark.parametrize("m", [12, 13, 256])
-@pytest.mark.parametrize("B_", [5, 4096])
+@pytest.mark.parametrize("N", [27, 129, 600, 3003])
+@pytest.mark.parametrize("m", [12, 13, 37, 256])
+@pytest.mark.parametrize("B_", [5, 129, 4096])
 def test_float32_gemms_on_card(cuda_device, B_, m, N):
     rng = np.random.default_rng(B_ + m + N)
-    phiT = torch.tensor(rng.normal(size=(m, N)), dtype=torch.float32, device=cuda_device)
-    w = torch.tensor(rng.normal(size=(N, m)), dtype=torch.float32, device=cuda_device)
-    z = torch.zeros(1, device=cuda_device)
-    op = rk.ROMOperators(phiT=phiT, w=w, lam=z, u=z, cd=None, sinv=z, sinvT=None, L=z,
-                         D=z, A=z, mask=z, gathered=False, sc=(0.0,) * 9,
-                         nl_precision="highest")
+    op = _highest_op(m, N, cuda_device, rng)
+    phiT, w = op.phiT, op.w
     eta_af = torch.tensor(rng.normal(size=(B_, m)), dtype=torch.float32, device=cuda_device)
     g = rk._padded_empty(B_, N, eta_af)
     g.copy_(torch.tensor(rng.normal(size=(B_, N)), dtype=torch.float32))
@@ -205,10 +243,48 @@ def test_float32_gemms_on_card(cuda_device, B_, m, N):
     counts = {f.__name__: f.launches for f in rk.KERNELS}
     assert counts["rom_expand_f32"] == counts["rom_project_f32"] == 1
     assert counts["rom_expand"] == counts["rom_project"] == 0
+    assert partials.shape == (rk.project_splits_f32(B_, m, N, cuda_device), B_, m)
     twin = (_scaled(x, eta_af @ phiT), _scaled(partials.sum(0), g @ w))
     f64 = (_scaled(x.double(), eta_af.double() @ phiT.double()),
            _scaled(partials.sum(0).double(), g.double() @ w.double()))
     assert max(twin) <= F32_TWIN_MAX and max(f64) <= F64_MAX, (twin, f64)
+
+
+@pytest.mark.cuda
+def test_float32_gemms_deterministic_on_card(cuda_device):
+    B_, m, N = 4096, 256, 3003
+    rng = np.random.default_rng(11)
+    op = _highest_op(m, N, cuda_device, rng)
+    eta_af = torch.tensor(rng.normal(size=(B_, m)), dtype=torch.float32, device=cuda_device)
+    x = rk.rom_expand_f32(op, eta_af)
+    assert torch.equal(rk.rom_expand_f32(op, eta_af), x)
+    assert torch.equal(rk.rom_project_f32(op, x), rk.rom_project_f32(op, x))
+
+
+@pytest.mark.cuda
+def test_float32_pad_columns_never_read_on_card(cuda_device):
+    """NaN in every pad column (operands and unsplit bases) reaches no
+    output."""
+    B_, N = 300, 3003
+    rng = np.random.default_rng(5)
+    op13, op12 = _highest_op(13, N, cuda_device, rng), _highest_op(12, N, cuda_device, rng)
+    for part in op13.split.phi + op13.split.wt + op12.split.phi + op12.split.wt:
+        rows, cols = part.shape
+        pitch = part.stride(0)
+        part.as_strided((rows, pitch), (pitch, 1))[:, cols:] = float("nan")
+
+    def poisoned(rows, cols):
+        buf = torch.full((rows, rk._pad4(cols)), float("nan"), device=cuda_device)
+        view = buf[:, :cols]
+        view.copy_(torch.tensor(rng.normal(size=(rows, cols)), dtype=torch.float32))
+        return view
+
+    eta_af, g = poisoned(B_, 12), poisoned(B_, N)
+    x = rk.rom_expand_f32(op12, eta_af)
+    partials = rk.rom_project_f32(op13, g)
+    assert torch.isfinite(x).all() and torch.isfinite(partials).all()
+    assert _scaled(x.double(), eta_af.double() @ op12.phiT.double()) <= F64_MAX
+    assert _scaled(partials.sum(0).double(), g.double() @ op13.w.double()) <= F64_MAX
 
 
 @pytest.mark.cuda
@@ -220,7 +296,7 @@ def test_span_tier_launches_on_card(beams, cuda_device, tier):
     op, e, ed, a0, _ = fused.prepare(torch.tensor(eta, device=cuda_device),
                                      torch.tensor(etad, device=cuda_device), um,
                                      nl_precision=tier)
-    assert (op.split is None) == (tier == "highest")
+    assert len(op.split.phi) == len(op.split.wt) == (1 if tier == "highest" else 2)
     rk.reset_launch_counts()
     out = rk.rom_steps(op, e, ed, a0, 50, n_newton=2)
     counts = {f.__name__: f.launches for f in rk.KERNELS}
