@@ -22,6 +22,13 @@ paths' shapes in float32 on the card:
 - a SHA-256 of the tensor-core pair's outputs and one of the float32
   pair's, on seeded random operands at the main path's shapes, so that two
   trees' outputs can be compared bit for bit;
+- ``rom_correction_window`` on the mid-span state and
+  ``rom_correction_gathered`` on an evenly spread sample of 41 elements
+  (the main path's ECSW sample size), with that sample's span (200 steps,
+  host-launch-bound): a lone launch (best of 5), its
+  device time, its host dispatch, its error against the float32 twin and
+  against the float64 twin beside the float32 twin's own, as fractions of
+  the twin's scale, and a SHA-256 of its output on seeded node states;
 - ``rom_newton_dense`` alone (a lone launch, best of 5, and its device
   time) beside ``r @ Sinv^T`` by ``torch.matmul``;
 - ``btd_solve`` alone at 4096 x 1001 nodes (a lone launch and its device
@@ -194,6 +201,36 @@ def measure(tree: str) -> dict:
         phiT, w, tf32=False) if unsplit else None)
     res["f32_sha256"] = digest(rk.rom_expand_f32(op_rh, af_r), rk.rom_project_f32(op_rh, g_r))
 
+    # The two correction kernels alone, on the mid-span state and on seeded
+    # node states (the window's operators, and an evenly spread sample of
+    # ECSW_SAMPLE elements as the gathered layout).
+    E = N // 3 - 1
+    sel = np.unique(np.linspace(0, E - 1, ECSW_SAMPLE).round().astype(np.int64))
+    fused_g = ms.apply_ecsw(sel, np.ones(sel.size)).make_pallas_rollout()
+    res["ecsw_span_ms"] = best(lambda: fused_g(eta, etad, u_m, steps, n_newton=nn))
+    op_g = fused_g.operators(st[0], u_m)
+    x_mid = rk.rom_expand_plain(op, eta_af)
+    xg_mid = rk.rom_expand_plain(op_g, eta_af)
+    corr = {"rom_correction_window": (rk.rom_correction_window, op, x_mid,
+                                      rk.rom_correction_window_plain),
+            "rom_correction_gathered": (rk.rom_correction_gathered, op_g, xg_mid,
+                                        rk.rom_correction_gathered_plain)}
+    for name, (kern, o, xm, plain) in corr.items():
+        run = lambda: kern(o, xm)  # noqa: E731
+        out = run()
+        twin = plain(o, xm)
+        f64 = plain(fused.operators(xm.double(), u_m) if o is op
+                    else fused_g.operators(xm.double(), u_m), xm.double())
+        scale = float(twin.abs().max())
+        xs = rk.tma_rows(normal(B, xm.shape[1]) * 1e-3)
+        res[name] = {"ms": best(run, 5), "device_ms": device(run),
+                     "dispatch_us": cs.dispatch_us(run, dev),
+                     "vs_twin": float((out - twin).abs().max()) / scale,
+                     "vs_f64": float((out.double() - f64).abs().max()) / scale,
+                     "twin_vs_f64": float((twin.double() - f64).abs().max()) / scale,
+                     "sha256": digest(kern(o, xs)), "repeat_equal": bool(
+                         torch.equal(kern(o, xs), kern(o, xs)))}
+
     # btd_solve alone, as the implicit operator calls it.
     model = crt.DynamicEulerBernoulliBeam(cs.bench_beam_dataframe(cs.N_ELEMENTS))
     a, c = cs.gen_alpha_system(cs.IMPLICIT["rho_lin"])
@@ -222,6 +259,7 @@ def measure(tree: str) -> dict:
     return res
 
 
+ECSW_SAMPLE = 41  # elements of the main path's ECSW sample (chip_smoke.py phase 9)
 SPLIT_SHAPES = ((4096, 256, 3003), (4096, 256, 1000), (4096, 256, 600), (4096, 13, 3003),
                 (129, 256, 3003), (5, 37, 3003))
 
@@ -298,10 +336,14 @@ def main() -> int:
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         res = json.loads(line)
-        digests.append((res["tf32_sha256"], res["f32_sha256"]))
+        digests.append((res["tf32_sha256"], res["f32_sha256"],
+                        [res[k]["sha256"] for k in ("rom_correction_window",
+                                                    "rom_correction_gathered")]))
     print(f"tensor-core outputs bit-equal in all four runs: "
           f"{len({d[0] for d in digests}) == 1}; float32 outputs: "
-          f"{len({d[1] for d in digests}) == 1}", flush=True)
+          f"{len({d[1] for d in digests}) == 1}; correction outputs (window, gathered) "
+          f"equal within each tree: {[d[2] == e[2] for d, e in zip(digests, digests[::-1])][:2]}",
+          flush=True)
     print(card)
     return 0
 

@@ -53,9 +53,11 @@ Phases, one line each (any failure exits non-zero):
     ``rom_project`` (3xTF32 on the tensor cores) with their bound at the
     TF32 peak and, for reference, at the float32 CUDA-core peak;
     ``rom_expand_f32`` and ``rom_project_f32`` (the "highest" tier) within
-    5e-7 of their twin's scale; each kernel's device time per launch
-    (``torch.profiler``, ten launches) and the host's dispatch time of
-    three wrappers (no synchronisation, 200 calls);
+    5e-7 of their twin's scale; ``rom_correction_window`` and
+    ``rom_correction_gathered`` against a float64 evaluation of the planes
+    within 1.5x the float32 twin's own error; each kernel's device time per
+    launch (``torch.profiler``, ten launches) and the host's dispatch time
+    of five wrappers (no synchronisation, 200 calls);
 13. block-tridiagonal kernel vs plain: ``ops/cuda/btd_solve`` against
     ``ops/banded.btd_solve`` on the card, float32 and float64, at ragged
     sizes (B in 1, 31, 33, 4096 across the 32-env blocks; N in 1, 2, one
@@ -215,8 +217,17 @@ ROM_HIGHEST = ("rom_alpha_point", "rom_expand_f32", "rom_correction_window",
 ROM_PATH = {**{k: "window" for k in ROM_WINDOW},
             "rom_correction_gathered": "ecsw", "rom_newton_dense": "dense_newton",
             "rom_expand_f32": "highest", "rom_project_f32": "highest"}
+# The correction kernels: the polynomial's per-element factors from a host
+# float64 table, multiplies and FMAs only.
 ROM_DESIGN = {"rom_expand": ROM_TC_DESIGN, "rom_project": ROM_TC_DESIGN,
-              "rom_expand_f32": ROM_F32_DESIGN, "rom_project_f32": ROM_F32_DESIGN}
+              "rom_expand_f32": ROM_F32_DESIGN, "rom_project_f32": ROM_F32_DESIGN,
+              "rom_correction_window": "factor table; a warp owns 32 nodes (writes 31) "
+                                       "over 16 env rows, shuffles for adjacency",
+              "rom_correction_gathered": "factor table; a block owns min(s, 256) "
+                                         "elements of 256 // min(s, 256) env rows"}
+# A correction kernel against a float64 evaluation of the same planes, as a
+# multiple of the float32 twin's own error against it.
+ROM_CORR_F64_RATIO = 1.5
 BTD_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/btd_solve.cu"
 BTD_CHUNK = {torch.float32: 64, torch.float64: 32}  # nodes a ring slot holds
 BTD_REPLACES = "continuum_robot_tpu/ops/pallas/btd_solve.py:97"
@@ -964,14 +975,15 @@ def rom_paths(crt, rk, dev, card, small_model):
             lambda: rk.rom_expand(op, eta_af), lambda: rk.rom_expand_plain(op, eta_af),
             lambda: torch.matmul(eta_af, op.phiT),
             bound(0, state_bytes + 4 * (2 * m * N + B * N), tc_ops=3 * 2 * B * m * N)),
-        "rom_correction_window": (
+        "rom_correction_window": (  # bytes: x, g, L, A, mask and the factor table
             lambda: rk.rom_correction_window(op, x),
             lambda: rk.rom_correction_window_plain(op, x), None,
-            bound(B * E * corr_ops + 3 * B * (N // 3), 4 * (2 * B * N + 3 * E))),
+            bound(B * E * corr_ops + 3 * B * (N // 3),
+                  4 * (2 * B * N + (3 + rk.CORRECTION_FACTORS) * E))),
         "rom_correction_gathered": (
             lambda: rk.rom_correction_gathered(op_g, xg),
             lambda: rk.rom_correction_gathered_plain(op_g, xg), None,
-            bound(B * s * corr_ops, 4 * (2 * B * 6 * s + 3 * s))),
+            bound(B * s * corr_ops, 4 * (2 * B * 6 * s + (3 + rk.CORRECTION_FACTORS) * s))),
         "rom_project": (  # compared as the sum of its partial products
             lambda: rk.rom_project(op, g), lambda: rk.rom_project_plain(op, g),
             lambda: torch.matmul(g, op.w),
@@ -1020,8 +1032,27 @@ def rom_paths(crt, rk, dev, card, small_model):
             records[name]["design"] = ROM_DESIGN[name]
         if name in f32_bounds:
             records[name]["bound_f32"] = f32_bounds[name]
+    # The correction kernels against a float64 evaluation of the planes,
+    # beside the float32 twin's own error (each as a fraction of the twin's
+    # scale).
+    f64_ops = {"rom_correction_window": (fused.operators(x.double(), u_m), x),
+               "rom_correction_gathered": (fused_g.operators(xg.double(), u_m), xg)}
+    for name, (op64, xin) in f64_ops.items():
+        ref64 = (rk.rom_correction_window_plain if name.endswith("window")
+                 else rk.rom_correction_gathered_plain)(op64, xin.double())
+        k_out, p_out = pieces[name][0](), pieces[name][1]()
+        scale = float(p_out.abs().max())
+        k64 = float((k_out.double() - ref64).abs().max()) / scale
+        p64 = float((p_out.double() - ref64).abs().max()) / scale
+        records[name].update(vs_f64=k64, twin_vs_f64=p64)
+        print(f"phase 12 {name} vs float64 [{card}]: kernel {k64:.3e}, float32 twin "
+              f"{p64:.3e} (x the twin's scale; limit {ROM_CORR_F64_RATIO} x the twin's)",
+              flush=True)
+        require(k64 <= ROM_CORR_F64_RATIO * p64,
+                f"{name}: vs float64 {k64:.3e}, over {ROM_CORR_F64_RATIO} x the twin's {p64:.3e}")
     host = {name: dispatch_us(pieces[name][0], dev)
-            for name in ("rom_alpha_point", "rom_update", "rom_newton_dense")}
+            for name in ("rom_alpha_point", "rom_correction_window",
+                         "rom_correction_gathered", "rom_update", "rom_newton_dense")}
     print(f"phase 12 ROM dispatch [{card}]: host us per wrapper call (200 calls, no "
           f"synchronisation): " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()),
           flush=True)

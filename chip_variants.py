@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Build variants of the float32 ROM GEMM kernels and time them on one card.
+"""Build variants of the ROM kernels and time them on one card.
 
-    python3 chip_variants.py                    # every variant below
+    python3 chip_variants.py                    # every float32 GEMM variant below
     python3 chip_variants.py base diag_noload   # some of them
-    python3 chip_variants.py --sass             # base's FFMA operands (cuobjdump)
+    python3 chip_variants.py --correction       # every correction variant
+    python3 chip_variants.py --correction corr_rows8 gath_rows4
+    python3 chip_variants.py --sass             # FFMA operands, correction mix (cuobjdump)
+    python3 chip_variants.py --sass --source PATH/rom_rollout.cu   # another tree's
 
 Each variant is ``continuum_robot_tpu_torch/ops/cuda/csrc/rom_rollout.cu``
 with a few text replacements, compiled with the package's ``nvcc`` flags
@@ -22,17 +25,36 @@ out of the kernel to show what bounds it (the shared-memory loads, the
 waits on the TMA ring). A variant whose anchor text is gone from the
 source is reported and skipped.
 
+``--correction`` does the same for the two von Karman correction kernels
+(``CORR_VARIANTS``: the rows a thread walks and loads at once, the
+parent's dividing body on the new thread map, a body that only copies, FMA
+contraction off) at the ROM main path's shapes (B = 4096; the window's
+1001 nodes, an ECSW sample of 41 elements; seeded node states, the bench
+beam's element parameters): each variant's device time per launch
+(``torch.profiler``, 20 launches), its milliseconds in 20 back-to-back
+launches (CUDA events, best of 3), its error against the float32 twin as
+a fraction of the twin's scale, and whether its outputs equal
+``corr_base``'s bit for bit; then torch's ``copy_`` of the same bytes
+(the memory floor), and each variant's span drift against the twin on
+``chip_smoke.py`` phase 7's small engines over eight input draws
+(``span_drift``).
+
 ``--sass`` builds ``base`` alone, disassembles its two float32 kernels
 with ``cuobjdump -sass`` and counts, over their FFMAs, those whose sources
 all come from the register file (no operand held in the reuse cache from
 the instruction before) and those that read two or more registers of one
 parity (one bank, in a register file of two banks); and the instruction
-mix of each kernel.
+mix of each kernel; for the two correction kernels their count of
+instructions and of divisions (``MUFU.RCP``, ``FCHK`` and the ``CALL`` of
+the division's slow path), FMAs, multiplies, adds, loads, stores,
+shuffles and barriers. ``--source`` disassembles another copy of the
+source (a parent's).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -88,22 +110,123 @@ VARIANTS = {
 }
 
 
-def build(names, src, flags, nvcc, out_dir):
+CORR_BODY_START = "  const float dw = w1 - w2;\n  const float du = u1 - u2;\n"
+CORR_BODY_END = "  g[5] = g6;\n}\n"
+# The first port's correction body, dividing by L and by the constants; the
+# variant reads L, A and mask from the first three rows of its table.
+DIVIDING_BODY = """  const float L = c[0], A = c[1], mask = c[2];
+  const float dw = w1 - w2;
+  const float du = u1 - u2;
+  const float s = t1 + t2;
+  const float t1t2 = t1 * t2;
+  const float tsq = t1 * t1 + t2 * t2;
+  const float dw2 = dw * dw;
+  const float dw3 = dw2 * dw;
+  const float invL = 1.0f / L;
+  const float invL2 = invL * invL;
+  const float invL3 = invL2 * invL;
+  const float g1 = A * (-tsq / 15.0f + t1t2 / 30.0f + s * u2 * (invL / 20.0f) +
+                        s * dw * (invL / 10.0f) - 0.6f * u2 * dw * invL2 -
+                        0.6f * dw2 * invL2);
+  const float g2 = A * (tsq / 15.0f - t1t2 / 30.0f - s * dw * (invL / 10.0f) +
+                        0.6f * dw2 * invL2);
+  const float t3sum = t1 * t1 * t1 + t2 * t2 * t2;
+  const float g3 = A * (t3sum / 280.0f - 3.0f * t1t2 * s / 280.0f +
+                        (9.0f / 70.0f) * tsq * dw * invL + du * s * (invL / 10.0f) -
+                        (27.0f / 70.0f) * s * dw2 * invL2 - 1.2f * du * dw * invL2 +
+                        (36.0f / 35.0f) * dw3 * invL3);
+  const float g4 = A * (L * (t1 * t1 * t1) / 35.0f - 3.0f * L * t1 * t1 * t2 / 280.0f +
+                        L * t1 * t2 * t2 / 140.0f - L * (t2 * t2 * t2) / 280.0f +
+                        (3.0f / 280.0f) * dw * (t1 * t1 - 2.0f * t1t2 - t2 * t2) -
+                        (2.0f / 15.0f) * t1 * du + t2 * du / 30.0f +
+                        (9.0f / 70.0f) * t1 * dw2 * invL + du * dw * (invL / 10.0f) -
+                        (9.0f / 70.0f) * dw3 * invL2);
+  const float g6 = A * (-L * (t1 * t1 * t1) / 280.0f + L * t1 * t1 * t2 / 140.0f -
+                        3.0f * L * t1 * t2 * t2 / 280.0f + L * (t2 * t2 * t2) / 35.0f +
+                        (3.0f / 280.0f) * dw * (-t1 * t1 - 2.0f * t1t2 + t2 * t2) +
+                        t1 * du / 30.0f - (2.0f / 15.0f) * t2 * du +
+                        (9.0f / 70.0f) * t2 * dw2 * invL + du * dw * (invL / 10.0f) -
+                        (9.0f / 70.0f) * dw3 * invL2);
+  g[0] = mask * g1;
+  g[1] = mask * g3;
+  g[2] = mask * g4;
+  g[3] = mask * g2;
+  g[4] = mask * -g3;
+  g[5] = mask * g6;
+}
+"""
+COPY_BODY = """  g[0] = u1;
+  g[1] = w1;
+  g[2] = t1;
+  g[3] = u2;
+  g[4] = w2;
+  g[5] = t2;
+}
+"""
+
+
+def body(new):
+    """A variant that swaps the body of the correction device function."""
+    def swap(src):
+        a, b = src.find(CORR_BODY_START), src.find(CORR_BODY_END)
+        if a < 0 or b < a:
+            return None
+        return src[:a] + new + src[b + len(CORR_BODY_END):]
+    return swap
+
+
+ROWS = "constexpr int kCorrRows = 16;"
+BATCH = "constexpr int kCorrBatch = 4;"
+GATH = "constexpr int kGathRows = 1;"
+CORR_VARIANTS = {
+    "corr_base": [],
+    "corr_rows4": [(ROWS, ROWS.replace("16", "4"))],
+    "corr_rows8": [(ROWS, ROWS.replace("16", "8"))],
+    "corr_rows32": [(ROWS, ROWS.replace("16", "32"))],
+    "corr_batch1": [(BATCH, BATCH.replace("4", "1"))],
+    "corr_batch2": [(BATCH, BATCH.replace("4", "2"))],
+    "corr_batch8": [(BATCH, BATCH.replace("4", "8"))],
+    "corr_rows4_batch2": [(ROWS, ROWS.replace("16", "4")), (BATCH, BATCH.replace("4", "2"))],
+    # the parent's dividing body on the new thread maps
+    "corr_divide": body(DIVIDING_BODY),
+    # node states copied to the slots: the loads, shuffles and stores alone
+    "diag_corr_copy": body(COPY_BODY),
+    "gath_rows2": [(GATH, GATH.replace("1", "2"))],
+    "gath_rows4": [(GATH, GATH.replace("1", "4"))],
+    "gath_rows8": [(GATH, GATH.replace("1", "8"))],
+    # the same with nvcc's FMA contraction off (the whole source)
+    "corr_base_nofma": [],
+    "corr_divide_nofma": body(DIVIDING_BODY),
+}
+VARIANT_FLAGS = {"corr_base_nofma": ("-fmad=false",), "corr_divide_nofma": ("-fmad=false",)}
+
+
+def variant_text(spec, src):
+    """The source with a variant's replacements, or None if an anchor is
+    not found once."""
+    if callable(spec):
+        return spec(src)
+    for old, new in spec:
+        if src.count(old) != 1:
+            return None
+        src = src.replace(old, new)
+    return src
+
+
+def build(names, src, flags, nvcc, out_dir, variants=None):
     """``{name: (library path, ptxas line)}`` of the variants that apply."""
+    variants = VARIANTS if variants is None else variants
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if text.count(old) != 1:
-                print(f"{name}: anchor not found once in the source, skipped", flush=True)
-                break
-            text = text.replace(old, new)
+        text = variant_text(variants[name], src)
+        if text is None:
+            print(f"{name}: anchor not found once in the source, skipped", flush=True)
         else:
             path = os.path.join(out_dir, f"{name}.cu")
             with open(path, "w") as f:
                 f.write(text)
-            cmd = [nvcc, *flags, "-o", path[:-3] + ".so", path]
+            cmd = [nvcc, *flags, *VARIANT_FLAGS.get(name, ()), "-o", path[:-3] + ".so", path]
             procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                            text=True)
     built = {}
@@ -114,9 +237,14 @@ def build(names, src, flags, nvcc, out_dir):
             continue
         lines = log.splitlines()
         info = [lines[i + 2].strip() + " | " + lines[i + 3].split(":")[-1].strip()
-                for i, ln in enumerate(lines) if "Compiling" in ln and "f32_kernel" in ln]
+                for i, ln in enumerate(lines) if "Compiling" in ln
+                and ("f32_kernel" in ln or "correction" in ln)]
         built[name] = (os.path.join(out_dir, f"{name}.so"), "; ".join(info))
     return built
+
+
+CORR_OPS = ("MUFU.RCP", "FCHK", "CALL", "FFMA", "FMUL", "FADD", "LDG", "STG", "SHFL", "LDS",
+            "STS", "BAR")
 
 
 def sass_stats(so_path: str) -> None:
@@ -128,7 +256,8 @@ def sass_stats(so_path: str) -> None:
                           check=True).stdout
     for func in re.split(r"\n\s*Function : ", text)[1:]:
         name = func.split("\n")[0]
-        if "f32_kernel" not in name:
+        corr = re.search(r"(correction_\w+_kernel)", name)
+        if "f32_kernel" not in name and not corr:
             continue
         ops, ffma = collections.Counter(), collections.Counter()
         held = set()  # (slot, register) the previous instruction kept in the reuse cache
@@ -136,6 +265,7 @@ def sass_stats(so_path: str) -> None:
             ins = re.sub(r"^@!?U?P\w+\s+", "", ins.strip())
             op = ins.split()[0]
             ops[op.split(".")[0]] += 1
+            ops[".".join(op.split(".")[:2])] += op.startswith("MUFU")
             if not op.startswith("FFMA"):
                 held = set()
                 continue
@@ -147,9 +277,165 @@ def sass_stats(so_path: str) -> None:
             ffma["no operand reused"] += len(reads) == 3
             parity = collections.Counter(r % 2 for r in reads)
             ffma["two reads in one bank"] += bool(parity) and max(parity.values()) > 1
+        total = sum(v for k, v in ops.items() if "." not in k)
+        if corr:
+            print(f"sass {corr.group(1)}: instructions {total}; "
+                  + ", ".join(f"{k} {ops[k]}" for k in CORR_OPS), flush=True)
+            continue
         kernel = re.search(r"(rom_\w+_f32_kernel)", name).group(1)
-        print(f"sass {kernel}: FFMA {dict(ffma)}; instructions {sum(ops.values())}, "
+        print(f"sass {kernel}: FFMA {dict(ffma)}; instructions {total}, "
               f"most common {ops.most_common(8)}", flush=True)
+
+
+def device_ms(fn, dev, n: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(dev)
+    total = 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            total += ev.self_cuda_time_total if dev_us is None else dev_us
+    return total / 1e3 / n
+
+
+def events_ms(fn, dev, n: int = 20) -> float:
+    """Milliseconds per call of ``fn`` in ``n`` back-to-back calls (CUDA
+    events, best of 3)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()
+    torch.cuda.synchronize(dev)
+    best = float("inf")
+    for _ in range(3):
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+def dividing_table(op):
+    """The table the ``corr_divide`` variants read: L, A and mask in its
+    first rows."""
+    import torch
+
+    table = torch.zeros_like(op.coef)
+    table[0], table[1], table[2] = op.L, op.A, op.mask
+    return table
+
+
+def time_corrections(libs, rk, dev, card) -> None:
+    """``--correction``: see the module's docstring."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    B, n_sub, s = 4096, 1001, 41
+    L, A = 0.25 / 6, 75e9 * np.pi * 0.005**2  # the bench beam's elements
+
+    def op_of(E, gathered, table=None):
+        e = np.ones(E)
+        table = rk.correction_table(L * e, A * e, e) if table is None else table
+        t = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+        return rk.ROMOperators(phiT=None, w=None, lam=None, u=None, cd=None, sinv=None,
+                               sinvT=None, L=t(L * e), D=t(e), A=t(A * e), mask=t(e),
+                               gathered=gathered, sc=(0.0,) * 9, coef=t(table))
+
+    def dividing(op):
+        return dataclasses.replace(op, coef=dividing_table(op))
+
+    def states(E, blocks):
+        x = np.concatenate([rng.normal(scale=sc, size=(B, E))
+                            for sc in (1e-4, 1e-3, 1e-2) * (blocks // 3)], axis=1)
+        return rk.tma_rows(torch.tensor(x, dtype=torch.float32, device=dev))
+
+    cases = {"window": (rk.rom_correction_window, op_of(n_sub - 1, False), states(n_sub, 3),
+                        rk.rom_correction_window_plain),
+             "gathered": (rk.rom_correction_gathered, op_of(s, True), states(s, 6),
+                          rk.rom_correction_gathered_plain)}
+    ref = {}
+    for name, lib in list(libs.items()) * 3:
+        rk._lib = lib
+        row = {}
+        for case, (kern, op, x, plain) in cases.items():
+            o = dividing(op) if name.startswith("corr_divide") else op
+            out = kern(o, x)
+            twin = plain(op, x)
+            ref.setdefault(case, out.clone())
+            row[case] = dict(device_ms=device_ms(lambda: kern(o, x), dev),
+                             events_ms=events_ms(lambda: kern(o, x), dev),
+                             vs_twin=float((out - twin).abs().max() / twin.abs().max()),
+                             same_as_base=bool(torch.equal(out, ref[case])))
+        print(f"[{card}] {name}: " + json.dumps(row), flush=True)
+    for case, (_, _, x, _) in cases.items():  # the memory floor of a library copy
+        out = rk._padded_empty(*x.shape, x)
+        print(f"[{card}] torch copy_ ({case}): device_ms "
+              f"{device_ms(lambda: out.copy_(x), dev):.5f}", flush=True)
+    span_drift(libs, rk, dev, card)
+
+
+def span_drift(libs, rk, dev, card, seeds=8) -> None:
+    """Each variant's ROM spans against the plain twin's on
+    ``chip_smoke.py`` phase 7's small engines (8-element nonlinear and
+    hybrid beams; 5 envs at amplitude 3e-2, 50 steps, 2 Newton iterations;
+    seed 0 is phase 7's draw): the largest ``max|kernel - plain|`` over
+    each output's scale, by case, for each of ``seeds`` draws."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    import continuum_robot_tpu_torch as crt
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    small = cs.ROM_SMALL
+    engines = cs.small_rom_engines(crt, dev)
+    starts = []
+    for seed in range(seeds):
+        rng = np.random.default_rng(6 + seed)  # phase 7's generator at seed 0
+        for case, (model, ms) in engines.items():
+            eta = torch.tensor(rng.normal(scale=small["amp"], size=(small["B"], ms.n_modes)),
+                               dtype=torch.float32, device=dev)
+            u = np.zeros(model.n_pos_states)
+            u[-2] = 5.0
+            fused = ms.make_pallas_rollout()
+            op, e, ed, a0, _ = fused.prepare(eta, torch.zeros_like(eta),
+                                             ms.project_force_host(u))
+            ref = rk.rom_steps_plain(op, e, ed, a0, small["steps"], small["n_newton"])
+            starts.append((case, op, (e, ed, a0), ref))
+    base, launch = libs["corr_base"], rk._launch
+
+    def corr_only(lib):  # the variant's correction kernels, the base's others
+        def call(name, *args):
+            rk._lib = lib if "correction" in name else base
+            return launch(name, *args)
+        return call
+
+    for name, lib in libs.items():
+        rk._launch = corr_only(lib)
+        drift = {}
+        for case, op, st, ref in starts:
+            if name.startswith("corr_divide"):
+                op = dataclasses.replace(op, coef=dividing_table(op))
+            out = rk.rom_steps(op, *st, small["steps"], small["n_newton"])
+            drift.setdefault(case, []).append(float(f"{cs.scaled_err(out, ref):.3e}"))
+        print(f"[{card}] {name} span drift by draw (phase 7's limit {cs.ROM_SMALL_MAX}): "
+              + json.dumps(drift), flush=True)
+    rk._launch = launch
 
 
 def main() -> int:
@@ -163,15 +449,26 @@ def main() -> int:
     from continuum_robot_tpu_torch.ops.cuda import _build
     from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
 
-    sass = "--sass" in sys.argv[1:]
-    names = ["base"] if sass else sys.argv[1:] or list(VARIANTS)
-    if "base" not in names:
-        names = ["base", *names]
-    with open(_build.SOURCES["rom_rollout"]) as f:
+    args = sys.argv[1:]
+    source = _build.SOURCES["rom_rollout"]
+    if "--source" in args:
+        i = args.index("--source")
+        source = args[i + 1]
+        del args[i:i + 2]
+    sass = "--sass" in args
+    corr = "--correction" in args
+    args = [a for a in args if a not in ("--sass", "--correction")]
+    variants = CORR_VARIANTS if corr else VARIANTS
+    first = "corr_base" if corr else "base"
+    names = [first] if sass else args or list(variants)
+    if first not in names:
+        names = [first, *names]
+    with open(source) as f:
         src = f.read()
     built = build(names, src, _build.NVCC_FLAGS, _build._nvcc(),
-                  os.path.join(HERE, "build", "variants"))
+                  os.path.join(HERE, "build", "variants"), variants)
     if sass:
+        print(f"ptxas base: {built['base'][1]}", flush=True)
         sass_stats(built["base"][0])
         return 0
     libs = {}
@@ -186,6 +483,11 @@ def main() -> int:
         libs[name] = lib
 
     dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    if corr:
+        time_corrections(libs, rk, dev, card)
+        return 0
     rng = np.random.default_rng(0)
     B, m, N = 4096, 256, 3003
 
@@ -214,8 +516,6 @@ def main() -> int:
             best = min(best, start.elapsed_time(end) / n)
         return best
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     ref = None
     for name, lib in list(libs.items()) * 3:
         rk._lib = lib

@@ -63,9 +63,9 @@ _SIGNATURES = {
         "rom_expand_launch": [_c_int] * 3 + [_c_ptr, _c_i64] + [_c_ptr] * 3
         + [_c_i64, _c_ptr],
         "rom_correction_window_launch": [_c_int] * 2 + [_c_ptr, _c_i64]
-        + [_c_ptr] * 4 + [_c_i64, _c_ptr],
+        + [_c_ptr] * 2 + [_c_i64, _c_ptr],
         "rom_correction_gathered_launch": [_c_int] * 2 + [_c_ptr, _c_i64]
-        + [_c_ptr] * 4 + [_c_i64, _c_ptr],
+        + [_c_ptr] * 2 + [_c_i64, _c_ptr],
         "rom_project_launch": [_c_int] * 4 + [_c_ptr, _c_i64] + [_c_ptr] * 4,
         "rom_update_launch": [_c_int] * 3 + [_c_ptr] * 9 + [_c_int]
         + [_c_ptr] * 3 + [_c_fptr, _c_ptr],

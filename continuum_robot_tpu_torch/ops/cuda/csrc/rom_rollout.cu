@@ -18,8 +18,10 @@
 //
 //   alpha_point_kernel     eta_af from (eta, etad, etadd, a1), elementwise
 //   rom_expand_kernel      x = eta_af @ Phi^T         (tensor cores, 3xTF32)
-//   correction_*_kernel    the six correction slots per (env, element),
-//                          masked, summed into node planes without atomics
+//   correction_*_kernel    the six correction slots per (env, element) from
+//                          a per-element factor table (no division), summed
+//                          into node planes without atomics; bound by their
+//                          bytes (see the correction section)
 //   rom_project_kernel     partial products of g_m = g @ W over S slices of
 //                          the long (3 n_sub) reduction (tensor cores, 3xTF32)
 //   update_kernel          g_m = the S partials summed in slice order, then
@@ -794,11 +796,33 @@ struct Residual {
 // ---------------------------------------------------------------------------
 // The von Karman correction (elements.nonlinear_correction_planes, float32)
 // ---------------------------------------------------------------------------
+//
+// Both kernels are bound by their bytes: each (env, node) reads 3 floats of
+// x and writes 3 of g (window: 2 x 4096 x 3003 floats, 0.029 ms at 3.35
+// TB/s on an H100), against about 70 float operations an element. The
+// first port evaluated the polynomial with its divisions (L, and the
+// constants 15, 30, 280, ...): without fast math each is an IEEE division
+// sequence, which kept the window kernel at 0.079 ms on the device. Here the
+// polynomial's 17 per-element factors (A/15, A/(20L), (36/35) A/L^3, ...
+// each times the mask) are formed once, in float64 on the host, and read
+// from a (17, E) float32 table (rom_rollout.py: correction_table), so a
+// kernel does only multiplies and FMAs over the monomials of
+// nonlinear_correction_planes, in its order (constants folded, no other
+// reassociation). A masked or padded element has all-zero factors, so its
+// slots are exactly 0, as mask * g gives. On an H100 (700 W) at the main
+// path's shapes the window kernel takes 0.044 ms on the device and the
+// gathered one (s = 41) 0.0038 ms: at their memory floor, which a variant
+// that only copies (0.0405 / 0.0033 ms) and torch's copy_ of the same
+// bytes (0.0427 / 0.0039 ms) also show (chip_variants.py --correction);
+// the dividing body on the same thread map takes 0.116 ms.
 
-// Slots in the order (g1, g3, g4, g2, g5, g6): node 1 axial, transverse,
-// moment, then node 2. Each multiplied by the element's mask.
-__device__ __forceinline__ void correction(float u1, float w1, float t1, float u2, float w2,
-                                           float t2, float L, float A, float mask,
+constexpr int kCorrCoefs = 17;   // rows of the factor table, in the order below
+constexpr int kCorrThreads = 256;
+
+// The six slots (g1, g3, g4, g2, g5, g6) of one element from its node states
+// and its factors c: node 1 axial, transverse, moment, then node 2.
+__device__ __forceinline__ void correction(const float (&c)[kCorrCoefs], float u1, float w1,
+                                           float t1, float u2, float w2, float t2,
                                            float g[6]) {
   const float dw = w1 - w2;
   const float du = u1 - u2;
@@ -807,91 +831,145 @@ __device__ __forceinline__ void correction(float u1, float w1, float t1, float u
   const float tsq = t1 * t1 + t2 * t2;
   const float dw2 = dw * dw;
   const float dw3 = dw2 * dw;
-  const float invL = 1.0f / L;
-  const float invL2 = invL * invL;
-  const float invL3 = invL2 * invL;
-
-  const float g1 = A * (-tsq / 15.0f + t1t2 / 30.0f + s * u2 * (invL / 20.0f) +
-                        s * dw * (invL / 10.0f) - 0.6f * u2 * dw * invL2 -
-                        0.6f * dw2 * invL2);
-  const float g2 = A * (tsq / 15.0f - t1t2 / 30.0f - s * dw * (invL / 10.0f) +
-                        0.6f * dw2 * invL2);
-  const float t3sum = t1 * t1 * t1 + t2 * t2 * t2;
-  const float g3 = A * (t3sum / 280.0f - 3.0f * t1t2 * s / 280.0f +
-                        (9.0f / 70.0f) * tsq * dw * invL + du * s * (invL / 10.0f) -
-                        (27.0f / 70.0f) * s * dw2 * invL2 - 1.2f * du * dw * invL2 +
-                        (36.0f / 35.0f) * dw3 * invL3);
-  const float g4 = A * (L * (t1 * t1 * t1) / 35.0f - 3.0f * L * t1 * t1 * t2 / 280.0f +
-                        L * t1 * t2 * t2 / 140.0f - L * (t2 * t2 * t2) / 280.0f +
-                        (3.0f / 280.0f) * dw * (t1 * t1 - 2.0f * t1t2 - t2 * t2) -
-                        (2.0f / 15.0f) * t1 * du + t2 * du / 30.0f +
-                        (9.0f / 70.0f) * t1 * dw2 * invL + du * dw * (invL / 10.0f) -
-                        (9.0f / 70.0f) * dw3 * invL2);
-  const float g6 = A * (-L * (t1 * t1 * t1) / 280.0f + L * t1 * t1 * t2 / 140.0f -
-                        3.0f * L * t1 * t2 * t2 / 280.0f + L * (t2 * t2 * t2) / 35.0f +
-                        (3.0f / 280.0f) * dw * (-t1 * t1 - 2.0f * t1t2 + t2 * t2) +
-                        t1 * du / 30.0f - (2.0f / 15.0f) * t2 * du +
-                        (9.0f / 70.0f) * t2 * dw2 * invL + du * dw * (invL / 10.0f) -
-                        (9.0f / 70.0f) * dw3 * invL2);
-  g[0] = mask * g1;
-  g[1] = mask * g3;
-  g[2] = mask * g4;
-  g[3] = mask * g2;
-  g[4] = mask * -g3;
-  g[5] = mask * g6;
+  const float t1c = t1 * t1 * t1;
+  const float t2c = t2 * t2 * t2;
+  const float t112 = t1 * t1 * t2;
+  const float t122 = t1 * t2 * t2;
+  // c: A/15, A/30, A/(20L), A/(10L), 0.6A/L^2, A/280, 3A/280, (9/70)A/L,
+  // (27/70)A/L^2, 1.2A/L^2, (36/35)A/L^3, AL/35, AL/140, AL/280, 3AL/280,
+  // (2/15)A, (9/70)A/L^2
+  const float g1 = -c[0] * tsq + c[1] * t1t2 + c[2] * (s * u2) + c[3] * (s * dw) -
+                   c[4] * (u2 * dw) - c[4] * dw2;
+  const float g2 = c[0] * tsq - c[1] * t1t2 - c[3] * (s * dw) + c[4] * dw2;
+  const float g3 = c[5] * (t1c + t2c) - c[6] * (t1t2 * s) + c[7] * (tsq * dw) +
+                   c[3] * (du * s) - c[8] * (s * dw2) - c[9] * (du * dw) + c[10] * dw3;
+  const float g4 = c[11] * t1c - c[14] * t112 + c[12] * t122 - c[13] * t2c +
+                   c[6] * (dw * (t1 * t1 - 2.0f * t1t2 - t2 * t2)) - c[15] * (t1 * du) +
+                   c[1] * (t2 * du) + c[7] * (t1 * dw2) + c[3] * (du * dw) - c[16] * dw3;
+  const float g6 = -c[13] * t1c + c[12] * t112 - c[14] * t122 + c[11] * t2c +
+                   c[6] * (dw * (-t1 * t1 - 2.0f * t1t2 + t2 * t2)) + c[1] * (t1 * du) -
+                   c[15] * (t2 * du) + c[7] * (t2 * dw2) + c[3] * (du * dw) - c[16] * dw3;
+  g[0] = g1;
+  g[1] = g3;
+  g[2] = g4;
+  g[3] = g2;
+  g[4] = -g3;
+  g[5] = g6;
 }
 
-constexpr int kCorrThreads = 256;
+// Element e's factors, or zeros where there is no element e.
+__device__ __forceinline__ void load_factors(const float* __restrict__ coef, int n_el, int e,
+                                             bool valid, float (&c)[kCorrCoefs]) {
+#pragma unroll
+  for (int k = 0; k < kCorrCoefs; ++k) c[k] = valid ? coef[k * n_el + e] : 0.0f;
+}
 
 // Window layout: x and g are (B, 3 n_sub) node planes [u; w; theta], rows
-// ldx and ldg floats apart. A block of 256 threads covers 255 nodes of one
-// env: thread t evaluates element base + t - 1 and, after a barrier, writes
-// node base + t - 1 as its own node-1 slots plus the node-2 slots of the
-// element before it, read from shared memory. Node 0 takes no node-2 slot
-// and the last node no node-1 slot (their elements do not exist); no
-// atomics, deterministic sums.
+// ldx and ldg floats apart. A warp owns 32 consecutive nodes and
+// kCorrRows consecutive env rows: lane l holds node n = 31 wx + l and
+// element n (nodes n and n + 1), keeps the element's factors in registers,
+// and for each row takes node n + 1 from lane l + 1 (__shfl_down_sync;
+// lane 31 loads it itself) and passes its node-2 slots to lane l + 1
+// (__shfl_up_sync). Warps overlap by one node: lane 0's element supplies
+// only the node-2 slots of lane 1's node, so each warp writes 31 nodes and
+// no two threads write one node. Node n = its element's node-1 slots plus
+// element n - 1's node-2 slots, as the twin sums them; node 0 takes no
+// node-2 slot and the last node no node-1 slot. No shared memory, no
+// barrier, no atomics: deterministic. A thread issues the loads of
+// kCorrBatch rows before their arithmetic. Device ms on an H100 at the
+// main path's shapes, rows x batch: 16 x 4 0.044, 4 x 4 0.047, 8 x 4
+// 0.044, 32 x 4 0.046, 16 x 1 0.047, 16 x 2 0.045, 16 x 8 0.052.
+constexpr int kCorrRows = 16;    // env rows a window thread walks
+constexpr int kCorrBatch = 4;    // rows whose loads a thread issues together
+constexpr int kCorrNodes = 31;   // nodes a warp writes
+
 __global__ void __launch_bounds__(kCorrThreads)
-correction_window_kernel(int n_sub, const float* __restrict__ x, int64_t ldx,
-                         const float* __restrict__ L, const float* __restrict__ A,
-                         const float* __restrict__ mask, float* __restrict__ g, int64_t ldg) {
-  __shared__ float next_slots[3][kCorrThreads];
-  const int t = threadIdx.x;
-  const int e = blockIdx.x * (kCorrThreads - 1) + t - 1;  // element, and node written
+correction_window_kernel(int B, int n_sub, int warps_x, const float* __restrict__ x,
+                         int64_t ldx, const float* __restrict__ coef, float* __restrict__ g,
+                         int64_t ldg) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kCorrThreads + threadIdx.x) >> 5;
+  const int wx = static_cast<int>(warp % warps_x);
+  const int64_t row0 = warp / warps_x * kCorrRows;
+  if (row0 >= B) return;  // a whole warp
   const int n_el = n_sub - 1;
-  const float* xu = x + static_cast<int64_t>(blockIdx.y) * ldx;
-  const float* xw = xu + n_sub;
-  const float* xt = xw + n_sub;
-  float slot[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (e >= 0 && e < n_el)
-    correction(xu[e], xw[e], xt[e], xu[e + 1], xw[e + 1], xt[e + 1], L[e], A[e], mask[e], slot);
-  next_slots[0][t] = slot[3];
-  next_slots[1][t] = slot[4];
-  next_slots[2][t] = slot[5];
-  __syncthreads();
-  if (t >= 1 && e < n_sub) {
-    float* gu = g + static_cast<int64_t>(blockIdx.y) * ldg;
-    gu[e] = slot[0] + next_slots[0][t - 1];
-    gu[n_sub + e] = slot[1] + next_slots[1][t - 1];
-    gu[2 * n_sub + e] = slot[2] + next_slots[2][t - 1];
+  const int n = wx * kCorrNodes + lane;
+  const bool has_node = n < n_sub;
+  const bool has_el = n < n_el;
+  const bool halo = lane == 31 && has_el;  // loads node n + 1 itself
+  const bool writes = has_node && (lane > 0 || wx == 0);
+  float c[kCorrCoefs];
+  load_factors(coef, n_el, n, has_el, c);
+  const int rows = B - row0 < kCorrRows ? static_cast<int>(B - row0) : kCorrRows;
+  const float* xr = x + row0 * ldx;
+  float* gr = g + row0 * ldg;
+
+  for (int r0 = 0; r0 < rows; r0 += kCorrBatch) {
+    float v[kCorrBatch][3], h[kCorrBatch][3];  // node n and, on lane 31, node n + 1
+#pragma unroll
+    for (int i = 0; i < kCorrBatch; ++i) {
+      const bool ok = r0 + i < rows;
+      const float* xi = xr + static_cast<int64_t>(r0 + i) * ldx;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        v[i][q] = ok && has_node ? xi[q * n_sub + n] : 0.0f;
+        h[i][q] = ok && halo ? xi[q * n_sub + n + 1] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCorrBatch; ++i) {
+      if (r0 + i >= rows) break;  // the same for the whole warp
+      float b[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        b[q] = __shfl_down_sync(kAll, v[i][q], 1);
+        if (lane == 31) b[q] = h[i][q];
+      }
+      float sl[6];
+      correction(c, v[i][0], v[i][1], v[i][2], b[0], b[1], b[2], sl);
+      float* gi = gr + static_cast<int64_t>(r0 + i) * ldg;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float prev = __shfl_up_sync(kAll, sl[3 + q], 1);
+        const float own = has_el ? sl[q] : 0.0f;
+        if (writes) gi[q * n_sub + n] = n > 0 ? own + prev : own;
+      }
+    }
   }
 }
 
 // Gathered (ECSW) layout: x and g are (B, 6 s) blocks [u1, w1, t1, u2, w2, t2]
-// of the s sampled elements, rows ldx and ldg floats apart; one thread per
-// (env, element), no adjacency.
+// of the s sampled elements, rows ldx and ldg floats apart; no adjacency. A
+// block covers min(s, 256) elements of 256 / min(s, 256) env rows at a time
+// (246 of its 256 threads at s = 41), so no warp idles on a short sample;
+// each thread keeps its element's factors and walks kGathRows such passes
+// (1: 0.0038 ms on an H100 at 4096 envs, s = 41, one thread per (env,
+// element); 2: 0.0038; 4: 0.0044; 8: 0.0051).
+constexpr int kGathRows = 1;  // env-row passes a gathered thread walks
+
 __global__ void __launch_bounds__(kCorrThreads)
-correction_gathered_kernel(int s, const float* __restrict__ x, int64_t ldx,
-                           const float* __restrict__ L, const float* __restrict__ A,
-                           const float* __restrict__ mask, float* __restrict__ g, int64_t ldg) {
-  const int j = blockIdx.x * kCorrThreads + threadIdx.x;
-  if (j >= s) return;
-  const float* xb = x + static_cast<int64_t>(blockIdx.y) * ldx;
-  float slot[6];
-  correction(xb[j], xb[s + j], xb[2 * s + j], xb[3 * s + j], xb[4 * s + j], xb[5 * s + j],
-             L[j], A[j], mask[j], slot);
-  float* gb = g + static_cast<int64_t>(blockIdx.y) * ldg;
+correction_gathered_kernel(int B, int s, const float* __restrict__ x, int64_t ldx,
+                           const float* __restrict__ coef, float* __restrict__ g,
+                           int64_t ldg) {
+  const int sj = min(s, kCorrThreads);
+  const int per = kCorrThreads / sj;
+  const int t = threadIdx.x;
+  const int j = blockIdx.y * sj + t % sj;
+  if (t >= per * sj || j >= s) return;
+  float c[kCorrCoefs];
+  load_factors(coef, s, j, true, c);
+  int64_t row = static_cast<int64_t>(blockIdx.x) * per * kGathRows + t / sj;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) gb[k * s + j] = slot[k];
+  for (int r = 0; r < kGathRows; ++r, row += per) {
+    if (row >= B) return;
+    const float* xb = x + row * ldx + j;
+    float sl[6];
+    correction(c, xb[0], xb[s], xb[2 * s], xb[3 * s], xb[4 * s], xb[5 * s], sl);
+    float* gb = g + row * ldg + j;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) gb[k * s] = sl[k];
+  }
 }
 
 // g_m(i, j) = the S partial products summed in slice order, the residual,
@@ -1171,21 +1249,27 @@ int rom_expand_launch(int B, int m, int N, const float* eta_af, int64_t ld_a,
                                    phi_lo, static_cast<cudaStream_t>(stream), B, N, m, x, ld_x);
 }
 
-int rom_correction_window_launch(int B, int n_sub, const float* x, int64_t ldx, const float* L,
-                                 const float* A, const float* mask, float* g, int64_t ldg,
-                                 void* stream) {
-  const dim3 grid(cdiv(n_sub, kCorrThreads - 1), static_cast<unsigned>(B));
-  correction_window_kernel<<<grid, kCorrThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_sub, x, ldx, L, A, mask, g, ldg);
+// The correction kernels: x (B, 3 n_sub) window planes or (B, 6 s) gathered
+// blocks with row pitch ldx; coef: the (17, E) factor table (E = n_sub - 1
+// or s); g with row pitch ldg.
+int rom_correction_window_launch(int B, int n_sub, const float* x, int64_t ldx,
+                                 const float* coef, float* g, int64_t ldg, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaSuccess);
+  const int warps_x = n_sub > 1 ? static_cast<int>(cdiv(n_sub - 1, kCorrNodes)) : 1;
+  const int64_t warps = static_cast<int64_t>(warps_x) * cdiv(B, kCorrRows);
+  correction_window_kernel<<<cdiv64(warps * 32, kCorrThreads), kCorrThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(B, n_sub, warps_x, x, ldx,
+                                                                   coef, g, ldg);
   return static_cast<int>(cudaGetLastError());
 }
 
-int rom_correction_gathered_launch(int B, int s, const float* x, int64_t ldx, const float* L,
-                                   const float* A, const float* mask, float* g, int64_t ldg,
-                                   void* stream) {
-  const dim3 grid(cdiv(s, kCorrThreads), static_cast<unsigned>(B));
+int rom_correction_gathered_launch(int B, int s, const float* x, int64_t ldx,
+                                   const float* coef, float* g, int64_t ldg, void* stream) {
+  if (B <= 0 || s <= 0) return static_cast<int>(cudaSuccess);
+  const int sj = s < kCorrThreads ? s : kCorrThreads;
+  const dim3 grid(cdiv64(B, kCorrThreads / sj * kGathRows), cdiv(s, sj));
   correction_gathered_kernel<<<grid, kCorrThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, x, ldx, L, A, mask, g, ldg);
+      B, s, x, ldx, coef, g, ldg);
   return static_cast<int>(cudaGetLastError());
 }
 

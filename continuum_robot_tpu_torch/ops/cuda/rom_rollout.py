@@ -16,7 +16,9 @@ wrapper                      computes
                              tensor-core GEMM (``wgmma``)
 :func:`rom_correction_window`  the von Kármán correction of each window
                              element, masked, summed into node force
-                             planes ``[u; w; theta]`` (no atomics)
+                             planes ``[u; w; theta]`` (no atomics), from
+                             the operators' factor table
+                             (:func:`correction_table`)
 :func:`rom_correction_gathered`  the same on the ECSW sample's six
                              per-element-node blocks (no adjacency)
 :func:`rom_project`          ``g @ PhiW_planar`` as ``S`` partial products
@@ -212,7 +214,14 @@ class ROMOperators:
     in float32 on the card). ``split``: the bases as the GEMM kernels read
     them on the card (float32): their TF32 halves, or for "highest" the
     unsplit bases (:class:`SplitBasis`); None on the CPU. On the card a
-    dense ``sinvT`` is a view of a row-padded buffer.
+    dense ``sinvT`` is a view of a row-padded buffer. ``coef``: on the card,
+    the ``(CORRECTION_FACTORS, E)`` float32 table of the correction
+    polynomial's per-element factors that the correction kernels read in
+    place of ``L``, ``A`` and ``mask`` (:func:`correction_table`, rounded
+    once from float64; coefficient-major, so a warp's loads coalesce); None
+    on the CPU, whose twins use ``L``, ``A`` and ``mask``. Built from the
+    operators' own parameters by :meth:`FusedROMRollout.operators`, so a
+    caller that replaces ``L``, ``A`` or ``mask`` replaces ``coef`` too.
     """
 
     phiT: torch.Tensor
@@ -229,6 +238,7 @@ class ROMOperators:
     gathered: bool
     sc: tuple
     split: Optional[SplitBasis] = None
+    coef: Optional[torch.Tensor] = None
     nl_precision: Optional[str] = None
     csc: object = dataclasses.field(default=None, repr=False, compare=False)
 
@@ -239,6 +249,32 @@ class ROMOperators:
     @property
     def n_rows(self) -> int:
         return self.phiT.shape[1]
+
+
+CORRECTION_FACTORS = 17  # rows of correction_table
+
+
+def correction_table(L, A, mask) -> np.ndarray:
+    """The per-element factors of the von Kármán correction polynomial
+    (``elements.nonlinear_correction_planes``), each times the element's
+    mask: a ``(CORRECTION_FACTORS, E)`` float64 array from ``(E,)`` element
+    lengths ``L``, membrane stiffnesses ``A = EA`` and masks, in the rows
+    ``A/15, A/30, A/(20L), A/(10L), 0.6A/L^2, A/280, 3A/280, (9/70)A/L,
+    (27/70)A/L^2, 1.2A/L^2, (36/35)A/L^3, AL/35, AL/140, AL/280, 3AL/280,
+    (2/15)A, (9/70)A/L^2`` that ``csrc/rom_rollout.cu``'s ``correction``
+    multiplies into the monomials. A masked element, or a padded one with
+    ``A = 0``, has all-zero factors."""
+    L, A, mask = (np.asarray(v, np.float64) for v in (L, A, mask))
+    a = A * mask
+    il = 1.0 / L
+    il2 = il * il
+    return np.stack([
+        a / 15.0, a / 30.0, a * il / 20.0, a * il / 10.0, 0.6 * a * il2,
+        a / 280.0, 3.0 * a / 280.0, (9.0 / 70.0) * a * il, (27.0 / 70.0) * a * il2,
+        1.2 * a * il2, (36.0 / 35.0) * a * il2 * il,
+        a * L / 35.0, a * L / 140.0, a * L / 280.0, 3.0 * a * L / 280.0,
+        (2.0 / 15.0) * a, (9.0 / 70.0) * a * il2,
+    ])
 
 
 def step_scalars(h: float, rho_inf: float) -> tuple:
@@ -452,14 +488,20 @@ def rom_expand(op: ROMOperators, eta_af):
     return x
 
 
-def _correction(name: str, op: ROMOperators, x, per_env: int):
+def _correction(name: str, op: ROMOperators, x, per_env: int, n_el: int):
+    """Launch ``<name>`` on ``x``'s ``(B, per_env * n)`` rows with the
+    operators' factor table of ``n_el`` elements."""
     B, N = x.shape
+    coef = op.coef
+    if coef is None or coef.shape != (CORRECTION_FACTORS, n_el):
+        raise ValueError(f"the correction kernels need the operators' factor table of "
+                         f"{n_el} elements (FusedROMRollout.operators on the card)")
     if x.stride(1) != 1:
         x = x.contiguous()
     g = _padded_empty(B, N, x)
     if B:
-        _launch(name, x, B, N // per_env, x.data_ptr(), _pitch(x), _ptr(op.L),
-                _ptr(op.A), _ptr(op.mask), g.data_ptr(), _pitch(g))
+        _launch(name, x, B, N // per_env, x.data_ptr(), _pitch(x), coef.data_ptr(),
+                g.data_ptr(), _pitch(g))
     return g
 
 
@@ -471,7 +513,7 @@ def rom_correction_window(op: ROMOperators, x):
     is a view of a row-padded buffer."""
     if not _on_cuda(x):
         return rom_correction_window_plain(op, x)
-    g = _correction("rom_correction_window", op, x, 3)
+    g = _correction("rom_correction_window", op, x, 3, max(x.shape[1] // 3 - 1, 0))
     if x.shape[0]:
         rom_correction_window.launches += 1
     return g
@@ -483,7 +525,7 @@ def rom_correction_gathered(op: ROMOperators, x):
     in :func:`rom_correction_window`."""
     if not _on_cuda(x):
         return rom_correction_gathered_plain(op, x)
-    g = _correction("rom_correction_gathered", op, x, 6)
+    g = _correction("rom_correction_gathered", op, x, 6, x.shape[1] // 6)
     if x.shape[0]:
         rom_correction_gathered.launches += 1
     return g
@@ -794,6 +836,10 @@ class FusedROMRollout:
                 sinvT = torch.zeros((m, _pad4(m)), dtype=like.dtype,
                                     device=like.device)[:, :m]
                 up["sinvT"] = sinvT.copy_(up["sinvT"])
+            if on_card:  # the correction kernels' factors, rounded once from float64
+                h = self._host
+                up["coef"] = torch.tensor(correction_table(h["L"], h["A"], h["mask"]),
+                                          dtype=like.dtype, device=like.device)
             base = ROMOperators(
                 **up, u=None, gathered=self.gathered,
                 sc=step_scalars(float(self.ms.dt), float(self.ms.rho_inf)),

@@ -168,7 +168,10 @@ def test_pad_columns_never_read_on_card(cuda_device):
     # the correction kernel reads the padded rows of x and writes padded g
     n_el = N // 3 - 1
     ones = torch.ones(n_el, device=cuda_device)
-    opc = dataclasses.replace(op12, L=0.25 * ones, D=ones, A=ones, mask=ones)
+    coef = torch.tensor(rk.correction_table(0.25 * np.ones(n_el), np.ones(n_el),
+                                            np.ones(n_el)), dtype=torch.float32,
+                        device=cuda_device)
+    opc = dataclasses.replace(op12, L=0.25 * ones, D=ones, A=ones, mask=ones, coef=coef)
     x = x / x.abs().max() * 1e-3
     xp = poisoned(B, N)
     xp.copy_(x)
