@@ -34,11 +34,17 @@ paths' shapes in float32 on the card:
 - ``btd_solve`` alone at 4096 x 1001 nodes (a lone launch and its device
   time), its rows as the checkout's implicit operator hands them;
 - a step of the linear and of the consistent von Karman implicit main
-  paths (50 steps, best of 3).
+  paths (50 steps, best of 3);
+- ``fused_gen_alpha_steps`` at the fused path's shape (the water beam's
+  operators, 20 steps) at 4096 and 65536 envs, float32 and float64: a
+  lone launch (best of 5), ten back-to-back launches, its device time and
+  a SHA-256 of its output; and the fused span (``fused_rollout``, 4096
+  envs, 250 frames x 20 substeps, float32): its time (best of 3), device
+  time, launches by kernel and a SHA-256 of its frames.
 
 ``--ab`` runs ``--tree`` in four processes, parent, this checkout, this
 checkout, parent, and prints their lines, whether the four runs' digests
-agree, and the card; compare the two trees only within one such call.
+(the fused ones too) agree, and the card; compare the two trees only within one such call.
 
 ``--splits`` launches this checkout's ``rom_project_f32`` kernel with S =
 1..12 slices on the operands of the card-only test
@@ -69,9 +75,13 @@ def _device_by_kernel(fn, dev, steps: int) -> dict:
 
     fn()
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(dev)
+    for _ in range(3):  # the profiler now and then records none of a call's kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        if any(str(getattr(ev, "device_type", "")).endswith("CUDA")
+               for ev in prof.key_averages()):
+            break
     out = {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -256,6 +266,50 @@ def measure(tree: str) -> dict:
         o = cs.implicit_op(crt, mdl, rho, "pallas", dev)
         start = cs.implicit_start(o, n_red, torch.float32, dev)
         res[name] = best(lambda: cs.implicit_span(crt, o, start, 50, rho, newton)) / 50
+
+    res.update(measure_fused(cs, crt, dev, best, device, digest))
+    return res
+
+
+def measure_fused(cs, crt, dev, best, device, digest) -> dict:
+    """The fused small-beam kernel and span (``chip_smoke.py`` phases
+    18-20) of the imported tree."""
+    import numpy as np
+    import torch
+
+    from continuum_robot_tpu_torch.ops.cuda import fused_rollout as kf
+
+    beam = cs.reference_beam(crt)
+    mats, c_drag, u, x_main, h = cs.fused_main_case(kf, beam)
+    F = cs.FUSED
+    kw = dict(rho_inf=F["rho_inf"], n_newton=F["n_newton"])
+    res = {}
+    for envs in (F["envs"], F["big_envs"]):
+        for dtype in (torch.float32, torch.float64):
+            t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+            args = (tuple(t(A) for A in mats), t(c_drag), t(u),
+                    t(np.tile(x_main, (envs // F["envs"], 1))), F["substeps"], h)
+            run = lambda: kf.fused_gen_alpha_steps(*args, **kw)  # noqa: E731
+
+            def ten():  # back-to-back launches, so dispatch overlaps
+                for _ in range(10):
+                    run()
+
+            res[f"fused_gen_alpha_steps_{envs}_{str(dtype)[6:]}"] = {
+                "ms": best(run, 5), "per_launch_ms": best(ten, 3) / 10,
+                "device_ms": device(run), "sha256": digest(run())}
+    T, dt = F["t_final"], F["dt"]
+    x0 = torch.tensor(cs.fused_start(beam.n_pos_states, F["envs"]), dtype=torch.float32,
+                      device=dev)
+    span = lambda: kf.fused_rollout(beam, x0, T, dt, substeps=F["substeps"], **kw)  # noqa: E731
+    kf.reset_launch_counts()
+    ys = span()[1]
+    res["fused_span_launches"] = {k.__name__: k.launches for k in kf.KERNELS}
+    res["fused_span_sha256"] = digest(ys)
+    res["fused_span_ms"] = best(span)
+    res["fused_span_env_steps_per_s"] = (F["envs"] * round(T / dt) * F["substeps"]
+                                         / res["fused_span_ms"] * 1e3)
+    res["fused_span_device_ms"] = device(span)
     return res
 
 
@@ -326,7 +380,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    digests = []
+    digests, runs = [], []
     for tree in (args.ab, HERE, HERE, args.ab):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree],
                               capture_output=True, text=True)
@@ -336,9 +390,14 @@ def main() -> int:
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         res = json.loads(line)
+        runs.append(res)
         digests.append((res["tf32_sha256"], res["f32_sha256"],
                         [res[k]["sha256"] for k in ("rom_correction_window",
                                                     "rom_correction_gathered")]))
+    fused = [(res_f["fused_span_sha256"], res_f["fused_gen_alpha_steps_4096_float32"]["sha256"])
+             for res_f in runs]
+    print(f"fused span and kernel outputs bit-equal in all four runs: "
+          f"{len(set(fused)) == 1}", flush=True)
     print(f"tensor-core outputs bit-equal in all four runs: "
           f"{len({d[0] for d in digests}) == 1}; float32 outputs: "
           f"{len({d[1] for d in digests}) == 1}; correction outputs (window, gathered) "

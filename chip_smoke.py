@@ -185,12 +185,19 @@ IMP_SIM_MAX = 1e-9  # simulate cr / dense_inv vs btd, x state scale, float64
 FUSED = dict(envs=4096, t_final=0.25, dt=1e-3, substeps=20, rho_inf=0.8, n_newton=2,
              tip_scale=1e-3, big_envs=65536)
 FUSED_SMALL = ((13, 5), (36, 37))  # (n, envs): random operators, ragged sizes
+FUSED_CHECK_FRAMES = 3  # frames of the whole-rollout entry in phase 18
 FUSED_SIM = dict(envs=64, frames=10, substeps=20)
 FUSED_VS_SIM_MAX = 1e-9  # float64 fused vs float64 simulate, x state scale
 FUSED_F32_MAX = 1e-3  # float32 fused vs float64 fused, each of q, v by norm
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3,
 # dense TF32 on the tensor cores.
 PEAK_F32_FLOPS, PEAK_BYTES, PEAK_TF32_FLOPS = 67e12, 3.35e12, 495e12
+# FP32 instructions a second (132 SMs x 128 lanes x 1.98 GHz), half the flop
+# peak: the floor of a kernel that rounds every multiply and add on its own
+# (_rn, no contraction into an FMA) to stay bit-equal to its twin, where each
+# operation is one instruction. Printed beside the bound as `rn_bound_ms`, the
+# cost of that choice; the bound itself prices a multiply-add pair as one FMA.
+PEAK_F32_INSTR = 132 * 128 * 1.98e9
 
 SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/modal_rollout.cu"
 REPLACES = {
@@ -304,6 +311,13 @@ def bound(ops: float, nbytes: float, tc_ops: float = 0.0):
     t_ops = ops / PEAK_F32_FLOPS + tc_ops / PEAK_TF32_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rn_bound_ms(ops: float) -> float:
+    """Milliseconds for ``ops`` operations issued one FP32 instruction each
+    (``PEAK_F32_INSTR``): the floor of a kernel that never fuses a multiply
+    and an add, beside its ``bound``."""
+    return ops / PEAK_F32_INSTR * 1e3
 
 
 def errors(out, ref) -> list:
@@ -421,7 +435,8 @@ def phase_kernels(kr, dev):
 
 
 def linear_bounds(kr, n_modes):
-    """``{kernel: (bound_ms, bound_by)}`` of phase 6's calls (float32)."""
+    """``{kernel: (bound_ms, bound_by, rn_bound_ms)}`` of phase 6's calls
+    (float32)."""
     sc = kr.step_scalars(DT, RHO_INF, torch.float32)
     step_ops = count_ops(
         lambda q, v, a, p4, p1, p2, p3: kr.gen_alpha_step(
@@ -430,14 +445,13 @@ def linear_bounds(kr, n_modes):
         lambda q, v, a, t, b: [t * q + t * v + t * a + b for _ in range(3)], 5)
     n = N_ENVS * n_modes
     n_sim = SIM["envs"] * n_modes
-    return {
-        "modal_steps": bound(step_ops * n * N_STEPS, 4 * (6 * n + 4 * n_modes)),
-        "modal_frames": bound(
-            step_ops * n_sim * SIM["frames"] * SIM["substeps"],
-            4 * (3 * n_sim + 4 * n_modes + 2 * (SIM["frames"] + 1) * n_sim)),
-        "affine_steps": bound(affine_ops * n * (N_STEPS // K_POWER),
-                              4 * (6 * n + 12 * n_modes)),
-    }
+    ops = {"modal_steps": step_ops * n * N_STEPS,
+           "modal_frames": step_ops * n_sim * SIM["frames"] * SIM["substeps"],
+           "affine_steps": affine_ops * n * (N_STEPS // K_POWER)}
+    nbytes = {"modal_steps": 4 * (6 * n + 4 * n_modes),
+              "modal_frames": 4 * (3 * n_sim + 4 * n_modes + 2 * (SIM["frames"] + 1) * n_sim),
+              "affine_steps": 4 * (6 * n + 12 * n_modes)}
+    return {k: (*bound(ops[k], nbytes[k]), rn_bound_ms(ops[k])) for k in ops}
 
 
 def linear_paths(crt, kr, dev, card):
@@ -554,12 +568,13 @@ def linear_paths(crt, kr, dev, card):
           f"{eigh_s:.2f} s, map composition {compose_s:.4f} s", flush=True)
     print(f"phase 6 kernels [{card}]: " + "; ".join(
         f"{k} {t[0]:.3f} ms vs plain {t[1]:.3f} ms (bound {bounds[k][0]:.3f} ms, "
-        f"{bounds[k][1]})" for k, t in times.items()), flush=True)
+        f"{bounds[k][1]}; unfused _rn floor {bounds[k][2]:.3f} ms)" for k, t in times.items()),
+        flush=True)
     return {
         name: dict(launches=paths[LINEAR_PATH[name]][name],
                    launches_by_path={p: c[name] for p, c in paths.items()},
-                   ms=times[name][0], plain_ms=times[name][1], bound=bounds[name],
-                   library_ms=None)
+                   ms=times[name][0], plain_ms=times[name][1], bound=bounds[name][:2],
+                   rn_bound_ms=bounds[name][2], library_ms=None)
         for name in REPLACES
     }, model, ms
 
@@ -692,6 +707,35 @@ def device_ms(fn, dev, n: int = 10) -> float:
     require(total > 0, "the profiler recorded no device time")
     # Per call as the trace recorded them (a one-kernel call: per launch).
     return total / 1e3 / launches
+
+
+def queued_device_ms(fn, dev, n: int = 10, repeats: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` by CUDA events, with no host
+    time in them: ``n`` calls queued behind a spin of the card
+    (``torch.cuda._sleep``) between two events, so the card runs them back
+    to back (the gap between two launches, about a microsecond, counts in);
+    the best of ``repeats``. Fails unless the host has queued the last call
+    before the card reaches the first event. Unlike ``device_ms`` it needs no
+    profiler trace."""
+    fn()
+    torch.cuda.synchronize(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cycles, times = 20_000_000, []  # about 10 ms of the card's clock
+    for _ in range(4 * repeats):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not start.query()  # the card is still spinning
+        end.synchronize()
+        if queued:
+            times.append(start.elapsed_time(end) / n)
+            if len(times) == repeats:
+                return min(times)
+        else:
+            cycles *= 2
+    require(False, "queued_device_ms: the card reached the calls before the host queued them")
 
 
 def dispatch_us(fn, dev, n: int = 200) -> float:
@@ -1421,11 +1465,24 @@ def fused_ops_per_env_step(n: int, n_newton: int) -> int:
     return n * (10 + n_newton * (6 * n + 17))
 
 
-def phase_fused_kernel(kf, beam, dev):
-    """Phase 18: the kernel against its plain twin, bit for bit; returns
-    ``(max |kernel - plain|, main-shape operands)``."""
-    rng = np.random.default_rng(18)
+def fused_main_case(kf, beam):
+    """The fused kernel's operands at the main path's shape, host float64:
+    ``((M, K, Jinv), drag, u, x, h)`` with the sweep's 4096 starts and
+    their consistent accelerations (v0 = 0, u = 0)."""
     h = FUSED["dt"] / FUSED["substeps"]
+    M, K, Jinv, Minv = kf.fused_host_operators(beam, h, FUSED["rho_inf"])
+    n = M.shape[0]
+    x0 = fused_start(n, FUSED["envs"])
+    a0 = -(x0[:, :n] @ K.T) @ Minv.T
+    return ((M, K, Jinv), kf.drag_coefficient_vector(beam), np.zeros(n),
+            np.concatenate([x0, a0], axis=-1), h)
+
+
+def phase_fused_kernel(kf, beam, dev):
+    """Phase 18: both entries of the kernel against their plain twins, bit
+    for bit, at sizes that reach both instances; returns ``({entry: max
+    |kernel - plain|}, main-shape operands)``."""
+    rng = np.random.default_rng(18)
     cases = []
     for n, B in FUSED_SMALL:
         A = rng.normal(size=(3, n, n)) / np.sqrt(n)
@@ -1433,37 +1490,39 @@ def phase_fused_kernel(kf, beam, dev):
         K = 1e3 * (A[1] @ A[1].T)
         cases.append(((M, K, np.linalg.inv(M + 1e-3 * K)), rng.uniform(0.0, 3.0, n),
                       rng.normal(size=n), rng.normal(size=(B, 3 * n)), 1e-3))
-    M, K, Jinv, Minv = kf.fused_host_operators(beam, h, FUSED["rho_inf"])
-    n = M.shape[0]
-    x0 = fused_start(n, FUSED["envs"])
-    c = kf.drag_coefficient_vector(beam)
-    a0 = -(x0[:, :n] @ K.T) @ Minv.T  # the consistent start; v0 = 0, u = 0
-    main = ((M, K, Jinv), c, np.zeros(n), np.concatenate([x0, a0], axis=-1), h)
+    main = fused_main_case(kf, beam)
     cases.append(main)
-    err = 0.0
+    err = {"fused_gen_alpha_steps": 0.0, "fused_gen_alpha_frames": 0.0}
+    kw = dict(rho_inf=FUSED["rho_inf"], n_newton=FUSED["n_newton"])
+    sub, frames = FUSED["substeps"], FUSED_CHECK_FRAMES
     for dtype in (torch.float32, torch.float64):
         for mats, cd, u, x, hh in cases:
-            args = (tuple(torch.tensor(A, dtype=dtype, device=dev) for A in mats),
-                    torch.tensor(cd, dtype=dtype, device=dev),
-                    torch.tensor(u, dtype=dtype, device=dev),
-                    torch.tensor(x, dtype=dtype, device=dev), FUSED["substeps"], hh)
-            kw = dict(rho_inf=FUSED["rho_inf"], n_newton=FUSED["n_newton"])
+            t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731, B023
+            ops = (tuple(t(A) for A in mats), t(cd), t(u), t(x))
             kf.reset_launch_counts()
-            out = kf.fused_gen_alpha_steps(*args, **kw)
-            require(kf.fused_gen_alpha_steps.launches == 1,
-                    "fused_gen_alpha_steps did not launch its kernel")
-            e = float((out - kf.fused_gen_alpha_steps_plain(*args, **kw)).abs().max())
-            require(finite(out), "fused_gen_alpha_steps: non-finite states")
-            err = max(err, e)
-            print(f"phase 18 fused kernel vs plain: {str(dtype)[6:]} B={x.shape[0]} "
-                  f"n={x.shape[1] // 3} {FUSED['substeps']} steps: max|kernel-plain| "
-                  f"{e:.3e}", flush=True)
-    require(err == 0.0, f"fused_gen_alpha_steps: kernel and plain version differ by {err:.3e}")
+            out = kf.fused_gen_alpha_steps(*ops, sub, hh, **kw)
+            ys = kf.fused_gen_alpha_frames(*ops, frames, sub, hh, **kw)
+            require([k.launches for k in kf.KERNELS] == [1, 1],
+                    "fused_gen_alpha_steps or _frames did not launch its kernel")
+            require(finite(out, ys), "fused kernel: non-finite states")
+            e = {"fused_gen_alpha_steps": max_abs(out, kf.fused_gen_alpha_steps_plain(
+                     *ops, sub, hh, **kw)),
+                 "fused_gen_alpha_frames": max_abs(ys, kf.fused_gen_alpha_frames_plain(
+                     *ops, frames, sub, hh, **kw))}
+            for k in err:
+                err[k] = max(err[k], e[k])
+            n, B = x.shape[1] // 3, x.shape[0]
+            geo = kf.launch_geometry(n, dtype, B)
+            print(f"phase 18 fused kernel vs plain: {str(dtype)[6:]} B={B} n={n}, "
+                  f"{geo['instance']} instance: steps ({sub} steps) max|kernel-plain| "
+                  f"{e['fused_gen_alpha_steps']:.3e}, frames ({frames} x {sub}) "
+                  f"{e['fused_gen_alpha_frames']:.3e}", flush=True)
+    require(max(err.values()) == 0.0, f"fused kernel and plain version differ: {err}")
     return err, main
 
 
 def fused_paths(crt, kf, kb, dev, card):
-    """Phases 18-20; returns the fused kernel's record."""
+    """Phases 18-20; returns the fused kernels' records."""
     from continuum_robot_tpu_torch.parallel import batched_rollout, sweep_statistics
     from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
 
@@ -1482,28 +1541,60 @@ def fused_paths(crt, kf, kb, dev, card):
     def span32():
         return kf.fused_rollout(beam, x0_32, T, dt, **kw)
 
+    def expect_one(launches, what):
+        require(launches == {"fused_gen_alpha_steps": 0, "fused_gen_alpha_frames": 1},
+                f"{what}: launches {launches}, expected one fused_gen_alpha_frames")
+
     span32()  # warm-up: the kernel's first launch loads its library
     paths, runs = {}, []
     for _ in range(3):
         ((_, ys32), span_ms), launches = counted(kf, lambda: timed_once(span32, dev))
         runs.append(span_ms)
-        paths.setdefault("fused:float32", launches["fused_gen_alpha_steps"])
-        require(launches["fused_gen_alpha_steps"] == frames,
-                f"fused path: {launches} launches, expected {frames}")
-    (_, ys64), launches = counted(kf, lambda: kf.fused_rollout(beam, x0_64, T, dt, **kw))
-    paths["fused:float64"] = launches["fused_gen_alpha_steps"]
-    require(paths["fused:float64"] == frames, f"fused float64 path: {launches} launches, expected {frames}")
+        paths.setdefault("fused:float32", launches)
+        expect_one(launches, "fused path")
+    (_, ys64), paths["fused:float64"] = counted(
+        kf, lambda: kf.fused_rollout(beam, x0_64, T, dt, **kw))
+    expect_one(paths["fused:float64"], "fused float64 path")
+
+    # The TPU kernel's per-call entry, a launch a frame, as the JAX package's
+    # scan drives it, from the main-shape start: bit-equal to the one launch.
+    t32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    ops32 = (tuple(t32(A) for A in mats), t32(c_drag), torch.zeros(n, device=dev),
+             t32(x_main))
+    kw_k = dict(rho_inf=FUSED["rho_inf"], n_newton=FUSED["n_newton"])
+
+    def per_frame():
+        x, ys = ops32[-1], [ops32[-1][:, : 2 * n]]
+        for _ in range(frames):
+            x = kf.fused_gen_alpha_steps(*ops32[:-1], x, sub, h, **kw_k)
+            ys.append(x[:, : 2 * n])
+        return torch.stack(ys)
+
+    def one_launch():
+        return kf.fused_gen_alpha_frames(*ops32, frames, sub, h, **kw_k)
+
+    (ys_steps, steps_ms), paths["fused:steps_per_frame"] = counted(
+        kf, lambda: timed_once(per_frame, dev))
+    require(paths["fused:steps_per_frame"] == {"fused_gen_alpha_steps": frames,
+                                               "fused_gen_alpha_frames": 0},
+            f"per-frame drive: launches {paths['fused:steps_per_frame']}")
+    ys_frames = one_launch()
+    t0 = time.perf_counter()
+    ys_twin = force_completion(kf.fused_gen_alpha_frames_plain(*ops32, frames, sub, h, **kw_k))
+    frames_plain_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(ys_frames, ys_steps) and torch.equal(ys_frames, ys_twin),
+            "fused_gen_alpha_frames differs from the per-frame launches or from its twin")
 
     kb.reset_launch_counts()
     kf.reset_launch_counts()
     oracle, oracle_ms = timed_once(lambda: crt.simulate(
         beam, x0_64, T, dt, method="generalized_alpha", device=dev, **kw), dev)
     paths["oracle:btd_solve"] = kb.btd_solve.launches
+    fused_launches = sum(k.launches for k in kf.KERNELS)
     require(kb.btd_solve.launches == 1 + frames * sub * FUSED["n_newton"]
-            and kf.fused_gen_alpha_steps.launches == 0,
-            f"oracle: {kb.btd_solve.launches} btd_solve and "
-            f"{kf.fused_gen_alpha_steps.launches} fused launches, expected "
-            f"{1 + frames * sub * FUSED['n_newton']} and 0")
+            and fused_launches == 0,
+            f"oracle: {kb.btd_solve.launches} btd_solve and {fused_launches} fused "
+            f"launches, expected {1 + frames * sub * FUSED['n_newton']} and 0")
     def qv(ys):  # every frame's (q, v)
         return ys[..., :n], ys[..., n:]
 
@@ -1512,14 +1603,20 @@ def fused_paths(crt, kf, kb, dev, card):
     ok = finite(ys32, ys64, oracle.ys)
     env_steps = FUSED["envs"] * frames * sub
     span_ms = min(runs)
+    frames_ms = min(cuda_event_times(one_launch, repeats=3, warmup=1, device=dev))
+    frames_dev = queued_device_ms(one_launch, dev, n=3)
     print(f"phase 19 fused path: {n} DOFs, {FUSED['envs']} envs, {frames} frames x {sub} "
           f"substeps = {frames * sub} steps, n_newton={FUSED['n_newton']}: float32 span "
           f"{span_ms:.3f} ms = {env_steps / span_ms * 1e3:.4e} env-steps/s (best of 3: "
-          f"{', '.join('%.3f' % t for t in runs)} ms); (a) float64 vs float64 simulate "
-          f"q {vs_sim[0]:.3e} v {vs_sim[1]:.3e} (x scale; oracle {oracle_ms:.3f} ms = "
-          f"{env_steps / oracle_ms * 1e3:.4e} env-steps/s), (b) float32 vs float64 q "
-          f"{f32_rel[0]:.3e} v {f32_rel[1]:.3e} (by norm), (c) finite {ok}; ys "
-          f"{tuple(ys32.shape)}; launches {paths}", flush=True)
+          f"{', '.join('%.3f' % t for t in runs)} ms), fused_gen_alpha_frames device "
+          f"{frames_dev:.3f} ms (queued CUDA events), {frames_dev / span_ms:.3f} of the span; "
+          f"(a) float64 vs "
+          f"float64 simulate q {vs_sim[0]:.3e} v {vs_sim[1]:.3e} (x scale; oracle "
+          f"{oracle_ms:.3f} ms = {env_steps / oracle_ms * 1e3:.4e} env-steps/s), (b) "
+          f"float32 vs float64 q {f32_rel[0]:.3e} v {f32_rel[1]:.3e} (by norm), (c) finite "
+          f"{ok}; ys {tuple(ys32.shape)}; one launch == {frames} per-frame launches == "
+          f"twin, bit for bit (per-frame drive {steps_ms:.3f} ms, twin "
+          f"{frames_plain_ms:.1f} ms); launches {paths}", flush=True)
     require(ok and tuple(ys32.shape) == (frames + 1, FUSED["envs"], 2 * n),
             "fused path: non-finite or misshapen states")
     require(max(vs_sim) <= FUSED_VS_SIM_MAX, f"fused vs simulate {vs_sim}")
@@ -1567,8 +1664,8 @@ def fused_paths(crt, kf, kb, dev, card):
                 kf.fused_gen_alpha_steps(*args, **kw_k)
         return min(cuda_event_times(run, repeats=3, warmup=1, device=dev)) / reps
 
-    kw_k = dict(rho_inf=FUSED["rho_inf"], n_newton=FUSED["n_newton"])
-    times, bounds = {}, {}
+    ops_step = fused_ops_per_env_step(n, FUSED["n_newton"])
+    times, bounds, dev_ms = {}, {}, {}
     for label, envs, dtype in (("main", FUSED["envs"], torch.float32),
                                ("main_f64", FUSED["envs"], torch.float64),
                                ("big", FUSED["big_envs"], torch.float32)):
@@ -1577,26 +1674,62 @@ def fused_paths(crt, kf, kb, dev, card):
                 torch.tensor(c_drag, dtype=dtype, device=dev),
                 torch.zeros(n, dtype=dtype, device=dev), x, sub, h)
         times[label] = per_launch(args)
+        dev_ms[label] = queued_device_ms(lambda: kf.fused_gen_alpha_steps(*args, **kw_k), dev)
         if dtype == torch.float32:  # the bound is at float32 peaks
-            bounds[label] = bound(envs * sub * fused_ops_per_env_step(n, FUSED["n_newton"]),
-                                  4 * (2 * envs * 3 * n + 3 * n * n + 2 * n))
+            ops = envs * sub * ops_step
+            bounds[label] = (*bound(ops, 4 * (2 * envs * 3 * n + 3 * n * n + 2 * n)),
+                             rn_bound_ms(ops))
         if label == "main":
             plain_ms = min(cuda_event_times(
                 lambda: kf.fused_gen_alpha_steps_plain(*args, **kw_k), repeats=3, warmup=1,
                 device=dev))
-    busy = times["main"] * frames / span_ms
-    print(f"phase 20 fused timings [{card}]: fused_gen_alpha_steps per launch ({sub} steps): "
-          f"float32 {FUSED['envs']} envs {times['main']:.4f} ms (bound {bounds['main'][0]:.4f} "
-          f"ms, {bounds['main'][1]}, kernel at {bounds['main'][0] / times['main']:.3f} of it), "
-          f"float64 {times['main_f64']:.4f} ms, float32 {FUSED['big_envs']} envs "
-          f"{times['big']:.4f} ms (bound {bounds['big'][0]:.4f} ms, kernel at "
-          f"{bounds['big'][0] / times['big']:.3f} of it); plain twin {plain_ms:.3f} ms; "
-          f"span {span_ms:.3f} ms for {frames} launches, of which the kernels' "
-          f"{times['main'] * frames:.3f} ms ({busy:.3f} of it); float64 oracle span "
-          f"{oracle_ms:.3f} ms", flush=True)
-    return dict(launches=paths["fused:float32"], launches_by_path=paths, max_abs_err=err,
-                ms=times["main"], plain_ms=plain_ms, bound=bounds["main"], library_ms=None,
-                source=FUSED_SOURCE, replaces=FUSED_REPLACES)
+    env_main = FUSED["envs"]
+    frames_ops = env_main * frames * sub * ops_step
+    frames_bound = (*bound(frames_ops, 4 * (env_main * 3 * n + (frames + 1) * env_main * 2 * n
+                                            + 3 * n * n + 2 * n)),
+                    rn_bound_ms(frames_ops))
+
+    def vs_bound(label):
+        return (f"bound {bounds[label][0]:.4f} ms, {bounds[label][1]}, device at "
+                f"{bounds[label][0] / dev_ms[label]:.3f} of it; unfused _rn floor "
+                f"{bounds[label][2]:.4f} ms, device at {bounds[label][2] / dev_ms[label]:.3f}")
+
+    print(f"phase 20 fused timings [{card}]: fused_gen_alpha_steps per launch ({sub} steps; "
+          f"10 back-to-back launches by CUDA events, device time by queued CUDA events in "
+          f"brackets): float32 {env_main} envs {times['main']:.4f} ms [{dev_ms['main']:.4f} "
+          f"ms] ({vs_bound('main')}), float64 {times['main_f64']:.4f} ms "
+          f"[{dev_ms['main_f64']:.4f} ms], float32 {FUSED['big_envs']} envs "
+          f"{times['big']:.4f} ms [{dev_ms['big']:.4f} ms] ({vs_bound('big')}); plain twin "
+          f"{plain_ms:.3f} ms; fused_gen_alpha_frames ({frames} x {sub} steps) a lone launch "
+          f"{frames_ms:.3f} ms [{frames_dev:.3f} ms] (bound {frames_bound[0]:.3f} ms, "
+          f"{frames_bound[1]}; unfused _rn floor {frames_bound[2]:.3f} ms), the span "
+          f"{span_ms:.3f} ms; {frames} per-frame launches {steps_ms:.3f} ms; float64 oracle "
+          f"span {oracle_ms:.3f} ms", flush=True)
+    geo = {dt_: kf.launch_geometry(n, dt_, env_main) for dt_ in (torch.float32, torch.float64)}
+    design = (f"a thread owns one DOF row of {geo[torch.float32]['envs']} envs (float; "
+              f"{geo[torch.float64]['envs']} in double), its rows of M, K, Jinv in registers, "
+              f"the j loop unrolled; env-minor broadcast vectors in shared memory; a warp an "
+              f"env where the rows do not fit in registers")
+
+    def common(name):
+        return dict(library_ms=None, source=FUSED_SOURCE, replaces=FUSED_REPLACES,
+                    launches_by_path={p: c[name] for p, c in paths.items()
+                                      if isinstance(c, dict)})
+
+    return {
+        "fused_gen_alpha_steps": dict(
+            common("fused_gen_alpha_steps"), launches=paths["fused:steps_per_frame"]["fused_gen_alpha_steps"],
+            max_abs_err=err["fused_gen_alpha_steps"], ms=times["main"], plain_ms=plain_ms,
+            device_ms=dev_ms["main"], bound=bounds["main"][:2],
+            rn_bound_ms=bounds["main"][2], design=design),
+        "fused_gen_alpha_frames": dict(
+            common("fused_gen_alpha_frames"), launches=paths["fused:float32"]["fused_gen_alpha_frames"],
+            max_abs_err=err["fused_gen_alpha_frames"], ms=frames_ms,
+            plain_ms=frames_plain_ms, device_ms=frames_dev, bound=frames_bound[:2],
+            rn_bound_ms=frames_bound[2],
+            design=design + "; every frame in one launch (the JAX scan, "
+                            "ops/pallas/fused_rollout.py:238)"),
+    }
 
 
 def profile_fused(crt, dev, card) -> None:
@@ -1678,7 +1811,7 @@ def main() -> int:
           f"{time.time() - t_start:.1f} s so far", flush=True)
     records["btd_solve"] = implicit_paths(crt, kb, dev, card, lin_model, lin_ms)
     print(f"implicit paths done; {time.time() - t_start:.1f} s so far", flush=True)
-    records["fused_gen_alpha_steps"] = fused_paths(crt, kf, kb, dev, card)
+    records.update(fused_paths(crt, kf, kb, dev, card))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
@@ -1689,6 +1822,7 @@ def main() -> int:
          "bound_by": rec["bound"][1], "library_ms": rec["library_ms"],
          "launches_by_path": rec["launches_by_path"],
          **({"device_ms": rec["device_ms"]} if "device_ms" in rec else {}),
+         **({"rn_bound_ms": rec["rn_bound_ms"]} if "rn_bound_ms" in rec else {}),
          **({"design": rec["design"]} if "design" in rec else {})}
         for name, rec in records.items()
     ]}))

@@ -5,6 +5,9 @@
     python3 chip_variants.py base diag_noload   # some of them
     python3 chip_variants.py --correction       # every correction variant
     python3 chip_variants.py --correction corr_rows8 gath_rows4
+    python3 chip_variants.py --drift            # the 3xTF32 span against float64
+    python3 chip_variants.py --fused            # every fused small-beam variant
+    python3 chip_variants.py --fused --tree DIR # another checkout's kernel and wrapper
     python3 chip_variants.py --sass             # FFMA operands, correction mix (cuobjdump)
     python3 chip_variants.py --sass --source PATH/rom_rollout.cu   # another tree's
 
@@ -39,6 +42,24 @@ a fraction of the twin's scale, and whether its outputs equal
 ``chip_smoke.py`` phase 7's small engines over eight input draws
 (``span_drift``).
 
+``--drift`` builds ``corr_base`` alone and prints its span drift
+(``span_drift``) with, for each draw, the kernel span's and the float32
+twin span's error against a float64 twin span from the same start and
+their ratio: the bound of the 3xTF32 card test
+``test_rom_kernels_match_plain_on_card`` holds that ratio.
+
+``--fused`` does the same for the fused small-beam kernel
+(``csrc/fused_rollout.cu`` with ``csrc/fused_geometry.h`` inlined,
+``FUSED_VARIANTS``) at the fused path's shape (the water beam's operators,
+20 steps a launch) at 4096 and 65536 envs, float32 and float64: each
+variant's device time per launch (``torch.profiler``, 20 launches; and
+``queued_ms``, CUDA events around 20 launches queued behind a spin of the
+card, ``chip_smoke.queued_device_ms``), its milliseconds in 20 back-to-back
+launches (CUDA events, best of 3), and at 4096 envs whether its output
+equals the plain twin's bit for bit; where the tree has
+``fused_gen_alpha_frames``, the same for the whole span (250 frames x 20
+substeps, 4096 envs, float32) in one launch.
+
 ``--sass`` builds ``base`` alone, disassembles its two float32 kernels
 with ``cuobjdump -sass`` and counts, over their FFMAs, those whose sources
 all come from the register file (no operand held in the reuse cache from
@@ -57,6 +78,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -200,6 +222,31 @@ CORR_VARIANTS = {
 }
 VARIANT_FLAGS = {"corr_base_nofma": ("-fmad=false",), "corr_divide_nofma": ("-fmad=false",)}
 
+ENVS = "constexpr int kEnvs = sizeof(T) == 4 ? 2 : 3;"
+PAIRS = "constexpr int kPairs = 128;"
+# The thread map's constants (csrc/fused_geometry.h, inlined into the source):
+# (float, double) environments a thread, or (row, env group) pairs a block
+# ("fbase": the source's own, 2 and 3 at 128 pairs).
+FUSED_VARIANTS = {
+    "fbase": [],
+    **{f"e{f}": [(ENVS, ENVS.replace("2 : 3", f"{f} : {d}"))]
+       for f, d in ((1, 1), (3, 2), (4, 2), (5, 4), (8, 4))},
+    **{f"p{n}": [(PAIRS, PAIRS.replace("128", str(n)))] for n in (64, 96, 144, 192, 256)},
+}
+
+
+def inline_headers(src: str, source) -> str:
+    """The source with each ``#include "x.h"`` of a header beside it
+    replaced by the header's text, so a variant can change the header's
+    constants and builds from one file."""
+    here = os.path.dirname(os.path.abspath(source))
+
+    def text(m):
+        path = os.path.join(here, m.group(1))
+        return open(path).read() if os.path.exists(path) else m.group(0)
+
+    return re.sub(r'^#include "([^"]+)"$', text, src, flags=re.M)
+
 
 def variant_text(spec, src):
     """The source with a variant's replacements, or None if an anchor is
@@ -238,13 +285,15 @@ def build(names, src, flags, nvcc, out_dir, variants=None):
         lines = log.splitlines()
         info = [lines[i + 2].strip() + " | " + lines[i + 3].split(":")[-1].strip()
                 for i, ln in enumerate(lines) if "Compiling" in ln
-                and ("f32_kernel" in ln or "correction" in ln)]
+                and ("f32_kernel" in ln or "correction" in ln or "fused" in ln)]
         built[name] = (os.path.join(out_dir, f"{name}.so"), "; ".join(info))
     return built
 
 
 CORR_OPS = ("MUFU.RCP", "FCHK", "CALL", "FFMA", "FMUL", "FADD", "LDG", "STG", "SHFL", "LDS",
             "STS", "BAR")
+FUSED_OPS = ("FMUL", "FADD", "FFMA", "DMUL", "DADD", "DFMA", "LDS", "STS", "LDG", "STG", "BAR",
+             "BRA")
 
 
 def sass_stats(so_path: str) -> None:
@@ -257,7 +306,8 @@ def sass_stats(so_path: str) -> None:
     for func in re.split(r"\n\s*Function : ", text)[1:]:
         name = func.split("\n")[0]
         corr = re.search(r"(correction_\w+_kernel)", name)
-        if "f32_kernel" not in name and not corr:
+        fused = re.search(r"fused_rows_kernelI([fd])Li18ELi(\d+)", name)
+        if "f32_kernel" not in name and not corr and not fused:
             continue
         ops, ffma = collections.Counter(), collections.Counter()
         held = set()  # (slot, register) the previous instruction kept in the reuse cache
@@ -278,6 +328,11 @@ def sass_stats(so_path: str) -> None:
             parity = collections.Counter(r % 2 for r in reads)
             ffma["two reads in one bank"] += bool(parity) and max(parity.values()) > 1
         total = sum(v for k, v in ops.items() if "." not in k)
+        if fused:
+            print(f"sass fused_rows_kernel<{'float' if fused.group(1) == 'f' else 'double'}, "
+                  f"n = 18, E = {fused.group(2)}>: instructions {total}; "
+                  + ", ".join(f"{k} {ops[k]}" for k in FUSED_OPS), flush=True)
+            continue
         if corr:
             print(f"sass {corr.group(1)}: instructions {total}; "
                   + ", ".join(f"{k} {ops[k]}" for k in CORR_OPS), flush=True)
@@ -288,22 +343,29 @@ def sass_stats(so_path: str) -> None:
 
 
 def device_ms(fn, dev, n: int = 20) -> float:
-    """Device milliseconds per call of ``fn`` under ``torch.profiler``."""
+    """Device milliseconds per call of ``fn`` (one kernel a call) under
+    ``torch.profiler``: the kernels' time over the launches the trace
+    holds, which may miss some (taken again, up to three times, when it
+    holds none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize(dev)
-    total = 0.0
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            dev_us = getattr(ev, "self_device_time_total", None)
-            total += ev.self_cuda_time_total if dev_us is None else dev_us
-    return total / 1e3 / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize(dev)
+        total, launches = 0.0, 0
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                dev_us = getattr(ev, "self_device_time_total", None)
+                total += ev.self_cuda_time_total if dev_us is None else dev_us
+                launches = max(launches, ev.count)
+        if launches:
+            return total / 1e3 / launches
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def events_ms(fn, dev, n: int = 20) -> float:
@@ -385,23 +447,75 @@ def time_corrections(libs, rk, dev, card) -> None:
     span_drift(libs, rk, dev, card)
 
 
-def span_drift(libs, rk, dev, card, seeds=8) -> None:
-    """Each variant's ROM spans against the plain twin's on
-    ``chip_smoke.py`` phase 7's small engines (8-element nonlinear and
-    hybrid beams; 5 envs at amplitude 3e-2, 50 steps, 2 Newton iterations;
-    seed 0 is phase 7's draw): the largest ``max|kernel - plain|`` over
-    each output's scale, by case, for each of ``seeds`` draws."""
+def smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its set-up helpers)."""
     import importlib.util
-
-    import numpy as np
-    import torch
-
-    import continuum_robot_tpu_torch as crt
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def time_fused(libs, dev, card) -> None:
+    """``--fused``: see the module's docstring."""
+    import numpy as np
+    import torch
+
+    import continuum_robot_tpu_torch as crt
+    from continuum_robot_tpu_torch.ops.cuda import _build
+    from continuum_robot_tpu_torch.ops.cuda import fused_rollout as kf
+
+    cs = smoke()
+    F = cs.FUSED
+    beam = cs.reference_beam(crt)
+    mats, c_drag, u, x_main, h = cs.fused_main_case(kf, beam)
+    kw = dict(rho_inf=F["rho_inf"], n_newton=F["n_newton"])
+    cases = {}
+    for envs in (F["envs"], F["big_envs"]):
+        for dtype in (torch.float32, torch.float64):
+            t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731, B023
+            cases[f"{envs}_{str(dtype)[6:]}"] = (
+                tuple(t(A) for A in mats), t(c_drag), t(u),
+                t(np.tile(x_main, (envs // F["envs"], 1))), F["substeps"], h)
+    twins = {k: kf.fused_gen_alpha_steps_plain(*a, **kw) for k, a in cases.items()
+             if k.startswith(f"{F['envs']}_")}
+    frames = int(round(F["t_final"] / F["dt"]))
+    for name, lib in list(libs.items()) * 3:
+        _build._libs["fused_rollout"] = lib  # the wrapper reads its thread map from it too
+        row = {}
+        for key, args in cases.items():
+            run = lambda: kf.fused_gen_alpha_steps(*args, **kw)  # noqa: E731, B023
+            out = run()
+            row[key] = dict(device_ms=device_ms(run, dev), events_ms=events_ms(run, dev),
+                            queued_ms=cs.queued_device_ms(run, dev, n=20))
+            if key in twins:
+                row[key]["equal_twin"] = bool(torch.equal(out, twins[key]))
+        if hasattr(kf, "fused_gen_alpha_frames"):
+            mt, ct, ut, xt, sub, _ = cases[f"{F['envs']}_float32"]
+            run = lambda: kf.fused_gen_alpha_frames(mt, ct, ut, xt, frames, sub, h, **kw)  # noqa: E731
+            row[f"frames_{F['envs']}_float32"] = dict(device_ms=device_ms(run, dev, n=3),
+                                                      events_ms=events_ms(run, dev, n=3),
+                                                      queued_ms=cs.queued_device_ms(run, dev, n=3))
+        print(f"[{card}] {name}: " + json.dumps(row), flush=True)
+
+
+def span_drift(libs, rk, dev, card, seeds=8, f64=False) -> None:
+    """Each variant's ROM spans against the plain twin's on
+    ``chip_smoke.py`` phase 7's small engines (8-element nonlinear and
+    hybrid beams; 5 envs at amplitude 3e-2, 50 steps, 2 Newton iterations;
+    seed 0 is phase 7's draw): the largest ``max|kernel - plain|`` over
+    each output's scale, by case, for each of ``seeds`` draws; and the
+    largest ratio, over the outputs, of the kernel span's error against a
+    float64 twin span from the same start to the float32 twin span's (each
+    draw's errors too, with ``f64``)."""
+    import numpy as np
+    import torch
+
+    import continuum_robot_tpu_torch as crt
+
+    cs = smoke()
     small = cs.ROM_SMALL
     engines = cs.small_rom_engines(crt, dev)
     starts = []
@@ -413,10 +527,13 @@ def span_drift(libs, rk, dev, card, seeds=8) -> None:
             u = np.zeros(model.n_pos_states)
             u[-2] = 5.0
             fused = ms.make_pallas_rollout()
-            op, e, ed, a0, _ = fused.prepare(eta, torch.zeros_like(eta),
-                                             ms.project_force_host(u))
+            u_m = ms.project_force_host(u)
+            op, e, ed, a0, _ = fused.prepare(eta, torch.zeros_like(eta), u_m)
             ref = rk.rom_steps_plain(op, e, ed, a0, small["steps"], small["n_newton"])
-            starts.append((case, op, (e, ed, a0), ref))
+            exact = rk.rom_steps_plain(fused.operators(e.double(), u_m), e.double(),
+                                       ed.double(), a0.double(), small["steps"],
+                                       small["n_newton"])
+            starts.append((case, op, (e, ed, a0), ref, exact))
     base, launch = libs["corr_base"], rk._launch
 
     def corr_only(lib):  # the variant's correction kernels, the base's others
@@ -425,16 +542,28 @@ def span_drift(libs, rk, dev, card, seeds=8) -> None:
             return launch(name, *args)
         return call
 
+    def vs_exact(out, exact):  # each output's largest error, over its float64 scale
+        return [float((o.double() - x).abs().max() / x.abs().max())
+                for o, x in zip(out, exact)]
+
     for name, lib in libs.items():
         rk._launch = corr_only(lib)
-        drift = {}
-        for case, op, st, ref in starts:
+        drift, ratio = {}, {}
+        for case, op, st, ref, exact in starts:
             if name.startswith("corr_divide"):
                 op = dataclasses.replace(op, coef=dividing_table(op))
             out = rk.rom_steps(op, *st, small["steps"], small["n_newton"])
             drift.setdefault(case, []).append(float(f"{cs.scaled_err(out, ref):.3e}"))
+            k_err, t_err = vs_exact(out, exact), vs_exact(ref, exact)
+            ratio.setdefault(case, []).append(float(f"{max(k / t for k, t in zip(k_err, t_err)):.3g}"))
+            if f64:
+                print(f"[{card}] {name} {case} draw {len(drift[case]) - 1} vs float64 "
+                      f"(eta, etad, etadd): kernel {['%.3e' % v for v in k_err]}, float32 "
+                      f"twin {['%.3e' % v for v in t_err]}", flush=True)
         print(f"[{card}] {name} span drift by draw (phase 7's limit {cs.ROM_SMALL_MAX}): "
               + json.dumps(drift), flush=True)
+        print(f"[{card}] {name} largest (kernel vs float64) / (twin vs float64) over "
+              f"eta, etad, etadd, by draw: " + json.dumps(ratio), flush=True)
     rk._launch = launch
 
 
@@ -445,37 +574,43 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
     sys.path.insert(0, HERE)
+    if "--tree" in args:  # another checkout's package, its wrappers and sources
+        i = args.index("--tree")
+        sys.path.insert(0, os.path.abspath(args[i + 1]))
+        del args[i:i + 2]
     from continuum_robot_tpu_torch.ops.cuda import _build
     from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
 
-    args = sys.argv[1:]
-    source = _build.SOURCES["rom_rollout"]
+    sass, corr, drift, fused = (flag in args for flag in
+                                ("--sass", "--correction", "--drift", "--fused"))
+    lib_name = "fused_rollout" if fused else "rom_rollout"
+    source = _build.SOURCES[lib_name]
     if "--source" in args:
         i = args.index("--source")
         source = args[i + 1]
         del args[i:i + 2]
-    sass = "--sass" in args
-    corr = "--correction" in args
-    args = [a for a in args if a not in ("--sass", "--correction")]
-    variants = CORR_VARIANTS if corr else VARIANTS
-    first = "corr_base" if corr else "base"
-    names = [first] if sass else args or list(variants)
+    args = [a for a in args if not a.startswith("--")]
+    corr = corr or drift
+    variants = FUSED_VARIANTS if fused else CORR_VARIANTS if corr else VARIANTS
+    first = "fbase" if fused else "corr_base" if corr and not sass else "base"
+    names = [first] if sass or drift else args or list(variants)
     if first not in names:
         names = [first, *names]
     with open(source) as f:
-        src = f.read()
+        src = inline_headers(f.read(), source)
     built = build(names, src, _build.NVCC_FLAGS, _build._nvcc(),
                   os.path.join(HERE, "build", "variants"), variants)
     if sass:
-        print(f"ptxas base: {built['base'][1]}", flush=True)
-        sass_stats(built["base"][0])
+        print(f"ptxas {first}: {built[first][1]}", flush=True)
+        sass_stats(built[first][0])
         return 0
     libs = {}
     for name, (path, info) in built.items():
         print(f"ptxas {name}: {info}", flush=True)
         lib = ctypes.CDLL(path)
-        for fn_name, argtypes in _build._SIGNATURES["rom_rollout"].items():
+        for fn_name, argtypes in _build._SIGNATURES[lib_name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -485,6 +620,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    if fused:
+        time_fused(libs, dev, card)
+        return 0
+    if drift:
+        span_drift(libs, rk, dev, card, f64=True)
+        return 0
     if corr:
         time_corrections(libs, rk, dev, card)
         return 0

@@ -79,7 +79,8 @@ _SIGNATURES = {
         "btd_solve_launch": [_c_int] * 3 + [_c_i64] * 2 + [_c_ptr] * 5,
     },
     "fused_rollout": {
-        "fused_gen_alpha_launch": [_c_int] * 5 + [_c_dbl] * 9 + [_c_ptr] * 8,
+        "fused_gen_alpha_launch": [_c_int] * 6 + [_c_dbl] * 9 + [_c_ptr] * 9,
+        "fused_gen_alpha_geometry": [_c_int] * 3 + [ctypes.POINTER(_c_int)],
     },
 }
 
@@ -96,10 +97,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Path of the built library of source ``name`` for the current source
-    and flags."""
+    """Path of the built library of source ``name`` for the current source,
+    the headers beside it and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update(SOURCES[name].read_bytes())
+    for path in (SOURCES[name], *sorted(CSRC.glob("*.h"))):
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 

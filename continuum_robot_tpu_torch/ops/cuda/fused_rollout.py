@@ -4,20 +4,29 @@ Counterpart of ``continuum_robot_tpu/ops/pallas/fused_rollout.py``. For a
 purely linear beam with quadratic fluid drag and a constant input force, a
 batched implicit step is three small dense matrix products and a handful of
 elementwise updates; the TPU kernel ``fused_gen_alpha_steps`` runs ``steps``
-of them per launch with the state on chip. Here it is the hand-written CUDA
-kernel of ``csrc/fused_rollout.cu``; :func:`fused_gen_alpha_steps_plain` is
-its plain PyTorch twin, which sums every matrix product over columns from
-``j = 0`` upward with one rounding per product and per sum, the kernel's
-order, so the two agree bit for bit.
+of them per launch with the state on chip, and the JAX ``fused_rollout``
+scans it over the frames. Here both are the hand-written CUDA kernel of
+``csrc/fused_rollout.cu``: :func:`fused_gen_alpha_steps` is one launch of
+``steps`` steps, :func:`fused_gen_alpha_frames` one launch of a whole
+rollout that writes every frame. Their plain PyTorch twins
+(:func:`fused_gen_alpha_steps_plain`, :func:`fused_gen_alpha_frames_plain`)
+sum every matrix product over columns from ``j = 0`` upward with one
+rounding per product and per sum, the kernel's order, so the two agree bit
+for bit.
 
-:func:`fused_gen_alpha_steps` dispatches by the device of the states: a CPU
-tensor runs the plain twin, a CUDA tensor launches the kernel (building it
-on first use) or raises. ``fused_gen_alpha_steps.launches`` counts the
-launches. :func:`fused_rollout` is the full rollout: host float64 set-up,
-the consistent initial acceleration, one launch per output frame.
+The wrappers dispatch by the device of the states: a CPU tensor runs the
+plain twin, a CUDA tensor launches the kernel (building it on first use) or
+raises. Each wrapper's ``launches`` counts its launches.
+:func:`launch_geometry` reads the kernel's thread map for a size and dtype
+(which instance, how many environments a thread and a block) from the
+kernel's own C query.
+:func:`fused_rollout` is the full rollout: host float64 set-up, the
+consistent initial acceleration, one launch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -26,8 +35,28 @@ from . import _build
 from .modal_rollout import step_scalars
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
-_WARPS = 8  # environments per block of the kernel
-_SMEM_BYTES = 232448  # shared memory one block of an H100 can use
+_GEOMETRY = ("instance", "envs", "groups", "threads", "blocks", "rows", "np", "smem")
+
+
+def launch_geometry(n: int, dtype: torch.dtype, B: int, lib=None) -> dict:
+    """How the kernel covers ``B`` environments of ``n`` DOFs in ``dtype``,
+    as its C query ``fused_gen_alpha_geometry`` (``csrc/fused_geometry.h``)
+    states it: ``instance`` ("rows" or "lanes"), ``envs`` a thread,
+    ``groups`` (env groups of n threads, or warps) a block, ``threads``,
+    ``blocks``, ``rows`` a lane (lanes), ``np`` (the rows instance's n
+    rounded up to a multiple of 3) and ``smem`` bytes. ``lib``: a library
+    that exports the query, by default the kernel's. Raises ``ValueError``
+    for an ``n`` that neither instance serves."""
+    lib = _build.library("fused_rollout") if lib is None else lib
+    out = (ctypes.c_int * len(_GEOMETRY))()
+    if lib.fused_gen_alpha_geometry(_DTYPE_CODES[dtype], int(n), int(B), out) != 0:
+        raise ValueError(
+            f"fused_gen_alpha_steps: no instance of the kernel serves n={n} in {dtype} "
+            "(the lanes instance's three matrices must fit in one block's shared memory)"
+        )
+    geo = dict(zip(_GEOMETRY, out))
+    geo["instance"] = ("rows", "lanes")[geo["instance"]]
+    return geo
 
 
 def gen_alpha_params(rho_inf: float):
@@ -92,6 +121,60 @@ def fused_gen_alpha_steps_plain(mats, drag_coeffs, u, x: torch.Tensor, steps: in
     return torch.cat([q, v, a], dim=-1)
 
 
+def fused_gen_alpha_frames_plain(mats, drag_coeffs, u, x: torch.Tensor, n_frames: int,
+                                 substeps: int, h: float, rho_inf: float = 0.8,
+                                 n_newton: int = 2) -> torch.Tensor:
+    """The plain twin of :func:`fused_gen_alpha_frames`: the per-frame loop of
+    :func:`fused_gen_alpha_steps_plain`."""
+    n = x.shape[-1] // 3
+    frames = [x[:, : 2 * n]]
+    for _ in range(int(n_frames)):
+        x = fused_gen_alpha_steps_plain(mats, drag_coeffs, u, x, substeps, h, rho_inf,
+                                        n_newton)
+        frames.append(x[:, : 2 * n])
+    return torch.stack(frames)
+
+
+def _checked(name: str, mats, drag_coeffs, u, x: torch.Tensor):
+    """``(M, K, Jinv, drag, u, x)`` on ``x``'s CUDA device, checked for the
+    kernel; raises on a device, dtype or shape it does not take."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {dev}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA {name} takes float32/float64, got {x.dtype}")
+    if x.ndim != 2 or x.shape[1] % 3 or x.shape[1] == 0:
+        raise ValueError(f"{name} needs x (B, 3n), got {tuple(x.shape)}")
+    n = x.shape[1] // 3
+    M, K, Jinv, c_drag, u = _operands(mats, drag_coeffs, u, x)
+    if any(A.shape != (n, n) for A in (M, K, Jinv)) or c_drag.shape != (n,) or u.shape != (n,):
+        raise ValueError(
+            f"{name} needs (n, n) operators and (n,) drag and u for n={n}, "
+            f"got {[tuple(t.shape) for t in (M, K, Jinv, c_drag, u)]}"
+        )
+    launch_geometry(n, x.dtype, x.shape[0])  # raises for an n no instance serves
+    return M, K, Jinv, c_drag, u, x.contiguous()
+
+
+def _launch(name, operands, n_frames: int, substeps: int, h: float, rho_inf: float,
+            n_newton: int, out, frames) -> None:
+    """One launch of ``n_frames`` frames of ``substeps`` steps, writing the
+    final states into ``out`` and the frames into ``frames`` (None: not
+    written)."""
+    M, K, Jinv, c_drag, u, x = operands
+    B, n = x.shape[0], x.shape[1] // 3
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _build.library("fused_rollout")
+    with torch.cuda.device(x.device):
+        rc = lib.fused_gen_alpha_launch(
+            _DTYPE_CODES[x.dtype], B, n, int(n_frames), int(substeps), int(n_newton),
+            *step_coeffs(h, rho_inf, x.dtype), M.data_ptr(), K.data_ptr(), Jinv.data_ptr(),
+            c_drag.data_ptr(), u.data_ptr(), x.data_ptr(), ptr(out), ptr(frames),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, rc, name)
+
+
 def fused_gen_alpha_steps(mats, drag_coeffs, u, x: torch.Tensor, steps: int, h: float,
                           rho_inf: float = 0.8, n_newton: int = 2, tile: int = None,
                           interpret: bool = None) -> torch.Tensor:
@@ -114,56 +197,54 @@ def fused_gen_alpha_steps(mats, drag_coeffs, u, x: torch.Tensor, steps: int, h: 
     CPU tensors run the plain twin; CUDA tensors one kernel launch.
     """
     del tile, interpret
-    dev = x.device
-    if dev.type == "cpu":
+    if x.device.type == "cpu":
         return fused_gen_alpha_steps_plain(mats, drag_coeffs, u, x, steps, h,
                                            rho_inf, n_newton)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_gen_alpha_steps takes CPU or CUDA tensors, got {dev}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA fused_gen_alpha_steps takes float32/float64, got {x.dtype}")
-    if x.ndim != 2 or x.shape[1] % 3 or x.shape[1] == 0:
-        raise ValueError(f"fused_gen_alpha_steps needs x (B, 3n), got {tuple(x.shape)}")
-    B, n = x.shape[0], x.shape[1] // 3
-    M, K, Jinv, c_drag, u = _operands(mats, drag_coeffs, u, x)
-    if any(A.shape != (n, n) for A in (M, K, Jinv)) or c_drag.shape != (n,) or u.shape != (n,):
-        raise ValueError(
-            f"fused_gen_alpha_steps needs (n, n) operators and (n,) drag and u for n={n}, "
-            f"got {[tuple(t.shape) for t in (M, K, Jinv, c_drag, u)]}"
-        )
-    # One block's shared memory: the three matrices and each warp's three
-    # broadcast vectors.
-    smem = (3 * n * n + _WARPS * 3 * n) * x.element_size()
-    if smem > _SMEM_BYTES:
-        raise ValueError(
-            f"fused_gen_alpha_steps: n={n} needs {smem} bytes of shared memory per block, "
-            f"more than the {_SMEM_BYTES} one block can use"
-        )
-    x = x.contiguous()
+    operands = _checked("fused_gen_alpha_steps", mats, drag_coeffs, u, x)
+    x = operands[-1]
     out = torch.empty_like(x)
-    if B == 0 or steps <= 0:
+    if x.shape[0] == 0 or steps <= 0:
         return out.copy_(x)
-    lib = _build.library("fused_rollout")
-    with torch.cuda.device(dev):
-        rc = lib.fused_gen_alpha_launch(
-            _DTYPE_CODES[x.dtype], B, n, int(steps), int(n_newton),
-            *step_coeffs(h, rho_inf, x.dtype), M.data_ptr(), K.data_ptr(),
-            Jinv.data_ptr(), c_drag.data_ptr(), u.data_ptr(), x.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, rc, "fused_gen_alpha_steps")
+    _launch("fused_gen_alpha_steps", operands, 1, steps, h, rho_inf, n_newton, out, None)
     fused_gen_alpha_steps.launches += 1
     return out
 
 
-fused_gen_alpha_steps.launches = 0
+def fused_gen_alpha_frames(mats, drag_coeffs, u, x: torch.Tensor, n_frames: int,
+                           substeps: int, h: float, rho_inf: float = 0.8,
+                           n_newton: int = 2) -> torch.Tensor:
+    """``n_frames`` frames of ``substeps`` fused generalized-α steps in one
+    launch; returns every frame's ``[q; v]``, ``(n_frames + 1, B, 2n)``,
+    frame 0 being ``x``'s. Arguments as in :func:`fused_gen_alpha_steps`;
+    the state stays on chip from the first step to the last, as the JAX
+    package's ``lax.scan`` over its kernel keeps it on the TPU. CPU tensors
+    run the plain twin."""
+    if x.device.type == "cpu":
+        return fused_gen_alpha_frames_plain(mats, drag_coeffs, u, x, n_frames, substeps, h,
+                                            rho_inf, n_newton)
+    operands = _checked("fused_gen_alpha_frames", mats, drag_coeffs, u, x)
+    x = operands[-1]
+    B, n = x.shape[0], x.shape[1] // 3
+    n_frames = max(int(n_frames), 0)  # as the twin's loop reads a negative count
+    frames = torch.empty((n_frames + 1, B, 2 * n), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return frames
+    _launch("fused_gen_alpha_frames", operands, n_frames, max(int(substeps), 0), h,
+            rho_inf, n_newton, None, frames)
+    fused_gen_alpha_frames.launches += 1
+    return frames
 
-KERNELS = (fused_gen_alpha_steps,)
+
+fused_gen_alpha_steps.launches = 0
+fused_gen_alpha_frames.launches = 0
+
+KERNELS = (fused_gen_alpha_steps, fused_gen_alpha_frames)
 
 
 def reset_launch_counts() -> None:
-    """Set the kernel wrapper's launch count to 0."""
-    fused_gen_alpha_steps.launches = 0
+    """Set the kernel wrappers' launch counts to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
 
 
 def fused_host_operators(model, h: float, rho_inf: float = 0.8):
@@ -194,7 +275,7 @@ def fused_rollout(model, x0, t_final: float, dt: float, u=None, substeps: int = 
     for the plain twin); its dtype is the rollout's. ``u``: constant force
     ``(n,)`` or None. Host float64 set-up (dense M, K, J^-1, M^-1), the
     consistent initial acceleration ``a0 = M^-1 (u - K q0 - c v0 |v0|)``,
-    then one :func:`fused_gen_alpha_steps` launch per output frame
+    then one :func:`fused_gen_alpha_frames` launch for every frame
     (``substeps`` steps each). ``tile``/``interpret`` are accepted and
     unused. Returns ``(ts (frames+1,), ys (frames+1, B, 2n))``.
     """
@@ -218,13 +299,10 @@ def fused_rollout(model, x0, t_final: float, dt: float, u=None, substeps: int = 
     f0 = u_t - q0 @ K_t.mT - c_t * v0 * v0.abs()
     x = torch.cat([q0, v0, f0 @ Minv_t.mT], dim=-1)
     n_frames = int(round(t_final / dt))
-    frames = [x0]
-    for _ in range(n_frames):
-        x = fused_gen_alpha_steps((M_t, K_t, J_t), c_t, u_t, x, substeps, h,
-                                  rho_inf=rho_inf, n_newton=n_newton)
-        frames.append(x[:, : 2 * n])
+    ys = fused_gen_alpha_frames((M_t, K_t, J_t), c_t, u_t, x, n_frames, substeps, h,
+                                rho_inf=rho_inf, n_newton=n_newton)
     ts = dt * torch.arange(n_frames + 1, dtype=torch.float64, device=x0.device)
-    return ts, torch.stack(frames)
+    return ts, ys
 
 
 def drag_coefficient_vector(model) -> np.ndarray:

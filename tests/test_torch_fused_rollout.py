@@ -18,10 +18,17 @@ Two references in the JAX package, two tolerances:
   float32 roundoff (2e-7 of the scale measured here); the port's float64
   kernel and twin keep float64 throughout.
 
-The card-only tests hold the CUDA kernel to its plain twin bit for bit.
+The thread map of the CUDA kernel (which instance serves an n, which
+thread computes which environment and row) is emulated in NumPy. The
+card-only tests hold both entries of the CUDA kernel, the per-call steps
+and the whole rollout's frames, to their plain twins bit for bit.
 """
 
+import ctypes
 import importlib
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -119,8 +126,116 @@ def test_kernel_dispatch_on_cpu(step_case):
     tfr.reset_launch_counts()
     out = tfr.fused_gen_alpha_steps((M, K, Jinv), c, u, torch.tensor(x), 3, H,
                                     tile=4, interpret=True)
-    assert tfr.fused_gen_alpha_steps.launches == 0
+    frames = tfr.fused_gen_alpha_frames((M, K, Jinv), c, u, torch.tensor(x), 1, 3, H)
+    assert [k.launches for k in tfr.KERNELS] == [0, 0]
     assert torch.equal(out, _plain_steps(step_case, 3, 2))
+    assert torch.equal(frames[-1], out[:, : 2 * M.shape[0]])
+
+
+def test_frames_twin_is_the_per_frame_loop(step_case):
+    """The frames twin's frames are the per-frame loop of the steps twin,
+    and its last frame is one span of all the steps: cutting a span into
+    frames changes no rounding."""
+    M, K, Jinv, c, u, x = step_case
+    n = M.shape[0]
+    mats, cd, ut = convert.fused_operators_from_numpy(M, K, Jinv, c, u, device="cpu")
+    xt = torch.tensor(x)
+    ys = tfr.fused_gen_alpha_frames_plain(mats, cd, ut, xt, 3, 4, H, rho_inf=RHO_INF)
+    assert ys.shape == (4, x.shape[0], 2 * n)
+    state, loop = xt, [xt[:, : 2 * n]]
+    for _ in range(3):
+        state = tfr.fused_gen_alpha_steps_plain(mats, cd, ut, state, 4, H, rho_inf=RHO_INF)
+        loop.append(state[:, : 2 * n])
+    assert torch.equal(ys, torch.stack(loop))
+    whole = tfr.fused_gen_alpha_steps_plain(mats, cd, ut, xt, 12, H, rho_inf=RHO_INF)
+    assert torch.equal(ys[-1], whole[:, : 2 * n])
+
+
+@pytest.fixture(scope="module")
+def geometry_lib(tmp_path_factory):
+    """The kernel's thread map, ``csrc/fused_geometry.h``, built alone by the
+    host C++ compiler: the C query the CUDA library exports, from the same
+    text."""
+    header = Path(tfr.__file__).parent / "csrc" / "fused_geometry.h"
+    so = tmp_path_factory.mktemp("geometry") / "libfused_geometry.so"
+    cxx = shutil.which("c++") or shutil.which("g++")
+    subprocess.run([cxx, "-std=c++17", "-shared", "-fPIC", "-x", "c++", str(header),
+                    "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.fused_gen_alpha_geometry.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.fused_gen_alpha_geometry.restype = ctypes.c_int
+    return lib
+
+
+def _covered(geo: dict, n: int, B: int) -> np.ndarray:
+    """How many times the kernel's thread map ``geo`` computes each (env,
+    row) of ``B`` environments of ``n`` DOFs: ``(B, n)`` counts."""
+    count = np.zeros((B, n), np.int64)
+    if geo["instance"] == "rows":  # thread t: row t % n of env group t // n
+        blk = np.arange(geo["blocks"])[:, None, None]
+        t = np.arange(geo["threads"])
+        g, i = t // n, t % n
+        e = np.arange(geo["envs"])[:, None]
+        env = blk * geo["groups"] * geo["envs"] + g * geo["envs"] + e
+        row = np.broadcast_to(i, env.shape)
+        live = (g < geo["groups"]) & (env < B)
+    else:  # warp w: env w of the block; lane l: rows l, l + 32, ... (axis k)
+        blk = np.arange(geo["blocks"])[:, None, None, None]
+        k = np.arange(geo["rows"])[:, None, None]
+        w = np.arange(geo["groups"])[:, None]
+        shape = (geo["blocks"], geo["rows"], geo["groups"], 32)
+        env = np.broadcast_to(blk * geo["groups"] + w, shape)
+        row = np.broadcast_to(np.arange(32) + 32 * k, shape)
+        live = (env < B) & (row < n)
+    np.add.at(count, (env[live], row[live]), 1)
+    return count
+
+
+# The documented reach of the two instances (csrc/fused_rollout.cu): the rows
+# instance up to n = 36 in float and 24 in double, the lanes instance past it
+# up to one block's shared memory (232448 bytes), n = 135 and 94.
+ROWS_MAX = {torch.float32: 36, torch.float64: 24}
+LANES_MAX = {torch.float32: 135, torch.float64: 94}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 13, 18, 36, 135])
+def test_thread_map_covers_every_env_row_once(geometry_lib, n, dtype):
+    """The kernel's (row, env group) map and its choice of instance: every
+    (env, row) computed exactly once, rows-instance blocks within 256
+    threads and ragged only in their tail, the lanes instance only where
+    the rows do not fit in registers, and an n neither serves refused."""
+    if n > LANES_MAX[dtype]:  # n = 135 in double: beyond one block
+        with pytest.raises(ValueError, match="shared memory"):
+            tfr.launch_geometry(n, dtype, 5, geometry_lib)
+        return
+    itemsize = 4 if dtype == torch.float32 else 8
+    for B in (1, 5, 37, 4097):
+        geo = tfr.launch_geometry(n, dtype, B, geometry_lib)
+        assert geo["instance"] == ("rows" if n <= ROWS_MAX[dtype] else "lanes")
+        if geo["instance"] == "rows":
+            assert geo["threads"] <= 256 and geo["threads"] - geo["groups"] * n < 32
+            assert geo["np"] % 3 == 0 and n <= geo["np"] < n + 3
+        else:
+            assert geo["rows"] <= (5 if dtype == torch.float32 else 3)
+        assert 0 < geo["smem"] <= 232448 and geo["smem"] % itemsize == 0
+        assert (_covered(geo, n, B) == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_thread_map_reach_of_each_instance(geometry_lib, dtype):
+    """Each instance's last n is served by it and the next n by the next
+    instance, or by none: the query refuses n = 0 and an n past the lanes
+    instance's shared memory."""
+    def instance(n):
+        return tfr.launch_geometry(n, dtype, 7, geometry_lib)["instance"]
+
+    assert instance(ROWS_MAX[dtype]) == "rows"
+    assert instance(ROWS_MAX[dtype] + 1) == "lanes"
+    assert instance(LANES_MAX[dtype]) == "lanes"
+    for n in (0, LANES_MAX[dtype] + 1):
+        with pytest.raises(ValueError, match="shared memory"):
+            tfr.launch_geometry(n, dtype, 7, geometry_lib)
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +258,28 @@ def test_fused_rollout_matches_jax_fused_rollout(beams, pallas_case):
     np.testing.assert_allclose(ts.numpy(), np.asarray(ts_j), rtol=1e-15)
     assert _scaled_err(ys, ys_j, 2) <= JAX_KERNEL
     assert torch.isfinite(ys).all() and not torch.allclose(ys[:, 0], ys[:, 2])
+
+
+def test_fused_rollout_frames_unchanged_on_cpu(beams, pallas_case):
+    """One frames launch in place of a launch a frame: on the CPU the
+    rollout's frames are those of the per-frame loop of the steps twin
+    that it ran before, bit for bit."""
+    x0, kw, _, ys = pallas_case
+    beam = beams[1]
+    h = kw["dt"] / kw["substeps"]
+    M, K, Jinv, Minv = tfr.fused_host_operators(beam, h, RHO_INF)
+    n = M.shape[0]
+    xt = torch.tensor(x0)
+    mats, c, u = convert.fused_operators_from_numpy(
+        M, K, Jinv, tfr.drag_coefficient_vector(beam), kw["u"], device="cpu")
+    q0, v0 = xt[:, :n], xt[:, n:]
+    f0 = u - q0 @ mats[1].mT - c * v0 * v0.abs()
+    x = torch.cat([q0, v0, f0 @ torch.tensor(Minv).mT], dim=-1)
+    frames = [xt]
+    for _ in range(round(kw["t_final"] / kw["dt"])):
+        x = tfr.fused_gen_alpha_steps_plain(mats, c, u, x, kw["substeps"], h)
+        frames.append(x[:, : 2 * n])
+    assert torch.equal(ys, torch.stack(frames))
 
 
 def test_fused_rollout_matches_simulate(beams, pallas_case):
@@ -205,24 +342,51 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,B", [(13, 5), (36, 37)])
-def test_kernel_bit_equal_to_plain_on_card(cuda_device, dtype, n, B):
+def _random_case(n, B, dtype, dev):
+    """Well-conditioned random operators, drag, a force and states."""
     rng = np.random.default_rng(n)
     A = rng.normal(size=(3, n, n)) / np.sqrt(n)
     M = A[0] @ A[0].T + np.eye(n)
     K = 1e3 * (A[1] @ A[1].T)
     Jinv = np.linalg.inv(M + 1e-3 * K)
     mats, c, u = convert.fused_operators_from_numpy(
-        M, K, Jinv, rng.uniform(0.0, 3.0, n), rng.normal(size=n), device=cuda_device,
-        dtype=dtype)
-    x = torch.tensor(rng.normal(size=(B, 3 * n)), dtype=dtype, device=cuda_device)
+        M, K, Jinv, rng.uniform(0.0, 3.0, n), rng.normal(size=n), device=dev, dtype=dtype)
+    return mats, c, u, torch.tensor(rng.normal(size=(B, 3 * n)), dtype=dtype, device=dev)
+
+
+# (n, B): the rows instance (n <= 36 in float, 24 in double) and the lanes
+# instance past it, ragged env groups and blocks, the main shape's n = 18.
+CARD_CASES = [(13, 5), (36, 37), (18, 4097), (24, 33), (37, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,B", CARD_CASES)
+def test_kernel_bit_equal_to_plain_on_card(cuda_device, dtype, n, B):
+    mats, c, u, x = _random_case(n, B, dtype, cuda_device)
     tfr.reset_launch_counts()
     out = tfr.fused_gen_alpha_steps(mats, c, u, x, 9, 1e-3, rho_inf=0.7, n_newton=2)
     assert tfr.fused_gen_alpha_steps.launches == 1
     ref = tfr.fused_gen_alpha_steps_plain(mats, c, u, x, 9, 1e-3, rho_inf=0.7, n_newton=2)
     assert torch.isfinite(out).all() and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,B", CARD_CASES)
+def test_frames_kernel_bit_equal_to_plain_on_card(cuda_device, dtype, n, B):
+    """The whole-rollout launch against the frames twin and against a
+    launch of the steps kernel a frame, bit for bit."""
+    mats, c, u, x = _random_case(n, B, dtype, cuda_device)
+    kw = dict(rho_inf=0.7, n_newton=2)
+    tfr.reset_launch_counts()
+    ys = tfr.fused_gen_alpha_frames(mats, c, u, x, 3, 4, 1e-3, **kw)
+    assert tfr.fused_gen_alpha_frames.launches == 1 and tfr.fused_gen_alpha_steps.launches == 0
+    assert torch.equal(ys, tfr.fused_gen_alpha_frames_plain(mats, c, u, x, 3, 4, 1e-3, **kw))
+    state = x
+    for f in range(1, 4):
+        state = tfr.fused_gen_alpha_steps(mats, c, u, state, 4, 1e-3, **kw)
+        assert torch.equal(ys[f], state[:, : 2 * n])
 
 
 @pytest.mark.cuda
@@ -242,6 +406,7 @@ def test_fused_rollout_on_card_matches_cpu(cuda_device):
     x0[:, n - 2] = np.random.default_rng(0).normal(scale=1e-3, size=64)
     tfr.reset_launch_counts()
     _, ys = tfr.fused_rollout(beam, x0, 0.01, 0.001, device=cuda_device)
-    assert tfr.fused_gen_alpha_steps.launches == 10
+    # the whole rollout is one launch
+    assert [k.launches for k in tfr.KERNELS] == [0, 1]
     _, ys_cpu = tfr.fused_rollout(beam, x0, 0.01, 0.001, device="cpu")
     assert _scaled_err(ys.cpu(), ys_cpu, 2) <= EXACT
