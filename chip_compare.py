@@ -3,11 +3,28 @@
 
     python3 chip_compare.py --tree DIR            # one checkout: a JSON line
     python3 chip_compare.py --ab PARENT_DIR       # parent, this, this, parent
+    python3 chip_compare.py --ab PARENT_DIR --sections modal   # some sections only
     python3 chip_compare.py --splits              # the float32 project's slice count
 
 ``--tree`` imports ``continuum_robot_tpu_torch`` from ``DIR`` (its kernels
 build from ``DIR``'s sources into ``DIR/build``) and measures, at the main
-paths' shapes in float32 on the card:
+paths' shapes in float32 on the card, in sections (``--sections``, a
+comma-separated subset of modal, rom, implicit, fused; all by default):
+
+modal:
+
+- the linear modal main path (``chip_smoke.py`` phases 4 and 6):
+  ``rollout_power(K=64)`` (best of 3, its device time, host dispatch and
+  launches by kernel) and ``rollout_pallas`` over 2000 steps; each modal
+  kernel alone at phase 6's shapes (``modal_steps`` 2000 steps,
+  ``modal_frames`` 64 envs x 10 x 20, ``affine_steps`` 31 applications,
+  ``affine_drive`` where the tree has it): a lone launch (best of 5), its
+  device time (the profiler; and CUDA events around launches queued
+  behind a spin of the card) and host dispatch; SHA-256 of the float32 and
+  float64 outputs of ``modal_steps`` and ``modal_frames`` (undamped and
+  damped), ``affine_steps`` and ``rollout_power`` on seeded states;
+
+rom:
 
 - the dense-Newton ROM span (``chip_smoke.py`` phase 10: 256 modes, 4096
   envs, 200 steps; best of 3 by CUDA events) and its device time per
@@ -31,10 +48,17 @@ paths' shapes in float32 on the card:
   the twin's scale, and a SHA-256 of its output on seeded node states;
 - ``rom_newton_dense`` alone (a lone launch, best of 5, and its device
   time) beside ``r @ Sinv^T`` by ``torch.matmul``;
-- ``btd_solve`` alone at 4096 x 1001 nodes (a lone launch and its device
-  time), its rows as the checkout's implicit operator hands them;
+
+implicit:
+
+- ``btd_solve`` alone at 4096 x 1001 nodes (a lone launch, its device
+  time and a SHA-256 of its output), its rows as the checkout's implicit
+  operator hands them;
 - a step of the linear and of the consistent von Karman implicit main
   paths (50 steps, best of 3);
+
+fused:
+
 - ``fused_gen_alpha_steps`` at the fused path's shape (the water beam's
   operators, 20 steps) at 4096 and 65536 envs, float32 and float64: a
   lone launch (best of 5), ten back-to-back launches, its device time and
@@ -43,8 +67,9 @@ paths' shapes in float32 on the card:
   time, launches by kernel and a SHA-256 of its frames.
 
 ``--ab`` runs ``--tree`` in four processes, parent, this checkout, this
-checkout, parent, and prints their lines, whether the four runs' digests
-(the fused ones too) agree, and the card; compare the two trees only within one such call.
+checkout, parent, and prints their lines, which digests equal the
+parent's, which differ from it and which differ between two runs of one
+tree, and the card; compare the two trees only within one such call.
 
 ``--splits`` launches this checkout's ``rom_project_f32`` kernel with S =
 1..12 slices on the operands of the card-only test
@@ -104,17 +129,12 @@ def _smoke():
     return cs
 
 
-def measure(tree: str) -> dict:
-    import dataclasses
-
+def measure(tree: str, sections) -> dict:
     cs = _smoke()
     sys.path.insert(0, tree)
-    import numpy as np
     import torch
 
     import continuum_robot_tpu_torch as crt
-    from continuum_robot_tpu_torch.ops.cuda import btd_solve as kb
-    from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
     from continuum_robot_tpu_torch.utils import cuda_event_times
 
     assert crt.__file__.startswith(os.path.abspath(tree)), crt.__file__
@@ -123,7 +143,31 @@ def measure(tree: str) -> dict:
     def best(fn, repeats=3):
         return min(cuda_event_times(fn, repeats=repeats, warmup=1, device=dev))
 
-    res = {"tree": tree}
+    def device(fn):
+        return sum(v[0] for v in _device_by_kernel(fn, dev, 1).values())
+
+    def digest(*outs):
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    res = {"tree": tree, "sections": list(sections)}
+    for name in sections:
+        res.update(SECTIONS[name](cs, crt, dev, best, device, digest))
+    return res
+
+
+def measure_rom(cs, crt, dev, best, device, digest) -> dict:
+    """The ROM spans and kernels of the imported tree."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
+
+    res = {}
     steps = cs.ROM["dense_steps"]
     nn = cs.ROM["n_newton"]
     _, ms, eta, etad, u_m, _ = cs.rom_main_path(crt, dev)
@@ -169,9 +213,6 @@ def measure(tree: str) -> dict:
     op_h = fused.operators(st[0], u_m, "highest")
     eta_af = rk.rom_alpha_point_plain(op, *st, a1)
 
-    def device(fn):
-        return sum(v[0] for v in _device_by_kernel(fn, dev, 1).values())
-
     gemms = {
         "rom_expand": (lambda: rk.rom_expand(op, eta_af), lambda: eta_af @ op.phiT),
         "rom_project": (lambda: rk.rom_project(op, g), lambda: g @ op.w),
@@ -197,12 +238,6 @@ def measure(tree: str) -> dict:
                            D=z, A=z, mask=z, gathered=False, sc=(0.0,) * 9,
                            split=rk.split_basis(phiT, w))
     af_r, g_r = normal(B, m), rk.tma_rows(normal(B, N))
-
-    def digest(*outs):
-        h = hashlib.sha256()
-        for o in outs:
-            h.update(o.contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()
 
     res["tf32_sha256"] = digest(rk.rom_expand(op_r, af_r), rk.rom_project(op_r, g_r))
     # The parent's float32 kernels read the unsplit bases from phiT and w.
@@ -241,6 +276,18 @@ def measure(tree: str) -> dict:
                      "sha256": digest(kern(o, xs)), "repeat_equal": bool(
                          torch.equal(kern(o, xs), kern(o, xs)))}
 
+    return res
+
+
+def measure_implicit(cs, crt, dev, best, device, digest) -> dict:
+    """``btd_solve`` alone and steps of the implicit main paths of the
+    imported tree."""
+    import numpy as np
+    import torch
+
+    from continuum_robot_tpu_torch.ops.cuda import btd_solve as kb
+
+    res = {}
     # btd_solve alone, as the implicit operator calls it.
     model = crt.DynamicEulerBernoulliBeam(cs.bench_beam_dataframe(cs.N_ELEMENTS))
     a, c = cs.gen_alpha_system(cs.IMPLICIT["rho_lin"])
@@ -252,8 +299,8 @@ def measure(tree: str) -> dict:
     if hasattr(kb, "pack_factors"):
         fac, rhs = kb.pack_factors(fac), cs.padded_rows(rhs, kb)
     solve = lambda: kb.btd_solve(fac, rhs)  # noqa: E731
-    res["btd_solve"] = {"ms": best(solve, 5), "device_ms": sum(
-        v[0] for v in _device_by_kernel(solve, dev, 1).values())}
+    res["btd_solve"] = {"ms": best(solve, 5), "device_ms": device(solve),
+                        "sha256": digest(solve())}
 
     # Steps of the implicit main paths.
     n_red = model.n_pos_states
@@ -266,8 +313,6 @@ def measure(tree: str) -> dict:
         o = cs.implicit_op(crt, mdl, rho, "pallas", dev)
         start = cs.implicit_start(o, n_red, torch.float32, dev)
         res[name] = best(lambda: cs.implicit_span(crt, o, start, 50, rho, newton)) / 50
-
-    res.update(measure_fused(cs, crt, dev, best, device, digest))
     return res
 
 
@@ -313,6 +358,91 @@ def measure_fused(cs, crt, dev, best, device, digest) -> dict:
     return res
 
 
+def measure_modal(cs, crt, dev, best, device, digest) -> dict:
+    """The linear modal main path (``chip_smoke.py`` phases 4 and 6) of the
+    imported tree."""
+    import numpy as np
+    import torch
+
+    from continuum_robot_tpu_torch.models.simulate import make_modal_genalpha
+    from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
+
+    B, steps, K = cs.N_ENVS, cs.N_STEPS, cs.K_POWER
+    model = crt.DynamicEulerBernoulliBeam(cs.bench_beam_dataframe(cs.N_ELEMENTS))
+    ms = make_modal_genalpha(model, cs.DT, rho_inf=cs.RHO_INF, device=dev,
+                             dtype=torch.float32)
+    n_red = model.n_pos_states
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(scale=1e-6, size=(B, n_red)), dtype=torch.float32, device=dev)
+    eta, etad = ms.to_modal(q, torch.zeros_like(q))
+    u = np.zeros(n_red)
+    u[-2] = 0.1
+    u_m = np.asarray(ms.project_force_host(u), np.float32)
+    u64 = u_m.astype(np.float64)
+
+    res = {}
+    power = lambda: ms.rollout_power(eta, etad, u_m, steps, K=K)  # noqa: E731
+    kr.reset_launch_counts()
+    power()
+    res["rollout_power_launches"] = {k.__name__: k.launches for k in kr.KERNELS}
+    res["rollout_power_ms"] = best(power)
+    res["rollout_power_env_steps_per_s"] = steps * B / res["rollout_power_ms"] * 1e3
+    res["rollout_power_device_ms"] = device(power)
+    res["rollout_power_dispatch_us"] = cs.dispatch_us(power, dev)
+    res["rollout_pallas_ms"] = best(lambda: ms.rollout_pallas(eta, etad, u_m, steps))
+
+    # Each kernel alone at phase 6's shapes: a lone launch (best of 5), its
+    # device time (the profiler; and CUDA events around ten launches queued
+    # behind a spin of the card).
+    lam, winv, _ = ms._stepper_consts(eta)
+    a0 = kr.initial_accel(lam, u_m, None, eta, etad)
+    PK, bK = ms._power_map_device(K, u64, eta)
+    Pr, br = ms._power_map_device(steps % K, u64, eta)
+    apps = steps // K
+    sim = cs.SIM
+    sim_eta, sim_etad = eta[: sim["envs"]].contiguous(), etad[: sim["envs"]].contiguous()
+    frames = dict(n_frames=sim["frames"], substeps=sim["substeps"], h=cs.DT,
+                  rho_inf=cs.RHO_INF)
+    u_t = torch.as_tensor(u_m, device=dev)  # on the card: no copy queues behind the spin
+    calls = {
+        "modal_steps": lambda: kr.modal_steps(lam, winv, u_t, eta, etad, a0, steps, cs.DT,
+                                              cs.RHO_INF),
+        "modal_frames": lambda: kr.modal_frames(lam, winv, u_t, sim_eta, sim_etad, **frames),
+        "affine_steps": lambda: kr.affine_steps(PK, bK, eta, etad, a0, apps),
+    }
+    if hasattr(kr, "affine_drive"):
+        calls["affine_drive"] = lambda: kr.affine_drive(lam, u_t, None, PK, bK, eta, etad,
+                                                        apps, Pr, br)
+    for name, run in calls.items():
+        res[name] = {"ms": best(run, 5), "device_ms": device(run),
+                     "queued_ms": cs.queued_device_ms(run, dev),
+                     "dispatch_us": cs.dispatch_us(run, dev)}
+
+    # Digests of float32 and float64 outputs on seeded states at the main
+    # path's shapes, undamped and damped (a Rayleigh-like 0.5 + 1e-6 lam).
+    rng = np.random.default_rng(11)
+    start = rng.normal(scale=1e-6, size=(2, B, n_red))
+    cd = 0.5 + 1e-6 * ms.lam
+    for dtype in (torch.float32, torch.float64):
+        e, ed = (torch.tensor(x, dtype=dtype, device=dev) for x in start)
+        key = str(dtype)[6:]
+        for damped in (False, True):
+            kw = dict(h=cs.DT, rho_inf=cs.RHO_INF, cdamp=cd if damped else None)
+            tag = f"{key}{'_damped' if damped else ''}"
+            res[f"modal_steps_{tag}_sha256"] = digest(*kr.modal_steps(
+                ms.lam, ms.winv64(), u64, e, ed, steps=steps, **kw))
+            res[f"modal_frames_{tag}_sha256"] = digest(*kr.modal_frames(
+                ms.lam, ms.winv64(), u64, e[: sim["envs"]].contiguous(),
+                ed[: sim["envs"]].contiguous(), sim["frames"], sim["substeps"], **kw))
+        P, b = ms._power_map(K, u64)
+        a = kr.initial_accel(ms.lam, u64, None, e, ed)
+        res[f"affine_steps_{key}_sha256"] = digest(*kr.affine_steps(P, b, e, ed, a, apps))
+        res[f"rollout_power_{key}_sha256"] = digest(*ms.rollout_power(e, ed, u_m, steps, K=K))
+    return res
+
+
+SECTIONS = {"modal": measure_modal, "rom": measure_rom, "implicit": measure_implicit,
+            "fused": measure_fused}
 ECSW_SAMPLE = 41  # elements of the main path's ECSW sample (chip_smoke.py phase 9)
 SPLIT_SHAPES = ((4096, 256, 3003), (4096, 256, 1000), (4096, 256, 600), (4096, 13, 3003),
                 (129, 256, 3003), (5, 37, 3003))
@@ -356,12 +486,48 @@ def splits_table() -> None:
               + " | ".join(row), flush=True)
 
 
+def _digests(res: dict) -> dict:
+    """``{name: sha256}`` of every digest in one ``--tree`` line."""
+    out = {}
+    for key, val in res.items():
+        if key.endswith("sha256"):
+            out[key] = val
+        elif isinstance(val, dict) and "sha256" in val:
+            out[f"{key}.sha256"] = val["sha256"]
+    return out
+
+
+def compare_digests(runs) -> list:
+    """Lines saying, for the four runs of ``--ab`` (parent, this, this,
+    parent), which digests equal the parent's, which differ from it, and
+    which differ between two runs of one tree."""
+    d = [_digests(r) for r in runs]
+    same, changed, unstable = [], [], []
+    for key in sorted(d[0]):
+        vals = [x.get(key) for x in d]
+        if vals[0] != vals[3] or vals[1] != vals[2]:
+            unstable.append(key)
+        elif vals[0] == vals[1]:
+            same.append(key)
+        else:
+            changed.append(key)
+    return [f"digests equal to the parent's: {same}",
+            f"digests that differ from the parent's: {changed}",
+            f"digests that differ between runs of one tree: {unstable}"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree")
     ap.add_argument("--ab")
     ap.add_argument("--splits", action="store_true")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help=f"comma-separated, of {', '.join(SECTIONS)} (default: all)")
     args = ap.parse_args()
+    sections = args.sections.split(",")
+    for name in sections:
+        if name not in SECTIONS:
+            ap.error(f"unknown section {name!r}")
     import torch
 
     if not torch.cuda.is_available():
@@ -372,7 +538,7 @@ def main() -> int:
         return 0
     if args.tree:
         t0 = time.time()
-        res = measure(os.path.abspath(args.tree))
+        res = measure(os.path.abspath(args.tree), sections)
         res["seconds"] = time.time() - t0
         print(json.dumps(res))
         return 0
@@ -380,29 +546,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    digests, runs = [], []
+    runs = []
     for tree in (args.ab, HERE, HERE, args.ab):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree,
+                               "--sections", args.sections], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
             return proc.returncode
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
-        res = json.loads(line)
-        runs.append(res)
-        digests.append((res["tf32_sha256"], res["f32_sha256"],
-                        [res[k]["sha256"] for k in ("rom_correction_window",
-                                                    "rom_correction_gathered")]))
-    fused = [(res_f["fused_span_sha256"], res_f["fused_gen_alpha_steps_4096_float32"]["sha256"])
-             for res_f in runs]
-    print(f"fused span and kernel outputs bit-equal in all four runs: "
-          f"{len(set(fused)) == 1}", flush=True)
-    print(f"tensor-core outputs bit-equal in all four runs: "
-          f"{len({d[0] for d in digests}) == 1}; float32 outputs: "
-          f"{len({d[1] for d in digests}) == 1}; correction outputs (window, gathered) "
-          f"equal within each tree: {[d[2] == e[2] for d, e in zip(digests, digests[::-1])][:2]}",
-          flush=True)
+        runs.append(json.loads(line))
+    for line in compare_digests(runs):
+        print(line, flush=True)
     print(card)
     return 0
 

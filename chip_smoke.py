@@ -11,17 +11,29 @@ Phases, one line each (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile the CUDA sources of this checkout, one nvcc each, at once;
-3. linear kernels vs plain: every modal kernel against its plain PyTorch
-   version on the card, float32 and float64, at a small ragged size and at
-   the main path's size; they must agree bit for bit;
+3. linear kernels vs plain: every modal kernel (``modal_steps``,
+   ``modal_frames``, ``affine_steps`` and ``affine_drive``) against its
+   plain PyTorch version on the card, float32 and float64, undamped and
+   damped, at a small ragged size (17 steps) and at the main path's width
+   (4096 x 3000) over ``MAIN_CHECK_STEPS`` steps (the affine entries over
+   the main path's 31 applications); they must agree bit for bit (in
+   float32 the twins round each multiply-add once, as the kernels' FMAs do);
 4. linear main path: the 1000-element linear Nitinol cantilever (the JAX
    package's bench.py beam), host float64 eigh, 4096 envs in float32,
-   ``rollout_power(K=64)`` over 2000 steps at dt=1e-4 and rho_inf=0.8,
-   checked against the step kernel over the same span (``vs_stepper_rel``
-   <= 1e-4) and for finite physical states;
+   ``rollout_power(K=64)`` over 2000 steps at dt=1e-4 and rho_inf=0.8 (one
+   ``affine_drive`` launch), checked against the step kernel over the same
+   span (``vs_stepper_rel`` <= 1e-4) and for finite physical states; the
+   float32 FMA stepper's error against a float64 run of the span at most
+   1.5 times the unfused float32 engine's (``ms.rollout``);
 5. ``simulate(method="modal")`` with engines "pallas", "power" and "xla"
-   (64 envs, 10 frames x 20 substeps), each held to "xla", the plain path;
-6. linear timings: CUDA events, best of 3 after a warm-up;
+   (64 envs, 10 frames x 20 substeps): "power" in float32 held to "xla",
+   the plain path (<= 1e-4); "pallas" held to "xla" in float64, where the
+   two share their arithmetic (<= 1e-6), and in float32, where the kernels
+   round each multiply-add once, its error against float64 "xla" (by norm)
+   at most 1.5 times float32 "xla"'s own;
+6. linear timings: CUDA events, best of 3 after a warm-up; each modal
+   kernel's lone launch, its device time (CUDA events around launches
+   queued behind a spin of the card) and its plain twin (one call);
 7. ROM kernels vs plain, small: the fused ROM span against its plain twin
    on 8-element nonlinear and hybrid beams (12 modes, 5 envs, amplitude
    3e-2 so the correction is leading order, 50 steps, 2 Newton
@@ -156,6 +168,12 @@ N_MODES_FULL = 3 * N_ELEMENTS  # the bench beam's free DOFs = its modes
 DEVICE = "cuda"
 DT, RHO_INF = 1e-4, 0.8
 SMALL = dict(B=5, m=37, steps=17)
+# Phase 3 at the main path's width: the float32 twins round each multiply-add
+# once through about ten float64 torch operations, so the step kernels are
+# held to them over this many steps (the affine entries over the main path's
+# applications).
+MAIN_CHECK_STEPS = 200
+FMA_VS_UNFUSED_MAX = 1.5  # the FMA stepper's error against float64, / the unfused engine's
 SIM = dict(envs=64, frames=10, substeps=20)
 VS_STEPPER_MAX = 1e-4
 # The nonlinear ROM benchmark configuration (JAX package bench.py:38-98,
@@ -195,8 +213,10 @@ PEAK_F32_FLOPS, PEAK_BYTES, PEAK_TF32_FLOPS = 67e12, 3.35e12, 495e12
 # FP32 instructions a second (132 SMs x 128 lanes x 1.98 GHz), half the flop
 # peak: the floor of a kernel that rounds every multiply and add on its own
 # (_rn, no contraction into an FMA) to stay bit-equal to its twin, where each
-# operation is one instruction. Printed beside the bound as `rn_bound_ms`, the
-# cost of that choice; the bound itself prices a multiply-add pair as one FMA.
+# operation is one instruction. Printed beside the bound as `rn_bound_ms` for
+# the kernels that still do so (the fused small-beam entries); the bound
+# itself prices a multiply-add pair as one FMA, which is what the float32
+# modal kernels issue (their twins round as an FMA does).
 PEAK_F32_INSTR = 132 * 128 * 1.98e9
 
 SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/modal_rollout.cu"
@@ -204,6 +224,7 @@ REPLACES = {
     "modal_steps": "continuum_robot_tpu/ops/pallas/modal_rollout.py:201",
     "modal_frames": "continuum_robot_tpu/ops/pallas/modal_rollout.py:392",
     "affine_steps": "continuum_robot_tpu/ops/pallas/modal_rollout.py:280",
+    "affine_drive": "continuum_robot_tpu/ops/pallas/modal_rollout.py:280",
 }
 ROM_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/rom_rollout.cu"
 ROM_REPLACES = "continuum_robot_tpu/ops/pallas/rom_rollout.py:65"
@@ -212,7 +233,7 @@ ROM_TC_DESIGN = "wgmma 3xTF32"  # rom_expand and rom_project: tensor cores, hi/l
 ROM_F32_DESIGN = "persistent TMA ring, FFMA float32 8x8"
 # The path whose run gives each kernel's ``launches``.
 LINEAR_PATH = {"modal_steps": "rollout_pallas", "modal_frames": "simulate:pallas",
-               "affine_steps": "rollout_power"}
+               "affine_steps": "simulate:power", "affine_drive": "rollout_power"}
 ROM_WINDOW = ("rom_alpha_point", "rom_expand", "rom_correction_window",
               "rom_project", "rom_update")
 ROM_GATHERED = ("rom_alpha_point", "rom_expand", "rom_correction_gathered",
@@ -401,13 +422,14 @@ def phase_kernels(kr, dev):
 
     err = {name: 0.0 for name in REPLACES}
     rng = np.random.default_rng(1)
-    sizes = [SMALL, dict(B=N_ENVS, m=N_MODES_FULL, steps=N_STEPS)]
+    sizes = [SMALL, dict(B=N_ENVS, m=N_MODES_FULL, steps=MAIN_CHECK_STEPS)]
     for dtype in (torch.float32, torch.float64):
         for size in sizes:
             B, m, steps = size["B"], size["m"], size["steps"]
             eta = torch.tensor(rng.normal(scale=1e-6, size=(B, m)), dtype=dtype, device=dev)
             etad = torch.tensor(rng.normal(scale=1e-6, size=(B, m)), dtype=dtype, device=dev)
             u = rng.normal(scale=1e-3, size=m)
+            main = B == N_ENVS
             for damped in (False, True):
                 ms = synthetic_engine(m, rng, damped)
                 args = (ms.lam, ms.winv64(), u, eta, etad)
@@ -421,13 +443,19 @@ def phase_kernels(kr, dev):
                 err["modal_frames"] = max(err["modal_frames"], e)
                 P, b = ms._power_map(K_POWER, u)
                 a0 = kr.initial_accel(ms.lam, u, ms.cdamp, eta, etad)
-                apps = N_STEPS // K_POWER if B == N_ENVS else steps
+                apps = N_STEPS // K_POWER if main else steps
                 e = max_abs(kr.affine_steps(P, b, eta, etad, a0, apps=apps),
                             kr.affine_steps_plain(P, b, eta, etad, a0, apps=apps))
                 err["affine_steps"] = max(err["affine_steps"], e)
+                lam, _, cd = ms._stepper_consts(eta)
+                Pr, br = ms._power_map(N_STEPS % K_POWER if main else 5, u)
+                drive = (lam, torch.as_tensor(u, dtype=dtype, device=dev), cd, P, b, eta, etad,
+                         apps, Pr, br)
+                e = max_abs(kr.affine_drive(*drive), kr.affine_drive_plain(*drive))
+                err["affine_drive"] = max(err["affine_drive"], e)
             force_completion((eta,))
-            print(f"phase 3 kernel vs plain: {str(dtype)[6:]} B={B} m={m} "
-                  f"steps={steps}: max|kernel-plain| "
+            print(f"phase 3 kernel vs plain: {str(dtype)[6:]} B={B} m={m} steps={steps} "
+                  f"(affine: {apps} applications), undamped and damped: max|kernel-plain| "
                   + " ".join(f"{k}={v:.3e}" for k, v in err.items()), flush=True)
     for name, e in err.items():
         require(e == 0.0, f"{name}: kernel and plain version differ by {e:.3e}")
@@ -435,23 +463,26 @@ def phase_kernels(kr, dev):
 
 
 def linear_bounds(kr, n_modes):
-    """``{kernel: (bound_ms, bound_by, rn_bound_ms)}`` of phase 6's calls
-    (float32)."""
+    """``{kernel: (bound_ms, bound_by)}`` of phase 6's calls (float32)."""
     sc = kr.step_scalars(DT, RHO_INF, torch.float32)
     step_ops = count_ops(
         lambda q, v, a, p4, p1, p2, p3: kr.gen_alpha_step(
             q, v, a, p4, (p1, p2, p3, None, None), sc), 7)
     affine_ops = count_ops(
         lambda q, v, a, t, b: [t * q + t * v + t * a + b for _ in range(3)], 5)
+    accel_ops = count_ops(lambda q, lam, u: -lam * q + u, 3)
     n = N_ENVS * n_modes
     n_sim = SIM["envs"] * n_modes
+    apps = N_STEPS // K_POWER
     ops = {"modal_steps": step_ops * n * N_STEPS,
            "modal_frames": step_ops * n_sim * SIM["frames"] * SIM["substeps"],
-           "affine_steps": affine_ops * n * (N_STEPS // K_POWER)}
+           "affine_steps": affine_ops * n * apps,
+           "affine_drive": (accel_ops + affine_ops * (apps + 1)) * n}
     nbytes = {"modal_steps": 4 * (6 * n + 4 * n_modes),
               "modal_frames": 4 * (3 * n_sim + 4 * n_modes + 2 * (SIM["frames"] + 1) * n_sim),
-              "affine_steps": 4 * (6 * n + 12 * n_modes)}
-    return {k: (*bound(ops[k], nbytes[k]), rn_bound_ms(ops[k])) for k in ops}
+              "affine_steps": 4 * (6 * n + 12 * n_modes),
+              "affine_drive": 4 * (5 * n + 26 * n_modes)}
+    return {k: bound(ops[k], nbytes[k]) for k in ops}
 
 
 def linear_paths(crt, kr, dev, card):
@@ -487,35 +518,62 @@ def linear_paths(crt, kr, dev, card):
     q2, v2 = ms.from_modal(e2, ed2)
     force_completion((q2, v2))
     finite = bool(torch.isfinite(q2).all() and torch.isfinite(v2).all())
+    # The float32 FMA stepper and the unfused float32 engine (the plain
+    # torch stepper) against a float64 run of the same span.
+    ref64 = ms.rollout_pallas(eta.double(), etad.double(), u_m, N_STEPS)
+    fma_err = rel_state((er, edr), ref64)
+    unfused_err = rel_state(ms.rollout(eta, etad, u_m, N_STEPS), ref64)
     print(f"phase 4 main path: {N_ELEMENTS} elements, {n_red} modes, "
           f"{N_ENVS} envs, {N_STEPS} steps, K={K_POWER}: "
           f"vs_stepper_rel={vs_stepper_rel:.3e} finite={finite} "
-          f"q shape {tuple(q2.shape)}; model build {build_model_s:.2f} s, "
-          f"eigh {eigh_s:.2f} s (host)", flush=True)
+          f"q shape {tuple(q2.shape)}; against float64: FMA stepper {fma_err:.3e}, "
+          f"unfused float32 engine {unfused_err:.3e} (ratio {fma_err / unfused_err:.3f}); "
+          f"model build {build_model_s:.2f} s, eigh {eigh_s:.2f} s (host)", flush=True)
     require(finite and q2.shape == (N_ENVS, n_red), "non-finite or misshapen states")
     require(vs_stepper_rel <= VS_STEPPER_MAX,
             f"vs_stepper_rel {vs_stepper_rel:.3e} > {VS_STEPPER_MAX}")
+    require(fma_err <= FMA_VS_UNFUSED_MAX * unfused_err,
+            f"FMA stepper vs float64 {fma_err:.3e} > {FMA_VS_UNFUSED_MAX} x the unfused "
+            f"engine's {unfused_err:.3e}")
+    require(paths["rollout_power"] == {k: int(k == "affine_drive") for k in LINEAR_PATH},
+            f"rollout_power: launches {paths['rollout_power']}, expected one affine_drive")
 
     # -- phase 5: simulate(method="modal") ----------------------------------
     x0 = np.zeros((SIM["envs"], 2 * n_red))
     x0[:, :n_red] = rng.normal(scale=1e-6, size=(SIM["envs"], n_red))
     frame_dt = DT * SIM["substeps"]
-    ys = {}
-    for engine in ("pallas", "power", "xla"):
-        res, paths[f"simulate:{engine}"] = counted(kr, lambda: crt.simulate(
+
+    def sim(engine, dtype):
+        return crt.simulate(
             model, x0, SIM["frames"] * frame_dt, frame_dt, method="modal",
             u=u.astype(np.float64), substeps=SIM["substeps"], rho_inf=RHO_INF,
-            engine=engine, device=dev, dtype=torch.float32))
+            engine=engine, device=dev, dtype=dtype)
+
+    ys = {}
+    for engine in ("pallas", "power", "xla"):
+        res, paths[f"simulate:{engine}"] = counted(kr, lambda: sim(engine, torch.float32))
         ys[engine] = force_completion(res.ys)
         require(tuple(res.ys.shape) == (SIM["frames"] + 1, SIM["envs"], 2 * n_red)
                 and bool(torch.isfinite(res.ys).all()),
                 f"simulate engine={engine}: bad output")
-    rel_pallas = rel(ys["pallas"], ys["xla"])
+    # "pallas" and "xla" share their arithmetic in float64 (the kernels round
+    # each operation there); in float32 the kernels' FMAs round once where
+    # the plain engine rounds twice, so there each is held to float64.
+    ys64 = {engine: sim(engine, torch.float64).ys for engine in ("pallas", "xla")}
+    rel_pallas = rel(ys64["pallas"], ys64["xla"])
     rel_power = rel(ys["power"], ys["xla"])
-    print(f"phase 5 simulate: {SIM}: max rel vs xla: pallas {rel_pallas:.3e}, "
-          f"power {rel_power:.3e}", flush=True)
+    f32_err = {k: float(torch.linalg.vector_norm(ys[k].double() - ys64["xla"])
+                        / torch.linalg.vector_norm(ys64["xla"])) for k in ("pallas", "xla")}
+    print(f"phase 5 simulate: {SIM}: max rel vs xla: pallas {rel_pallas:.3e} (float64), "
+          f"power {rel_power:.3e}; float32 against float64 xla (norm): pallas "
+          f"{f32_err['pallas']:.3e}, "
+          f"xla {f32_err['xla']:.3e} (pallas vs xla in float32: "
+          f"{rel(ys['pallas'], ys['xla']):.3e})", flush=True)
     require(rel_pallas <= 1e-6, f"simulate pallas vs xla {rel_pallas:.3e}")
     require(rel_power <= 1e-4, f"simulate power vs xla {rel_power:.3e}")
+    require(f32_err["pallas"] <= FMA_VS_UNFUSED_MAX * f32_err["xla"],
+            f"simulate pallas float32 vs float64 {f32_err['pallas']:.3e} > "
+            f"{FMA_VS_UNFUSED_MAX} x xla's {f32_err['xla']:.3e}")
 
     print(f"linear paths' launches: {paths}", flush=True)
     for name, path in LINEAR_PATH.items():
@@ -531,6 +589,8 @@ def linear_paths(crt, kr, dev, card):
     power_k = best(lambda: ms.rollout_power(eta, etad, u_m, N_STEPS, K=K_POWER))
     power_p = best(lambda: ms.rollout_power(eta, etad, u_m, N_STEPS, K=K_POWER,
                                             use_pallas=False))
+    power_host_us = dispatch_us(lambda: ms.rollout_power(eta, etad, u_m, N_STEPS, K=K_POWER),
+                                dev)
     step_k = best(lambda: ms.rollout_pallas(eta, etad, u_m, N_STEPS))
     step_p = best(lambda: ms.rollout(eta, etad, u_m, N_STEPS))
     t0 = time.time()
@@ -540,41 +600,48 @@ def linear_paths(crt, kr, dev, card):
     compose_s = time.time() - t0
 
     lam, winv, _ = ms._stepper_consts(eta)
-    a0 = kr.initial_accel(lam, u_m, None, eta, etad)
+    u_t = torch.as_tensor(u_m, device=dev)  # on the card: no copy in the timed calls
+    a0 = kr.initial_accel(lam, u_t, None, eta, etad)
     PK, bK = ms._power_map_device(K_POWER, u64, eta)
+    Pr, br = ms._power_map_device(N_STEPS % K_POWER, u64, eta)
     apps = N_STEPS // K_POWER
     sim_eta, sim_etad = eta[: SIM["envs"]].contiguous(), etad[: SIM["envs"]].contiguous()
     frames = dict(n_frames=SIM["frames"], substeps=SIM["substeps"], h=DT, rho_inf=RHO_INF)
-    times = {
+    calls = {
         "modal_steps": (
-            best(kr.modal_steps, lam, winv, u_m, eta, etad, a0, N_STEPS, DT, RHO_INF),
-            best(kr.modal_steps_plain, lam, winv, u_m, eta, etad, a0, N_STEPS, DT, RHO_INF),
-        ),
+            lambda: kr.modal_steps(lam, winv, u_t, eta, etad, a0, N_STEPS, DT, RHO_INF),
+            lambda: kr.modal_steps_plain(lam, winv, u_t, eta, etad, a0, N_STEPS, DT, RHO_INF)),
         "modal_frames": (
-            best(lambda: kr.modal_frames(lam, winv, u_m, sim_eta, sim_etad, **frames)),
-            best(lambda: kr.modal_frames_plain(lam, winv, u_m, sim_eta, sim_etad, **frames)),
-        ),
+            lambda: kr.modal_frames(lam, winv, u_t, sim_eta, sim_etad, **frames),
+            lambda: kr.modal_frames_plain(lam, winv, u_t, sim_eta, sim_etad, **frames)),
         "affine_steps": (
-            best(kr.affine_steps, PK, bK, eta, etad, a0, apps),
-            best(kr.affine_steps_plain, PK, bK, eta, etad, a0, apps),
-        ),
+            lambda: kr.affine_steps(PK, bK, eta, etad, a0, apps),
+            lambda: kr.affine_steps_plain(PK, bK, eta, etad, a0, apps)),
+        "affine_drive": (
+            lambda: kr.affine_drive(lam, u_t, None, PK, bK, eta, etad, apps, Pr, br),
+            lambda: kr.affine_drive_plain(lam, u_t, None, PK, bK, eta, etad, apps, Pr, br)),
     }
+    # The float32 twins run about ten float64 torch operations a multiply-add:
+    # timed once, not best of 3 (the modal_steps twin takes seconds).
+    times = {k: (best(kern), min(cuda_event_times(plain, repeats=1, warmup=0, device=dev)),
+                 queued_device_ms(kern, dev)) for k, (kern, plain) in calls.items()}
     bounds = linear_bounds(kr, n_red)
     print(f"phase 6 timings [{card}]: rollout_power K={K_POWER} "
           f"{env_steps / power_k * 1e3:.4e} env-steps/s ({power_k:.3f} ms) vs plain "
-          f"{env_steps / power_p * 1e3:.4e} ({power_p:.3f} ms); rollout_pallas "
+          f"{env_steps / power_p * 1e3:.4e} ({power_p:.3f} ms), host dispatch "
+          f"{power_host_us:.1f} us a call; rollout_pallas "
           f"{env_steps / step_k * 1e3:.4e} env-steps/s ({step_k:.3f} ms) vs plain "
           f"{env_steps / step_p * 1e3:.4e} ({step_p:.3f} ms); host eigh "
           f"{eigh_s:.2f} s, map composition {compose_s:.4f} s", flush=True)
     print(f"phase 6 kernels [{card}]: " + "; ".join(
-        f"{k} {t[0]:.3f} ms vs plain {t[1]:.3f} ms (bound {bounds[k][0]:.3f} ms, "
-        f"{bounds[k][1]}; unfused _rn floor {bounds[k][2]:.3f} ms)" for k, t in times.items()),
-        flush=True)
+        f"{k} {t[0]:.3f} ms a lone launch, device {t[2]:.4f} ms (queued CUDA events) vs "
+        f"plain {t[1]:.3f} ms (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
+        for k, t in times.items()), flush=True)
     return {
         name: dict(launches=paths[LINEAR_PATH[name]][name],
                    launches_by_path={p: c[name] for p, c in paths.items()},
-                   ms=times[name][0], plain_ms=times[name][1], bound=bounds[name][:2],
-                   rn_bound_ms=bounds[name][2], library_ms=None)
+                   ms=times[name][0], plain_ms=times[name][1], device_ms=times[name][2],
+                   bound=bounds[name], library_ms=None)
         for name in REPLACES
     }, model, ms
 

@@ -8,6 +8,8 @@
     python3 chip_variants.py --drift            # the 3xTF32 span against float64
     python3 chip_variants.py --fused            # every fused small-beam variant
     python3 chip_variants.py --fused --tree DIR # another checkout's kernel and wrapper
+    python3 chip_variants.py --modal            # every linear modal variant
+    python3 chip_variants.py --modal --sass     # the modal kernels' FP32/FP64 mix
     python3 chip_variants.py --sass             # FFMA operands, correction mix (cuobjdump)
     python3 chip_variants.py --sass --source PATH/rom_rollout.cu   # another tree's
 
@@ -59,6 +61,22 @@ launches (CUDA events, best of 3), and at 4096 envs whether its output
 equals the plain twin's bit for bit; where the tree has
 ``fused_gen_alpha_frames``, the same for the whole span (250 frames x 20
 substeps, 4096 envs, float32) in one launch.
+
+``--modal`` does the same for the linear modal kernels
+(``csrc/modal_rollout.cu``, ``MODAL_VARIANTS``: the envs a step-kernel
+thread carries, the step loop's unroll, the envs an affine thread carries,
+the affine grid's waves, a block's shape; and diagnostic affine bodies
+that only load and store or only compute) at the linear main
+path's shapes (4096 envs x 3000 modes of a synthetic beam-like spectrum,
+float32): ``modal_steps`` over 2000 steps, ``affine_steps`` with 31
+applications of a 64-step map, ``affine_drive`` (31 and a 16-step
+remainder): each variant's device time per launch (``torch.profiler``; and
+``queued_ms``, launches queued behind a spin of the card) and whether its
+outputs equal ``mbase``'s bit for bit; ``mbase``'s outputs against the
+plain twins (the steps over 50 steps, the twin costing ten float64 torch
+operations a multiply-add); then the SM clock and power while the step
+kernel runs. With ``--sass``: each modal kernel's count of FP32 and FP64
+multiplies, adds and FMAs.
 
 ``--sass`` builds ``base`` alone, disassembles its two float32 kernels
 with ``cuobjdump -sass`` and counts, over their FFMAs, those whose sources
@@ -234,6 +252,46 @@ FUSED_VARIANTS = {
     **{f"p{n}": [(PAIRS, PAIRS.replace("128", str(n)))] for n in (64, 96, 144, 192, 256)},
 }
 
+# The linear modal kernels' thread-map constants and their values in the source.
+MODAL_KNOBS = {"kStepEnvs": 4, "kStepUnroll": 8, "kAffineEnvs": 1, "kAffineWaves": 4,
+               "kModesX": 32, "kGroupsY": 8}
+APPS_LOOP = "    for (int k = 0; k < apps; ++k) map.apply(q, v, a);"
+
+
+def knobs(**values):
+    """Replacements setting thread-map constants."""
+    return [(f"constexpr int {k} = {MODAL_KNOBS[k]};", f"constexpr int {k} = {v};")
+            for k, v in values.items()]
+
+
+AFFINE_LOADS = [(f"{x}[j] = b < B ? {y}[i] : T(0);", f"{x}[j] = T(b);")
+                for x, y in (("nq", "q0"), ("nv", "v0"), ("na", "a0"))]
+AFFINE_STORE = ("    if (rtmat != nullptr) AffineMap<T>(rtmat, rbvec, mode).apply(q, v, a);\n"
+                "#pragma unroll\n    for (int j = 0; j < E; ++j) {\n"
+                "      const int64_t b = g * E + j;\n      if (b < B) {")
+# "mbase": the source's own; "w1000": one env group a thread, so no group's
+# loads overlap another's arithmetic. The diag_* variants compute wrong
+# results on purpose: "diag_noapps" only loads and stores (the affine
+# kernels' memory time alone), "diag_nomem" only computes (no state loads,
+# a store only where q is 0.125, which it never is here).
+MODAL_VARIANTS = {
+    "mbase": [],
+    "s1": knobs(kStepEnvs=1, kStepUnroll=4),
+    "s2": knobs(kStepEnvs=2),
+    "s8": knobs(kStepEnvs=8),
+    **{f"unroll{k}": knobs(kStepUnroll=k) for k in (4, 16)},
+    **{f"a{k}": knobs(kAffineEnvs=k) for k in (2, 4)},
+    **{f"w{k}": knobs(kAffineWaves=k) for k in (1, 2, 8, 1000)},
+    "g4": knobs(kGroupsY=4),
+    "x64": knobs(kModesX=64, kGroupsY=4),
+    "diag_noapps": [(APPS_LOOP, APPS_LOOP.replace("k < apps", "k < 0"))],
+    **{f"diag_nomem{suffix}": AFFINE_LOADS + [(AFFINE_STORE, AFFINE_STORE.replace(
+        "if (b < B) {", "if (b < B && q[j] == T(0.125)) {"))] + knobs(**kw)
+       for suffix, kw in (("", {}), ("_a2", {"kAffineEnvs": 2}),
+                          ("_a4", {"kAffineEnvs": 4}))},
+    "a2_w2": knobs(kAffineEnvs=2, kAffineWaves=2),
+    "a4_w2": knobs(kAffineEnvs=4, kAffineWaves=2),
+}
 
 def inline_headers(src: str, source) -> str:
     """The source with each ``#include "x.h"`` of a header beside it
@@ -285,7 +343,8 @@ def build(names, src, flags, nvcc, out_dir, variants=None):
         lines = log.splitlines()
         info = [lines[i + 2].strip() + " | " + lines[i + 3].split(":")[-1].strip()
                 for i, ln in enumerate(lines) if "Compiling" in ln
-                and ("f32_kernel" in ln or "correction" in ln or "fused" in ln)]
+                and any(k in ln for k in ("f32_kernel", "correction", "fused", "modal",
+                                          "affine"))]
         built[name] = (os.path.join(out_dir, f"{name}.so"), "; ".join(info))
     return built
 
@@ -307,7 +366,9 @@ def sass_stats(so_path: str) -> None:
         name = func.split("\n")[0]
         corr = re.search(r"(correction_\w+_kernel)", name)
         fused = re.search(r"fused_rows_kernelI([fd])Li18ELi(\d+)", name)
-        if "f32_kernel" not in name and not corr and not fused:
+        modal = re.search(r"(modal_steps_kernel|modal_frames_kernel|affine_kernel)I([fd])Lb(\d)",
+                          name)
+        if "f32_kernel" not in name and not corr and not fused and not modal:
             continue
         ops, ffma = collections.Counter(), collections.Counter()
         held = set()  # (slot, register) the previous instruction kept in the reuse cache
@@ -328,6 +389,12 @@ def sass_stats(so_path: str) -> None:
             parity = collections.Counter(r % 2 for r in reads)
             ffma["two reads in one bank"] += bool(parity) and max(parity.values()) > 1
         total = sum(v for k, v in ops.items() if "." not in k)
+        if modal:
+            flag = "damped" if "affine" not in modal.group(1) else "drive"
+            print(f"sass {modal.group(1)}<{'float' if modal.group(2) == 'f' else 'double'}, "
+                  f"{flag}={modal.group(3)}>: instructions {total}; "
+                  + ", ".join(f"{k} {ops[k]}" for k in FUSED_OPS), flush=True)
+            continue
         if fused:
             print(f"sass fused_rows_kernel<{'float' if fused.group(1) == 'f' else 'double'}, "
                   f"n = 18, E = {fused.group(2)}>: instructions {total}; "
@@ -501,6 +568,73 @@ def time_fused(libs, dev, card) -> None:
         print(f"[{card}] {name}: " + json.dumps(row), flush=True)
 
 
+def time_modal(libs, dev, card) -> None:
+    """``--modal``: see the module's docstring."""
+    import numpy as np
+    import torch
+
+    from continuum_robot_tpu_torch.ops.cuda import _build
+    from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
+
+    cs = smoke()
+    rng = np.random.default_rng(0)
+    B, m, steps, K = cs.N_ENVS, cs.N_MODES_FULL, cs.N_STEPS, cs.K_POWER
+    ms = cs.synthetic_engine(m, rng, damped=False)
+
+    def normal(scale, *shape):
+        return torch.tensor(rng.normal(scale=scale, size=shape), dtype=torch.float32,
+                            device=dev)
+
+    eta, etad, u = normal(1e-6, B, m), normal(1e-6, B, m), normal(1e-3, m)
+    lam, winv, _ = ms._stepper_consts(eta)
+    a0 = kr.initial_accel(lam, u, None, eta, etad)
+    u64 = u.double().cpu().numpy()
+    P, b = ms._power_map_device(K, u64, eta)
+    Pr, br = ms._power_map_device(steps % K, u64, eta)
+    apps = steps // K
+    cases = {
+        "modal_steps": lambda: kr.modal_steps(lam, winv, u, eta, etad, a0, steps, cs.DT,
+                                              cs.RHO_INF),
+        "affine_steps": lambda: kr.affine_steps(P, b, eta, etad, a0, apps),
+        "affine_drive": lambda: kr.affine_drive(lam, u, None, P, b, eta, etad, apps, Pr, br),
+    }
+    _build._libs["modal_rollout"] = libs["mbase"]
+    base = {k: run() for k, run in cases.items()}
+    short = kr.modal_steps(lam, winv, u, eta, etad, a0, 50, cs.DT, cs.RHO_INF)
+    twins = {
+        "modal_steps (50 steps)": (short, kr.modal_steps_plain(lam, winv, u, eta, etad, a0, 50,
+                                                               cs.DT, cs.RHO_INF)),
+        "affine_steps": (base["affine_steps"], kr.affine_steps_plain(P, b, eta, etad, a0, apps)),
+        "affine_drive": (base["affine_drive"], kr.affine_drive_plain(lam, u, None, P, b, eta,
+                                                                     etad, apps, Pr, br)),
+    }
+    print(f"[{card}] mbase equals the plain twin bit for bit: " + json.dumps(
+        {k: all(torch.equal(x, y) for x, y in zip(*v)) for k, v in twins.items()}), flush=True)
+    for name, lib in list(libs.items()) * 2:
+        _build._libs["modal_rollout"] = lib
+        row = {}
+        for key, run in cases.items():
+            out = run()
+            n = 5 if key == "modal_steps" else 20
+            row[key] = dict(device_ms=device_ms(run, dev, n=n),
+                            queued_ms=cs.queued_device_ms(run, dev, n=n),
+                            same_as_base=all(torch.equal(x, y) for x, y in zip(out, base[key])))
+        print(f"[{card}] {name}: " + json.dumps(row), flush=True)
+
+    _build._libs["modal_rollout"] = libs["mbase"]
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader", "-lms", "200"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.time()
+    while time.time() - t0 < 3.0:
+        for _ in range(20):
+            cases["modal_steps"]()
+        torch.cuda.synchronize(dev)
+    smi.terminate()
+    samples = smi.communicate()[0].strip().splitlines()
+    print(f"[{card}] SM clock, power during modal_steps: {samples[-5:]}", flush=True)
+
+
 def span_drift(libs, rk, dev, card, seeds=8, f64=False) -> None:
     """Each variant's ROM spans against the plain twin's on
     ``chip_smoke.py`` phase 7's small engines (8-element nonlinear and
@@ -583,9 +717,10 @@ def main() -> int:
     from continuum_robot_tpu_torch.ops.cuda import _build
     from continuum_robot_tpu_torch.ops.cuda import rom_rollout as rk
 
-    sass, corr, drift, fused = (flag in args for flag in
-                                ("--sass", "--correction", "--drift", "--fused"))
-    lib_name = "fused_rollout" if fused else "rom_rollout"
+    sass, corr, drift, fused, modal = (flag in args for flag in
+                                       ("--sass", "--correction", "--drift", "--fused",
+                                        "--modal"))
+    lib_name = "fused_rollout" if fused else "modal_rollout" if modal else "rom_rollout"
     source = _build.SOURCES[lib_name]
     if "--source" in args:
         i = args.index("--source")
@@ -593,8 +728,10 @@ def main() -> int:
         del args[i:i + 2]
     args = [a for a in args if not a.startswith("--")]
     corr = corr or drift
-    variants = FUSED_VARIANTS if fused else CORR_VARIANTS if corr else VARIANTS
-    first = "fbase" if fused else "corr_base" if corr and not sass else "base"
+    variants = (FUSED_VARIANTS if fused else MODAL_VARIANTS if modal else
+                CORR_VARIANTS if corr else VARIANTS)
+    first = ("fbase" if fused else "mbase" if modal else
+             "corr_base" if corr and not sass else "base")
     names = [first] if sass or drift else args or list(variants)
     if first not in names:
         names = [first, *names]
@@ -622,6 +759,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     if fused:
         time_fused(libs, dev, card)
+        return 0
+    if modal:
+        time_modal(libs, dev, card)
         return 0
     if drift:
         span_drift(libs, rk, dev, card, f64=True)

@@ -153,6 +153,15 @@ def _affine_power(T: np.ndarray, K: int):
     return P, S
 
 
+class _SampledBytes(bytes):
+    """A force's bytes as a memo key, hashed by its length and every 64th
+    byte: a lookup hashes a few hundred bytes, not all of them (a 3000-mode
+    force is 24 kB), and still compares keys in full."""
+
+    def __hash__(self):
+        return hash((len(self), bytes(self[::64])))
+
+
 def _affine_app(P, b, s):
     """One application of the per-mode affine map (kernel on CUDA state)."""
     return kernels.affine_steps(P, b, *s, apps=1)
@@ -222,15 +231,10 @@ def _power_drive(lam, cdamp, u_m, PK, bK, Pr, br, eta, etad, apps: int,
                  use_pallas: bool):
     """Drive of :meth:`ModalGenAlpha.rollout_power`: consistent initial
     acceleration, ``apps`` applications of the K-step map and the remainder
-    map. ``use_pallas`` picks the affine kernel (CUDA state) over the plain
-    version for both."""
-    app = kernels.affine_steps if use_pallas else kernels.affine_steps_plain
-    s = (eta, etad, _power_a0(lam, cdamp, u_m, eta, etad))
-    if apps:
-        s = app(PK, bK, *s, apps=apps)
-    if Pr is not None:
-        s = app(Pr, br, *s, apps=1)
-    return s
+    map. ``use_pallas`` picks the drive kernel (one launch on CUDA state)
+    over the plain version."""
+    drive = kernels.affine_drive if use_pallas else kernels.affine_drive_plain
+    return drive(lam, u_m, cdamp, PK, bK, eta, etad, apps, Pr, br)
 
 
 def _power_drive_schedule(lam, cdamp, u0_m, PKs, bKs, Prs, brs, eta, etad,
@@ -533,7 +537,8 @@ class ModalGenAlpha(_Uploads):
 
     @staticmethod
     def _u_key(u_host):
-        return None if u_host is None else np.ascontiguousarray(u_host).tobytes()
+        return (None if u_host is None
+                else _SampledBytes(np.ascontiguousarray(u_host).tobytes()))
 
     def _power_map_device(self, k: int, u_host, like):
         """Memoized composed map on ``like``'s device and dtype.
@@ -694,10 +699,19 @@ class ModalGenAlpha(_Uploads):
             )
         n_outer, rem = divmod(int(n_steps), K)
         u_host = None if u_modal is None else np.asarray(_host(u_modal), np.float64)
-        PK, bK = self._power_map_device(K, u_host, eta)
-        Pr, br = (self._power_map_device(rem, u_host, eta)
-                  if rem else (None, None))
-        lam, cdamp, u_m = self._power_consts_device(u_host, eta)
+
+        def build():
+            PK, bK = self._power_map_device(K, u_host, eta)
+            Pr, br = (self._power_map_device(rem, u_host, eta)
+                      if rem else (None, None))
+            return (PK, bK, Pr, br, *self._power_consts_device(u_host, eta))
+
+        # One lookup (one hash of the force's bytes) a call: the drive's
+        # host time counts in the rollout's.
+        PK, bK, Pr, br, lam, cdamp, u_m = self._memo(
+            ("drive", K, rem, self._u_key(u_host), eta.dtype, eta.device,
+             self.n_modes), build,
+        )
         return _power_drive(lam, cdamp, u_m, PK, bK, Pr, br, eta, etad,
                             apps=n_outer, use_pallas=use_pallas)
 

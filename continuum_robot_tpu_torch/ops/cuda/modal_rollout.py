@@ -11,16 +11,22 @@ wrapper                replaces                        plain version
 :func:`modal_steps`    ``fused_modal_steps``           :func:`modal_steps_plain`
 :func:`modal_frames`   ``fused_modal_frames``          :func:`modal_frames_plain`
 :func:`affine_steps`   ``fused_affine_steps``          :func:`affine_steps_plain`
+:func:`affine_drive`   ``fused_affine_steps`` (the     :func:`affine_drive_plain`
+                       whole ``rollout_power`` drive)
 =====================  ==============================  =======================
 
 Dispatch goes by the device of the state tensor: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (building it on first use) or
 raises. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
-The kernels round every multiply and add separately, in the plain version's
-order (see the ``.cu`` file), so kernel and plain version agree bit for bit.
-Scalars are rounded to the state dtype once on the host
-(:func:`step_scalars`) and the same values go to both.
+Rounding: every step and every affine application is a chain of
+:func:`madd` in the order the plain versions state (:func:`fma_step`,
+:func:`affine_app`). In float32 ``madd`` rounds ``x * y + z`` once, as the
+kernels' ``__fmaf_rn`` does; in float64 it rounds the product and the sum
+each, as the kernels' ``_rn`` intrinsics do. Kernel and plain version
+therefore agree bit for bit in both dtypes. Scalars are rounded to the state
+dtype once on the host (:func:`step_scalars`) and the same values go to
+both.
 """
 
 from __future__ import annotations
@@ -89,6 +95,61 @@ def gen_alpha_step(q, v, a, p4, cols, sc):
     return q_pred + bh2 * a1, v_pred + gh * a1, a1
 
 
+def madd(x, y, z):
+    """``x * y + z`` as the kernels compute it, in ``z``'s dtype.
+
+    float32: rounded once, as a fused multiply-add (``__fmaf_rn``) rounds.
+    The float64 product of two float32 values is exact; TwoSum gives the
+    exact error ``e`` of the float64 sum ``s``; rounding ``s`` to odd (a
+    step to the neighbour towards ``e`` when ``e != 0`` and ``s``'s last bit
+    is even) and then to float32 is the correctly rounded result, since 53
+    >= 24 + 2 bits (Boldo and Melquiond, "Emulation of FMA and correctly
+    rounded sums: proved algorithms using rounding to odd", IEEE Trans.
+    Computers 57(4), 2008). The direction comes from ``e``'s sign: ``s + e``
+    rounds back to ``s``.
+
+    float64: ``x * y + z``, the product and the sum each rounded (the
+    kernels' ``__dmul_rn``, ``__dadd_rn``).
+
+    ``x`` and ``y`` are tensors or Python floats exact in ``z``'s dtype.
+    """
+    if z.dtype != torch.float32:
+        return x * y + z
+    x, y, z = (torch.as_tensor(t, dtype=torch.float64, device=z.device)
+               for t in (x, y, z))
+    p = x * y
+    s = p + z
+    zv = s - p
+    e = (p - (s - zv)) + (z - zv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")), e))
+    return torch.where((e != 0) & even, toward, s).to(torch.float32)
+
+
+def fma_step(q, v, a, p4, cols, sc):
+    """One substituted gen-α step as a chain of :func:`madd`; the order the
+    step kernels follow in both dtypes:
+
+        q_pred = madd(c_qp, a, madd(h, v, q));  v_pred = madd(c_vp, a, v)
+        a1 = madd(-p3, q, madd(-p2, q_pred, madd(p1, a, p4)))
+        damped: a1 = madd(-p6, v, madd(-p5, v_pred, a1))
+        q' = madd(bh2, a1, q_pred);  v' = madd(gh, a1, v_pred);  a' = a1
+
+    8 multiply-adds an element (10 damped). In float64 each madd rounds its
+    product and its sum, and the result equals :func:`gen_alpha_step`'s bit
+    for bit (``x - y`` is ``-y + x``; negation is exact). Arguments as for
+    :func:`gen_alpha_step`.
+    """
+    p1, p2, p3, p5, p6 = cols
+    h, c_qp, c_vp, bh2, gh = sc
+    q_pred = madd(c_qp, a, madd(h, v, q))
+    v_pred = madd(c_vp, a, v)
+    a1 = madd(-p3, q, madd(-p2, q_pred, madd(p1, a, p4)))
+    if p5 is not None:
+        a1 = madd(-p6, v, madd(-p5, v_pred, a1))
+    return madd(bh2, a1, q_pred), madd(gh, a1, v_pred), a1
+
+
 def _like(x, ref):
     return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
 
@@ -129,8 +190,9 @@ def _on_cuda(*tensors) -> bool:
     return dev.type == "cuda"
 
 
-def _flat(x):
-    return x.contiguous().reshape(-1, x.shape[-1])
+def _triple_out(ref):
+    """``(q1, v1, a1)`` shaped like ``ref``, contiguous, from one allocation."""
+    return torch.empty((3, *ref.shape), dtype=ref.dtype, device=ref.device).unbind(0)
 
 
 def _ptr(t):
@@ -155,7 +217,7 @@ def modal_steps_plain(lam, winv, u_modal, eta, etad, etadd=None, steps: int = 1,
     sc = step_scalars(h, rho_inf, eta.dtype)
     q, v, a = eta, etad, etadd
     for _ in range(int(steps)):
-        q, v, a = gen_alpha_step(q, v, a, p4, cols, sc)
+        q, v, a = fma_step(q, v, a, p4, cols, sc)
     return q, v, a
 
 
@@ -185,9 +247,9 @@ def modal_steps(lam, winv, u_modal, eta, etad, etadd=None, steps: int = 1,
     (p1, p2, p3, p5, p6), p4 = _coeff_cols(lam, winv, u_modal, cdamp, rho_inf, eta)
     damped = p5 is not None
     cols = torch.stack([p1, p2, p3, p4] + ([p5, p6] if damped else []))
-    q0, v0, a0 = _flat(eta), _flat(etad), _flat(etadd)
+    q0, v0, a0 = eta.contiguous(), etad.contiguous(), etadd.contiguous()
     n, m = q0.numel(), q0.shape[-1]
-    q1, v1, a1 = torch.empty_like(q0), torch.empty_like(q0), torch.empty_like(q0)
+    q1, v1, a1 = _triple_out(q0)
     if n:
         lib = _build.library("modal_rollout")
         with torch.cuda.device(eta.device):
@@ -198,8 +260,7 @@ def modal_steps(lam, winv, u_modal, eta, etad, etadd=None, steps: int = 1,
             )
         _build.check(lib, rc, "modal_steps")
         modal_steps.launches += 1
-    shape = eta.shape
-    return q1.reshape(shape), v1.reshape(shape), a1.reshape(shape)
+    return q1, v1, a1
 
 
 modal_steps.launches = 0
@@ -221,7 +282,7 @@ def modal_frames_plain(lam, winv, u_modal, eta, etad, n_frames: int = 1,
     qs, vs = [q], [v]
     for _ in range(int(n_frames)):
         for _ in range(int(substeps)):
-            q, v, a = gen_alpha_step(q, v, a, p4, cols, sc)
+            q, v, a = fma_step(q, v, a, p4, cols, sc)
         qs.append(q)
         vs.append(v)
     return torch.stack(qs), torch.stack(vs)
@@ -243,7 +304,7 @@ def modal_frames(lam, winv, u_modal, eta, etad, n_frames: int = 1,
     (p1, p2, p3, p5, p6), p4 = _coeff_cols(lam, winv, u_modal, cdamp, rho_inf, eta)
     damped = p5 is not None
     cols = torch.stack([p1, p2, p3, p4] + ([p5, p6] if damped else []))
-    q0, v0, a0 = _flat(eta), _flat(etad), _flat(a0)
+    q0, v0, a0 = eta.contiguous(), etad.contiguous(), a0.contiguous()
     n, m = q0.numel(), q0.shape[-1]
     F = int(n_frames)
     qs = torch.empty((F + 1, *eta.shape), dtype=eta.dtype, device=eta.device)
@@ -269,16 +330,43 @@ modal_frames.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _affine_map(tmat, bvec, ref):
+    """``(P, b)`` in ``ref``'s dtype and device, contiguous, shapes checked."""
+    m = ref.shape[-1]
+    P = _like(tmat, ref).contiguous()
+    b = _like(bvec, ref).contiguous()
+    if P.shape != (m, 3, 3) or b.shape != (m, 3):
+        raise ValueError(
+            f"affine map needs tmat (m, 3, 3) and bvec (m, 3) for m={m}, "
+            f"got {tuple(P.shape)} and {tuple(b.shape)}"
+        )
+    return P, b
+
+
+def affine_app(P, b, q, v, a):
+    """One application of the per-mode map ``s -> P s + b``, row ``i`` in
+    the order the affine kernels follow:
+
+        float32: madd(P[i,2], a, madd(P[i,1], v, madd(P[i,0], q, b[i])))
+        float64: ((P[i,0] q + P[i,1] v) + P[i,2] a) + b[i]
+
+    float32 starts each row from its offset, 9 fused multiply-adds an
+    element; float64 keeps the first port's order, each operation rounded.
+    ``P`` ``(m, 3, 3)`` and ``b`` ``(m, 3)`` in the state dtype.
+    """
+    if q.dtype == torch.float32:
+        return tuple(madd(P[:, i, 2], a, madd(P[:, i, 1], v, madd(P[:, i, 0], q, b[:, i])))
+                     for i in range(3))
+    return tuple(P[:, i, 0] * q + P[:, i, 1] * v + P[:, i, 2] * a + b[:, i]
+                 for i in range(3))
+
+
 def affine_steps_plain(tmat, bvec, eta, etad, etadd, apps: int = 1):
     """Plain PyTorch version of :func:`affine_steps` (same arithmetic)."""
     P, b = _like(tmat, eta), _like(bvec, eta)
     q, v, a = eta, etad, etadd
     for _ in range(int(apps)):
-        q, v, a = (
-            P[:, 0, 0] * q + P[:, 0, 1] * v + P[:, 0, 2] * a + b[:, 0],
-            P[:, 1, 0] * q + P[:, 1, 1] * v + P[:, 1, 2] * a + b[:, 1],
-            P[:, 2, 0] * q + P[:, 2, 1] * v + P[:, 2, 2] * a + b[:, 2],
-        )
+        q, v, a = affine_app(P, b, q, v, a)
     return q, v, a
 
 
@@ -292,35 +380,80 @@ def affine_steps(tmat, bvec, eta, etad, etadd, apps: int = 1):
     """
     if not _on_cuda(eta, etad, etadd):
         return affine_steps_plain(tmat, bvec, eta, etad, etadd, apps)
-    m = eta.shape[-1]
-    P = _like(tmat, eta).contiguous()
-    b = _like(bvec, eta).contiguous()
-    if P.shape != (m, 3, 3) or b.shape != (m, 3):
-        raise ValueError(
-            f"affine map needs tmat (m, 3, 3) and bvec (m, 3) for m={m}, "
-            f"got {tuple(P.shape)} and {tuple(b.shape)}"
-        )
-    q0, v0, a0 = _flat(eta), _flat(etad), _flat(etadd)
-    n = q0.numel()
-    q1, v1, a1 = torch.empty_like(q0), torch.empty_like(q0), torch.empty_like(q0)
+    P, b = _affine_map(tmat, bvec, eta)
+    q0, v0, a0 = eta.contiguous(), etad.contiguous(), etadd.contiguous()
+    n, m = q0.numel(), q0.shape[-1]
+    q1, v1, a1 = _triple_out(q0)
     if n:
         lib = _build.library("modal_rollout")
         with torch.cuda.device(eta.device):
             rc = lib.affine_steps_launch(
-                _DTYPE_CODES[eta.dtype], n, m, int(apps), _ptr(P), _ptr(b),
+                _DTYPE_CODES[eta.dtype], n // m, m, int(apps), _ptr(P), _ptr(b),
                 _ptr(q0), _ptr(v0), _ptr(a0), _ptr(q1), _ptr(v1), _ptr(a1),
                 _stream(eta.device),
             )
         _build.check(lib, rc, "affine_steps")
         affine_steps.launches += 1
-    shape = eta.shape
-    return q1.reshape(shape), v1.reshape(shape), a1.reshape(shape)
+    return q1, v1, a1
 
 
 affine_steps.launches = 0
 
 
-KERNELS = (modal_steps, modal_frames, affine_steps)
+# ---------------------------------------------------------------------------
+# rollout_power's whole drive -> affine_drive
+# ---------------------------------------------------------------------------
+
+
+def affine_drive_plain(lam, u_modal, cdamp, tmat, bvec, eta, etad, apps: int,
+                       rem_tmat=None, rem_bvec=None):
+    """Plain PyTorch version of :func:`affine_drive` (same arithmetic)."""
+    s = (eta, etad, initial_accel(lam, u_modal, cdamp, eta, etad))
+    if apps:
+        s = affine_steps_plain(tmat, bvec, *s, apps=apps)
+    if rem_tmat is not None:
+        s = affine_steps_plain(rem_tmat, rem_bvec, *s, apps=1)
+    return s
+
+
+def affine_drive(lam, u_modal, cdamp, tmat, bvec, eta, etad, apps: int,
+                 rem_tmat=None, rem_bvec=None):
+    """The composed-propagator drive of ``ModalGenAlpha.rollout_power``.
+
+    From ``(eta, etad)``: the consistent initial acceleration
+    (:func:`initial_accel`, its order and rounding), ``apps`` applications
+    of the map ``(tmat, bvec)``, then one of ``(rem_tmat, rem_bvec)`` if
+    given. ``lam``, ``u_modal`` (or None), ``cdamp`` (or None): ``(m,)``;
+    maps as for :func:`affine_steps`. Returns the advanced state triple; on
+    CUDA one launch reads ``eta`` and ``etad`` and writes the triple.
+    """
+    if not _on_cuda(eta, etad):
+        return affine_drive_plain(lam, u_modal, cdamp, tmat, bvec, eta, etad, apps,
+                                  rem_tmat, rem_bvec)
+    P, b = _affine_map(tmat, bvec, eta)
+    Pr, br = (None, None) if rem_tmat is None else _affine_map(rem_tmat, rem_bvec, eta)
+    cols = [_like(x, eta).contiguous() if x is not None else None
+            for x in (lam, u_modal, cdamp)]
+    q0, v0 = eta.contiguous(), etad.contiguous()
+    n, m = q0.numel(), q0.shape[-1]
+    q1, v1, a1 = _triple_out(q0)
+    if n:
+        lib = _build.library("modal_rollout")
+        with torch.cuda.device(eta.device):
+            rc = lib.affine_drive_launch(
+                _DTYPE_CODES[eta.dtype], n // m, m, int(apps),
+                *(0 if x is None else _ptr(x) for x in (*cols, P, b, Pr, br)),
+                _ptr(q0), _ptr(v0), _ptr(q1), _ptr(v1), _ptr(a1), _stream(eta.device),
+            )
+        _build.check(lib, rc, "affine_drive")
+        affine_drive.launches += 1
+    return q1, v1, a1
+
+
+affine_drive.launches = 0
+
+
+KERNELS = (modal_steps, modal_frames, affine_steps, affine_drive)
 
 
 def reset_launch_counts() -> None:

@@ -3,9 +3,9 @@
 On the CPU each wrapper in ``continuum_robot_tpu_torch/ops/cuda`` runs its
 plain PyTorch version; these tests hold that arithmetic to the Pallas
 kernels run in interpret mode at tiny ragged sizes (float64,
-``atol = 1e-12 * scale``). The CUDA kernels themselves are held to the
-plain versions on the card by the ``cuda``-marked test here and by
-``chip_smoke.py``.
+``atol = 1e-12 * scale``; float32 in ``tests/test_torch_modal_fma.py``).
+The CUDA kernels themselves are held to the plain versions on the card by
+the ``cuda``-marked test here and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -117,7 +117,10 @@ def test_cpu_tensors_never_build(monkeypatch):
     for a, b in zip(tk.affine_steps(P, bv, e, ed, ed, apps=3),
                     tk.affine_steps_plain(P, bv, e, ed, ed, apps=3)):
         assert torch.equal(a, b)
-    assert [fn.launches for fn in tk.KERNELS] == [0, 0, 0]
+    drive = (_t(lam), _t(u), _t(cdamp), P, bv, e, ed, 3, P, bv)
+    for a, b in zip(tk.affine_drive(*drive), tk.affine_drive_plain(*drive)):
+        assert torch.equal(a, b)
+    assert [fn.launches for fn in tk.KERNELS] == [0, 0, 0, 0]
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -165,3 +168,10 @@ def test_kernels_bit_equal_to_plain_on_card(cuda_device, dtype):
     for a, b in zip(tk.affine_steps(P, bv, e, ed, ed, apps=7),
                     tk.affine_steps_plain(P, bv, e, ed, ed, apps=7)):
         assert torch.equal(a, b)
+    Pr, br = eng._power_map(9, u)
+    lam_t, u_t, cd_t = (torch.tensor(x, dtype=dtype, device=cuda_device)
+                        for x in (lam, u, cdamp))
+    for cd, rem in ((None, (None, None)), (cd_t, (Pr, br))):
+        drive = (lam_t, u_t, cd, P, bv, e, ed, 7, *rem)
+        for a, b in zip(tk.affine_drive(*drive), tk.affine_drive_plain(*drive)):
+            assert torch.equal(a, b)
