@@ -20,9 +20,15 @@ modal:
   ``modal_frames`` 64 envs x 10 x 20, ``affine_steps`` 31 applications,
   ``affine_drive`` where the tree has it): a lone launch (best of 5), its
   device time (the profiler; and CUDA events around launches queued
-  behind a spin of the card) and host dispatch; SHA-256 of the float32 and
-  float64 outputs of ``modal_steps`` and ``modal_frames`` (undamped and
-  damped), ``affine_steps`` and ``rollout_power`` on seeded states;
+  behind a spin of the card) and host dispatch; the two frame drives
+  through the engine's entries (``rollout_frames_pallas``,
+  ``rollout_frames_power``; 10 frames x 20 substeps at 64 and 4096 envs):
+  a lone call, its device time (the profiler), host dispatch and launches
+  by kernel; SHA-256 of the
+  float32 and float64 outputs of ``modal_steps`` and ``modal_frames``
+  (undamped and damped), ``affine_steps``, ``rollout_power`` and the two
+  frame drives (64 envs, the power frames also with a force released
+  inside a frame; 4096 envs in float32) on seeded states;
 
 rom:
 
@@ -364,6 +370,7 @@ def measure_modal(cs, crt, dev, best, device, digest) -> dict:
     import numpy as np
     import torch
 
+    from continuum_robot_tpu_torch.models import simulate as sim_mod
     from continuum_robot_tpu_torch.models.simulate import make_modal_genalpha
     from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
 
@@ -404,10 +411,14 @@ def measure_modal(cs, crt, dev, best, device, digest) -> dict:
     frames = dict(n_frames=sim["frames"], substeps=sim["substeps"], h=cs.DT,
                   rho_inf=cs.RHO_INF)
     u_t = torch.as_tensor(u_m, device=dev)  # on the card: no copy queues behind the spin
+    # A tree whose modal_frames takes the engine's memoized rows gets them.
+    frame_kw = ({"coeffs": kr.frame_coeffs(lam, winv, u_t, None, cs.RHO_INF, eta)}
+                if "coeffs" in inspect.signature(kr.modal_frames).parameters else {})
     calls = {
         "modal_steps": lambda: kr.modal_steps(lam, winv, u_t, eta, etad, a0, steps, cs.DT,
                                               cs.RHO_INF),
-        "modal_frames": lambda: kr.modal_frames(lam, winv, u_t, sim_eta, sim_etad, **frames),
+        "modal_frames": lambda: kr.modal_frames(lam, winv, u_t, sim_eta, sim_etad, **frames,
+                                                **frame_kw),
         "affine_steps": lambda: kr.affine_steps(PK, bK, eta, etad, a0, apps),
     }
     if hasattr(kr, "affine_drive"):
@@ -417,6 +428,24 @@ def measure_modal(cs, crt, dev, best, device, digest) -> dict:
         res[name] = {"ms": best(run, 5), "device_ms": device(run),
                      "queued_ms": cs.queued_device_ms(run, dev),
                      "dispatch_us": cs.dispatch_us(run, dev)}
+
+    # The two frame drives through the engine's entries (the same calls in
+    # either tree), at simulate's shape and at full width: a lone call (best
+    # of 5), its device time (profiler), its host dispatch and its launches by
+    # kernel. Not by queued CUDA events: the parent's entries copy the NumPy
+    # force to the card on every call, a copy that waits behind the spin.
+    F, sub = sim["frames"], sim["substeps"]
+    for envs in (sim["envs"], B):
+        e, ed = eta[:envs], etad[:envs]
+        for name in ("rollout_frames_pallas", "rollout_frames_power"):
+            run = lambda e=e, ed=ed, name=name: getattr(ms, name)(e, ed, u_m, F,  # noqa: E731
+                                                                   substeps=sub)
+            kr.reset_launch_counts()
+            run()
+            launches = {k.__name__: k.launches for k in kr.KERNELS}
+            res[f"{name}_{envs}"] = {
+                "ms": best(run, 5), "device_ms": device(run),
+                "dispatch_us": cs.dispatch_us(run, dev), "launches": launches}
 
     # Digests of float32 and float64 outputs on seeded states at the main
     # path's shapes, undamped and damped (a Rayleigh-like 0.5 + 1e-6 lam).
@@ -438,6 +467,16 @@ def measure_modal(cs, crt, dev, best, device, digest) -> dict:
         a = kr.initial_accel(ms.lam, u64, None, e, ed)
         res[f"affine_steps_{key}_sha256"] = digest(*kr.affine_steps(P, b, e, ed, a, apps))
         res[f"rollout_power_{key}_sha256"] = digest(*ms.rollout_power(e, ed, u_m, steps, K=K))
+        # the frame drives: simulate's shape (and a force released inside a
+        # frame), and full width in float32
+        release = sim_mod.PiecewiseConstant(((4 * sim["substeps"] + 9.5) * cs.DT,),
+                                            np.stack([u64, -0.5 * u64]))
+        for envs in (sim["envs"], B) if dtype == torch.float32 else (sim["envs"],):
+            for name, force in (("rollout_frames_pallas", u_m), ("rollout_frames_power", u_m),
+                                ("rollout_frames_power_released", release)):
+                drive = getattr(ms, name.replace("_released", ""))
+                res[f"{name}_{envs}_{key}_sha256"] = digest(*drive(
+                    e[:envs], ed[:envs], force, sim["frames"], substeps=sim["substeps"])[1:])
     return res
 
 

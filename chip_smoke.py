@@ -12,28 +12,41 @@ Phases, one line each (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile the CUDA sources of this checkout, one nvcc each, at once;
 3. linear kernels vs plain: every modal kernel (``modal_steps``,
-   ``modal_frames``, ``affine_steps`` and ``affine_drive``) against its
-   plain PyTorch version on the card, float32 and float64, undamped and
-   damped, at a small ragged size (17 steps) and at the main path's width
-   (4096 x 3000) over ``MAIN_CHECK_STEPS`` steps (the affine entries over
-   the main path's 31 applications); they must agree bit for bit (in
-   float32 the twins round each multiply-add once, as the kernels' FMAs do);
+   ``modal_frames``, ``affine_steps``, ``affine_drive`` and
+   ``affine_frames``) against its plain PyTorch version on the card,
+   float32 and float64, undamped and damped, at a small ragged size (17
+   steps) and at the main path's width (4096 x 3000) over
+   ``MAIN_CHECK_STEPS`` steps (the frame drives at ``simulate``'s cadence,
+   10 frames x 20 substeps; ``modal_frames`` with each envs a thread it
+   has, ``affine_frames`` with one map and with a two-run schedule; the
+   affine entries over the main path's 31 applications); they must agree
+   bit for bit (in float32 the twins round each multiply-add once, as the
+   kernels' FMAs do);
 4. linear main path: the 1000-element linear Nitinol cantilever (the JAX
    package's bench.py beam), host float64 eigh, 4096 envs in float32,
    ``rollout_power(K=64)`` over 2000 steps at dt=1e-4 and rho_inf=0.8 (one
    ``affine_drive`` launch), checked against the step kernel over the same
    span (``vs_stepper_rel`` <= 1e-4) and for finite physical states; the
    float32 FMA stepper's error against a float64 run of the span at most
-   1.5 times the unfused float32 engine's (``ms.rollout``);
+   1.5 times the unfused float32 engine's (``ms.rollout``); then
+   ``rollout_power`` with a ``PiecewiseConstant`` force (the tip force
+   released after ``PWC_BREAK`` s: ``affine_steps`` launches only), bit for
+   bit equal to its plain drive;
 5. ``simulate(method="modal")`` with engines "pallas", "power" and "xla"
    (64 envs, 10 frames x 20 substeps): "power" in float32 held to "xla",
-   the plain path (<= 1e-4); "pallas" held to "xla" in float64, where the
-   two share their arithmetic (<= 1e-6), and in float32, where the kernels
-   round each multiply-add once, its error against float64 "xla" (by norm)
-   at most 1.5 times float32 "xla"'s own;
+   the plain path (<= 1e-4), with the constant force and with the force
+   released inside a frame (a ``PiecewiseConstant`` schedule,
+   ``SIM_BREAK``); "pallas" held to "xla"
+   in float64, where the two share their arithmetic (<= 1e-6), and in
+   float32, where the kernels round each multiply-add once, its error
+   against float64 "xla" (by norm) at most 1.5 times float32 "xla"'s own;
+   "pallas" must be exactly one ``modal_frames`` launch and "power" exactly
+   one ``affine_frames`` launch (both forces), nothing else;
 6. linear timings: CUDA events, best of 3 after a warm-up; each modal
    kernel's lone launch, its device time (CUDA events around launches
-   queued behind a spin of the card) and its plain twin (one call);
+   queued behind a spin of the card), its host dispatch and its plain twin
+   (one call); the two frame drives also at full width (4096 envs), with
+   their bound there;
 7. ROM kernels vs plain, small: the fused ROM span against its plain twin
    on 8-element nonlinear and hybrid beams (12 modes, 5 envs, amplitude
    3e-2 so the correction is leading order, 50 steps, 2 Newton
@@ -122,8 +135,9 @@ Phases, one line each (any failure exits non-zero):
     its plain twin and its bound, and the float64 oracle span's time.
 
 Launch counts are set to 0 just before each path and read just after it:
-the linear main path (``rollout_power``), ``rollout_pallas`` and the
-``simulate`` engines (phases 4-5); the ROM main path (window layout, phase
+the linear main path (``rollout_power``), ``rollout_pallas``,
+``rollout_power`` with a schedule and the ``simulate`` engines with a
+constant and a released force (phases 4-5); the ROM main path (window layout, phase
 8) and its "highest" span (8), the ECSW gathered span (9), the
 dense-Newton span (10) and
 ``simulate(method="modal_rom", engine="pallas")`` (11); the implicit
@@ -175,6 +189,9 @@ SMALL = dict(B=5, m=37, steps=17)
 MAIN_CHECK_STEPS = 200
 FMA_VS_UNFUSED_MAX = 1.5  # the FMA stepper's error against float64, / the unfused engine's
 SIM = dict(envs=64, frames=10, substeps=20)
+FRAME_ENVS = (1, 2, 4)  # modal_frames' instances: envs a thread (0: the batch's choice)
+PWC_BREAK = 0.05  # s: the tip force released in phase 4 (step 500 of 2000)
+SIM_BREAK = 0.005  # s: the tip force released in phase 5 (step 50, inside frame 3)
 VS_STEPPER_MAX = 1e-4
 # The nonlinear ROM benchmark configuration (JAX package bench.py:38-98,
 # 455-529, 1017-1062), nothing cut.
@@ -225,6 +242,7 @@ REPLACES = {
     "modal_frames": "continuum_robot_tpu/ops/pallas/modal_rollout.py:392",
     "affine_steps": "continuum_robot_tpu/ops/pallas/modal_rollout.py:280",
     "affine_drive": "continuum_robot_tpu/ops/pallas/modal_rollout.py:280",
+    "affine_frames": "continuum_robot_tpu/ops/pallas/modal_rollout.py:280",
 }
 ROM_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/rom_rollout.cu"
 ROM_REPLACES = "continuum_robot_tpu/ops/pallas/rom_rollout.py:65"
@@ -233,7 +251,8 @@ ROM_TC_DESIGN = "wgmma 3xTF32"  # rom_expand and rom_project: tensor cores, hi/l
 ROM_F32_DESIGN = "persistent TMA ring, FFMA float32 8x8"
 # The path whose run gives each kernel's ``launches``.
 LINEAR_PATH = {"modal_steps": "rollout_pallas", "modal_frames": "simulate:pallas",
-               "affine_steps": "simulate:power", "affine_drive": "rollout_power"}
+               "affine_steps": "rollout_power:schedule", "affine_drive": "rollout_power",
+               "affine_frames": "simulate:power"}
 ROM_WINDOW = ("rom_alpha_point", "rom_expand", "rom_correction_window",
               "rom_project", "rom_update")
 ROM_GATHERED = ("rom_alpha_point", "rom_expand", "rom_correction_gathered",
@@ -393,6 +412,17 @@ def expect_launches(counts: dict, kernels, n: int, path: str) -> None:
 
 
 @contextlib.contextmanager
+def replaced(module, name, value):
+    """While open, ``module.<name>`` is ``value``."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
 def clocked(module, *names):
     """While open, record the host seconds of every call of each
     ``module.<name>``; yields ``{name: [seconds, ...]}``."""
@@ -421,6 +451,7 @@ def phase_kernels(kr, dev):
     from continuum_robot_tpu_torch.utils import force_completion
 
     err = {name: 0.0 for name in REPLACES}
+    frames_s = 0.0  # wall time of the frame drives' checks, twins included
     rng = np.random.default_rng(1)
     sizes = [SMALL, dict(B=N_ENVS, m=N_MODES_FULL, steps=MAIN_CHECK_STEPS)]
     for dtype in (torch.float32, torch.float64):
@@ -437,10 +468,18 @@ def phase_kernels(kr, dev):
                 e = max_abs(kr.modal_steps(*args, steps=steps, **kw),
                             kr.modal_steps_plain(*args, steps=steps, **kw))
                 err["modal_steps"] = max(err["modal_steps"], e)
-                frames = dict(n_frames=4, substeps=max(1, steps // 4))
-                e = max_abs(kr.modal_frames(*args, **frames, **kw),
-                            kr.modal_frames_plain(*args, **frames, **kw))
-                err["modal_frames"] = max(err["modal_frames"], e)
+                frames = (dict(n_frames=SIM["frames"], substeps=SIM["substeps"]) if main
+                          else dict(n_frames=4, substeps=max(1, steps // 4)))
+                t0 = time.time()
+                plain = kr.modal_frames_plain(*args, **frames, **kw)
+                # every instance, whatever the batch picks; at full width in
+                # float64 only the batch's choice (float32's runs cover the maps)
+                checked = (0,) if main and dtype == torch.float64 else FRAME_ENVS
+                for envs in checked:
+                    e = max_abs(kr.modal_frames(*args, **frames, **kw, envs=envs), plain)
+                    err["modal_frames"] = max(err["modal_frames"], e)
+                del plain
+                frames_s += time.time() - t0
                 P, b = ms._power_map(K_POWER, u)
                 a0 = kr.initial_accel(ms.lam, u, ms.cdamp, eta, etad)
                 apps = N_STEPS // K_POWER if main else steps
@@ -449,21 +488,34 @@ def phase_kernels(kr, dev):
                 err["affine_steps"] = max(err["affine_steps"], e)
                 lam, _, cd = ms._stepper_consts(eta)
                 Pr, br = ms._power_map(N_STEPS % K_POWER if main else 5, u)
-                drive = (lam, torch.as_tensor(u, dtype=dtype, device=dev), cd, P, b, eta, etad,
-                         apps, Pr, br)
+                u_t = torch.as_tensor(u, dtype=dtype, device=dev)
+                drive = (lam, u_t, cd, P, b, eta, etad, apps, Pr, br)
                 e = max_abs(kr.affine_drive(*drive), kr.affine_drive_plain(*drive))
                 err["affine_drive"] = max(err["affine_drive"], e)
+                # the frames drive: one map a frame, and two runs of two maps
+                n_fr = frames["n_frames"]
+                t0 = time.time()
+                for maps, counts in ((([P], [b]), (n_fr,)),
+                                     (([P, Pr], [b, br]), (n_fr - n_fr // 2, n_fr // 2))):
+                    fr = (lam, u_t, cd, np.stack(maps[0]), np.stack(maps[1]), eta, etad, counts)
+                    e = max_abs(kr.affine_frames(*fr), kr.affine_frames_plain(*fr))
+                    err["affine_frames"] = max(err["affine_frames"], e)
+                frames_s += time.time() - t0
             force_completion((eta,))
             print(f"phase 3 kernel vs plain: {str(dtype)[6:]} B={B} m={m} steps={steps} "
-                  f"(affine: {apps} applications), undamped and damped: max|kernel-plain| "
-                  + " ".join(f"{k}={v:.3e}" for k, v in err.items()), flush=True)
+                  f"(affine: {apps} applications; frames {frames['n_frames']} x "
+                  f"{frames['substeps']}, modal_frames with {checked} envs a thread), "
+                  f"undamped and damped: max|kernel-plain| "
+                  + " ".join(f"{k}={v:.3e}" for k, v in err.items())
+                  + f"; frame drives' checks so far {frames_s:.1f} s", flush=True)
     for name, e in err.items():
         require(e == 0.0, f"{name}: kernel and plain version differ by {e:.3e}")
     return err
 
 
 def linear_bounds(kr, n_modes):
-    """``{kernel: (bound_ms, bound_by)}`` of phase 6's calls (float32)."""
+    """``{kernel: (bound_ms, bound_by)}`` of phase 6's calls (float32); the
+    frame drives also at full width (``<kernel>:full``)."""
     sc = kr.step_scalars(DT, RHO_INF, torch.float32)
     step_ops = count_ops(
         lambda q, v, a, p4, p1, p2, p3: kr.gen_alpha_step(
@@ -472,16 +524,22 @@ def linear_bounds(kr, n_modes):
         lambda q, v, a, t, b: [t * q + t * v + t * a + b for _ in range(3)], 5)
     accel_ops = count_ops(lambda q, lam, u: -lam * q + u, 3)
     n = N_ENVS * n_modes
-    n_sim = SIM["envs"] * n_modes
     apps = N_STEPS // K_POWER
+    F, sub = SIM["frames"], SIM["substeps"]
     ops = {"modal_steps": step_ops * n * N_STEPS,
-           "modal_frames": step_ops * n_sim * SIM["frames"] * SIM["substeps"],
            "affine_steps": affine_ops * n * apps,
            "affine_drive": (accel_ops + affine_ops * (apps + 1)) * n}
     nbytes = {"modal_steps": 4 * (6 * n + 4 * n_modes),
-              "modal_frames": 4 * (3 * n_sim + 4 * n_modes + 2 * (SIM["frames"] + 1) * n_sim),
               "affine_steps": 4 * (6 * n + 12 * n_modes),
               "affine_drive": 4 * (5 * n + 26 * n_modes)}
+    # The frame drives read (q, v) and their per-mode rows (p1..p4, lam, u;
+    # lam, u and one map) and write every frame's (q, v).
+    for tag, envs in (("", SIM["envs"]), (":full", N_ENVS)):
+        ne = envs * n_modes
+        ops["modal_frames" + tag] = (accel_ops + step_ops * F * sub) * ne
+        ops["affine_frames" + tag] = (accel_ops + affine_ops * F) * ne
+        nbytes["modal_frames" + tag] = 4 * (2 * ne + 6 * n_modes + 2 * (F + 1) * ne)
+        nbytes["affine_frames" + tag] = 4 * (2 * ne + 14 * n_modes + 2 * (F + 1) * ne)
     return {k: bound(ops[k], nbytes[k]) for k in ops}
 
 
@@ -537,35 +595,65 @@ def linear_paths(crt, kr, dev, card):
             f"engine's {unfused_err:.3e}")
     require(paths["rollout_power"] == {k: int(k == "affine_drive") for k in LINEAR_PATH},
             f"rollout_power: launches {paths['rollout_power']}, expected one affine_drive")
+    # The released force: the composed drive of each constant-force span,
+    # applied by affine_steps (a launch for a span's applications, one for
+    # its remainder), equal to the same drive on the plain twin.
+    pwc = crt.PiecewiseConstant((PWC_BREAK,), np.stack([u_m, np.zeros_like(u_m)]))
+    sched, paths["rollout_power:schedule"] = counted(
+        kr, lambda: ms.rollout_power(eta, etad, pwc, N_STEPS, K=K_POWER))
+    sched_plain = ms.rollout_power(eta, etad, pwc, N_STEPS, K=K_POWER, use_pallas=False)
+    sched_ok = all(torch.equal(x, y) for x, y in zip(sched, sched_plain))
+    print(f"phase 4 released force: rollout_power with a PiecewiseConstant force (break "
+          f"{PWC_BREAK} s): equal to its plain drive {sched_ok}, finite "
+          f"{bool(torch.isfinite(sched[0]).all())}, launches "
+          f"{paths['rollout_power:schedule']}", flush=True)
+    require(sched_ok and bool(torch.isfinite(sched[0]).all()),
+            "rollout_power with a PiecewiseConstant force: kernel and plain drive differ")
+    require(paths["rollout_power:schedule"]["affine_steps"] > 0
+            and not any(v for k, v in paths["rollout_power:schedule"].items()
+                        if k != "affine_steps"),
+            f"rollout_power:schedule: launches {paths['rollout_power:schedule']}, expected "
+            "affine_steps only")
 
     # -- phase 5: simulate(method="modal") ----------------------------------
     x0 = np.zeros((SIM["envs"], 2 * n_red))
     x0[:, :n_red] = rng.normal(scale=1e-6, size=(SIM["envs"], n_red))
     frame_dt = DT * SIM["substeps"]
 
-    def sim(engine, dtype):
+    u_release = crt.PiecewiseConstant((SIM_BREAK,),
+                                      np.stack([u, np.zeros_like(u)]).astype(np.float64))
+
+    def sim(engine, dtype, force=u.astype(np.float64)):
         return crt.simulate(
             model, x0, SIM["frames"] * frame_dt, frame_dt, method="modal",
-            u=u.astype(np.float64), substeps=SIM["substeps"], rho_inf=RHO_INF,
+            u=force, substeps=SIM["substeps"], rho_inf=RHO_INF,
             engine=engine, device=dev, dtype=dtype)
 
     ys = {}
-    for engine in ("pallas", "power", "xla"):
-        res, paths[f"simulate:{engine}"] = counted(kr, lambda: sim(engine, torch.float32))
-        ys[engine] = force_completion(res.ys)
+    for engine, force in (("pallas", ""), ("power", ""), ("xla", ""), ("power", ":schedule"),
+                          ("xla", ":schedule")):
+        key = f"{engine}{force}"
+        res, paths[f"simulate:{key}"] = counted(
+            kr, lambda: sim(engine, torch.float32, *([u_release] if force else [])))
+        ys[key] = force_completion(res.ys)
         require(tuple(res.ys.shape) == (SIM["frames"] + 1, SIM["envs"], 2 * n_red)
                 and bool(torch.isfinite(res.ys).all()),
-                f"simulate engine={engine}: bad output")
+                f"simulate engine={engine}{force}: bad output")
+    for path, kernel in (("simulate:pallas", "modal_frames"), ("simulate:power", "affine_frames"),
+                         ("simulate:power:schedule", "affine_frames")):
+        require(paths[path] == {k: int(k == kernel) for k in LINEAR_PATH},
+                f"{path}: launches {paths[path]}, expected one {kernel}, nothing else")
     # "pallas" and "xla" share their arithmetic in float64 (the kernels round
     # each operation there); in float32 the kernels' FMAs round once where
     # the plain engine rounds twice, so there each is held to float64.
     ys64 = {engine: sim(engine, torch.float64).ys for engine in ("pallas", "xla")}
     rel_pallas = rel(ys64["pallas"], ys64["xla"])
-    rel_power = rel(ys["power"], ys["xla"])
+    rel_power = max(rel(ys["power"], ys["xla"]),
+                    rel(ys["power:schedule"], ys["xla:schedule"]))
     f32_err = {k: float(torch.linalg.vector_norm(ys[k].double() - ys64["xla"])
                         / torch.linalg.vector_norm(ys64["xla"])) for k in ("pallas", "xla")}
     print(f"phase 5 simulate: {SIM}: max rel vs xla: pallas {rel_pallas:.3e} (float64), "
-          f"power {rel_power:.3e}; float32 against float64 xla (norm): pallas "
+          f"power {rel_power:.3e} (constant and released force); float32 against float64 xla (norm): pallas "
           f"{f32_err['pallas']:.3e}, "
           f"xla {f32_err['xla']:.3e} (pallas vs xla in float32: "
           f"{rel(ys['pallas'], ys['xla']):.3e})", flush=True)
@@ -578,8 +666,9 @@ def linear_paths(crt, kr, dev, card):
     print(f"linear paths' launches: {paths}", flush=True)
     for name, path in LINEAR_PATH.items():
         require(paths[path][name] > 0, f"{path} did not launch {name}: {paths[path]}")
-    require(not any(paths["simulate:xla"].values()),
-            f"the plain engine launched a kernel: {paths['simulate:xla']}")
+    for path in ("simulate:xla", "simulate:xla:schedule"):
+        require(not any(paths[path].values()),
+                f"the plain engine launched a kernel: {paths[path]}")
 
     # -- phase 6: timings -----------------------------------------------------
     def best(fn, *args):
@@ -605,15 +694,12 @@ def linear_paths(crt, kr, dev, card):
     PK, bK = ms._power_map_device(K_POWER, u64, eta)
     Pr, br = ms._power_map_device(N_STEPS % K_POWER, u64, eta)
     apps = N_STEPS // K_POWER
-    sim_eta, sim_etad = eta[: SIM["envs"]].contiguous(), etad[: SIM["envs"]].contiguous()
-    frames = dict(n_frames=SIM["frames"], substeps=SIM["substeps"], h=DT, rho_inf=RHO_INF)
+    F, sub = SIM["frames"], SIM["substeps"]
+    frames = dict(n_frames=F, substeps=sub, h=DT, rho_inf=RHO_INF)
     calls = {
         "modal_steps": (
             lambda: kr.modal_steps(lam, winv, u_t, eta, etad, a0, N_STEPS, DT, RHO_INF),
             lambda: kr.modal_steps_plain(lam, winv, u_t, eta, etad, a0, N_STEPS, DT, RHO_INF)),
-        "modal_frames": (
-            lambda: kr.modal_frames(lam, winv, u_t, sim_eta, sim_etad, **frames),
-            lambda: kr.modal_frames_plain(lam, winv, u_t, sim_eta, sim_etad, **frames)),
         "affine_steps": (
             lambda: kr.affine_steps(PK, bK, eta, etad, a0, apps),
             lambda: kr.affine_steps_plain(PK, bK, eta, etad, a0, apps)),
@@ -621,11 +707,40 @@ def linear_paths(crt, kr, dev, card):
             lambda: kr.affine_drive(lam, u_t, None, PK, bK, eta, etad, apps, Pr, br),
             lambda: kr.affine_drive_plain(lam, u_t, None, PK, bK, eta, etad, apps, Pr, br)),
     }
+    # The frame drives as the engine calls them (its memoized coefficient
+    # rows and maps), at simulate's shape and at full width; and the engine
+    # entries themselves.
+    t0 = time.time()
+    coeffs = ms._frames_consts(u64, eta)[3]
+    fargs = ms._frames_power_args(u64, F, sub, eta)
+    entries = {}
+    for tag, envs in (("", SIM["envs"]), (":full", N_ENVS)):
+        e, ed = eta[:envs], etad[:envs]
+        calls["modal_frames" + tag] = (
+            lambda e=e, ed=ed: kr.modal_frames(lam, winv, u64, e, ed, **frames, coeffs=coeffs),
+            lambda e=e, ed=ed: kr.modal_frames_plain(lam, winv, u_t, e, ed, **frames))
+        calls["affine_frames" + tag] = (
+            lambda e=e, ed=ed: kr.affine_frames(*fargs[:5], e, ed, fargs[5]),
+            lambda e=e, ed=ed: kr.affine_frames_plain(*fargs[:5], e, ed, fargs[5]))
+        for name in ("rollout_frames_pallas", "rollout_frames_power"):
+            entries[name + tag] = best(
+                lambda e=e, ed=ed, name=name: getattr(ms, name)(e, ed, u_m, F, substeps=sub))
+    frames_s = time.time() - t0  # wall time of the frame drives' timings
     # The float32 twins run about ten float64 torch operations a multiply-add:
     # timed once, not best of 3 (the modal_steps twin takes seconds).
-    times = {k: (best(kern), min(cuda_event_times(plain, repeats=1, warmup=0, device=dev)),
-                 queued_device_ms(kern, dev)) for k, (kern, plain) in calls.items()}
+    times = {}
+    for k, (kern, plain) in calls.items():
+        t0 = time.time()
+        times[k] = (best(kern), min(cuda_event_times(plain, repeats=1, warmup=0, device=dev)),
+                    queued_device_ms(kern, dev),
+                    dispatch_us(kern, dev) if "frames" in k else None)
+        frames_s += time.time() - t0 if "frames" in k else 0.0
     bounds = linear_bounds(kr, n_red)
+    from continuum_robot_tpu_torch.ops.cuda import _build
+
+    lib = _build.library("modal_rollout")
+    with torch.cuda.device(dev):  # the frames launcher's choice of envs a thread
+        frame_envs = {B: lib.modal_frames_envs(B, n_red) for B in (SIM["envs"], N_ENVS)}
     print(f"phase 6 timings [{card}]: rollout_power K={K_POWER} "
           f"{env_steps / power_k * 1e3:.4e} env-steps/s ({power_k:.3f} ms) vs plain "
           f"{env_steps / power_p * 1e3:.4e} ({power_p:.3f} ms), host dispatch "
@@ -634,14 +749,32 @@ def linear_paths(crt, kr, dev, card):
           f"{env_steps / step_p * 1e3:.4e} ({step_p:.3f} ms); host eigh "
           f"{eigh_s:.2f} s, map composition {compose_s:.4f} s", flush=True)
     print(f"phase 6 kernels [{card}]: " + "; ".join(
-        f"{k} {t[0]:.3f} ms a lone launch, device {t[2]:.4f} ms (queued CUDA events) vs "
-        f"plain {t[1]:.3f} ms (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
+        f"{k} {t[0]:.4f} ms a lone launch, device {t[2]:.4f} ms (queued CUDA events)"
+        + ("" if t[3] is None else f", host dispatch {t[3]:.1f} us")
+        + f" vs plain {t[1]:.3f} ms (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
         for k, t in times.items()), flush=True)
+    print(f"phase 6 frames [{card}]: {F} frames x {sub} substeps, the engine's calls "
+          f"(best of 3): " + "; ".join(f"{k} {v:.4f} ms" for k, v in entries.items())
+          + f" (':full': {N_ENVS} envs, else {SIM['envs']}; modal_frames carries "
+          f"{frame_envs[N_ENVS]} envs a thread at {N_ENVS}, "
+          f"{frame_envs[SIM['envs']]} at {SIM['envs']}); timing the frame "
+          f"drives, twins included, took {frames_s:.1f} s", flush=True)
+
+    def full_width(name):
+        t = times[name + ":full"]
+        return {"envs": N_ENVS, "ms": t[0], "plain_ms": t[1], "device_ms": t[2],
+                "dispatch_us": t[3], "bound_ms": bounds[name + ":full"][0],
+                "bound_by": bounds[name + ":full"][1],
+                "entry_ms": entries[{"modal_frames": "rollout_frames_pallas",
+                                     "affine_frames": "rollout_frames_power"}[name] + ":full"]}
+
     return {
         name: dict(launches=paths[LINEAR_PATH[name]][name],
                    launches_by_path={p: c[name] for p, c in paths.items()},
                    ms=times[name][0], plain_ms=times[name][1], device_ms=times[name][2],
-                   bound=bounds[name], library_ms=None)
+                   bound=bounds[name], library_ms=None,
+                   **({"dispatch_us": times[name][3], "full_width": full_width(name)}
+                      if "frames" in name else {}))
         for name in REPLACES
     }, model, ms
 
@@ -1864,6 +1997,7 @@ def main() -> int:
 
     err = phase_kernels(kr, dev)
     records, lin_model, lin_ms = linear_paths(crt, kr, dev, card)
+    print(f"linear paths done; {time.time() - t_start:.1f} s so far", flush=True)
     for name in REPLACES:
         records[name].update(max_abs_err=err[name], source=SOURCE,
                              replaces=REPLACES[name])
@@ -1889,6 +2023,7 @@ def main() -> int:
          "bound_by": rec["bound"][1], "library_ms": rec["library_ms"],
          "launches_by_path": rec["launches_by_path"],
          **({"device_ms": rec["device_ms"]} if "device_ms" in rec else {}),
+         **({k: rec[k] for k in ("dispatch_us", "full_width") if k in rec}),
          **({"rn_bound_ms": rec["rn_bound_ms"]} if "rn_bound_ms" in rec else {}),
          **({"design": rec["design"]} if "design" in rec else {})}
         for name, rec in records.items()

@@ -65,17 +65,21 @@ substeps, 4096 envs, float32) in one launch.
 ``--modal`` does the same for the linear modal kernels
 (``csrc/modal_rollout.cu``, ``MODAL_VARIANTS``: the envs a step-kernel
 thread carries, the step loop's unroll, the envs an affine thread carries,
-the affine grid's waves, a block's shape; and diagnostic affine bodies
-that only load and store or only compute) at the linear main
-path's shapes (4096 envs x 3000 modes of a synthetic beam-like spectrum,
-float32): ``modal_steps`` over 2000 steps, ``affine_steps`` with 31
-applications of a 64-step map, ``affine_drive`` (31 and a 16-step
-remainder): each variant's device time per launch (``torch.profiler``; and
-``queued_ms``, launches queued behind a spin of the card) and whether its
-outputs equal ``mbase``'s bit for bit; ``mbase``'s outputs against the
-plain twins (the steps over 50 steps, the twin costing ten float64 torch
-operations a multiply-add); then the SM clock and power while the step
-kernel runs. With ``--sass``: each modal kernel's count of FP32 and FP64
+the affine grid's waves, a block's shape; the frames kernel's substep
+unroll and the SM load behind its choice of envs a thread, the frames
+drive on a persistent grid, streaming frame stores; and diagnostic affine bodies that only load and store or
+only compute) at the linear main path's shapes (4096 envs x 3000 modes of
+a synthetic beam-like spectrum, float32): ``modal_steps`` over 2000 steps,
+``affine_steps`` with 31 applications of a 64-step map, ``affine_drive``
+(31 and a 16-step remainder), and the two frame drives at 10 frames x 20
+substeps at 64 envs (``simulate``'s) and 4096: ``modal_frames`` with each
+envs a thread (1, 2, 4), ``affine_frames`` with one map and (4096 envs)
+with a schedule of three runs: each variant's device time per launch
+(``torch.profiler``; and ``queued_ms``, launches queued behind a spin of
+the card) and whether its outputs equal ``mbase``'s bit for bit;
+``mbase``'s outputs against the plain twins (the steps over 50 steps, the
+twin costing ten float64 torch operations a multiply-add); then the SM
+clock and power while the step kernel runs. With ``--sass``: each modal kernel's count of FP32 and FP64
 multiplies, adds and FMAs.
 
 ``--sass`` builds ``base`` alone, disassembles its two float32 kernels
@@ -253,8 +257,8 @@ FUSED_VARIANTS = {
 }
 
 # The linear modal kernels' thread-map constants and their values in the source.
-MODAL_KNOBS = {"kStepEnvs": 4, "kStepUnroll": 8, "kAffineEnvs": 1, "kAffineWaves": 4,
-               "kModesX": 32, "kGroupsY": 8}
+MODAL_KNOBS = {"kStepEnvs": 4, "kStepUnroll": 8, "kFramesUnroll": 10, "kAffineEnvs": 1,
+               "kAffineWaves": 4, "kFrameBlocksPerSm": 2, "kModesX": 32, "kGroupsY": 8}
 APPS_LOOP = "    for (int k = 0; k < apps; ++k) map.apply(q, v, a);"
 
 
@@ -269,6 +273,18 @@ AFFINE_LOADS = [(f"{x}[j] = b < B ? {y}[i] : T(0);", f"{x}[j] = T(b);")
 AFFINE_STORE = ("    if (rtmat != nullptr) AffineMap<T>(rtmat, rbvec, mode).apply(q, v, a);\n"
                 "#pragma unroll\n    for (int j = 0; j < E; ++j) {\n"
                 "      const int64_t b = g * E + j;\n      if (b < B) {")
+FRAMES_E4 = "    case 4: return launch_frames<T, DAMPED, 4>(B, m, args...);"
+FRAMES_GRID = "  const dim3 grid = group_grid(EnvGroups<E>::groups(B), m, kMaxGridY);\n  modal_frames"
+AFFINE_FRAMES_GRID = "  const dim3 grid = group_grid(B, m, kMaxGridY);\n  affine_frames_kernel"
+# The two frames kernels' per-frame stores (modal_frames, the frames drive)
+FRAME_STORES = ["          qs[i] = q[j];\n          vs[i] = v[j];",
+                "      qs[f * n + i] = q[0];\n      vs[f * n + i] = v[0];"]
+FRAME_STORES_CS = ["          __stcs(qs + i, q[j]);\n          __stcs(vs + i, v[j]);",
+                   "      __stcs(qs + f * n + i, q[0]);\n      __stcs(vs + f * n + i, v[0]);"]
+FRAME_IFS = ["        if (b < B) {\n          const int64_t i = f * n + b * m + mode;",
+             "      map.apply(q, v, a);\n      qs[f * n + i]"]
+FRAME_IFS_LAST = [FRAME_IFS[0].replace("b < B", "b < B && f == n_frames"),
+                  FRAME_IFS[1].replace("      qs[f", "      if (f < n_frames) continue;\n      qs[f")]
 # "mbase": the source's own; "w1000": one env group a thread, so no group's
 # loads overlap another's arithmetic. The diag_* variants compute wrong
 # results on purpose: "diag_noapps" only loads and stores (the affine
@@ -291,6 +307,23 @@ MODAL_VARIANTS = {
                           ("_a4", {"kAffineEnvs": 4}))},
     "a2_w2": knobs(kAffineEnvs=2, kAffineWaves=2),
     "a4_w2": knobs(kAffineEnvs=4, kAffineWaves=2),
+    # the frames kernels: the substep loop's unroll; the batch's choice of
+    # envs a thread with a block an SM (mf_bps1); the frames drive on a
+    # persistent grid of 1, 2, 4 waves; streaming (evict-first) frame stores
+    **{f"fu{k}": knobs(kFramesUnroll=k) for k in (4, 5, 20)},
+    "mf_bps1": knobs(kFrameBlocksPerSm=1),
+    **{f"afw{k}": [(AFFINE_FRAMES_GRID, AFFINE_FRAMES_GRID.replace(
+        "kMaxGridY", f"wave_rows(affine_frames_kernel<T>, (m + kModesX - 1) / kModesX, {k})"))]
+       for k in (1, 2, 4)},
+    # modal_frames: 8 envs a thread where 4 is asked for; a grid of the
+    # blocks one wave holds, each thread walking several env groups
+    "mf_e4_is_8": [(FRAMES_E4, FRAMES_E4.replace("4>(B", "8>(B"))],
+    "mf_persistent": [(FRAMES_GRID, FRAMES_GRID.replace(
+        "kMaxGridY", "wave_rows(modal_frames_kernel<T, DAMPED, E>, (m + kModesX - 1) / kModesX, 1)"))],
+    "stcs": list(zip(FRAME_STORES, FRAME_STORES_CS)),
+    # the frames kernels store only the last frame: their arithmetic and
+    # first stores alone (wrong frames on purpose)
+    "diag_lastframe": list(zip(FRAME_IFS, FRAME_IFS_LAST)),
 }
 
 def inline_headers(src: str, source) -> str:
@@ -318,6 +351,14 @@ def variant_text(spec, src):
     return src
 
 
+def kernel_tag(line: str) -> str:
+    """``"<kernel><template arguments>: "`` from a ptxas "Compiling entry
+    function '_Z...'" line, as the mangled name spells them (``IfLb1ELi4E``:
+    float, true, 4), or nothing for a name it does not recognise."""
+    m = re.search(r"(?<=\d)([a-z]+(?:_[a-z0-9]+)*_kernel)(I[A-Za-z0-9]*?E)E*v", line)
+    return f"{m.group(1)}{m.group(2)}: " if m else ""
+
+
 def build(names, src, flags, nvcc, out_dir, variants=None):
     """``{name: (library path, ptxas line)}`` of the variants that apply."""
     variants = VARIANTS if variants is None else variants
@@ -341,7 +382,8 @@ def build(names, src, flags, nvcc, out_dir, variants=None):
             print(f"{name}: build failed\n{log[-2000:]}", flush=True)
             continue
         lines = log.splitlines()
-        info = [lines[i + 2].strip() + " | " + lines[i + 3].split(":")[-1].strip()
+        info = [kernel_tag(ln) + lines[i + 2].strip() + " | "
+                + lines[i + 3].split(":")[-1].strip()
                 for i, ln in enumerate(lines) if "Compiling" in ln
                 and any(k in ln for k in ("f32_kernel", "correction", "fused", "modal",
                                           "affine"))]
@@ -573,6 +615,7 @@ def time_modal(libs, dev, card) -> None:
     import numpy as np
     import torch
 
+    from continuum_robot_tpu_torch.models import simulate as sim
     from continuum_robot_tpu_torch.ops.cuda import _build
     from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
 
@@ -592,11 +635,45 @@ def time_modal(libs, dev, card) -> None:
     P, b = ms._power_map_device(K, u64, eta)
     Pr, br = ms._power_map_device(steps % K, u64, eta)
     apps = steps // K
+    # The frame drives at simulate's shape (SIM's envs) and at full width,
+    # 10 frames x 20 substeps: modal_frames with each envs a thread, the
+    # frames drive with the engine's memoized arguments (one map; and a
+    # schedule of three runs, its break inside frame 4).
+    F, sub = cs.SIM["frames"], cs.SIM["substeps"]
+
+    coeffs = ms._frames_consts(u64, eta)[3]
+    power_args = ms._frames_power_args(u64, F, sub, eta)
+    pwc = sim.PiecewiseConstant(((4 * sub + 9.5) * cs.DT,), np.stack([u64, -0.5 * u64]))
+    pwc_args = ms._frames_power_args(pwc, F, sub, eta)
+    frames, plains = {}, {}  # {case: (run, twin's key)}, {twin's key: twin}
+    for envs in (cs.SIM["envs"], B):
+        e, ed = eta[:envs], etad[:envs]
+        for E in cs.FRAME_ENVS:
+            frames[f"modal_frames_{envs}_e{E}"] = (
+                lambda e=e, ed=ed, E=E: kr.modal_frames(
+                    lam, winv, u, e, ed, F, sub, cs.DT, cs.RHO_INF, coeffs=coeffs, envs=E),
+                f"modal_frames_{envs}")
+        plains[f"modal_frames_{envs}"] = lambda e=e, ed=ed: kr.modal_frames_plain(
+            lam, winv, u, e, ed, F, sub, cs.DT, cs.RHO_INF)
+        frames[f"affine_frames_{envs}"] = (
+            lambda e=e, ed=ed: kr.affine_frames(*power_args[:5], e, ed, power_args[5]),
+            f"affine_frames_{envs}")
+        plains[f"affine_frames_{envs}"] = lambda e=e, ed=ed: kr.affine_frames_plain(
+            *power_args[:5], e, ed, power_args[5])
+    frames[f"affine_frames_{B}_schedule"] = (
+        lambda: kr.affine_frames(*pwc_args[:5], eta, etad, pwc_args[5]),
+        f"affine_frames_{B}_schedule")
+    plains[f"affine_frames_{B}_schedule"] = lambda: kr.affine_frames_plain(
+        *pwc_args[:5], eta, etad, pwc_args[5])
     cases = {
         "modal_steps": lambda: kr.modal_steps(lam, winv, u, eta, etad, a0, steps, cs.DT,
                                               cs.RHO_INF),
         "affine_steps": lambda: kr.affine_steps(P, b, eta, etad, a0, apps),
         "affine_drive": lambda: kr.affine_drive(lam, u, None, P, b, eta, etad, apps, Pr, br),
+        # the step kernel over the frames' 200 steps: their arithmetic, no frames
+        "modal_steps_200": lambda: kr.modal_steps(lam, winv, u, eta, etad, a0, F * sub, cs.DT,
+                                                  cs.RHO_INF),
+        **{k: run for k, (run, _) in frames.items()},
     }
     _build._libs["modal_rollout"] = libs["mbase"]
     base = {k: run() for k, run in cases.items()}
@@ -608,8 +685,13 @@ def time_modal(libs, dev, card) -> None:
         "affine_drive": (base["affine_drive"], kr.affine_drive_plain(lam, u, None, P, b, eta,
                                                                      etad, apps, Pr, br)),
     }
+    for key, fn in plains.items():
+        ref = fn()
+        twins.update({k: (base[k], ref) for k, (_, of) in frames.items() if of == key})
+        del ref
     print(f"[{card}] mbase equals the plain twin bit for bit: " + json.dumps(
         {k: all(torch.equal(x, y) for x, y in zip(*v)) for k, v in twins.items()}), flush=True)
+    del twins
     for name, lib in list(libs.items()) * 2:
         _build._libs["modal_rollout"] = lib
         row = {}

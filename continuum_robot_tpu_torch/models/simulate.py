@@ -162,11 +162,6 @@ class _SampledBytes(bytes):
         return hash((len(self), bytes(self[::64])))
 
 
-def _affine_app(P, b, s):
-    """One application of the per-mode affine map (kernel on CUDA state)."""
-    return kernels.affine_steps(P, b, *s, apps=1)
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class PiecewiseConstant:
     """Piecewise-constant input force: ``values[i]`` holds on
@@ -251,28 +246,6 @@ def _power_drive_schedule(lam, cdamp, u0_m, PKs, bKs, Prs, brs, eta, etad,
         if Prs[i] is not None:
             s = app(Prs[i], brs[i], *s, apps=1)
     return s
-
-
-def _power_frames_drive(lam, cdamp, u_m, P, b, eta, etad, n_frames: int):
-    """Frame-collecting composed-propagator rollout: one ``substeps``-step
-    map application per frame."""
-    return _power_frames_drive_schedule(lam, cdamp, u_m, (P,), (b,), eta,
-                                        etad, (int(n_frames),))
-
-
-def _power_frames_drive_schedule(lam, cdamp, u0_m, Ps, bs, eta, etad,
-                                 counts: tuple):
-    """Frame-collecting composed-propagator rollout over a schedule of
-    per-frame maps: ``counts[i]`` consecutive frames apply ``(Ps[i],
-    bs[i])``."""
-    s = (eta, etad, _power_a0(lam, cdamp, u0_m, eta, etad))
-    qs, vs = [eta], [etad]
-    for P, b, c in zip(Ps, bs, counts):
-        for _ in range(int(c)):
-            s = _affine_app(P, b, s)
-            qs.append(s[0])
-            vs.append(s[1])
-    return torch.stack(qs), torch.stack(vs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,21 +420,47 @@ class ModalGenAlpha(_Uploads):
                               substeps: int = 1):
         """Frame-collecting kernel rollout (constant ``u_modal`` only).
 
-        One launch of the frames kernel on CUDA state. Same frame contract
-        as :meth:`rollout_frames` (initial state included).
+        One launch of the frames kernel on CUDA state (the initial
+        acceleration in the launch). For a host force (NumPy, a CPU tensor
+        or None) the coefficient rows are memoized per force, so no torch op
+        runs before the launch; a force already on the card is not copied
+        back to key the memo, and the wrapper builds its rows each call.
+        Same frame contract as :meth:`rollout_frames` (initial state
+        included).
         """
         eta, etad = self._tensor(eta), self._tensor(etad)
-        lam, winv, cdamp = self._stepper_consts(eta)
+        if isinstance(u_modal, torch.Tensor) and u_modal.is_cuda:
+            u, coeffs = u_modal, None
+            lam, winv, cdamp = self._stepper_consts(eta)
+        else:
+            u = None if u_modal is None else np.asarray(_host(u_modal), np.float64)
+            lam, winv, cdamp, coeffs = self._frames_consts(u, eta)
         etas, etads = kernels.modal_frames(
-            lam, winv, u_modal, eta, etad, n_frames=n_frames,
+            lam, winv, u, eta, etad, n_frames=n_frames,
             substeps=substeps, h=self.dt, rho_inf=self.rho_inf, cdamp=cdamp,
+            coeffs=coeffs,
         )
         return self._frame_times(n_frames, substeps, 0.0, eta), etas, etads
 
+    def _frames_consts(self, u_host, like):
+        """``(lam, winv, cdamp, kernels.FrameCoeffs)`` on ``like``'s device
+        and dtype for the force ``u_host``: one memo lookup a call."""
+
+        def build():
+            lam, winv, cdamp = self._stepper_consts(like)
+            return lam, winv, cdamp, kernels.frame_coeffs(
+                lam, winv, u_host, cdamp, self.rho_inf, like)
+
+        return self._memo(
+            ("frames", self._u_key(u_host), like.dtype, like.device, self.n_modes),
+            build,
+        )
+
     def _frame_times(self, n_frames, substeps, t0, like):
-        return t0 + (self.dt * substeps) * torch.arange(
+        ts = (self.dt * substeps) * torch.arange(
             int(n_frames) + 1, dtype=torch.float64, device=like.device
         )
+        return t0 + ts if t0 else ts  # 0 + ts is ts: one torch op fewer
 
     def rollout_frames(self, eta, etad, u_modal, n_frames: int,
                        substeps: int = 1, t0: float = 0.0):
@@ -722,35 +721,66 @@ class ModalGenAlpha(_Uploads):
         Each output frame advances ``substeps`` steps with one precomputed
         map application. ``u_modal`` is a constant modal force or a
         :class:`PiecewiseConstant` schedule (frames crossing a force break
-        get their own host-composed map). Returns ``(ts, etas, etads)``
-        including the initial state.
+        get their own host-composed map). On CUDA state the whole drive is
+        one ``affine_frames`` launch (the initial acceleration, a map
+        application a frame, every frame written), the maps of a schedule
+        stacked into one tensor; the maps are memoized per force or
+        schedule. Returns ``(ts, etas, etads)`` including the initial state.
         """
         eta, etad = self._tensor(eta), self._tensor(etad)
-        ts = self._frame_times(n_frames, substeps, 0.0, eta)
+        lam, u0, cdamp, P, b, counts = self._frames_power_args(
+            u_modal, int(n_frames), int(substeps), eta)
+        etas, etads = kernels.affine_frames(lam, u0, cdamp, P, b, eta, etad, counts)
+        return self._frame_times(n_frames, substeps, 0.0, eta), etas, etads
+
+    def _frames_power_args(self, u_modal, n_frames: int, substeps: int, like):
+        """The arguments of ``kernels.affine_frames`` but the state, on
+        ``like``'s device and dtype: ``(lam, u(0), cdamp, P (R, m, 3, 3),
+        b (R, m, 3), counts)``; one memo lookup a call."""
         if isinstance(u_modal, PiecewiseConstant):
-            runs = self._pwc_frame_runs(
-                u_modal, int(n_frames), int(substeps), 0.0
+            return self._memo(
+                ("frames_pwc", n_frames, substeps, u_modal.breaks,
+                 self._u_key(np.asarray(u_modal.values, np.float64)), like.dtype,
+                 like.device, self.n_modes),
+                lambda: self._pwc_frames_device(u_modal, n_frames, substeps, like),
             )
-            lam, _, cdamp = self._stepper_consts(eta)
-            etas, etads = _power_frames_drive_schedule(
-                lam, cdamp,
-                torch.as_tensor(u_modal.value_at(0.0), dtype=eta.dtype,
-                                device=eta.device),
-                [P for P, _b, _c in runs], [b for _P, b, _c in runs],
-                eta, etad, counts=tuple(c for _P, _b, c in runs),
-            )
-            return ts, etas, etads
         if callable(u_modal):
             raise ValueError(
                 "rollout_frames_power takes a constant modal force (or a "
                 "PiecewiseConstant schedule)"
             )
         u_host = None if u_modal is None else np.asarray(_host(u_modal), np.float64)
-        P, b = self._power_map_device(int(substeps), u_host, eta)
-        lam, cdamp, u_m = self._power_consts_device(u_host, eta)
-        etas, etads = _power_frames_drive(lam, cdamp, u_m, P, b, eta, etad,
-                                          n_frames=int(n_frames))
-        return ts, etas, etads
+
+        def build():
+            P, b = self._power_map_device(substeps, u_host, like)
+            lam, cdamp, u = self._power_consts_device(u_host, like)
+            return lam, u, cdamp, P[None], b[None]
+
+        consts = self._memo(
+            ("frames_power", substeps, self._u_key(u_host), like.dtype, like.device,
+             self.n_modes), build,
+        )
+        return (*consts, (n_frames,))
+
+    def _pwc_frames_device(self, u_pwc: PiecewiseConstant, n_frames: int,
+                           substeps: int, like):
+        """:meth:`rollout_frames_power`'s drive arguments for a schedule on
+        ``like``'s device and dtype: ``(lam, u(0), cdamp, P (R, m, 3, 3),
+        b (R, m, 3), counts)``, the runs of :meth:`_pwc_frame_runs` stacked
+        (one identity run of no frames when there are none)."""
+        runs = self._pwc_frame_runs(u_pwc, n_frames, substeps, 0.0)
+        if not runs:
+            m = self.n_modes
+            runs = [(np.broadcast_to(np.eye(3), (m, 3, 3)), np.zeros((m, 3)), 0)]
+        counts = tuple(c for _P, _b, c in runs)
+
+        def up(x):
+            return torch.as_tensor(np.stack(x), dtype=like.dtype, device=like.device)
+
+        lam, _, cdamp = self._stepper_consts(like)
+        u0 = torch.as_tensor(u_pwc.value_at(0.0), dtype=like.dtype, device=like.device)
+        return (lam, u0, cdamp, up([P for P, _b, _c in runs]),
+                up([b for _P, b, _c in runs]), counts)
 
 
 def make_modal_genalpha(

@@ -53,10 +53,12 @@ _SIGNATURES = {
     "modal_rollout": {
         "modal_steps_launch": [_c_int, _c_int, _c_i64, _c_int, _c_int]
         + [_c_ptr] * 7 + [_c_dbl] * 5 + [_c_ptr],
-        "modal_frames_launch": [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_int]
-        + [_c_ptr] * 6 + [_c_dbl] * 5 + [_c_ptr],
+        "modal_frames_launch": [_c_int, _c_int, _c_int, _c_i64, _c_int, _c_int, _c_int]
+        + [_c_ptr] * 8 + [_c_dbl] * 5 + [_c_ptr],
+        "modal_frames_envs": [_c_i64, _c_int],
         "affine_steps_launch": [_c_int, _c_i64, _c_int, _c_int] + [_c_ptr] * 9,
         "affine_drive_launch": [_c_int, _c_i64, _c_int, _c_int] + [_c_ptr] * 13,
+        "affine_frames_launch": [_c_int, _c_i64, _c_int, _c_int] + [_c_ptr] * 11,
     },
     "rom_rollout": {
         "rom_alpha_point_launch": [_c_int] * 2 + [_c_ptr] * 5 + [_c_fptr, _c_ptr],

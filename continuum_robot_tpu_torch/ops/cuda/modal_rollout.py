@@ -13,6 +13,9 @@ wrapper                replaces                        plain version
 :func:`affine_steps`   ``fused_affine_steps``          :func:`affine_steps_plain`
 :func:`affine_drive`   ``fused_affine_steps`` (the     :func:`affine_drive_plain`
                        whole ``rollout_power`` drive)
+:func:`affine_frames`  ``fused_affine_steps`` (the     :func:`affine_frames_plain`
+                       whole ``rollout_frames_power``
+                       drive)
 =====================  ==============================  =======================
 
 Dispatch goes by the device of the state tensor: a CPU tensor runs the plain
@@ -30,6 +33,9 @@ both.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -64,11 +70,13 @@ def mode_coeffs(lam, winv, rho_inf: float, cdamp=None):
     return p1, p2, p3, wc * (1.0 - af), wc * af
 
 
+@functools.lru_cache(maxsize=64)
 def step_scalars(h: float, rho_inf: float, dtype: torch.dtype):
     """``(h, c_qp, c_vp, bh2, gh)`` of the gen-α step, rounded to ``dtype``.
 
     Python floats that are exact in ``dtype``, so a tensor product with them
     and the kernel's product with the same value cast to ``dtype`` agree.
+    Memoized: a launch pays no torch op for them.
     """
     am = (2.0 * rho_inf - 1.0) / (rho_inf + 1.0)
     af = rho_inf / (rho_inf + 1.0)
@@ -288,38 +296,75 @@ def modal_frames_plain(lam, winv, u_modal, eta, etad, n_frames: int = 1,
     return torch.stack(qs), torch.stack(vs)
 
 
+class FrameCoeffs(NamedTuple):
+    """The per-mode rows :func:`modal_frames` reads on the card, views of one
+    ``(rows, m)`` tensor in the state dtype on the state's device:
+    ``cols`` = ``(p1, p2, p3, p4[, p5, p6])`` (:func:`mode_coeffs`, ``p4 =
+    winv * u``), and ``lam``, ``u``, ``cdamp`` for the initial acceleration
+    (``u``, ``cdamp`` None when absent)."""
+
+    cols: torch.Tensor
+    lam: torch.Tensor
+    u: Optional[torch.Tensor]
+    cdamp: Optional[torch.Tensor]
+
+
+def frame_coeffs(lam, winv, u_modal, cdamp, rho_inf: float, ref) -> FrameCoeffs:
+    """:class:`FrameCoeffs` in ``ref``'s dtype and device, with the
+    arithmetic of :func:`_coeff_cols` and :func:`initial_accel`'s casts, so
+    the kernel reads the values its plain version computes. Build once and
+    pass to every :func:`modal_frames` call of the same engine and force
+    (``ModalGenAlpha`` memoizes it)."""
+    (p1, p2, p3, p5, p6), p4 = _coeff_cols(lam, winv, u_modal, cdamp, rho_inf, ref)
+    damped = p5 is not None
+    rows = [p1, p2, p3, p4] + ([p5, p6] if damped else []) + [_like(lam, ref)]
+    extra = [x for x in (u_modal, cdamp) if x is not None]
+    block = torch.stack(rows + [_like(x, ref) for x in extra])
+    n = len(rows) - 1
+    u_row = block[n + 1] if u_modal is not None else None
+    return FrameCoeffs(block[:n], block[n], u_row, block[-1] if damped else None)
+
+
 def modal_frames(lam, winv, u_modal, eta, etad, n_frames: int = 1,
                  substeps: int = 1, h: float = 1e-4, rho_inf: float = 0.8,
-                 cdamp=None):
+                 cdamp=None, coeffs: FrameCoeffs = None, envs: int = 0):
     """Frame-collecting rollout: ``n_frames`` frames of ``substeps`` steps.
 
     Returns ``(etas, etads)`` of shape ``(n_frames + 1, ..., m)`` including
-    the initial state. On CUDA one launch carries the state in registers
-    across all frames and writes each frame into the preallocated output.
+    the initial state. On CUDA one launch computes the consistent initial
+    acceleration, carries the state in registers across all frames and
+    writes each frame into one preallocated output; with ``coeffs`` (from
+    :func:`frame_coeffs` for the same arguments) no torch op runs before it.
+    ``envs``: the envs a thread carries (1, 2 or 4); 0 lets the kernel's
+    launcher choose by the batch (``modal_frames_envs`` in the source).
     """
-    a0 = initial_accel(lam, u_modal, cdamp, eta, etad)
     if not _on_cuda(eta, etad):
         return modal_frames_plain(lam, winv, u_modal, eta, etad, n_frames,
                                   substeps, h, rho_inf, cdamp)
-    (p1, p2, p3, p5, p6), p4 = _coeff_cols(lam, winv, u_modal, cdamp, rho_inf, eta)
-    damped = p5 is not None
-    cols = torch.stack([p1, p2, p3, p4] + ([p5, p6] if damped else []))
-    q0, v0, a0 = eta.contiguous(), etad.contiguous(), a0.contiguous()
+    if coeffs is None:
+        coeffs = frame_coeffs(lam, winv, u_modal, cdamp, rho_inf, eta)
+    q0, v0 = eta.contiguous(), etad.contiguous()
     n, m = q0.numel(), q0.shape[-1]
+    if (coeffs.cols.dtype != eta.dtype or coeffs.cols.device != eta.device
+            or coeffs.cols.shape != (4 if coeffs.cdamp is None else 6, m)):
+        raise ValueError(f"coeffs do not fit {m} modes of {eta.dtype} on {eta.device}: "
+                         f"cols {tuple(coeffs.cols.shape)} {coeffs.cols.dtype} on "
+                         f"{coeffs.cols.device}")
     F = int(n_frames)
-    qs = torch.empty((F + 1, *eta.shape), dtype=eta.dtype, device=eta.device)
-    vs = torch.empty_like(qs)
+    out = torch.empty((2, F + 1, *eta.shape), dtype=eta.dtype, device=eta.device)
     if n:
         lib = _build.library("modal_rollout")
         with torch.cuda.device(eta.device):
             rc = lib.modal_frames_launch(
-                _DTYPE_CODES[eta.dtype], int(damped), n, m, F, int(substeps),
-                _ptr(cols), _ptr(q0), _ptr(v0), _ptr(a0), _ptr(qs), _ptr(vs),
+                _DTYPE_CODES[eta.dtype], int(coeffs.cdamp is not None), int(envs), n // m,
+                m, F, int(substeps), _ptr(coeffs.cols), _ptr(coeffs.lam),
+                *(0 if x is None else _ptr(x) for x in (coeffs.u, coeffs.cdamp)),
+                _ptr(q0), _ptr(v0), _ptr(out[0]), _ptr(out[1]),
                 *step_scalars(h, rho_inf, eta.dtype), _stream(eta.device),
             )
         _build.check(lib, rc, "modal_frames")
         modal_frames.launches += 1
-    return qs, vs
+    return out[0], out[1]
 
 
 modal_frames.launches = 0
@@ -330,15 +375,17 @@ modal_frames.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _affine_map(tmat, bvec, ref):
-    """``(P, b)`` in ``ref``'s dtype and device, contiguous, shapes checked."""
+def _affine_map(tmat, bvec, ref, runs: int = None):
+    """``(P, b)`` in ``ref``'s dtype and device, contiguous, shapes checked:
+    ``(m, 3, 3)`` and ``(m, 3)``, or with a leading axis of ``runs`` maps."""
     m = ref.shape[-1]
+    lead = () if runs is None else (runs,)
     P = _like(tmat, ref).contiguous()
     b = _like(bvec, ref).contiguous()
-    if P.shape != (m, 3, 3) or b.shape != (m, 3):
+    if P.shape != (*lead, m, 3, 3) or b.shape != (*lead, m, 3):
         raise ValueError(
-            f"affine map needs tmat (m, 3, 3) and bvec (m, 3) for m={m}, "
-            f"got {tuple(P.shape)} and {tuple(b.shape)}"
+            f"affine map needs tmat {(*lead, 'm', 3, 3)} and bvec {(*lead, 'm', 3)} "
+            f"for m={m}, got {tuple(P.shape)} and {tuple(b.shape)}"
         )
     return P, b
 
@@ -453,7 +500,74 @@ def affine_drive(lam, u_modal, cdamp, tmat, bvec, eta, etad, apps: int,
 affine_drive.launches = 0
 
 
-KERNELS = (modal_steps, modal_frames, affine_steps, affine_drive)
+# ---------------------------------------------------------------------------
+# rollout_frames_power's whole drive -> affine_frames
+# ---------------------------------------------------------------------------
+
+
+def affine_frames_plain(lam, u_modal, cdamp, tmat, bvec, eta, etad, counts):
+    """Plain PyTorch version of :func:`affine_frames` (same arithmetic)."""
+    s = (eta, etad, initial_accel(lam, u_modal, cdamp, eta, etad))
+    qs, vs = [eta], [etad]
+    for P, b, c in zip(tmat, bvec, counts):
+        for _ in range(int(c)):
+            s = affine_steps_plain(P, b, *s, apps=1)
+            qs.append(s[0])
+            vs.append(s[1])
+    return torch.stack(qs), torch.stack(vs)
+
+
+@functools.lru_cache(maxsize=16)
+def _frame_runs(counts: tuple, device: torch.device) -> torch.Tensor:
+    """The run of each frame, ``int32`` on ``device``, for runs of ``counts``
+    frames. Memoized: a schedule's launches copy nothing to the card."""
+    idx = torch.repeat_interleave(torch.arange(len(counts), dtype=torch.int32),
+                                  torch.tensor(counts))
+    return idx.to(device)
+
+
+def affine_frames(lam, u_modal, cdamp, tmat, bvec, eta, etad, counts):
+    """The frame-collecting drive of ``ModalGenAlpha.rollout_frames_power``.
+
+    From ``(eta, etad)`` and the consistent initial acceleration
+    (:func:`initial_accel`, its order and rounding), runs ``r`` of
+    ``counts[r]`` frames, each frame one application of run ``r``'s map
+    ``(tmat[r], bvec[r])``. ``lam``, ``u_modal`` (or None), ``cdamp`` (or
+    None): ``(m,)``; ``tmat`` ``(R, m, 3, 3)``, ``bvec`` ``(R, m, 3)``, one
+    map a run. Returns ``(etas, etads)`` of shape ``(sum(counts) + 1, ...,
+    m)``, the initial state first. On CUDA one launch reads ``eta`` and
+    ``etad`` and writes every frame into one preallocated output.
+    """
+    if not _on_cuda(eta, etad):
+        return affine_frames_plain(lam, u_modal, cdamp, tmat, bvec, eta, etad, counts)
+    counts = tuple(int(c) for c in counts)
+    if any(c < 0 for c in counts):
+        raise ValueError(f"frame counts must be >= 0, got {counts}")
+    F = sum(counts)
+    P, b = _affine_map(tmat, bvec, eta, runs=len(counts))
+    frame_run = _frame_runs(counts, eta.device) if len(counts) > 1 else None
+    consts = [_like(x, eta).contiguous() if x is not None else None
+              for x in (lam, u_modal, cdamp)]
+    q0, v0 = eta.contiguous(), etad.contiguous()
+    n, m = q0.numel(), q0.shape[-1]
+    out = torch.empty((2, F + 1, *eta.shape), dtype=eta.dtype, device=eta.device)
+    if n:
+        lib = _build.library("modal_rollout")
+        with torch.cuda.device(eta.device):
+            rc = lib.affine_frames_launch(
+                _DTYPE_CODES[eta.dtype], n // m, m, F,
+                *(0 if x is None else _ptr(x) for x in (frame_run, *consts, P, b)),
+                _ptr(q0), _ptr(v0), _ptr(out[0]), _ptr(out[1]), _stream(eta.device),
+            )
+        _build.check(lib, rc, "affine_frames")
+        affine_frames.launches += 1
+    return out[0], out[1]
+
+
+affine_frames.launches = 0
+
+
+KERNELS = (modal_steps, modal_frames, affine_steps, affine_drive, affine_frames)
 
 
 def reset_launch_counts() -> None:

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from continuum_robot_tpu.ops.pallas import modal_rollout as jk
-from test_torch_modal_rollout import H, PALLAS, RHO, _coeffs, _t
+from test_torch_modal_rollout import H, M, PALLAS, RHO, _coeffs, _t
 from continuum_robot_tpu_torch import convert
 from continuum_robot_tpu_torch.models import simulate as ts
 from continuum_robot_tpu_torch.ops.cuda import _build
@@ -186,11 +186,61 @@ def test_drive_twin_is_power_drive_sequence(dtype):
             assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_frames_twin_is_power_frames_sequence(dtype):
+    """``affine_frames_plain``, and through it ``rollout_frames_power`` on
+    CPU state, is the former frames drive: the initial acceleration, then
+    one ``affine_steps_plain`` application of the frame's map a frame, the
+    frames stacked; for a constant force and for a schedule whose break
+    falls inside a frame (three runs: before, the crossing frame, after)."""
+    _, lam, _, cdamp, u, eta, etad = _coeffs(True, seed=10)
+    eng = convert.modal_engine_from_numpy(np.zeros((1, M)), np.zeros((M, 1)), lam, RHO, H,
+                                          cdamp, device="cpu")
+    e, ed = (torch.tensor(x, dtype=dtype) for x in (eta, etad))
+    lam_t, u_t, cd_t = (torch.tensor(x, dtype=dtype) for x in (lam, u, cdamp))
+    pwc = ts.PiecewiseConstant((9.5 * H,), np.stack([u, -0.5 * u]))
+    for force, runs in ((u, [(*eng._power_map(4, u), 5)]),
+                        (pwc, eng._pwc_frame_runs(pwc, 5, 4, 0.0))):
+        s = (e, ed, tk.initial_accel(lam_t, u_t, cd_t, e, ed))
+        qs, vs = [e], [ed]
+        for P, b, c in runs:
+            for _ in range(c):
+                s = tk.affine_steps_plain(P, b, *s, apps=1)
+                qs.append(s[0])
+                vs.append(s[1])
+        twin = tk.affine_frames_plain(lam_t, u_t, cd_t, np.stack([r[0] for r in runs]),
+                                      np.stack([r[1] for r in runs]), e, ed,
+                                      [r[2] for r in runs])
+        engine = eng.rollout_frames_power(e, ed, force, 5, substeps=4)[1:]
+        for x, y, ref in zip(twin, engine, (torch.stack(qs), torch.stack(vs))):
+            assert torch.equal(x, ref) and torch.equal(y, ref)
+    assert [r[2] for r in runs] == [2, 1, 2]
+
+
+def test_frames_envs_by_batch(host_kernels):
+    """The frames kernel's envs a thread, chosen by its launcher (the
+    host-built source on a card of 132 SMs): 4 where the grid still gives
+    each SM two blocks (the main path's 4096 envs), 2 for the 64 envs of
+    ``simulate``'s frames at 3000 modes (188 blocks at 4, 376 at 2), and
+    never outside its instances."""
+    sms = ctypes.c_int.in_dll(host_kernels, "host_sms")
+    sms.value = 132
+    try:
+        assert host_kernels.modal_frames_envs(4096, 3000) == 4
+        assert host_kernels.modal_frames_envs(64, 3000) == 2
+        assert host_kernels.modal_frames_envs(1, 1) == 1
+        for B in (1, 5, 64, 100, 150, 1000, 4096, 65536):
+            assert host_kernels.modal_frames_envs(B, 37) in (1, 2, 4)
+    finally:
+        sms.value = 1
+
+
 # Just enough of CUDA for the host compiler: each launch runs its blocks and
 # threads one after another (the modal kernels share no memory between
 # threads), the _rn intrinsics round each operation (volatile, no
 # contraction), __fmaf_rn is fmaf. One SM holding one block makes the affine
-# grid a single row of blocks, so its threads walk several env groups.
+# grid a single row of blocks, so its threads walk several env groups;
+# host_sms sets the SM count the launchers read.
 HOST_CUDA = r"""
 #include <cmath>
 #include <cstdint>
@@ -202,13 +252,14 @@ HOST_CUDA = r"""
 #define __restrict__ __restrict
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaDevAttrMultiProcessorCount };
+enum { cudaDevAttrMultiProcessorCount, cudaErrorInvalidValue };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 static dim3 blockIdx, threadIdx, blockDim, gridDim;
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
+extern "C" { int host_sms = 1; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = host_sms; return 0; }
 template <typename K> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, int) { *n = 1; return 0; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 #define RN(name, T, op) inline T name(T a, T b) { volatile T r = a op b; return r; }
@@ -235,7 +286,7 @@ def host_kernels(tmp_path_factory):
     src, launches = re.subn(r"(\w+<[^<>]*>)<<<(.*?), (.*?), 0, stream>>>\(",
                             r"host_launch(\2, \3, [&](auto... xs) { \1(xs...); }, ", src,
                             flags=re.S)
-    assert launches == 3  # launch_steps, launch_frames, launch_affine
+    assert launches == 4  # launch_steps, launch_frames, launch_affine, launch_affine_frames
     out = tmp_path_factory.mktemp("modal_host")
     (out / "modal_rollout.cpp").write_text(src)
     cxx = shutil.which("c++") or shutil.which("g++")
@@ -249,17 +300,24 @@ def host_kernels(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_source_on_host_equals_plain(host_kernels, monkeypatch, dtype):
-    """The wrappers launch the host-built kernels on CPU tensors: every
-    kernel and entry equals its plain twin bit for bit, damped or not, at
-    ragged sizes (envs not a multiple of a thread's envs, modes not of a
-    warp's), with 150 envs walked 8 groups a row."""
+@pytest.fixture
+def on_host_kernels(host_kernels, monkeypatch):
+    """The wrappers launch the host-built kernels on CPU tensors."""
     monkeypatch.setattr(_build, "library", lambda name: host_kernels)
     monkeypatch.setattr(tk, "_on_cuda", lambda *t: True)
     monkeypatch.setattr(tk, "_stream", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     tk.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_source_on_host_equals_plain(on_host_kernels, dtype):
+    """The wrappers launch the host-built kernels on CPU tensors: every
+    kernel and entry equals its plain twin bit for bit, damped or not, at
+    ragged sizes (envs not a multiple of a thread's envs, modes not of a
+    warp's), with 150 envs walked 8 groups a row; the frames kernel with
+    each envs a thread it has (and the batch's choice), the frames drive
+    with one map and with a two-run schedule."""
     rng = np.random.default_rng(9)
     for B, m in ((5, 37), (150, 3)):
         lam = np.sort(10.0 ** rng.uniform(0.0, 12.0, m))
@@ -274,9 +332,10 @@ def test_kernel_source_on_host_equals_plain(host_kernels, monkeypatch, dtype):
             for a, b in zip(tk.modal_steps(*args, steps=9, **kw),
                             tk.modal_steps_plain(*args, steps=9, **kw)):
                 assert torch.equal(a, b)
-            for a, b in zip(tk.modal_frames(*args, 3, 4, **kw),
-                            tk.modal_frames_plain(*args, 3, 4, **kw)):
-                assert torch.equal(a, b)
+            frames = tk.modal_frames_plain(*args, 3, 4, **kw)
+            for envs in (1, 2, 4, 0):  # each instance, then the batch's choice
+                for a, b in zip(tk.modal_frames(*args, 3, 4, envs=envs, **kw), frames):
+                    assert torch.equal(a, b)
             P, bv = eng._power_map(8, u)
             Pr, br = eng._power_map(3, u)
             a0 = tk.initial_accel(lam, u, cd, e, ed)
@@ -288,4 +347,35 @@ def test_kernel_source_on_host_equals_plain(host_kernels, monkeypatch, dtype):
                 drive = (*consts, P, bv, e, ed, 4, *rem)
                 for a, b in zip(tk.affine_drive(*drive), tk.affine_drive_plain(*drive)):
                     assert torch.equal(a, b)
-    assert [f.launches for f in tk.KERNELS] == [4, 4, 4, 8]
+            for maps, counts in ((([P], [bv])), (4,)), (([P, Pr], [bv, br]), (3, 2)):
+                fr = (*consts, np.stack(maps[0]), np.stack(maps[1]), e, ed, counts)
+                for a, b in zip(tk.affine_frames(*fr), tk.affine_frames_plain(*fr)):
+                    assert torch.equal(a, b)
+    assert [f.launches for f in tk.KERNELS] == [4, 16, 4, 8, 8]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_frame_drives_launch_once_on_host_kernels(on_host_kernels, dtype):
+    """Through the host-built kernels, ``rollout_frames_pallas`` is one
+    ``modal_frames`` launch and ``rollout_frames_power`` one
+    ``affine_frames`` launch (constant force and schedule), no
+    ``affine_steps``; each equal bit for bit to the engine on the twins."""
+    _, lam, _, cdamp, u, eta, etad = _coeffs(True, seed=12)
+    eng = convert.modal_engine_from_numpy(np.zeros((1, M)), np.zeros((M, 1)), lam, RHO, H,
+                                          cdamp, device="cpu")
+    e, ed = (torch.tensor(x, dtype=dtype) for x in (eta, etad))
+    pwc = ts.PiecewiseConstant((9.5 * H,), np.stack([u, -0.5 * u]))
+    runs = (("rollout_frames_pallas", u), ("rollout_frames_power", u),
+            ("rollout_frames_power", pwc))
+    outs = []
+    for name, force in runs:
+        before = [f.launches for f in tk.KERNELS]
+        outs.append(getattr(eng, name)(e, ed, force, 5, substeps=4))
+        launched = {f.__name__: f.launches - n for f, n in zip(tk.KERNELS, before)}
+        kernel = "modal_frames" if name == "rollout_frames_pallas" else "affine_frames"
+        assert launched == {k: int(k == kernel) for k in launched}, (name, launched)
+    with pytest.MonkeyPatch.context() as mp:  # the same calls on the twins
+        mp.setattr(tk, "_on_cuda", lambda *t: False)
+        for (name, force), out in zip(runs, outs):
+            for a, b in zip(out, getattr(eng, name)(e, ed, force, 5, substeps=4)):
+                assert torch.equal(a, b)

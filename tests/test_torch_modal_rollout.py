@@ -120,7 +120,10 @@ def test_cpu_tensors_never_build(monkeypatch):
     drive = (_t(lam), _t(u), _t(cdamp), P, bv, e, ed, 3, P, bv)
     for a, b in zip(tk.affine_drive(*drive), tk.affine_drive_plain(*drive)):
         assert torch.equal(a, b)
-    assert [fn.launches for fn in tk.KERNELS] == [0, 0, 0, 0]
+    frames = (_t(lam), _t(u), _t(cdamp), np.stack([P, P]), np.stack([bv, bv]), e, ed, (2, 1))
+    for a, b in zip(tk.affine_frames(*frames), tk.affine_frames_plain(*frames)):
+        assert torch.equal(a, b)
+    assert [fn.launches for fn in tk.KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -174,4 +177,9 @@ def test_kernels_bit_equal_to_plain_on_card(cuda_device, dtype):
     for cd, rem in ((None, (None, None)), (cd_t, (Pr, br))):
         drive = (lam_t, u_t, cd, P, bv, e, ed, 7, *rem)
         for a, b in zip(tk.affine_drive(*drive), tk.affine_drive_plain(*drive)):
+            assert torch.equal(a, b)
+    # the frames drive: one run, and a two-run schedule with a run index
+    for cd, maps, counts in ((None, ([P], [bv]), (4,)), (cd_t, ([P, Pr], [bv, br]), (3, 2))):
+        frames = (lam_t, u_t, cd, np.stack(maps[0]), np.stack(maps[1]), e, ed, counts)
+        for a, b in zip(tk.affine_frames(*frames), tk.affine_frames_plain(*frames)):
             assert torch.equal(a, b)
