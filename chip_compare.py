@@ -5,6 +5,7 @@
     python3 chip_compare.py --ab PARENT_DIR       # parent, this, this, parent
     python3 chip_compare.py --ab PARENT_DIR --sections modal   # some sections only
     python3 chip_compare.py --splits              # the float32 project's slice count
+    python3 chip_compare.py --tree . --sections adaptive   # host reads, RHS thresholds
 
 ``--tree`` imports ``continuum_robot_tpu_torch`` from ``DIR`` (its kernels
 build from ``DIR``'s sources into ``DIR/build``) and measures, at the main
@@ -71,6 +72,24 @@ fused:
   a SHA-256 of its output; and the fused span (``fused_rollout``, 4096
   envs, 250 frames x 20 substeps, float32): its time (best of 3), device
   time, launches by kernel and a SHA-256 of its frames.
+
+adaptive (float64; not in the default sections):
+
+- the adaptive driver's host-check interval (``integrators.
+  HOST_CHECK_INTERVAL`` set to 1, 2, 4 and 8, each run twice in the order
+  1 2 4 8 8 4 2 1): Dopri5 on nonlinear_fluid_gravity over 2 ms of the
+  golden's tip impulse (1 env, and 4096 envs with ``per_env=True`` as in
+  ``chip_smoke.py`` phase 23), and adaptive generalized-alpha on stiff60
+  (``chip_smoke.py`` phase 24, ``dense_inv``; 1 env and 4096 envs): ms a
+  trial over the trials the device ran (``stats.trials_run``, masked ones
+  included), host reads, and whether every interval gave the same bits;
+- the small-beam RHS's two thresholds: ms a Dopri5 trial (40 trials, the
+  step cap of one long interval) on von Karman beams of 6, 8, 12, 16 and 24
+  elements with drag and gravity, at 1 and 4096 envs, with the internal
+  force as the cubic contraction or the element planes
+  (``dynamic_beam_model.POLY_MAX_ELEMENTS``) and the dense products as row
+  sums or matmuls (``dynamics.ROWSUM_MAX``), and each variant's last state
+  against the cubic/row-sum one's.
 
 ``--ab`` runs ``--tree`` in four processes, parent, this checkout, this
 checkout, parent, and prints their lines, which digests equal the
@@ -480,8 +499,125 @@ def measure_modal(cs, crt, dev, best, device, digest) -> dict:
     return res
 
 
+def measure_adaptive(cs, crt, dev, best, device, digest) -> dict:
+    """The adaptive driver's host-check interval and the small-beam RHS's
+    two thresholds, in the imported tree (float64)."""
+    import numpy as np
+    import torch
+
+    from continuum_robot_tpu_torch.models import dynamic_beam_model as dbm
+    from continuum_robot_tpu_torch.models import dynamics
+    from continuum_robot_tpu_torch.ops import integrators
+
+    with open(os.path.join(HERE, cs.GOLDEN_DIR, "trajectories_meta.json")) as f:
+        meta = json.load(f)
+    amp, t_end, dt = meta["impulse_amplitude"], meta["impulse_t_end"], meta["dt"]
+    types, fp = cs.GOLDEN_CONFIGS["nonlinear_fluid_gravity"]
+    nfg = cs.golden_beam(crt, types, fp)
+    n = nfg.n_pos_states
+    rhs = nfg.build_rhs()
+    kw = dict(rtol=cs.PARITY["rtol"], atol=cs.PARITY["atol"], dt0=dt / 10.0)
+    te = np.arange(ADAPTIVE["dopri5_frames"] + 1) * dt
+    envs = ADAPTIVE["envs"]
+    amps = torch.tensor(np.geomspace(*cs.PER_ENV["amp"], envs), device=dev)
+
+    stiff = cs.golden_beam(crt, ["linear"] * cs.STIFF["n_el"], length=cs.STIFF["length"])
+    ns = stiff.n_pos_states
+    scales = torch.linspace(*cs.STIFF["scale"], envs, dtype=torch.float64, device=dev)
+    ts = np.arange(int(round(cs.STIFF["horizon"] / cs.STIFF["frame"])) + 1) * cs.STIFF["frame"]
+    gkw = dict(rtol=cs.STIFF["rtol"], atol=cs.STIFF["atol"], n_newton=cs.STIFF["n_newton"],
+               rho_inf=cs.STIFF["rho_inf"])
+
+    def dopri5(width):
+        x0 = torch.zeros((width, 2 * n) if width > 1 else (2 * n,), dtype=torch.float64,
+                         device=dev)
+        u = cs.tip_impulse(n, amps if width > 1 else amp, t_end, torch.float64, dev)
+        return lambda: integrators.integrate_adaptive(rhs, x0, te, u=u, per_env=width > 1,
+                                                      **kw)
+
+    def genalpha(width):
+        op = crt.make_newmark_operator(stiff, dt=None, linear_solver="dense_inv",
+                                       device=dev)
+        q0 = torch.zeros((width, ns) if width > 1 else (ns,), dtype=torch.float64,
+                         device=dev)
+        u = cs.tip_impulse(ns, amp * (scales if width > 1 else 1.0), t_end, torch.float64,
+                           dev)
+        return lambda: integrators.integrate_generalized_alpha_adaptive(
+            op, q0, torch.zeros_like(q0), ts, u=u, **gkw)[::2]
+
+    res, real = {}, integrators.HOST_CHECK_INTERVAL
+    order = ADAPTIVE["intervals"] + ADAPTIVE["intervals"][::-1]
+    try:
+        for name, make in (("dopri5_1", lambda: dopri5(1)),
+                           (f"dopri5_per_env_{envs}", lambda: dopri5(envs)),
+                           ("genalpha_stiff60_1", lambda: genalpha(1)),
+                           (f"genalpha_stiff60_{envs}", lambda: genalpha(envs))):
+            run = make()
+            run()  # warm-up
+            secs, outs = {k: [] for k in ADAPTIVE["intervals"]}, {}
+            for k in order:
+                integrators.HOST_CHECK_INTERVAL = k
+                (xs, st), s = cs.wall(run)
+                secs[k].append(s)
+                outs[k] = (digest(xs), st)
+            ref = outs[1][1]
+            res[f"interval_{name}"] = {
+                "trials": int(ref.n_steps.max()), "same_result": len(
+                    {d for d, _ in outs.values()}) == 1,
+                **{str(k): {"ms_per_trial_run": 1e3 * min(v) / outs[k][1].trials_run,
+                            "ms": [1e3 * x for x in v], "trials_run": outs[k][1].trials_run,
+                            "host_reads": outs[k][1].host_reads}
+                   for k, v in secs.items()}}
+            print(f"interval {name}: {res[f'interval_{name}']}", file=sys.stderr, flush=True)
+    finally:
+        integrators.HOST_CHECK_INTERVAL = real
+
+    # The RHS's internal force (the cubic contraction or the element planes)
+    # and dense products (row sums or matmuls): ms a Dopri5 trial, exactly
+    # `trials` trials a run (the interval's step cap).
+    real = dbm.POLY_MAX_ELEMENTS, dynamics.ROWSUM_MAX
+    big = 10**6
+    try:
+        for n_el in ADAPTIVE["rhs_elements"]:
+            rows = {}
+            for poly in (True, False):
+                for rowsum in (True, False):
+                    dbm.POLY_MAX_ELEMENTS = big if poly else 0
+                    dynamics.ROWSUM_MAX = big if rowsum else 0
+                    model = cs.golden_beam(crt, ["nonlinear"] * n_el, fp)
+                    m = model.n_pos_states
+                    f = model.build_rhs()
+                    for width in (1, envs):
+                        x0 = torch.zeros(width, 2 * m, dtype=torch.float64, device=dev)
+                        u = cs.tip_impulse(m, amp, t_end, torch.float64, dev)
+
+                        def trials(cap):
+                            return integrators.integrate_adaptive(
+                                f, x0, [0.0, 1.0], u=u, max_steps_per_interval=cap, **kw)
+
+                        trials(3)
+                        (xs, st), s = cs.wall(lambda: trials(ADAPTIVE["rhs_trials"]))
+                        rows[f"{'poly' if poly else 'planar'}/"
+                             f"{'rowsum' if rowsum else 'matmul'}/{width}"] = (
+                            1e3 * s / st.trials_run, xs[-1])
+            base = {w: rows[f"poly/rowsum/{w}"][1] for w in (1, envs)}
+            res[f"rhs_{n_el}_elements"] = {
+                "dofs": m, **{k: {"ms_per_trial": v[0], "rel_vs_poly_rowsum": float(
+                    (v[1] - base[int(k.split('/')[-1])]).abs().max()
+                    / base[int(k.split('/')[-1])].abs().max())} for k, v in rows.items()}}
+            print(f"rhs {n_el}: {res[f'rhs_{n_el}_elements']}", file=sys.stderr, flush=True)
+    finally:
+        dbm.POLY_MAX_ELEMENTS, dynamics.ROWSUM_MAX = real
+    return res
+
+
 SECTIONS = {"modal": measure_modal, "rom": measure_rom, "implicit": measure_implicit,
-            "fused": measure_fused}
+            "fused": measure_fused, "adaptive": measure_adaptive}
+# The adaptive section: host-check intervals tried (each run twice, in the
+# order 1 2 4 8 8 4 2 1), the Dopri5 runs' frames (of the golden's 1 ms) and
+# width, and the RHS comparison's beams and trials a run.
+ADAPTIVE = dict(intervals=[1, 2, 4, 8], dopri5_frames=2, envs=4096,
+                rhs_elements=(6, 8, 12, 16, 24), rhs_trials=40)
 ECSW_SAMPLE = 41  # elements of the main path's ECSW sample (chip_smoke.py phase 9)
 SPLIT_SHAPES = ((4096, 256, 3003), (4096, 256, 1000), (4096, 256, 600), (4096, 13, 3003),
                 (129, 256, 3003), (5, 37, 3003))
@@ -560,8 +696,9 @@ def main() -> int:
     ap.add_argument("--tree")
     ap.add_argument("--ab")
     ap.add_argument("--splits", action="store_true")
-    ap.add_argument("--sections", default=",".join(SECTIONS),
-                    help=f"comma-separated, of {', '.join(SECTIONS)} (default: all)")
+    ap.add_argument("--sections", default=",".join(k for k in SECTIONS if k != "adaptive"),
+                    help=f"comma-separated, of {', '.join(SECTIONS)} (default: all but "
+                         "adaptive)")
     args = ap.parse_args()
     sections = args.sections.split(",")
     for name in sections:

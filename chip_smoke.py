@@ -132,7 +132,42 @@ Phases, one line each (any failure exits non-zero):
     "pallas" bit for bit equal to "btd"; ``parallel.batched_rollout`` bit
     for bit equal to ``simulate``; ``sweep_statistics`` finite; then the
     fused timings: the kernel per launch at 4096 and 65536 envs against
-    its plain twin and its bound, and the float64 oracle span's time.
+    its plain twin and its bound, and the float64 oracle span's time;
+21. reference parity: ``simulate(method="dopri5")`` (float64, rtol 1e-10,
+    atol 1e-12) on the six golden configurations of
+    tests/test_parity_golden.py over their first ``PARITY["prefix"]`` s
+    against ``tests/goldens/trajectories.npz`` (< 2e-6 x the state
+    scale), trials, host reads and wall time each; then
+    nonlinear_fluid_gravity continued span by span toward 1 s (an exact
+    restart from ``(x, dt_next)``) while ``PARITY["full_budget_s"]`` lasts,
+    against the golden over the frames reached;
+22. batched RK4: ``parallel.batched_rollout(method="rk4")`` on the
+    6-segment hybrid flagship with drag and gravity (``entry.py``), 4096
+    envs with tip displacements ~ N(0, 1e-3), h = 1e-5 s halved until RK4
+    is stable on the beam's spectrum, float32 timed (best of 3,
+    env-steps/s) and float64; three float64 envs bit for bit equal to
+    ``simulate(method="rk4")`` alone, float32 against float64 (<= 1e-3),
+    RK4's order against Dopri5 over the first frame (h, h/2, h/4); one
+    ``entry()`` step; the same three envs on a von Karman beam of
+    ``POLY_MAX_ELEMENTS`` elements with drag and gravity (the widest whose
+    RHS is batch-invariant), bit for bit alone;
+23. per-env Dopri5: ``integrate_adaptive(per_env=True)`` on
+    nonlinear_fluid_gravity, 4096 envs, tip impulses 0.05-0.2 N: the
+    lanes of the smallest, median and largest impulse equal their solo
+    runs (<= 1e-10, counts equal), the median (0.1 N) against the golden;
+24. adaptive implicit on the stiff60 mesh (60 linear elements of 0.025 m)
+    over ``STIFF["horizon"]``: ``generalized_alpha_adaptive`` with
+    ``"dense_inv"`` and ``"pallas"`` and ``sdirk3``, at 1 and 4096 envs
+    (impulses scaled 0.5-1.5, one shared controller), every run equal to
+    the port on the CPU on the same inputs (<= 1e-10, counts equal),
+    ``"pallas"`` equal to ``"dense_inv"`` on the card at each width, each
+    ``btd_solve`` launch of the ``"pallas"`` runs bit for bit its plain
+    version on its own inputs, tip errors against the exact flow printed;
+    ``chunk=`` bit for bit the one-call run; the expm propagator over 1 s
+    against the stiff60 golden (printed); the ms a trial of
+    ``generalized_alpha_adaptive`` at full width (1000 elements, 4096
+    envs, float32; 20 trials after a one-trial warm-up, the initial
+    acceleration outside the timing) with ``"btd"`` and ``"cr"``.
 
 Launch counts are set to 0 just before each path and read just after it:
 the linear main path (``rollout_power``), ``rollout_pallas``,
@@ -145,8 +180,10 @@ linear and nonlinear main paths (14, 15; the block-tridiagonal kernel once
 for the initial acceleration and once per Newton iteration: 2001 and 4001)
 and the ``simulate`` runs with ``linear_solver="pallas"`` (16); the fused
 small-beam path in float32 and float64 (19, one launch per frame: 250),
-its float64 oracle (19, the block-tridiagonal kernel 1 + 5000 x 2 times)
-and the ``simulate`` and ``batched_rollout`` runs of phase 20. Every
+its float64 oracle (19, the block-tridiagonal kernel 1 + 5000 x 2 times),
+the ``simulate`` and ``batched_rollout`` runs of phase 20 and the adaptive
+generalized-alpha runs with ``"pallas"`` (24: one launch a run, the
+initial acceleration). Every
 kernel must have been launched by its own path, and each ROM path must
 launch exactly its kernels, once per Newton iteration of every step. The
 second-to-last lines are the kernels' JSON record (``launches`` from the
@@ -420,6 +457,28 @@ def replaced(module, name, value):
         yield
     finally:
         setattr(module, name, real)
+
+
+class Recording:
+    """Module ``kmod`` with its function ``name`` recorded: each call's
+    arguments and result go to ``calls`` (the function, and its launch
+    count, stay the module's own). Stand it in for ``kmod`` where a caller
+    holds the module."""
+
+    def __init__(self, kmod, name: str):
+        self._kmod, self._name, self.calls = kmod, name, []
+
+    def __getattr__(self, attr):
+        real = getattr(self._kmod, attr)
+        if attr != self._name:
+            return real
+
+        def call(*args):
+            out = real(*args)
+            self.calls.append((args, out))
+            return out
+
+        return call
 
 
 @contextlib.contextmanager
@@ -1947,6 +2006,454 @@ def profile_fused(crt, dev, card) -> None:
                  dev, card, "the fused small-beam path", steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# The reference-parity and adaptive paths (phases 21-24)
+# ---------------------------------------------------------------------------
+
+GOLDEN_DIR = "tests/goldens"
+# tests/test_parity_golden.py's six configurations (tests/helpers.py's
+# Nitinol beam: 0.25 m elements, fixed base).
+GOLDEN_CONFIGS = {
+    "linear": (["linear"] * 6, {}),
+    "nonlinear": (["nonlinear"] * 6, {}),
+    "mixed": (["linear"] * 3 + ["nonlinear"] * 3, {}),
+    "linear_fluid": (["linear"] * 6, {"enable_fluid_effects": True,
+                                      "fluid_density": 1000.0}),
+    "linear_gravity": (["linear"] * 6, {"enable_gravity_effects": True}),
+    "nonlinear_fluid_gravity": (["nonlinear"] * 6, {
+        "enable_fluid_effects": True, "fluid_density": 1000.0,
+        "enable_gravity_effects": True}),
+}
+GOLDEN_MAX = 2e-6  # the JAX package's golden bound, x the state scale
+# Phase 21: Dopri5 at the golden test's tolerances over the first 5 ms of
+# every configuration (0.05 s in the plan: ~36000 trials at 5-9 ms, PERF.md);
+# then nonlinear_fluid_gravity on toward 1 s, in spans of `span` frames,
+# while `full_budget_s` of wall time lasts (10 s: phases 21-24 have 150 s,
+# and phase 24's references on the CPU at 4096 envs take ~20 s of them).
+PARITY = dict(prefix=0.005, rtol=1e-10, atol=1e-12, span=2, full_budget_s=10.0,
+              full="nonlinear_fluid_gravity", jax_cpu_trials=91_695)
+# Phase 22: batched RK4 on the flagship (continuum_robot_tpu_torch.entry),
+# h = 1e-5 s halved until RK4 is stable on the beam's zero-state spectrum
+# (|h lambda| < 2.78 on the imaginary axis): 5e-6 s. 10 frames of 0.1 ms
+# (the 1 ms frames of the plan take 2000 steps a sweep: PERF.md). RK4 at
+# its stability limit does not resolve the top modes the tip start excites,
+# so its accuracy is read as its order of convergence against Dopri5.
+# Then the same envs on the widest beam whose RHS is batch-invariant, over
+# `wide_sub` steps of h, each bit for bit its solo run.
+RK4_SWEEP = dict(envs=4096, frames=10, frame_dt=1e-4, h=1e-5, tip_scale=1e-3,
+                 rk4_limit=2.78, min_order=3.5, f32_max=1e-3, check_envs=(0, 2047, 4095),
+                 wide_sub=4)
+# Phase 23: per-environment Dopri5 on nonlinear_fluid_gravity, tip impulses
+# geometrically spread over 0.05-0.2 N, the median lane exactly the golden's;
+# 3 ms (0.02 s in the plan: the three solo runs alone would take ~60 s).
+PER_ENV = dict(envs=4096, frames=3, amp=(0.05, 0.2), median=2048, solo_max=1e-10)
+# Phase 24: the stiff60 mesh (tests/test_stiff_validation.py) at the JAX
+# test's tolerances, cut to `horizon` seconds in frames of `frame` (the
+# 78678 generalized-alpha trials of the JAX test's 0.05 s at 75-90 ms each
+# do not fit: PERF.md). Each run, at 1 env and at 4096, is held to the port
+# on the CPU on the same inputs (the CPU tests hold that to the JAX
+# package), and "pallas" to "dense_inv" on the card: equal counts, states
+# within `vs_cpu_max`; every run's tip error against the exact flow (the port's
+# expm propagator at the frame spacing, the golden's own construction,
+# scaled per env: the beam is linear) is printed, not bounded (the JAX
+# test's 5e-5 is a 0.05 s bound). Then 20 trials of the 1000-element bench
+# beam at full width.
+STIFF = dict(n_el=60, length=0.025, horizon=1e-5, frame=5e-6, rtol=1e-8, atol=1e-11,
+             rho_inf=0.95, n_newton=2, envs=4096, scale=(0.5, 1.5), chunk=1,
+             vs_cpu_max=1e-10)
+TRIAL_BENCH = dict(trials=20, envs=4096, rho_inf=0.8, n_newton=1)
+
+
+def golden_beam(crt, types, fp=None, length: float = 0.25):
+    """tests/helpers.py's CSV beam as a DataFrame: Nitinol, r = 5 mm,
+    C_d 0.82 on a wetted area of 2 pi r 0.25 m, fixed base."""
+    import pandas as pd
+
+    n, r = len(types), 0.005
+    df = pd.DataFrame({
+        "length": [length] * n, "elastic_modulus": [75e9] * n,
+        "moment_inertia": [np.pi * r**4 / 4] * n, "density": [6450.0] * n,
+        "cross_area": [np.pi * r**2] * n, "type": list(types),
+        "boundary_condition": ["FIXED"] + ["NONE"] * (n - 1),
+        "wetted_area": [2 * np.pi * r * 0.25] * n, "drag_coef": [0.82] * n,
+    })
+    return crt.DynamicEulerBernoulliBeam(df, crt.ForceParams(**(fp or {})))
+
+
+def tip_impulse(n: int, amplitude, t_end: float, dtype, dev):
+    """``u(t)``: ``amplitude`` (a float, or a tensor of one per env) on the
+    tip's transverse DOF while ``t < t_end``; ``t`` a tensor of the
+    controller's shape."""
+    base = torch.zeros(n, dtype=dtype, device=dev)
+    tip = base.clone()
+    tip[-2] = 1.0
+    on = torch.as_tensor(amplitude, dtype=dtype, device=dev)[..., None] * tip
+
+    def u(t):
+        return torch.where((t < t_end)[..., None], on, base)
+
+    return u
+
+
+def golden_err(ys, y_ref) -> float:
+    """max |ys - golden| / max |golden| over the frames given."""
+    ys = ys.detach().cpu().numpy()
+    return float(np.abs(ys.T - y_ref).max() / np.abs(y_ref).max())
+
+
+def wall(fn):
+    """``(fn(), seconds)``, the card's queue drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_parity(crt, dev, meta, data) -> float:
+    """Phase 21; returns its wall seconds."""
+    from continuum_robot_tpu_torch.ops import integrators
+
+    t_phase = time.perf_counter()
+    dt = meta["dt"]
+    nf = int(round(PARITY["prefix"] / dt))
+    kw = dict(rtol=PARITY["rtol"], atol=PARITY["atol"])
+    for name, (types, fp) in GOLDEN_CONFIGS.items():
+        model = golden_beam(crt, types, fp)
+        n = model.n_pos_states
+        u = tip_impulse(n, meta["impulse_amplitude"], meta["impulse_t_end"],
+                        torch.float64, dev)
+        res, secs = wall(lambda: crt.simulate(model, np.zeros(2 * n), nf * dt, dt,
+                                              method="dopri5", u=u, device=dev, **kw))
+        y_ref = data[f"{name}_y"][:, : nf + 1]
+        err = golden_err(res.ys, y_ref)
+        st = res.stats
+        print(f"phase 21 parity {name}: dopri5 float64 over {PARITY['prefix']} s "
+              f"({nf} frames), {int(st.n_steps)} trials ({int(st.n_accepted)} accepted, "
+              f"{int(st.n_rejected)} rejected; {st.trials_run} run), {st.host_reads} host "
+              f"reads, {secs:.2f} s = {secs / st.trials_run * 1e3:.3f} ms a trial run; vs "
+              f"golden {err:.3e}",
+              flush=True)
+        require(res.ys.shape == (nf + 1, 2 * n) and err < GOLDEN_MAX,
+                f"parity {name}: golden error {err:.3e}")
+        require(int(st.n_incomplete) == 0, f"parity {name}: truncated intervals")
+        if name == PARITY["full"]:
+            full = (model, u, res)
+
+    # The full horizon, continued span by span from the prefix run: the
+    # driver's (x, dt_next) restart replays the one-call run exactly.
+    model, u, res = full
+    rhs = model.build_rhs()
+    t_eval = np.arange(int(round(meta["t_final"] / dt)) + 1) * dt
+    xs, x, st = [res.ys], res.ys[-1], res.stats
+    trials, dt_next, i, t0 = int(st.n_steps), st.dt_next, nf, time.perf_counter()
+    runs = 0
+    while i < len(t_eval) - 1 and time.perf_counter() - t0 < PARITY["full_budget_s"]:
+        j = min(i + PARITY["span"], len(t_eval) - 1)
+        ys, st = integrators.integrate_adaptive(rhs, x, t_eval[i : j + 1], u=u,
+                                                dt0=dt_next, **kw)
+        xs.append(ys[1:])
+        x, dt_next, i = ys[-1], st.dt_next, j
+        trials += int(st.n_steps)
+        runs += st.trials_run
+        require(int(st.n_incomplete) == 0, "parity full horizon: truncated intervals")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ys = torch.cat(xs)
+    err = golden_err(ys, data[f"{PARITY['full']}_y"][:, : i + 1])
+    cut = "" if i == len(t_eval) - 1 else (
+        f" (cut at the {PARITY['full_budget_s']} s budget: {t_eval[i]:.3f} of "
+        f"{meta['t_final']} s)")
+    print(f"phase 21 parity {PARITY['full']} to t={t_eval[i]:.3f} s{cut}: {trials} trials "
+          f"(JAX package, CPU, 1 s: {PARITY['jax_cpu_trials']}), {secs:.2f} s past the "
+          f"prefix = {secs / max(runs, 1) * 1e3:.3f} ms a trial run ({runs} run); "
+          f"vs golden {err:.3e}", flush=True)
+    require(err < GOLDEN_MAX, f"parity full horizon: golden error {err:.3e}")
+    return time.perf_counter() - t_phase
+
+
+def phase_rk4_sweep(crt, dev, card) -> float:
+    """Phase 22; returns its wall seconds."""
+    import scipy.linalg
+
+    from continuum_robot_tpu_torch.entry import entry, flagship_model
+    from continuum_robot_tpu_torch.models import dynamic_beam_model as dbm
+    from continuum_robot_tpu_torch.models.simulate import reduce_matrix_dense
+    from continuum_robot_tpu_torch.parallel import batched_rollout
+    from continuum_robot_tpu_torch.utils import cuda_event_times
+
+    t_phase = time.perf_counter()
+    model = flagship_model()
+    bm = model.beam_model
+    n = model.n_pos_states
+    K0 = reduce_matrix_dense(bm.arrays, bm.bc_info.free_dofs)
+    omega = float(np.sqrt(np.abs(scipy.linalg.eigvals(K0, bm.M.toarray())).max()))
+    h, k = RK4_SWEEP["h"], 0
+    while h * omega >= RK4_SWEEP["rk4_limit"]:
+        h, k = h / 2.0, k + 1
+    F, fdt, envs = RK4_SWEEP["frames"], RK4_SWEEP["frame_dt"], RK4_SWEEP["envs"]
+    sub = int(round(fdt / h))
+    x0 = np.zeros((envs, 2 * n))
+    x0[:, n - 2] = np.random.default_rng(19).normal(scale=RK4_SWEEP["tip_scale"], size=envs)
+    x32 = torch.tensor(x0, dtype=torch.float32, device=dev)
+    x64 = torch.tensor(x0, dtype=torch.float64, device=dev)
+
+    def sweep(x, substeps=sub, frames=F):
+        return batched_rollout(model, x, frames * fdt, fdt, method="rk4",
+                               substeps=substeps).ys
+
+    runs = cuda_event_times(sweep, x32, repeats=3, warmup=1, device=dev)
+    ys32 = sweep(x32)
+    ys64, secs64 = wall(lambda: sweep(x64))
+    rate = envs * F * sub / min(runs) * 1e3
+    same = []
+    for i in RK4_SWEEP["check_envs"]:
+        solo = crt.simulate(model, x0[i], F * fdt, fdt, method="rk4", substeps=sub,
+                            device=dev).ys
+        same.append(bool(torch.equal(solo, ys64[:, i])))
+    f32 = rel(ys32.double(), ys64)
+    ok = finite(ys32, ys64)
+    # The widest beam whose RHS is batch-invariant (the cubic force and row
+    # sums up to POLY_MAX_ELEMENTS): the same envs bit for bit alone.
+    n_el = dbm.POLY_MAX_ELEMENTS
+    wide = golden_beam(crt, ["nonlinear"] * n_el, GOLDEN_CONFIGS["nonlinear_fluid_gravity"][1])
+    nw = wide.n_pos_states
+    xw = np.zeros((envs, 2 * nw))
+    xw[:, nw - 2] = x0[:, n - 2]
+    kw_w = dict(method="rk4", substeps=RK4_SWEEP["wide_sub"], device=dev)
+    span_w = RK4_SWEEP["wide_sub"] * h
+    wide_ys = batched_rollout(wide, xw, span_w, span_w, **kw_w).ys
+    wide_same = [bool(torch.equal(crt.simulate(wide, xw[i], span_w, span_w, **kw_w).ys,
+                                  wide_ys[:, i])) for i in RK4_SWEEP["check_envs"]]
+    # Accuracy: the first frame of env 0 against Dopri5 at rtol 1e-10, with
+    # h, h/2 and h/4 (the order RK4 shows there; q and v each on its norm).
+    i0 = RK4_SWEEP["check_envs"][0]
+    ref, secs_d = wall(lambda: crt.simulate(model, x0[i0], fdt, fdt, method="dopri5",
+                                            rtol=1e-10, atol=1e-12, device=dev))
+    errs = []
+    for m in (1, 2, 4):
+        y = crt.simulate(model, x0[i0], fdt, fdt, method="rk4", substeps=sub * m,
+                         device=dev).ys
+        errs.append(max(rel(y[..., :n], ref.ys[..., :n]), rel(y[..., n:], ref.ys[..., n:])))
+    order = float(np.log2(errs[1] / errs[2]))
+    step, (xe, ue) = entry(device=dev)
+    x1 = step(xe, ue)
+    entry_ok = finite(x1) and x1.shape == xe.shape
+    print(f"phase 22 batched RK4 [{card}]: flagship (6 hybrid segments, drag, gravity), "
+          f"{envs} envs, omega_max {omega:.4e} rad/s, h = 1e-5/2^{k} = {h:.4e} s "
+          f"(h omega {h * omega:.3f}; 1e-5 gives {1e-5 * omega:.3f} >= "
+          f"{RK4_SWEEP['rk4_limit']}), {F} frames x {sub} substeps: float32 span "
+          f"{min(runs):.3f} ms = {rate:.4e} env-steps/s (best of 3: "
+          f"{', '.join('%.3f' % r for r in runs)} ms), float64 {secs64:.3f} s; envs "
+          f"{list(RK4_SWEEP['check_envs'])} == simulate: {same}; float32 vs float64 "
+          f"{f32:.3e}; finite {ok}; frame 1 of env {i0} vs dopri5 (rtol 1e-10, "
+          f"{int(ref.stats.n_steps)} trials, {secs_d:.2f} s) at h, h/2, h/4: "
+          f"{', '.join('%.3e' % e for e in errs)} (order {order:.2f}); entry() finite "
+          f"{entry_ok}; {n_el}-element von Karman beam (drag, gravity), {envs} envs x "
+          f"{RK4_SWEEP['wide_sub']} steps of h, envs == simulate: {wide_same}", flush=True)
+    require(all(same), f"batched RK4 != simulate per env: {same}")
+    require(all(wide_same) and finite(wide_ys),
+            f"batched RK4 on {n_el} elements != simulate per env: {wide_same}")
+    require(ok and entry_ok, "batched RK4: non-finite states")
+    require(errs[0] > errs[1] > errs[2] and order >= RK4_SWEEP["min_order"],
+            f"RK4 vs dopri5 at h, h/2, h/4: {errs} (order {order:.2f})")
+    require(f32 <= RK4_SWEEP["f32_max"], f"RK4 float32 vs float64 {f32:.3e}")
+    return time.perf_counter() - t_phase
+
+
+def phase_per_env(crt, dev, meta, data) -> float:
+    """Phase 23; returns its wall seconds."""
+    from continuum_robot_tpu_torch.ops import integrators
+
+    t_phase = time.perf_counter()
+    types, fp = GOLDEN_CONFIGS["nonlinear_fluid_gravity"]
+    model = golden_beam(crt, types, fp)
+    n = model.n_pos_states
+    rhs = model.build_rhs()
+    dt, envs, med = meta["dt"], PER_ENV["envs"], PER_ENV["median"]
+    amps = np.geomspace(*PER_ENV["amp"], envs)
+    amps[med] = meta["impulse_amplitude"]
+    t_eval = np.arange(PER_ENV["frames"] + 1) * dt
+    kw = dict(rtol=PARITY["rtol"], atol=PARITY["atol"], dt0=dt / 10.0)
+    t_end = meta["impulse_t_end"]
+    x0 = torch.zeros(envs, 2 * n, dtype=torch.float64, device=dev)
+    u = tip_impulse(n, torch.tensor(amps, device=dev), t_end, torch.float64, dev)
+    (xs, st), secs = wall(lambda: integrators.integrate_adaptive(
+        rhs, x0, t_eval, u=u, per_env=True, **kw))
+    acc = st.n_accepted.cpu().numpy()
+    steps = st.n_steps.cpu().numpy()
+    solo = {}
+    for i in (0, med, envs - 1):
+        ui = tip_impulse(n, float(amps[i]), t_end, torch.float64, dev)
+        xi, si = integrators.integrate_adaptive(rhs, x0[i], t_eval, u=ui, **kw)
+        solo[i] = (rel(xs[:, i], xi), int(si.n_accepted) == acc[i]
+                   and int(si.n_rejected) == int(st.n_rejected[i]))
+    err = golden_err(xs[:, med], data["nonlinear_fluid_gravity_y"][:, : len(t_eval)])
+    print(f"phase 23 per-env dopri5: nonlinear_fluid_gravity, {envs} envs, tip impulse "
+          f"{PER_ENV['amp'][0]}-{PER_ENV['amp'][1]} N, {t_eval[-1]} s, float64: {secs:.2f} s "
+          f"= {acc.sum() / secs:.4e} accepted env-steps/s; trials a lane {steps.min()}-"
+          f"{steps.max()} (slowest lane {steps.max()}), {st.host_reads} host reads; lanes "
+          f"vs solo (rel, counts equal) {solo}; median lane (amplitude "
+          f"{amps[med]}) vs golden {err:.3e}", flush=True)
+    require(all(e <= PER_ENV["solo_max"] and c for e, c in solo.values()),
+            f"per-env lanes vs solo runs {solo}")
+    require(int(st.n_incomplete.sum()) == 0 and finite(xs), "per-env: truncated or non-finite")
+    require(err < GOLDEN_MAX, f"per-env median lane vs golden {err:.3e}")
+    return time.perf_counter() - t_phase
+
+
+def phase_stiff(crt, kb, dev, card, meta, data) -> tuple:
+    """Phase 24; returns (wall seconds, {path: btd_solve launches})."""
+    from continuum_robot_tpu_torch.models import simulate as sim_mod
+    from continuum_robot_tpu_torch.models.simulate import make_newmark_operator
+    from continuum_robot_tpu_torch.ops import banded, integrators
+    from continuum_robot_tpu_torch.ops.exponential import make_expm_propagator
+
+    t_phase = time.perf_counter()
+    model = golden_beam(crt, ["linear"] * STIFF["n_el"], length=STIFF["length"])
+    n = model.n_pos_states
+    amp, t_end = meta["impulse_amplitude"], meta["impulse_t_end"]
+
+    # The propagator over the golden's full 1 s: its reading is printed (the
+    # JAX package's reads 2.834e-7 against the test's 1e-9 bound).
+    nf = int(round(meta["t_final"] / meta["dt"]))
+    u_frames = np.zeros((nf, n))
+    u_frames[: int(round(t_end / meta["dt"])), -2] = amp
+    prop = make_expm_propagator(model, meta["dt"], dtype=torch.float64, device=dev)
+    ys_e, secs_e = wall(lambda: prop(np.zeros(2 * n), u_frames))
+    expm_err = golden_err(ys_e, data["stiff60_y"])
+
+    # The oracle of the cut horizon: the exact flow at the frame spacing.
+    fr = int(round(STIFF["horizon"] / STIFF["frame"]))
+    t_final, frame = fr * STIFF["frame"], STIFF["frame"]
+    u_cut = np.zeros((fr, n))
+    u_cut[np.arange(fr) * frame < t_end, -2] = amp
+    exact = make_expm_propagator(model, frame, dtype=torch.float64, device=dev)(
+        np.zeros(2 * n), u_cut)
+    tip_ref = exact[:, n - 2]
+    kw = dict(rtol=STIFF["rtol"], atol=STIFF["atol"], n_newton=STIFF["n_newton"])
+    scales = torch.linspace(*STIFF["scale"], STIFF["envs"], dtype=torch.float64,
+                            device=dev)
+    cpu = torch.device("cpu")
+    paths, lines, runs, vs_cpu, launch_err = {}, [], {}, {}, {}
+    for method, solver in (("generalized_alpha_adaptive", "dense_inv"),
+                           ("generalized_alpha_adaptive", "pallas"),
+                           ("sdirk3", "dense_inv")):
+        extra = {"rho_inf": STIFF["rho_inf"]} if method != "sdirk3" else {}
+        for envs in (1, STIFF["envs"]):
+            x0 = np.zeros((envs, 2 * n)) if envs > 1 else np.zeros(2 * n)
+            sc = scales if envs > 1 else torch.ones((), dtype=torch.float64, device=dev)
+            u = tip_impulse(n, amp * sc, t_end, torch.float64, dev)
+            rec = Recording(kb, "btd_solve")
+            kb.reset_launch_counts()
+            with replaced(sim_mod, "btd_kernel", rec):
+                res, secs = wall(lambda: crt.simulate(
+                    model, x0, t_final, frame, method=method, u=u, linear_solver=solver,
+                    device=dev, **kw, **extra))
+            if solver == "pallas":
+                paths[f"adaptive:{method}:pallas:{envs}"] = kb.btd_solve.launches
+                # Each launch of the run against the plain version on its own
+                # inputs: bit for bit, as in phase 13.
+                launch_err[envs] = max(float((out - banded.btd_solve(f, r.contiguous()))
+                                             .abs().max()) for (f, r), out in rec.calls)
+            tips = res.ys[..., n - 2]
+            ref = tip_ref[:, None] * scales if envs > 1 else tip_ref
+            err = float((tips - ref).abs().max() / ref.abs().max())
+            st = res.stats
+            runs[(method, solver, envs)] = res
+            lines.append(f"{method}/{solver}/{envs} env: {int(st.n_steps)} trials "
+                         f"({st.trials_run} run), {secs:.2f} s a call (set-up included), tip "
+                         f"vs exact {err:.3e}")
+            require(finite(res.ys) and int(st.n_incomplete) == 0,
+                    f"{method}/{solver}/{envs}: non-finite or truncated")
+            # The port on the CPU (held to the JAX package there) on the same
+            # inputs, the whole batch under its one controller: the same steps
+            # and states to roundoff.
+            u_c = tip_impulse(n, amp * sc.cpu(), t_end, torch.float64, cpu)
+            ref_c = crt.simulate(model, x0, t_final, frame, method=method, u=u_c,
+                                 linear_solver=solver, device=cpu, **kw, **extra)
+            vs_cpu[(method, solver, envs)] = (
+                rel(res.ys.cpu(), ref_c.ys),
+                int(st.n_accepted) == int(ref_c.stats.n_accepted)
+                and int(st.n_rejected) == int(ref_c.stats.n_rejected))
+    # The two solvers of generalized-alpha on the card, at each width.
+    vs_dense = {}
+    for envs in (1, STIFF["envs"]):
+        a = runs[("generalized_alpha_adaptive", "pallas", envs)]
+        b = runs[("generalized_alpha_adaptive", "dense_inv", envs)]
+        vs_dense[envs] = (rel(a.ys, b.ys), all(int(x) == int(y) for x, y in zip(
+            a.stats[:3], b.stats[:3])))
+    require(all(e <= STIFF["vs_cpu_max"] and c for e, c in vs_cpu.values()),
+            f"adaptive implicit card vs CPU: {vs_cpu}")
+    require(all(e <= STIFF["vs_cpu_max"] and c for e, c in vs_dense.values()),
+            f"adaptive generalized-alpha pallas vs dense_inv: {vs_dense}")
+    require(all(v == 1 for v in paths.values()),
+            f"adaptive generalized-alpha (pallas): btd_solve launches {paths}, expected one "
+            f"a run (the initial acceleration)")
+    require(all(e == 0.0 for e in launch_err.values()),
+            f"adaptive generalized-alpha: btd_solve launch vs plain {launch_err}")
+
+    # chunk= on the card: bit for bit the one-call run, stats aggregated.
+    x0 = np.zeros(2 * n)
+    u = tip_impulse(n, amp, t_end, torch.float64, dev)
+    chunked = crt.simulate(model, x0, t_final, frame, method="generalized_alpha_adaptive",
+                           u=u, linear_solver="dense_inv", chunk=STIFF["chunk"],
+                           rho_inf=STIFF["rho_inf"], device=dev, **kw)
+    mono = runs[("generalized_alpha_adaptive", "dense_inv", 1)]
+    same = bool(torch.equal(chunked.ys, mono.ys)) and all(
+        bool(torch.equal(a, b)) for a, b in zip(chunked.stats[:5], mono.stats[:5]))
+
+    # ms a trial at full width: the bench beam, its trial-dt factorization.
+    bench = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS))
+    nb = bench.n_pos_states
+    q0 = torch.zeros(TRIAL_BENCH["envs"], nb, dtype=torch.float32, device=dev)
+    q0[:, -2] = 1e-3
+    trial_ms = {}
+    for solver in ("btd", "cr"):
+        op = make_newmark_operator(bench, dt=None, linear_solver=solver, device=dev,
+                                   dtype=torch.float32)
+        v0 = torch.zeros_like(q0)
+        a0 = integrators.initial_accel(op, q0, v0)  # set-up, outside the timing
+
+        def trials(cap):
+            return integrators.integrate_generalized_alpha_adaptive(
+                op, q0, v0, [0.0, 1.0], rho_inf=TRIAL_BENCH["rho_inf"],
+                n_newton=TRIAL_BENCH["n_newton"], dt0=DT, a0=a0,
+                max_steps_per_interval=cap)
+
+        trials(1)  # warm-up: one trial
+        (qs, _, st), secs = wall(lambda: trials(TRIAL_BENCH["trials"]))
+        require(st.trials_run == int(st.n_steps) == TRIAL_BENCH["trials"] and finite(qs),
+                f"trial bench {solver}: {int(st.n_steps)} trials, {st.trials_run} run")
+        trial_ms[solver] = secs / st.trials_run * 1e3
+    print(f"phase 24 adaptive implicit [{card}]: stiff60 over {t_final} s in {fr} frames "
+          f"(rtol {STIFF['rtol']}, atol {STIFF['atol']}): " + "; ".join(lines)
+          + f"; card vs CPU port (rel, counts equal) {vs_cpu}; pallas vs dense_inv on the "
+          f"card (rel, counts equal) {vs_dense}; btd_solve launches vs plain "
+          f"(max|kernel-plain| by envs) {launch_err}"
+          f"; chunk={STIFF['chunk']} == one call: {same}; expm propagator over "
+          f"{meta['t_final']} s vs golden {expm_err:.3e} ({secs_e:.2f} s); btd_solve "
+          f"launches {paths}; generalized_alpha_adaptive trial at full width "
+          f"({N_ELEMENTS} elements, {TRIAL_BENCH['envs']} envs, float32): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in trial_ms.items()), flush=True)
+    require(same, "chunked adaptive run differs from the one-call run")
+    return time.perf_counter() - t_phase, paths
+
+
+def adaptive_paths(crt, kb, dev, card) -> dict:
+    """Phases 21-24; returns the block-tridiagonal kernel's launches by path."""
+    with open(f"{GOLDEN_DIR}/trajectories_meta.json") as f:
+        meta = json.load(f)
+    data = np.load(f"{GOLDEN_DIR}/trajectories.npz")
+    secs = {"21": phase_parity(crt, dev, meta, data)}
+    secs["22"] = phase_rk4_sweep(crt, dev, card)
+    secs["23"] = phase_per_env(crt, dev, meta, data)
+    secs["24"], paths = phase_stiff(crt, kb, dev, card, meta, data)
+    print(f"phases 21-24 wall: {', '.join(f'{k}: {v:.1f} s' for k, v in secs.items())}; "
+          f"together {sum(secs.values()):.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2013,6 +2520,8 @@ def main() -> int:
     records["btd_solve"] = implicit_paths(crt, kb, dev, card, lin_model, lin_ms)
     print(f"implicit paths done; {time.time() - t_start:.1f} s so far", flush=True)
     records.update(fused_paths(crt, kf, kb, dev, card))
+    print(f"fused paths done; {time.time() - t_start:.1f} s so far", flush=True)
+    records["btd_solve"]["launches_by_path"].update(adaptive_paths(crt, kb, dev, card))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

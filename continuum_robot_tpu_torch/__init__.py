@@ -7,7 +7,10 @@ linear modal generalized-α engine (:class:`ModalGenAlpha`), the
 nonlinear modal-ROM engine (:class:`ModalROMGenAlpha`, with ECSW
 hyper-reduction), the full-order implicit Newmark and generalized-α
 integrators (:func:`make_newmark_operator`, ``ops/integrators``) with
-registered fluid drag and gravity, the fused small-beam rollout
+registered fluid drag and gravity, the model's ODE right-hand side with the
+explicit RK4 and adaptive Dopri5 integrators, the adaptive implicit
+generalized-α and SDIRK3 engines, the exact exponential propagator
+(``ops/exponential``), the fused small-beam rollout
 (``ops/cuda/fused_rollout``) and single-device batched rollouts
 (``parallel``). Their fused drives and the block-tridiagonal solve run as
 hand-written CUDA kernels (``ops/cuda``) on the card and as plain PyTorch
@@ -48,16 +51,26 @@ from .models.simulate import (  # noqa: E402
     simulate,
 )
 from .ops.integrators import (  # noqa: E402
+    AdaptiveStats,
     NewmarkOperator,
+    adaptive_drive,
+    dopri5_step,
     generalized_alpha_step,
+    integrate_adaptive,
+    integrate_fixed,
     integrate_generalized_alpha,
+    integrate_generalized_alpha_adaptive,
     integrate_newmark,
+    integrate_sdirk3_adaptive,
     newmark_step,
+    rk4_step,
+    sdirk3_step,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "AdaptiveStats",
     "BoundaryConditionType",
     "DynamicEulerBernoulliBeam",
     "ElementType",
@@ -73,12 +86,20 @@ __all__ = [
     "Properties",
     "SimulationResult",
     "__version__",
+    "adaptive_drive",
+    "dopri5_step",
     "generalized_alpha_step",
+    "integrate_adaptive",
+    "integrate_fixed",
     "integrate_generalized_alpha",
+    "integrate_generalized_alpha_adaptive",
     "integrate_newmark",
+    "integrate_sdirk3_adaptive",
     "make_modal_genalpha",
     "make_modal_rom",
     "make_newmark_operator",
     "newmark_step",
+    "rk4_step",
+    "sdirk3_step",
     "simulate",
 ]

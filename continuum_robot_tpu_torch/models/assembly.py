@@ -16,6 +16,8 @@ solves.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -175,6 +177,121 @@ def make_reduced_internal_force(
         q_full = pad_to_full(q_red, free_dofs, n_dofs_full)
         f_full = internal_force_full(arrays, q_full, use_consistent=use_consistent)
         return reduce_from_full(f_full, free_dofs)
+
+    return k_red
+
+
+@functools.lru_cache(maxsize=64)
+def _element_taylor(row: tuple, use_consistent: bool):
+    """``(J (6, 6), H (6, 6, 6), T (6, 6, 6, 6))``: the first three
+    derivatives at 0 of the force of one element with parameters ``row =
+    (L, E, I, A, nonlinear)``, host float64 (memoized: beams repeat one
+    element)."""
+    zero = torch.zeros(6, dtype=torch.float64)
+    L, E, I, A = (torch.tensor(x, dtype=torch.float64) for x in row[:4])
+    nl = torch.tensor(bool(row[4]))
+
+    def f(q):
+        return elements.element_internal_force(q, L, E, I, A, nl,
+                                               use_consistent=use_consistent)
+
+    jac = torch.func.jacfwd
+    return tuple(d(zero).numpy() for d in (jac(f), jac(jac(f)), jac(jac(jac(f)))))
+
+
+def polynomial_force_table(arrays: BeamArrays, free_dofs: np.ndarray,
+                           use_consistent: bool = False):
+    """The reduced internal force as an exact cubic: ``(factors, table)``.
+
+    Every element of the port (linear, the parity von Kármán polynomials,
+    the energy-consistent element) has a force that is a polynomial of
+    degree at most 3 in its six DOFs ``q6``, so it equals its Taylor
+    expansion at 0: ``f_o(q) = J_oi q_i + H_oij q_i q_j / 2 + T_oijk q_i
+    q_j q_k / 6``. The derivatives come from ``torch.func.jacfwd`` of
+    :func:`elements.element_internal_force` at 0, host float64, once for
+    each distinct element. Summed over the elements and written in the
+    reduced DOFs (a monomial with a fixed DOF vanishes), ``k_red(q) = W
+    m(q)`` for the distinct monomials ``m`` of degree 1 to 3.
+
+    Each monomial is the product of two entries of ``base = [1, q, (q_i
+    q_j for i, j < n)]``: ``factors`` is the ``(2, F)`` index pair of each,
+    ``table`` the host float64 ``W`` ``(n, F)``.
+    """
+    rows = np.stack([np.asarray(x, np.float64) for x in (
+        arrays.length, arrays.elastic_modulus, arrays.moment_inertia,
+        arrays.cross_area, arrays.nonlinear_mask)], -1)
+    free = np.asarray(free_dofs)
+    n = free.size
+    red = -np.ones(3 * (rows.shape[0] + 1), np.int64)
+    red[free] = np.arange(n)
+    mult = {1: 1.0, 2: 3.0, 3: 6.0}  # distinct permutations of i <= j <= k
+    cols, W = {}, {}
+    for e, row in enumerate(rows.tolist()):
+        J, H, T = _element_taylor(tuple(row), use_consistent)
+        r = red[3 * e : 3 * e + 6]
+        terms = [((i,), J[:, i]) for i in range(6)]
+        terms += [((i, j), H[:, i, j] * (0.5 if i == j else 1.0))
+                  for i in range(6) for j in range(i, 6)]
+        terms += [((i, j, k), T[:, i, j, k] * (mult[len({i, j, k})] / 6.0))
+                  for i in range(6) for j in range(i, 6) for k in range(j, 6)]
+        for idx, coef in terms:
+            mono = tuple(sorted(int(r[i]) for i in idx))
+            if mono[0] < 0:
+                continue  # a fixed DOF: the monomial is 0
+            for o in range(6):
+                if r[o] >= 0 and coef[o] != 0.0:
+                    col = cols.setdefault(mono, len(cols))
+                    W[(int(r[o]), col)] = W.get((int(r[o]), col), 0.0) + coef[o]
+    table = np.zeros((n, len(cols)))
+    for (i, c), w in W.items():
+        table[i, c] = w
+
+    def factor_pair(mono):
+        if len(mono) == 1:
+            return 1 + mono[0], 0
+        pair = 1 + n + n * mono[0] + mono[1]
+        return pair, (0 if len(mono) == 2 else 1 + mono[2])
+
+    factors = np.array([factor_pair(m) for m in cols], np.int64).T
+    return factors, table
+
+
+def make_polynomial_internal_force(
+    arrays: BeamArrays,
+    free_dofs: np.ndarray,
+    use_consistent: bool = False,
+):
+    """Reduced-coordinate ``k_red(q_red)`` of a small beam as one
+    contraction of monomials of the reduced state with the summed element
+    force's coefficients (:func:`polynomial_force_table`).
+
+    Eight tensor operations a call, where the elementwise planes take
+    about 200: the explicit integrators evaluate it once a stage. The
+    contraction is an elementwise product and a last-axis sum, so its bits
+    do not depend on the batch. Equal to :func:`make_reduced_internal_force`
+    to roundoff; the table goes to a tensor's device and dtype on first use
+    there. Its temporaries grow as ``envs x n x monomials``: meant for beams
+    of a few elements.
+    """
+    factors, table = polynomial_force_table(arrays, free_dofs, use_consistent)
+    uploads = {}
+
+    def consts(q):
+        key = (q.device, q.dtype)
+        if key not in uploads:
+            uploads[key] = (
+                torch.as_tensor(factors[0], device=q.device),
+                torch.as_tensor(factors[1], device=q.device),
+                torch.as_tensor(table, dtype=q.dtype, device=q.device),
+            )
+        return uploads[key]
+
+    def k_red(q_red):
+        fa, fb, W = consts(q_red)
+        outer = (q_red[..., :, None] * q_red[..., None, :]).flatten(-2)
+        base = torch.cat([torch.nn.functional.pad(q_red, (1, 0), value=1.0), outer], -1)
+        mono = base.index_select(-1, fa) * base.index_select(-1, fb)
+        return (mono[..., None, :] * W).sum(-1)
 
     return k_red
 

@@ -4,20 +4,32 @@ Counterpart of ``continuum_robot_tpu/models/dynamic_beam_model.py``:
 construction from a CSV path or DataFrame with the boundary-condition
 column, parameter validation (including the conditional fluid columns) and
 its ``ValueError`` contracts, the state mapping with ``d*_dt`` velocity
-parameters, and force auto-registration from :class:`ForceParams`.
+parameters, force auto-registration from :class:`ForceParams`, and the ODE
+right-hand side: ``create_system_func`` / ``create_input_func`` /
+``get_dynamic_system`` (the reference-style API with its input checks) and
+``build_rhs`` (the batched ``rhs(t, x, u)`` the explicit and adaptive
+integrators step; ``models/dynamics.py``).
 
-The ODE right-hand side (``build_rhs`` / ``create_system_func`` /
-``create_input_func``) is not ported yet; the modal engine
-(``models/simulate.py``) needs only the beam's K and M.
+There is no JIT: the system function evaluates the force registry's
+aggregate at every call, so enabling or disabling a force takes effect
+immediately, as the JAX package's per-enabled-set compile cache arranges.
+The RHS's internal force is the element force's exact cubic
+(:func:`assembly.make_polynomial_internal_force`) for beams of up to
+:data:`POLY_MAX_ELEMENTS` elements, the elementwise planes beyond; NumPy
+states go to the device the system was created for (``device``; None:
+the card).
 """
 
 from __future__ import annotations
 
 import pathlib
-from typing import Dict, Union
+from typing import Callable, Dict, Union
 
+import numpy as np
 import pandas as pd
+import torch
 
+from . import assembly, dynamics
 from .abstractions import (
     BoundaryConditionType,
     ElementType,
@@ -26,6 +38,13 @@ from .abstractions import (
 from .config import ForceParams
 from .euler_bernoulli_beam import EulerBernoulliBeam
 from .forces import FluidDragForce, ForceRegistry, GravityForce, InputRegistry
+
+# Largest beam whose RHS evaluates the polynomial contraction. On the H100
+# it beat the element planes at every size measured, 6 to 24 von Karman
+# elements at 1 and 4096 envs (4.9-11.2 against 20.2-26.8 ms a Dopri5
+# trial; chip_compare.py --sections adaptive); its temporaries grow as
+# envs x DOFs x monomials (72 x 748 float64, 431 KB an env, at 24).
+POLY_MAX_ELEMENTS = 24
 
 
 class DynamicEulerBernoulliBeam:
@@ -54,6 +73,11 @@ class DynamicEulerBernoulliBeam:
         self.beam_model.apply_boundary_conditions(self.boundary_conditions)
 
         self.constrained_dofs = self.beam_model.get_constrained_dofs()
+
+        self._mass_inverse = None  # (apply, host M^-1), built on first use
+        self._k_red_fn = None
+        self.system_func = None
+        self.input_func = None
 
         self.force_registry = ForceRegistry()
         self.input_registry = InputRegistry()
@@ -161,3 +185,119 @@ class DynamicEulerBernoulliBeam:
                 enabled=True,
             )
             self.force_registry.register(gravity_force)
+
+    # -- system construction (JAX package dynamic_beam_model.py:204-323) ------
+
+    @property
+    def M_inv(self) -> np.ndarray:
+        """The reduced-mass inverse, host float64 (computed on first use)."""
+        return self._mass_inverse_pair()[1]
+
+    def _mass_inverse_pair(self):
+        if self._mass_inverse is None:
+            self._mass_inverse = dynamics.make_mass_inverse_apply(
+                self.beam_model.M.toarray())
+        return self._mass_inverse
+
+    def _m_inv_apply(self, f):
+        return self._mass_inverse_pair()[0](f)
+
+    def _k_red(self, q_red):
+        """Reduced internal force ``k(q)``, built on first use."""
+        if self._k_red_fn is None:
+            bm = self.beam_model
+            free, cons = bm.bc_info.free_dofs, self.use_consistent_nonlinear
+            if len(bm.arrays.length) <= POLY_MAX_ELEMENTS:
+                self._k_red_fn = assembly.make_polynomial_internal_force(
+                    bm.arrays, free, use_consistent=cons)
+            else:
+                self._k_red_fn = assembly.make_reduced_internal_force(
+                    bm.arrays, free, bm.n_dofs_full, use_consistent=cons)
+        return self._k_red_fn(q_red)
+
+    @staticmethod
+    def _as_state(x, device):
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.as_tensor(np.asarray(x), device=device)
+
+    def create_system_func(self, forces_func: Callable = None, jit_compile: bool = True,
+                           device=None) -> None:
+        """Create the autonomous dynamics ``system(x, t=0.0) -> dx/dt``.
+
+        ``forces_func(x, t)`` defaults to the registry aggregate, which
+        checks each force's enabled flag at every call. ``jit_compile`` is
+        accepted for the JAX signature; nothing is compiled. A NumPy ``x``
+        goes to ``device`` (None: the card); a tensor keeps its own.
+        """
+        del jit_compile
+        from .simulate import resolve_device
+
+        device = resolve_device(device)
+        if forces_func is None:
+            forces_func = self.force_registry.create_aggregated_function()
+        base = dynamics.build_system_fn(self._k_red, self._m_inv_apply, forces_func)
+
+        def system(x, t=0.0):
+            return base(self._as_state(x, device), t)
+
+        self.system_func = system
+
+    def create_input_func(self, device=None) -> None:
+        """Create ``input_func(x, u, t) -> [0; M^-1 u]`` with validation.
+
+        Dimension contracts match the reference (``dynamic_beam_model.py:294-328``):
+        ``x`` and ``u`` NumPy arrays or tensors, 1-D, ``len(u)`` the
+        position DOFs. NumPy inputs go to ``device`` (None: the card).
+        """
+        from .simulate import resolve_device
+
+        device = resolve_device(device)
+        core = dynamics.build_input_fn(self._m_inv_apply)
+
+        def input_function(x, u, t: float = 0.0):
+            if not isinstance(x, (np.ndarray, torch.Tensor)) or not isinstance(
+                u, (np.ndarray, torch.Tensor)
+            ):
+                raise ValueError("State and input must be numpy arrays")
+            if x.ndim != 1 or u.ndim != 1:
+                raise ValueError("State and input must be 1D arrays")
+            n = x.shape[-1] // 2
+            if u.shape[-1] != n:
+                raise ValueError(
+                    f"Input vector length {u.shape[-1]} must match position DOFs {n}. "
+                    f"Expected {n}, got {u.shape[-1]}"
+                )
+            x_t = self._as_state(x, device)
+            return core(x_t, self._as_state(u, x_t.device), t)
+
+        self.input_func = input_function
+
+    def get_system_func(self) -> Callable:
+        if self.system_func is None:
+            raise RuntimeError("System function not yet created")
+        return self.system_func
+
+    def get_dynamic_system(self) -> Callable:
+        """Complete ``(t, x, u) -> dx/dt`` (u: vector or callable of t)."""
+        if self.system_func is None or self.input_func is None:
+            raise RuntimeError("System and input functions must be created first")
+
+        def dynamic_system(t, x, u):
+            force = u(t) if callable(u) else u
+            return self.system_func(x, t) + self.input_func(x, force, t)
+
+        return dynamic_system
+
+    def build_rhs(self, forces_func: Callable = None) -> Callable:
+        """Batched ``rhs(t, x, u)`` for the integrators.
+
+        No input checks; broadcasts over leading batch axes and runs on the
+        state tensor's device and dtype. ``forces_func`` defaults to the
+        registry aggregate.
+        """
+        if forces_func is None:
+            forces_func = self.force_registry.create_aggregated_function()
+        system = dynamics.build_system_fn(self._k_red, self._m_inv_apply, forces_func)
+        input_fn = dynamics.build_input_fn(self._m_inv_apply)
+        return dynamics.build_rhs(system, input_fn)

@@ -1,7 +1,6 @@
 """Modal engines and the ``simulate`` entry point (PyTorch).
 
-Counterpart of the modal and fixed-step implicit slices of
-``continuum_robot_tpu/models/simulate.py``:
+Counterpart of ``continuum_robot_tpu/models/simulate.py``:
 
 * :class:`ModalGenAlpha` (exact modal superposition of the linear beam's
   generalized-α recurrence), its composed-propagator drive
@@ -16,8 +15,11 @@ Counterpart of the modal and fixed-step implicit slices of
   (block-tridiagonal mass and tangent, the ``btd``/``cr``/``dense_inv``/
   ``pallas`` linear solvers, the last through the CUDA kernel
   ``ops/cuda/btd_solve``);
-* :func:`simulate` for ``method="modal"``, ``"modal_rom"``, ``"newmark"``
-  and ``"generalized_alpha"``.
+* :func:`simulate` for every method of the JAX package but
+  ``"modal_rom_adaptive"``: the explicit ``"rk4"`` and ``"dopri5"`` on the
+  model's RHS, ``"modal"``, ``"modal_rom"``, the fixed-step implicit
+  ``"newmark"`` and ``"generalized_alpha"``, and the adaptive implicit
+  ``"generalized_alpha_adaptive"`` and ``"sdirk3"`` (with ``chunk=``).
 
 Host setup stays NumPy float64 (eigensolves, map composition, NNLS,
 prefactoring);
@@ -47,9 +49,10 @@ from ..ops.cuda import modal_rollout as kernels
 # Bound of each engine's memo of composed maps and device uploads.
 _MEMO_SIZE = 16
 
-_NOT_PORTED = (
-    "rk4", "dopri5", "generalized_alpha_adaptive", "implicit_adaptive",
-    "sdirk3", "sdirk3_adaptive", "modal_rom_adaptive",
+_NOT_PORTED = ("modal_rom_adaptive",)
+_METHODS = (
+    "rk4", "dopri5", "newmark", "generalized_alpha", "generalized_alpha_adaptive",
+    "implicit_adaptive", "sdirk3", "sdirk3_adaptive", "modal", "modal_rom",
 )
 
 
@@ -195,12 +198,18 @@ class PiecewiseConstant:
             raise ValueError("breaks must be strictly ascending")
 
     def __call__(self, t):
-        """The value at ``t`` (float or 0-d tensor) as a CPU tensor."""
-        t = torch.as_tensor(t, dtype=torch.float64).cpu()
+        """The value at ``t``, float64: for a float, a CPU tensor; for a
+        tensor of times (of any shape, as the adaptive drivers pass them), a
+        tensor on its device, one value a time, without a host read."""
+        dev = t.device if isinstance(t, torch.Tensor) else torch.device("cpu")
+        uploads = self.__dict__.setdefault("_uploads", {})
+        if dev not in uploads:
+            uploads[dev] = (torch.tensor(self.breaks, dtype=torch.float64, device=dev),
+                            torch.as_tensor(self.values, device=dev))
+        breaks, values = uploads[dev]
         idx = torch.searchsorted(
-            torch.tensor(self.breaks, dtype=torch.float64), t, right=True
-        )
-        return torch.as_tensor(self.values)[idx]
+            breaks, torch.as_tensor(t, dtype=torch.float64, device=dev), right=True)
+        return values[idx]
 
     def value_at(self, t: float) -> np.ndarray:
         """Host-side (float64-classified) value lookup."""
@@ -981,11 +990,13 @@ def make_newmark_operator(
       kernel mode); CPU tensors run its plain version, ``"btd"``'s sweep.
 
     ``None`` takes ``"btd"`` on the CPU and :data:`CARD_LINEAR_SOLVER` on
-    the card. Solves that are not prefactored (full Newton) run the plain
-    sweep of their mode. ``matmul_precision`` is accepted for the JAX
-    signature: the dense products stay true float32/float64 (TF32 is off
-    from import). The factors, mass bands, dense matrices and element
-    arrays go to a tensor's device and dtype once, on first use.
+    the card. Solves that are not prefactored (full Newton, and a tensor
+    ``c``: the adaptive steppers' trial-dt systems, 0-d or one per
+    environment) factor at the call and run the plain sweep of their mode.
+    ``matmul_precision`` is accepted for the JAX signature: the dense
+    products stay true float32/float64 (TF32 is off from import). The
+    factors, mass bands, dense matrices and element arrays go to a
+    tensor's device and dtype once, on first use.
 
     ``forces_func(x, t)``: a torch callable of the state ``x = [q; v]``
     returning a force over the position DOFs; None takes the model's force
@@ -1149,7 +1160,11 @@ def make_newmark_operator(
         prefactored_width = btd_kernel.padded_width(n_full)
 
     def solve(q_red, c, a=1.0):
-        key = (float(a), float(c))
+        # The adaptive steppers pass c = f(dt) as a tensor (the trial dt,
+        # 0-d or a (B, 1) column under per_env): no prefactor exists for a
+        # continuum of dt, so those systems are factored here, once a call.
+        traced = isinstance(c, torch.Tensor)
+        key = None if traced else (float(a), float(c))
         if key in dense_inverses:
 
             def do_solve(r_red):
@@ -1168,6 +1183,8 @@ def make_newmark_operator(
 
             return do_solve
 
+        if traced and c.dim() > 0:
+            c = c[..., None, None]  # (B, 1) -> (B, 1, 1, 1) against the bands
         factors = factors_at(pad(tensor(q_red)), c, a)
 
         def do_solve(r_red):
@@ -2012,6 +2029,48 @@ def make_implicit_rollout_fn(model, dt: float, n_steps: int, method: str, u=None
     return rollout
 
 
+_CHUNKED = ("generalized_alpha_adaptive", "implicit_adaptive", "sdirk3",
+            "sdirk3_adaptive")
+
+
+def _times(t_eval: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(t_eval, dtype=torch.float64, device=like.device)
+
+
+def _run_chunked(chunk_fn, state0, t_eval, chunk: int, dt0: float):
+    """Chunked adaptive driving: one call of ``chunk_fn`` per ``chunk``
+    output intervals, each warm-restarted from the controller's own
+    proposal (``stats.dt_next``) and the engine's full carry, so the
+    trajectory and step sequence are bit for bit the monolithic drive's.
+
+    ``chunk_fn(state, t_grid, dt0) -> (ys, stats, state_next)`` runs one
+    chunk, frames leading, ``ys[0]`` the chunk's initial frame. Returns the
+    frames and the aggregated :class:`AdaptiveStats` (``dt_next`` ready to
+    seed a continuation).
+    """
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    n_iv = len(t_eval) - 1
+    dt_prop = dt0
+    ys_parts, totals, reads, runs = [], None, 0, 0
+    state = state0
+    i = 0
+    while i < n_iv:
+        j = min(i + chunk, n_iv)
+        ys, stats, state = chunk_fn(state, t_eval[i : j + 1], dt_prop)
+        ys_parts.append(ys if i == 0 else ys[1:])
+        dt_prop = stats.dt_next
+        counts = stats[:4]
+        totals = counts if totals is None else tuple(a + b for a, b in zip(totals, counts))
+        reads += stats.host_reads
+        runs += stats.trials_run
+        i = j
+    stats = integrators.AdaptiveStats(*totals, dt_next=dt_prop, host_reads=reads,
+                                      trials_run=runs)
+    return torch.cat(ys_parts, dim=0), stats
+
+
 def simulate(
     model,
     x0,
@@ -2039,16 +2098,26 @@ def simulate(
 ) -> SimulationResult:
     """Run a complete rollout.
 
-    The signature is the JAX package's, so one call works in both. Ported
-    methods: ``"modal"`` (linear beams, exact diagonalized recurrence),
+    The signature is the JAX package's, so one call works in both. Methods:
+    ``"rk4"`` (classic fixed-step on :meth:`DynamicEulerBernoulliBeam.build_rhs`,
+    ``substeps`` steps a frame) and ``"dopri5"`` (adaptive Dormand-Prince
+    at ``rtol``/``atol``, first step ``dt/10``), the reference-parity
+    engines; ``"modal"`` (linear beams, exact diagonalized recurrence);
     ``"modal_rom"`` (nonlinear/hybrid Petrov-Galerkin reduction; ``n_modes``
-    truncates the basis, ``n_newton`` sets the modified-Newton iterations),
-    and the full-order implicit ``"newmark"`` and ``"generalized_alpha"``
-    (any beam; ``n_newton`` modified-Newton iterations per step,
+    truncates the basis, ``n_newton`` sets the modified-Newton iterations);
+    the full-order implicit ``"newmark"`` and ``"generalized_alpha"`` (any
+    beam; ``n_newton`` modified-Newton iterations per step,
     ``linear_solver`` as in :func:`make_newmark_operator`, a torch
-    ``forces_func(x, t)``); every other method raises
-    ``NotImplementedError``. The arguments that only other methods read
-    (``rtol``, ``atol``, ``jit``) are accepted and unused. ``nl_precision``
+    ``forces_func(x, t)``); and the error-controlled implicit
+    ``"generalized_alpha_adaptive"`` (alias ``"implicit_adaptive"``;
+    Zienkiewicz-Xie estimate, ``rho_inf``) and ``"sdirk3"`` (alias
+    ``"sdirk3_adaptive"``; L-stable SDIRK3), whose ``rtol``/``atol`` pick
+    every step (first step ``dt/16``) and whose trial systems are factored
+    at the trial dt. The adaptive methods return :class:`AdaptiveStats`
+    in ``stats``; a batched ``x0`` shares one step-size controller (for
+    per-environment control call the integrators with ``per_env=True``).
+    ``"modal_rom_adaptive"`` raises ``NotImplementedError``. ``jit`` is
+    accepted and unused. ``nl_precision``
     picks the ROM transforms' tier on the card with ``engine="pallas"``:
     "highest" is float32, the other tiers 3xTF32 tensor-core products
     (about 1e-6 of the output's scale against float32); on the CPU and
@@ -2072,6 +2141,11 @@ def simulate(
             :class:`PiecewiseConstant` force). On CPU tensors the kernels
             run their plain versions.
         rayleigh: optional ``(alpha, beta)`` Rayleigh damping.
+        chunk: the implicit adaptive methods only — drive the span one
+            call per ``chunk`` output intervals, each warm-restarted from
+            the controller's proposal (``stats.dt_next``) and the engine's
+            carry: the same trajectory and step sequence, bit for bit, as
+            one call over the horizon, with aggregated stats.
         device, dtype: where the rollout runs. A tensor ``x0`` keeps its
             device unless ``device`` is given; a NumPy ``x0`` goes to
             ``device``, by default the card (raises when there is none:
@@ -2116,9 +2190,9 @@ def simulate(
             )
     if method in _NOT_PORTED:
         raise NotImplementedError(f"method={method!r} is not yet ported")
-    if method not in ("modal", "modal_rom", "newmark", "generalized_alpha"):
+    if method not in _METHODS:
         raise ValueError(f"Unknown method: {method}")
-    if chunk is not None:
+    if chunk is not None and method not in _CHUNKED:
         raise ValueError(
             "chunk= applies to the adaptive methods "
             "('generalized_alpha_adaptive' / 'sdirk3' / "
@@ -2132,6 +2206,54 @@ def simulate(
         x0 = torch.as_tensor(np.asarray(x0), device=resolve_device(device))
     if dtype is not None:
         x0 = x0.to(dtype)
+
+    if method in ("rk4", "dopri5"):
+        rhs = model.build_rhs(forces_func)
+        if method == "rk4":
+            ts, xs = integrators.integrate_fixed(rhs, x0, 0.0, dt, n_steps, u=u,
+                                                 substeps=substeps)
+            return SimulationResult(ts=ts, ys=xs)
+        t_eval = np.arange(n_steps + 1) * dt
+        xs, stats = integrators.integrate_adaptive(rhs, x0, t_eval, u=u, rtol=rtol,
+                                                   atol=atol, dt0=dt / 10.0)
+        return SimulationResult(ts=_times(t_eval, x0), ys=xs, stats=stats)
+
+    if method in _CHUNKED:
+        # Error-controlled implicit stepping: trial-dt factorizations of the
+        # operator's not-prefactored systems.
+        op = make_newmark_operator(model, forces_func=forces_func, dt=None,
+                                   linear_solver=linear_solver, device=x0.device,
+                                   dtype=x0.dtype)
+        n = x0.shape[-1] // 2
+        t_eval = np.arange(n_steps + 1) * dt
+        kw = dict(u=u, rtol=rtol, atol=atol, n_newton=n_newton)
+        if method in ("generalized_alpha_adaptive", "implicit_adaptive"):
+            kw["rho_inf"] = rho_inf
+
+            def chunk_fn(state, t_grid, dt0):
+                # (q, v) on the first chunk (the consistent initial
+                # acceleration, as the monolithic drive), then (q, v, a):
+                # the exact continuation of the algorithmic acceleration.
+                a0 = state[2] if len(state) == 3 else None
+                qs, vs, stats, fin = integrators.integrate_generalized_alpha_adaptive(
+                    op, state[0], state[1], t_grid, dt0=dt0, a0=a0,
+                    return_final=True, **kw)
+                return torch.cat([qs, vs], dim=-1), stats, fin
+        else:
+
+            def chunk_fn(state, t_grid, dt0):
+                # SDIRK3's trial state is (q, v): the restart is exact.
+                qs, vs, stats = integrators.integrate_sdirk3_adaptive(
+                    op, state[0], state[1], t_grid, dt0=dt0, **kw)
+                return torch.cat([qs, vs], dim=-1), stats, (qs[-1], vs[-1])
+
+        state0 = (x0[..., :n], x0[..., n:])
+        # Every engine's monolithic default first step, (te[1] - te[0]) / 16.
+        if chunk is None:
+            ys, stats, _ = chunk_fn(state0, t_eval, dt / 16.0)
+        else:
+            ys, stats = _run_chunked(chunk_fn, state0, t_eval, chunk, dt / 16.0)
+        return SimulationResult(ts=_times(t_eval, x0), ys=ys, stats=stats)
 
     if method in ("newmark", "generalized_alpha"):
         ts, ys = make_implicit_rollout_fn(

@@ -1,6 +1,7 @@
 """Numerical operators: block-tridiagonal algebra (``banded``), the
-implicit integrators (``integrators``) and the CUDA kernels (``cuda``)."""
+explicit, adaptive and implicit integrators (``integrators``), the exact
+exponential propagator (``exponential``) and the CUDA kernels (``cuda``)."""
 
-from . import banded, cuda, integrators
+from . import banded, cuda, exponential, integrators
 
-__all__ = ["banded", "cuda", "integrators"]
+__all__ = ["banded", "cuda", "exponential", "integrators"]

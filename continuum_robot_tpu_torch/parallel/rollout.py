@@ -26,8 +26,9 @@ from ..models.simulate import (
     make_modal_rom,
     resolve_device,
 )
+from ..ops import integrators
 
-_METHODS = ("newmark", "generalized_alpha", "modal", "modal_power", "modal_rom")
+_METHODS = ("rk4", "newmark", "generalized_alpha", "modal", "modal_power", "modal_rom")
 
 
 def build_rollout_fn(
@@ -47,12 +48,19 @@ def build_rollout_fn(
 ) -> Callable:
     """Batched rollout ``x0 (B, 2n) -> (ts, ys (frames, B, 2n))``.
 
-    Methods: ``"newmark"`` and ``"generalized_alpha"`` (the full-order
-    implicit integrators on :func:`make_newmark_operator`; ``forces_func``
-    None takes the model's force registry), ``"modal"``, ``"modal_power"``
-    (one composed ``substeps``-step map per frame; constant or
-    :class:`PiecewiseConstant` force) and ``"modal_rom"``. ``"rk4"`` and
-    every other method raise ``NotImplementedError``. ``device``/``dtype``:
+    Methods: ``"rk4"`` (the default: classic RK4 on the model's
+    ``build_rhs(forces_func)``, ``substeps`` steps a frame), ``"newmark"``
+    and ``"generalized_alpha"`` (the full-order implicit integrators on
+    :func:`make_newmark_operator`; ``forces_func`` None takes the model's
+    force registry), ``"modal"``, ``"modal_power"`` (one composed
+    ``substeps``-step map per frame; constant or :class:`PiecewiseConstant`
+    force) and ``"modal_rom"``; any other method raises
+    ``NotImplementedError``. The RK4 right-hand side of a beam of up to
+    ``dynamic_beam_model.POLY_MAX_ELEMENTS`` (24) elements is
+    batch-invariant (``models/dynamics.py``): each environment's rollout is
+    bit for bit the one ``simulate(method="rk4")`` gives it alone; a wider
+    beam's agrees to roundoff.
+    ``device``/``dtype``:
     where NumPy inputs of the engines go (None: the card); a tensor ``x0``
     keeps its own device and dtype.
 
@@ -69,6 +77,14 @@ def build_rollout_fn(
     n_steps = int(round(t_final / dt))
     h = dt / substeps
 
+    if method == "rk4":
+        rhs = model.build_rhs(forces_func)
+
+        def rollout(x0):
+            return integrators.integrate_fixed(rhs, x0, 0.0, dt, n_steps, u=u,
+                                               substeps=substeps)
+
+        return rollout
     if method in ("newmark", "generalized_alpha"):
         return make_implicit_rollout_fn(
             model, dt, n_steps, method, u=u, forces_func=forces_func, substeps=substeps,

@@ -148,7 +148,7 @@ def test_batched_rollout_equals_simulate_and_contracts():
     res = tpar.batched_rollout(tb, torch.tensor(x0), 0.002, 1e-3, **kw)
     sim = tcrt.simulate(tb, x0, 0.002, 1e-3, device="cpu", **kw)
     assert torch.equal(res.ys, sim.ys)
-    with pytest.raises(NotImplementedError, match="rk4"):
-        tpar.batched_rollout(tb, x0, 0.002, 1e-3, device="cpu")
+    with pytest.raises(NotImplementedError, match="sdirk3"):
+        tpar.batched_rollout(tb, x0, 0.002, 1e-3, method="sdirk3", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         tpar.batched_rollout(tb, x0, 0.002, 1e-3, mesh=object(), method="modal")

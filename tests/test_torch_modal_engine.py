@@ -194,7 +194,7 @@ def test_simulate_tip_impulse(models, engine):
 
 
 @pytest.mark.parametrize("kwargs, exc", [
-    (dict(method="rk4"), NotImplementedError),
+    (dict(method="modal_rom_adaptive", chunk=2), NotImplementedError),
     (dict(method="modal_rom_adaptive"), NotImplementedError),
     (dict(method="bogus"), ValueError),
     (dict(method="modal", engine="triton"), ValueError),
