@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile highest   # its "highest" span under torch.profiler
     python3 chip_smoke.py --profile implicit  # implicit main path under torch.profiler
     python3 chip_smoke.py --profile fused     # fused small-beam span under torch.profiler
+    python3 chip_smoke.py --control           # phases 25-28 alone (no kernel is built)
 
 Phases, one line each (any failure exits non-zero):
 
@@ -1029,16 +1030,13 @@ def profile_dense(crt, dev, card) -> None:
                  dev, card, "the dense-Newton span")
 
 
-def profile_span(span, dev, card, what: str, steps: int = PROFILE_STEPS) -> None:
-    """Run ``span`` (``steps`` steps of ``what``) under ``torch.profiler``:
-    device time by kernel, and the device's busy share of the best of three
-    unprofiled runs."""
+def kernel_rows(fn, dev) -> list:
+    """``[(device ms, launches, kernel)]`` of one ``fn()`` under
+    ``torch.profiler``, the largest first."""
     from torch.profiler import ProfilerActivity, profile
 
-    span()
-    _, wall_ms = min((timed_once(span, dev) for _ in range(3)), key=lambda r: r[1])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        span()
+        fn()
         torch.cuda.synchronize(dev)
     rows = []
     for ev in prof.key_averages():
@@ -1049,11 +1047,30 @@ def profile_span(span, dev, card, what: str, steps: int = PROFILE_STEPS) -> None
             rows.append((dev_us / 1e3, ev.count,
                          ev.key.replace("(anonymous namespace)::", "")))
     rows.sort(reverse=True)
+    require(rows, "the profiler recorded no device time")
+    return rows
+
+
+def busy_share(fn, dev) -> tuple:
+    """``(device busy ms, wall ms, share)``: the kernels' device time of one
+    profiled ``fn()`` over the best of three unprofiled runs' wall time."""
+    fn()
+    _, wall_ms = min((timed_once(fn, dev) for _ in range(3)), key=lambda r: r[1])
+    busy = sum(r[0] for r in kernel_rows(fn, dev))
+    return busy, wall_ms, busy / wall_ms
+
+
+def profile_span(span, dev, card, what: str, steps: int = PROFILE_STEPS) -> None:
+    """Run ``span`` (``steps`` steps of ``what``) under ``torch.profiler``:
+    device time by kernel, and the device's busy share of the best of three
+    unprofiled runs."""
+    span()
+    _, wall_ms = min((timed_once(span, dev) for _ in range(3)), key=lambda r: r[1])
+    rows = kernel_rows(span, dev)
     busy = sum(r[0] for r in rows)
     print(f"profile [{card}]: {steps} steps of {what}, "
           f"unprofiled {wall_ms:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall_ms:.3f} of it)", flush=True)
-    require(rows, "the profiler recorded no device time")
     for dev_ms, count, key in rows:
         print(f"profile: {dev_ms / steps:.4f} ms/step, {count} launches, "
               f"{dev_ms / count:.4f} ms/launch: {key[:150]}", flush=True)
@@ -2454,6 +2471,402 @@ def adaptive_paths(crt, kb, dev, card) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The control layer and the utilities (phases 25-28)
+# ---------------------------------------------------------------------------
+
+# Phase 25: the LQR workload of examples/lqr_control.py and of the goldens
+# (tests/goldens/lqr.npz, lqr_closed_loop.npz: 6 linear segments with
+# gravity, a 10 N tip impulse for 10 ms, u = K (0 - x) with the golden's
+# gain) at the golden test's tolerances. A Dopri5 trial is host issue (a few
+# ms), so each closed loop runs span by span for `budget_s` of wall time
+# (the golden's 1 s takes ~180 trials a frame) and is held to the golden over
+# the frames reached; then per-env Dopri5 over `envs` envs for
+# `per_env_frames` frames, the impulse scaled 0.5-1.5.
+LQR = dict(rtol=1e-10, atol=1e-12, amp=10.0, t_end=0.01, dt=1e-3, first=2, span=2,
+           budget_s=5.0, envs=4096, scale=(0.5, 1.5), per_env_frames=1, solo_max=1e-10,
+           gain_max=1e-4, care_max=1e-8)
+# Phase 26: examples/lqg_control.py's design (tip axial and transverse
+# actuators, R = 1e-8; tip displacement and velocity sensors, V = 1e-2,
+# W = 1e-8) on the 6-segment linear cantilever; the exact closed-loop
+# propagator over 2000 frames of 1 ms at 4096 envs, the tip ~ N(0, 1e-3),
+# the observer cold.
+LQG = dict(dt=1e-3, frames=2000, envs=4096, tip_scale=1e-3, check_envs=(0, 2047, 4095),
+           cpu_max=1e-12, f32_max=1e-3, sep_max=1e-6)
+# Phase 27: tests/test_control.py's EKF (2e-5 s steps of two RK4 substeps;
+# tip displacement and velocity measured without noise; V = W = 1e-12, P0 =
+# 1e-6 I, started cold) on the 6-segment von Karman cantilever, 4096
+# filters each with its own truth (the tip ~ N(0, 5e-4)). The JAX test's
+# criterion, < 1% of |x| from step T/3 = 50 of 150 on, is for its
+# 2-segment beam at a 5e-4 tip. On 6 segments the filter settles later,
+# the later the larger the tip (the von Karman terms grow with it; both
+# packages run the same filter). So the filters run `steps` steps and are
+# held to 1% from step `after`; the readings from steps 50 and 100 and the
+# share of lanes under 1% from step 50 are printed. Lanes are held to
+# their solo runs, and lane 0 to the port on the CPU, over the first
+# `solo_steps`.
+EKF = dict(dt=2e-5, substeps=2, steps=250, envs=4096, tip_scale=5e-4, after=150,
+           track_max=1e-2, check_envs=(0, 2047, 4095), solo_steps=100, solo_max=1e-10)
+# Phase 28: the utilities on the card: the flagship's RK4 step (entry.py) at
+# 4096 envs, tips ~ N(0, 1 um) (velocities ~0.1 m/s, inside the guard's
+# default bound of 1e3), one env driven to NaN by its force from step
+# `nan_step` on.
+UTILS = dict(envs=4096, steps=10, nan_env=7, nan_step=3, tip_scale=1e-6)
+
+
+@contextlib.contextmanager
+def cpu_threads(n: int):
+    """While open, torch uses ``n`` CPU threads (the CPU references are
+    small: more threads only add their start-up)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+def reset_counts(kmods) -> None:
+    for kmod in kmods:
+        kmod.reset_launch_counts()
+
+
+def require_no_launches(kmods, path: str) -> None:
+    """The control and utility paths launch no kernel: every count read
+    just after the path is 0."""
+    counts = {k.__name__: k.launches for kmod in kmods for k in kmod.KERNELS}
+    require(not any(counts.values()), f"{path}: kernel launches {counts}")
+
+
+def host_secs(fn):
+    """``(fn(), seconds)`` on the host's clock (no card work)."""
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
+def phase_lqr(crt, dev, card, kmods) -> tuple:
+    """Phase 25; returns (wall seconds, (model, controlled SimulationResult))."""
+    from continuum_robot_tpu_torch.models.dynamics import sum_forces
+    from continuum_robot_tpu_torch.ops import care, integrators
+
+    t_phase = time.perf_counter()
+    reset_counts(kmods)
+    g = np.load(f"{GOLDEN_DIR}/lqr.npz")
+    gcl = np.load(f"{GOLDEN_DIR}/lqr_closed_loop.npz")
+    # The design on the host: float64 sign function and Kleinman polish.
+    lqr = crt.LinearQuadraticRegulator(g["K_beam"], g["M_beam"], g["Q"], g["R"])
+    K, secs_design = host_secs(lqr.compute_gain_matrix)
+    gain_err = float(np.abs(K - g["K_gain"]).max() / np.abs(g["K_gain"]).max())
+    # The tensor solver on the card in float64 (first call, then a warm one).
+    A, B = lqr.get_A(), lqr.get_B()
+    # (NumPy inputs: the card and float64 by default.)
+    _, secs_cold = wall(lambda: care.solve_care(A, B, g["Q"], g["R"]))
+    sol, secs_care = wall(lambda: care.solve_care(A, B, g["Q"], g["R"]))
+    P = sol.P.cpu().numpy()
+    P_host = care.solve_care_numpy(A, B, g["Q"], g["R"]).P
+    scale = float(np.abs(g["P"]).max())
+    care_host = float(np.abs(P - P_host).max()) / scale
+    care_gold = float(np.abs(P - g["P"]).max()) / scale
+    require(sol.P.is_cuda and sol.P.dtype == torch.float64, "solve_care left the card")
+    require(gain_err <= LQR["gain_max"], f"LQR gain vs golden K_gain {gain_err:.3e}")
+    require(care_host <= LQR["care_max"] and care_gold <= LQR["care_max"],
+            f"solve_care on the card: vs host {care_host:.3e}, vs golden {care_gold:.3e}")
+
+    # The closed loops, span by span while the budget lasts.
+    beam = golden_beam(crt, ["linear"] * 6, {"enable_gravity_effects": True})
+    n = beam.n_pos_states
+    ctrl = crt.FullStateLinear(gcl["K_gain"])
+    gravity = beam.force_registry.create_aggregated_function()
+    loops = {"uncontrolled": None,
+             "controlled": sum_forces([gravity, lambda x, t: ctrl.feedback(x, 0.0)])}
+    dt, kw = LQR["dt"], dict(rtol=LQR["rtol"], atol=LQR["atol"])
+    u = tip_impulse(n, LQR["amp"], LQR["t_end"], torch.float64, dev)
+    t_eval = np.arange(gcl["controlled_t"].shape[0]) * dt
+    lines, out = [], None
+    for tag, ff in loops.items():
+        t0 = time.perf_counter()
+        res = crt.simulate(beam, np.zeros(2 * n), LQR["first"] * dt, dt, method="dopri5",
+                           u=u, forces_func=ff, **kw)
+        rhs = beam.build_rhs(ff)
+        xs, x, st, i = [res.ys], res.ys[-1], res.stats, LQR["first"]
+        trials, runs, dt_next = int(st.n_steps), st.trials_run, st.dt_next
+        require(int(st.n_incomplete) == 0, f"LQR {tag}: truncated intervals")
+        while i < len(t_eval) - 1 and time.perf_counter() - t0 < LQR["budget_s"]:
+            j = min(i + LQR["span"], len(t_eval) - 1)
+            ys, st = integrators.integrate_adaptive(rhs, x, t_eval[i : j + 1], u=u,
+                                                    dt0=dt_next, **kw)
+            xs.append(ys[1:])
+            x, dt_next, i = ys[-1], st.dt_next, j
+            trials += int(st.n_steps)
+            runs += st.trials_run
+            require(int(st.n_incomplete) == 0, f"LQR {tag}: truncated intervals")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ys = torch.cat(xs)
+        err = golden_err(ys, gcl[f"{tag}_y"][:, : i + 1])
+        lines.append(f"{tag} to t={t_eval[i]:.3f} s of {t_eval[-1]:.0f} s (cut at the "
+                     f"{LQR['budget_s']} s budget): {trials} trials ({runs} run), "
+                     f"{secs / runs * 1e3:.3f} ms a trial run; vs golden {err:.3e}")
+        require(err < GOLDEN_MAX and finite(ys) and ys.is_cuda,
+                f"LQR {tag}: golden error {err:.3e}")
+        if tag == "controlled":
+            out = (beam, crt.SimulationResult(ts=torch.as_tensor(t_eval[: i + 1]), ys=ys))
+
+    # Per-env Dopri5 of the controlled loop: impulses scaled 0.5-1.5.
+    envs = LQR["envs"]
+    amps = LQR["amp"] * np.linspace(*LQR["scale"], envs)
+    rhs = beam.build_rhs(loops["controlled"])
+    te = np.arange(LQR["per_env_frames"] + 1) * dt
+    kwp = dict(dt0=dt / 10.0, **kw)
+    x0 = torch.zeros(envs, 2 * n, dtype=torch.float64, device=dev)
+    u_env = tip_impulse(n, torch.tensor(amps, device=dev), LQR["t_end"], torch.float64, dev)
+    (xs, st), secs_pe = wall(lambda: integrators.integrate_adaptive(
+        rhs, x0, te, u=u_env, per_env=True, **kwp))
+    steps = st.n_steps.cpu().numpy()
+    solo = {}
+    for i in (0, envs // 2, envs - 1):
+        ui = tip_impulse(n, float(amps[i]), LQR["t_end"], torch.float64, dev)
+        xi, si = integrators.integrate_adaptive(rhs, x0[i], te, u=ui, **kwp)
+        solo[i] = (rel(xs[:, i], xi), int(si.n_accepted) == int(st.n_accepted[i])
+                   and int(si.n_rejected) == int(st.n_rejected[i]))
+    t_b = torch.zeros((), dtype=torch.float64, device=dev)
+    busy = {b: busy_share(lambda: integrators.dopri5_step(rhs, t_b, xb, 1e-5, ub), dev)
+            for b, xb, ub in ((1, xs[-1, 0], u), (envs, xs[-1], u_env))}
+    require_no_launches(kmods, "phase 25")
+    print(f"phase 25 LQR [{card}]: design (host float64) {secs_design * 1e3:.1f} ms, gain vs "
+          f"golden K_gain {gain_err:.3e}; solve_care on the card (float64, 72 x 72 "
+          f"Hamiltonian) {int(sol.iterations)} iterations, {secs_care * 1e3:.3f} ms "
+          f"({secs_cold * 1e3:.3f} ms the first call), P vs host {care_host:.3e}, vs golden "
+          f"{care_gold:.3e} (of max|P|); closed loops, dopri5 rtol {LQR['rtol']} atol "
+          f"{LQR['atol']}: " + "; ".join(lines) + f"; per-env dopri5 of the controlled loop, "
+          f"{envs} envs, impulse x {LQR['scale'][0]}-{LQR['scale'][1]}, {te[-1]} s: "
+          f"{secs_pe:.2f} s, trials a lane {steps.min()}-{steps.max()} ({st.trials_run} run, "
+          f"{secs_pe / st.trials_run * 1e3:.3f} ms a trial run); lanes vs solo (rel, counts "
+          f"equal) {solo}; device busy in a Dopri5 step of the controlled loop (profiler, "
+          f"ms of the step's wall ms): " + ", ".join(
+              f"{b} envs {v[0]:.3f} of {v[1]:.3f} ({v[2]:.3f})" for b, v in busy.items())
+          + "; kernel launches 0", flush=True)
+    require(all(e <= LQR["solo_max"] and c for e, c in solo.values()),
+            f"LQR per-env lanes vs solo runs {solo}")
+    require(int(st.n_incomplete.sum()) == 0 and finite(xs), "LQR per-env: truncated")
+    return time.perf_counter() - t_phase, out
+
+
+def phase_lqg(crt, dev, card, kmods) -> tuple:
+    """Phase 26; returns (wall seconds, (model, plant SimulationResult))."""
+    from continuum_robot_tpu_torch.control import (
+        LinearQuadraticEstimator, LinearQuadraticGaussian, output_matrix)
+    from continuum_robot_tpu_torch.utils import cuda_event_times
+
+    t_phase = time.perf_counter()
+    reset_counts(kmods)
+    beam = golden_beam(crt, ["linear"] * 6)
+    Kb, Mb = beam.beam_model.get_stiffness_matrix(), beam.beam_model.get_mass_matrix()
+    nf = Kb.shape[0]
+
+    def design():
+        act = [nf - 3, nf - 2]
+        Q = np.diag([100.0] * nf + [10.0] * nf)
+        lqr = crt.LinearQuadraticRegulator(Kb, Mb, Q, 1e-8 * np.eye(len(act)), input_dofs=act)
+        meas = [nf - 3, nf - 2, 2 * nf - 3, 2 * nf - 2]
+        lqe = LinearQuadraticEstimator(Kb, Mb, output_matrix(2 * nf, meas),
+                                       1e-2 * np.eye(2 * nf), 1e-8 * np.eye(len(meas)))
+        return LinearQuadraticGaussian(lqr, lqe)
+
+    lqg, secs_design = host_secs(design)
+    ev_aug = np.sort_complex(np.linalg.eigvals(lqg.augmented_matrix()))
+    ev_sep = np.sort_complex(np.concatenate([np.linalg.eigvals(lqg.A - lqg.B @ lqg.K),
+                                             np.linalg.eigvals(lqg.A - lqg.L @ lqg.C)]))
+    sep = float(np.max(np.abs(ev_aug - ev_sep)) / np.max(np.abs(ev_sep)))
+    re_max = float(np.max(np.real(ev_aug)))
+
+    F, envs, dt = LQG["frames"], LQG["envs"], LQG["dt"]
+    z0 = np.zeros((envs, 4 * nf))
+    z0[:, nf - 2] = np.random.default_rng(26).normal(scale=LQG["tip_scale"], size=envs)
+    r0 = np.zeros(2 * nf)
+    prop64 = lqg.make_closed_loop_propagator(dt, dtype=torch.float64)  # the card
+    zs64, secs64 = wall(lambda: prop64(z0, r0, n_frames=F))
+    prop32 = lqg.make_closed_loop_propagator(dt, dtype=torch.float32)
+    z32 = torch.tensor(z0, dtype=torch.float32, device=dev)
+    r32 = torch.zeros(2 * nf, dtype=torch.float32, device=dev)
+    runs = cuda_event_times(lambda: prop32(z32, r32, n_frames=F), repeats=3, warmup=1,
+                            device=dev)
+    zs32 = prop32(z32, r32, n_frames=F)
+    f32 = rel(zs32.double(), zs64)
+    idx = list(LQG["check_envs"])
+    prop_cpu = lqg.make_closed_loop_propagator(dt, dtype=torch.float64, device="cpu")
+    with cpu_threads(1):
+        zc = prop_cpu(z0[idx], r0, n_frames=F)
+    vs_cpu = rel(zs64[:, idx].cpu(), zc)
+    x, e = zs64[..., : 2 * nf], zs64[..., : 2 * nf] - zs64[..., 2 * nf:]
+    lock = float((torch.linalg.vector_norm(e[-1], dim=-1)
+                  / torch.linalg.vector_norm(e[0], dim=-1)).max())
+    tip = float((x[-1, :, nf - 2].abs() / x[0, :, nf - 2].abs()).max())
+    best = min(runs)
+    busy = busy_share(lambda: prop32(z32, r32, n_frames=200), dev)
+    require_no_launches(kmods, "phase 26")
+    print(f"phase 26 LQG [{card}]: examples/lqg_control.py design (2 actuators, 4 sensors; "
+          f"host {secs_design * 1e3:.1f} ms), separation |eig(aug) - eig(A-BK) U "
+          f"eig(A-LC)| {sep:.3e} of the spectrum's scale, max Re {re_max:.3f}; propagator "
+          f"dt {dt}, {F} frames x {envs} envs (4n = {4 * nf}), observer cold: float32 best "
+          f"of 3 {best:.3f} ms ({', '.join('%.3f' % r for r in runs)}) = "
+          f"{F / best * 1e3:.4e} frames/s = {F * envs / best * 1e3:.4e} env-frames/s; "
+          f"float64 {secs64 * 1e3:.3f} ms (one call); envs {idx} vs the CPU port (float64) "
+          f"{vs_cpu:.3e}; float32 vs float64 {f32:.3e}; estimate error at the end / start "
+          f"<= {lock:.3e}, tip |x_end / x_0| <= {tip:.3e}; device busy over 200 float32 frames "
+          f"(profiler) {busy[0]:.3f} ms of {busy[1]:.3f} ({busy[2]:.3f}); kernel launches 0",
+          flush=True)
+    require(sep <= LQG["sep_max"] and re_max < 0, f"LQG separation {sep:.3e}, Re {re_max}")
+    require(vs_cpu <= LQG["cpu_max"], f"LQG propagator card vs CPU {vs_cpu:.3e}")
+    require(f32 <= LQG["f32_max"] and finite(zs32, zs64), f"LQG float32 vs float64 {f32:.3e}")
+    require(lock < 1e-2 and tip < 0.5, f"LQG: observer {lock:.3e}, tip {tip:.3e}")
+    require(zs64.is_cuda and zs32.is_cuda, "LQG propagator left the card")
+    ts = torch.arange(F + 1, dtype=torch.float64) * dt
+    return time.perf_counter() - t_phase, (beam, crt.SimulationResult(ts=ts, ys=x))
+
+
+def phase_ekf(crt, dev, card, kmods) -> tuple:
+    """Phase 27; returns (wall seconds, the batch's final EKFState)."""
+    from continuum_robot_tpu_torch.control import (
+        EKFState, make_discrete_step, make_ekf, output_matrix, run_ekf)
+
+    t_phase = time.perf_counter()
+    reset_counts(kmods)
+    model = golden_beam(crt, ["nonlinear"] * 6)
+    nf = model.n_pos_states
+    step = make_discrete_step(model, EKF["dt"], substeps=EKF["substeps"])
+    envs, T = EKF["envs"], EKF["steps"]
+    f64 = dict(dtype=torch.float64, device=dev)
+    x = torch.zeros(envs, 2 * nf, **f64)
+    x[:, nf - 2] = torch.tensor(np.random.default_rng(27).normal(
+        scale=EKF["tip_scale"], size=envs), **f64)
+    truth = []
+    for _ in range(T):
+        x = step(x)
+        truth.append(x)
+    truth = torch.stack(truth)
+    C = output_matrix(2 * nf, [nf - 2, 2 * nf - 2])
+    ys = truth @ torch.tensor(C.T, **f64)
+    ekf = make_ekf(step, C, 1e-12 * np.eye(2 * nf), 1e-12 * np.eye(2))
+    xh0 = torch.zeros(2 * nf, **f64)
+    P0 = 1e-6 * torch.eye(2 * nf, **f64)
+    run_ekf(ekf, xh0, P0, ys[:2, 0])  # warm-up: first use of the transforms
+    ((xf, Pf), est), secs_b = wall(lambda: run_ekf(
+        ekf, xh0.expand(envs, -1).clone(), P0.expand(envs, -1, -1).clone(), ys))
+    err = (torch.linalg.vector_norm(est - truth, dim=-1)
+           / torch.linalg.vector_norm(truth, dim=-1))
+    worst = float(err[EKF["after"]:].max())
+    reads = {k: float(err[k:].max()) for k in (50, 100)}
+    share = float((err[50:].max(0).values < EKF["track_max"]).double().mean())
+    Ts = EKF["solo_steps"]
+    solo, secs_1 = {}, []
+    for i in EKF["check_envs"]:
+        (_, ei), s = wall(lambda: run_ekf(ekf, xh0, P0, ys[:Ts, i]))
+        secs_1.append(s)
+        solo[i] = rel(est[:Ts, i], ei)
+    with cpu_threads(1):
+        _, ec = run_ekf(ekf, np.zeros(2 * nf), 1e-6 * np.eye(2 * nf), ys[:Ts, 0].cpu(),
+                        device="cpu")
+    vs_cpu = rel(est[:Ts, 0].cpu(), ec)
+    busy = {b: busy_share(lambda: ekf(state, y), dev) for b, state, y in (
+        (1, EKFState(xf[0], Pf[0]), ys[-1, 0]), (envs, EKFState(xf, Pf), ys[-1]))}
+    require_no_launches(kmods, "phase 27")
+    print(f"phase 27 EKF [{card}]: 6-segment von Karman beam ({2 * nf} states), "
+          f"make_discrete_step(dt={EKF['dt']}, substeps={EKF['substeps']}), {envs} filters "
+          f"in float64, each its own truth, cold start, {T} steps: {secs_b:.2f} s = "
+          f"{secs_b / T * 1e3:.3f} ms a filter step at {envs} filters, "
+          f"{min(secs_1) / Ts * 1e3:.3f} ms at 1 (best of {len(secs_1)} solo runs of {Ts} "
+          f"steps); worst |x_hat - x| / |x| from step {EKF['after']} {worst:.3e} (from step "
+          f"50: {reads[50]:.3e}, {share:.4f} of the lanes under {EKF['track_max']}; from 100: "
+          f"{reads[100]:.3e}); over the first {Ts} steps lanes vs solo (rel) {solo}, lane 0 "
+          f"vs the CPU port {vs_cpu:.3e}; device busy in a filter step (profiler, ms of the "
+          f"step's wall ms): " + ", ".join(f"{b} filters {v[0]:.3f} of {v[1]:.3f} "
+                                           f"({v[2]:.3f})" for b, v in busy.items())
+          + "; kernel launches 0",
+          flush=True)
+    require(worst < EKF["track_max"] and finite(est, Pf) and est.is_cuda,
+            f"EKF tracking {worst:.3e}")
+    require(all(e <= EKF["solo_max"] for e in solo.values()), f"EKF lanes vs solo {solo}")
+    require(vs_cpu <= EKF["solo_max"], f"EKF lane 0 vs CPU {vs_cpu:.3e}")
+    return time.perf_counter() - t_phase, (xf, Pf)
+
+
+def phase_utils(crt, dev, card, kmods, lqr_out, lqg_out, ekf_state) -> float:
+    """Phase 28; returns its wall seconds."""
+    import tempfile
+
+    from continuum_robot_tpu_torch.entry import entry
+    from continuum_robot_tpu_torch.utils import (
+        init_health, load_checkpoint, save_checkpoint, step_with_guard,
+        verify_batch_consistency)
+    from continuum_robot_tpu_torch.utils.metrics import run_metrics
+
+    t_phase = time.perf_counter()
+    reset_counts(kmods)
+    metrics = {name: run_metrics(*o) for name, o in (("25", lqr_out), ("26", lqg_out))}
+    ok_metrics = all(m["finite"] and all(np.isfinite(v) for v in m.values())
+                     for m in metrics.values())
+
+    step, (_, ue) = entry(device=dev)
+    n, envs, k_bad = ue.shape[-1], UTILS["envs"], UTILS["nan_env"]
+    x0 = torch.zeros(envs, 2 * n, dtype=ue.dtype, device=dev)
+    x0[:, n - 2] = torch.tensor(np.random.default_rng(28).normal(
+        scale=UTILS["tip_scale"], size=envs), dtype=ue.dtype, device=dev)
+    batch_dev = verify_batch_consistency(lambda z: step(z, ue), x0, n_check=3)
+
+    u_ok = ue.expand(envs, n).clone()
+    u_bad = u_ok.clone()
+    u_bad[k_bad] = float("nan")
+    xg, xu, health = x0, x0, init_health(x0, (envs,))
+    for k in range(UTILS["steps"]):
+        u_k = u_bad if k >= UTILS["nan_step"] else u_ok
+        xu = step(xu, u_k)
+        xg, health = step_with_guard(lambda z: step(z, u_k))(xg, health)
+        if k == UTILS["nan_step"] - 1:
+            x_last = xg[k_bad].clone()
+    rest = torch.arange(envs, device=dev) != k_bad
+    guard_ok = (torch.equal(xg[rest], xu[rest]) and torch.equal(xg[k_bad], x_last)
+                and health.diverged.nonzero().flatten().tolist() == [k_bad]
+                and not finite(xu[k_bad]) and finite(xg))
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    torch.rand(3, generator=gen, device=dev)
+    state = {"x_hat": ekf_state[0], "P": ekf_state[1], "plant": lqg_out[1].ys[-1]}
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(f"{d}/state.npz", state, t=0.003, rng_key=gen, meta={"envs": envs})
+        back, t, gen_back, meta = load_checkpoint(f"{d}/state.npz", treedef_like=state)
+    ckpt_ok = (t == 0.003 and int(meta["envs"]) == envs and list(back) == list(state)
+               and all(back[k].is_cuda and torch.equal(back[k], state[k]) for k in state)
+               and torch.equal(torch.rand(4, generator=gen_back, device=dev),
+                               torch.rand(4, generator=gen, device=dev)))
+    require_no_launches(kmods, "phase 28")
+    print(f"phase 28 utils [{card}]: run_metrics finite {ok_metrics} (phase 25 controlled "
+          f"loop: energy {metrics['25']['energy_initial']:.4e} -> "
+          f"{metrics['25']['energy_final']:.4e} J, tip max {metrics['25']['tip_abs_max']:.4e} "
+          f"m; phase 26 plants: energy max {metrics['26']['energy_max']:.4e} J, drift "
+          f"{metrics['26']['energy_drift_rel']:.4e}); verify_batch_consistency of the "
+          f"flagship's RK4 step at {envs} envs (float32): {batch_dev:.3e}; step_with_guard, "
+          f"env {k_bad} driven to NaN from step {UTILS['nan_step']} of {UTILS['steps']}: "
+          f"frozen, the other {envs - 1} bit for bit the unguarded run: {guard_ok}; "
+          f"checkpoint of a card state (EKF x_hat, P; LQG plants; a CUDA generator) "
+          f"saved, loaded, bit for bit: {ckpt_ok}; kernel launches 0", flush=True)
+    require(ok_metrics, f"run_metrics not finite: {metrics}")
+    require(guard_ok, "step_with_guard: frozen env or the others differ")
+    require(ckpt_ok, "checkpoint round trip differs")
+    return time.perf_counter() - t_phase
+
+
+def control_paths(crt, dev, card, kmods) -> None:
+    """Phases 25-28."""
+    secs = {}
+    secs["25"], lqr_out = phase_lqr(crt, dev, card, kmods)
+    secs["26"], lqg_out = phase_lqg(crt, dev, card, kmods)
+    secs["27"], ekf_state = phase_ekf(crt, dev, card, kmods)
+    secs["28"] = phase_utils(crt, dev, card, kmods, lqr_out, lqg_out, ekf_state)
+    print(f"phases 25-28 wall: {', '.join(f'{k}: {v:.1f} s' for k, v in secs.items())}; "
+          f"together {sum(secs.values()):.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2486,6 +2899,9 @@ def main() -> int:
             profile_fused(crt, dev, card)
         else:
             profile_rom(crt, dev, card)
+        return 0
+    if "--control" in args:
+        control_paths(crt, dev, card, (kr, rk, kb, kf))
         return 0
 
     t0 = time.time()
@@ -2522,6 +2938,8 @@ def main() -> int:
     records.update(fused_paths(crt, kf, kb, dev, card))
     print(f"fused paths done; {time.time() - t_start:.1f} s so far", flush=True)
     records["btd_solve"]["launches_by_path"].update(adaptive_paths(crt, kb, dev, card))
+    print(f"adaptive paths done; {time.time() - t_start:.1f} s so far", flush=True)
+    control_paths(crt, dev, card, (kr, rk, kb, kf))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

@@ -11,10 +11,13 @@ registered fluid drag and gravity, the model's ODE right-hand side with the
 explicit RK4 and adaptive Dopri5 integrators, the adaptive implicit
 generalized-α and SDIRK3 engines, the exact exponential propagator
 (``ops/exponential``), the fused small-beam rollout
-(``ops/cuda/fused_rollout``) and single-device batched rollouts
-(``parallel``). Their fused drives and the block-tridiagonal solve run as
-hand-written CUDA kernels (``ops/cuda``) on the card and as plain PyTorch
-twins on the CPU.
+(``ops/cuda/fused_rollout``), single-device batched rollouts
+(``parallel``), the control layer (``control``: LQR, LQG, the extended
+Kalman filter; the CARE solver in ``ops/care``) and the utilities
+(``utils``: energies, health guards, checkpoints, modal analysis).
+Their fused drives and the block-tridiagonal solve run as hand-written
+CUDA kernels (``ops/cuda``) on the card and as plain PyTorch twins on the
+CPU.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
 Precision policy: importing the package turns TF32 off for float32 matmuls
@@ -29,6 +32,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+from .control import FullStateLinear, LinearQuadraticRegulator  # noqa: E402
 from .models import (  # noqa: E402
     BoundaryConditionType,
     DynamicEulerBernoulliBeam,
@@ -76,9 +80,11 @@ __all__ = [
     "ElementType",
     "EulerBernoulliBeam",
     "ForceParams",
+    "FullStateLinear",
     "GravityForce",
     "IBeam",
     "ISegment",
+    "LinearQuadraticRegulator",
     "ModalGenAlpha",
     "ModalROMGenAlpha",
     "NewmarkOperator",

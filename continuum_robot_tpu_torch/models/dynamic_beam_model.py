@@ -202,8 +202,14 @@ class DynamicEulerBernoulliBeam:
     def _m_inv_apply(self, f):
         return self._mass_inverse_pair()[0](f)
 
-    def _k_red(self, q_red):
-        """Reduced internal force ``k(q)``, built on first use."""
+    def _internal_force(self) -> Callable:
+        """Reduced internal force ``k(q)``, built on the first call.
+
+        Called when the system or the RHS is built, never from inside the
+        RHS: the polynomial table comes from nested ``torch.func.jacfwd``
+        calls read back to NumPy, which fail under a caller's transform
+        (``jacfwd`` of a step of a model whose RHS has not run yet).
+        """
         if self._k_red_fn is None:
             bm = self.beam_model
             free, cons = bm.bc_info.free_dofs, self.use_consistent_nonlinear
@@ -213,7 +219,7 @@ class DynamicEulerBernoulliBeam:
             else:
                 self._k_red_fn = assembly.make_reduced_internal_force(
                     bm.arrays, free, bm.n_dofs_full, use_consistent=cons)
-        return self._k_red_fn(q_red)
+        return self._k_red_fn
 
     @staticmethod
     def _as_state(x, device):
@@ -236,7 +242,8 @@ class DynamicEulerBernoulliBeam:
         device = resolve_device(device)
         if forces_func is None:
             forces_func = self.force_registry.create_aggregated_function()
-        base = dynamics.build_system_fn(self._k_red, self._m_inv_apply, forces_func)
+        base = dynamics.build_system_fn(self._internal_force(), self._m_inv_apply,
+                                       forces_func)
 
         def system(x, t=0.0):
             return base(self._as_state(x, device), t)
@@ -298,6 +305,7 @@ class DynamicEulerBernoulliBeam:
         """
         if forces_func is None:
             forces_func = self.force_registry.create_aggregated_function()
-        system = dynamics.build_system_fn(self._k_red, self._m_inv_apply, forces_func)
+        system = dynamics.build_system_fn(self._internal_force(), self._m_inv_apply,
+                                         forces_func)
         input_fn = dynamics.build_input_fn(self._m_inv_apply)
         return dynamics.build_rhs(system, input_fn)

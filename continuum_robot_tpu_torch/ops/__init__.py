@@ -1,7 +1,8 @@
 """Numerical operators: block-tridiagonal algebra (``banded``), the
 explicit, adaptive and implicit integrators (``integrators``), the exact
-exponential propagator (``exponential``) and the CUDA kernels (``cuda``)."""
+exponential propagator (``exponential``), the CARE solver (``care``) and
+the CUDA kernels (``cuda``)."""
 
-from . import banded, cuda, exponential, integrators
+from . import banded, care, cuda, exponential, integrators
 
-__all__ = ["banded", "cuda", "exponential", "integrators"]
+__all__ = ["banded", "care", "cuda", "exponential", "integrators"]
