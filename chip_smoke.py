@@ -7,6 +7,7 @@
     python3 chip_smoke.py --profile implicit  # implicit main path under torch.profiler
     python3 chip_smoke.py --profile fused     # fused small-beam span under torch.profiler
     python3 chip_smoke.py --control           # phases 25-28 alone (no kernel is built)
+    python3 chip_smoke.py --rom-tier          # phases 29-32 alone (the ROM main path rebuilt)
 
 Phases, one line each (any failure exits non-zero):
 
@@ -168,7 +169,36 @@ Phases, one line each (any failure exits non-zero):
     against the stiff60 golden (printed); the ms a trial of
     ``generalized_alpha_adaptive`` at full width (1000 elements, 4096
     envs, float32; 20 trials after a one-trial warm-up, the initial
-    acceleration outside the timing) with ``"btd"`` and ``"cr"``.
+    acceleration outside the timing) with ``"btd"`` and ``"cr"``;
+25-28. the control layer and the utilities (``--control``);
+29. ``modal_rom_adaptive``: ``rollout_adaptive`` on the ROM main path's
+    engine and inputs (4096 envs, float32, 20 frames of 1 ms, rtol 1e-5):
+    trials, ms a trial and the device's busy share; 4 envs in float64 held
+    to the port on the CPU on the same inputs (equal counts, <= 1e-10);
+    ``simulate(method="modal_rom_adaptive", chunk=1)`` bit for bit the
+    one-call run; the nonlinear_fluid_gravity golden at the JAX test's
+    tolerances span by span for ``ROM_ADAPTIVE["golden_budget_s"]``,
+    within the JAX bound 3e-4 over the frames reached;
+30. forced ROM: the ROM main path's beam in water with gravity through
+    ``simulate(method="modal_rom", engine="xla")`` at 4096 envs (float64)
+    and the same drive in float32 (env-steps/s; against float64 by norm
+    <= 1e-3); the reduced closures against ``PhiW^T compute_forces`` in
+    float64 (<= 1e-12); the split path against the general one (<= 1e-9);
+31. ECSW guard and files: ``rollout_frames_guarded`` on phase 9's trained
+    engine at 4096 envs (guarded against unguarded ms; no env flagged at
+    0.5-1 x the training force, every env at 10-15 x); ``save_basis`` /
+    ``save_ecsw`` / ``load_basis`` / ``load_ecsw``: bit-equal operators
+    and the loaded gathered span bit for bit the trained one's, held to
+    its twin; ``carry_dtype=torch.bfloat16`` drift (< 0.05) and ms;
+32. augmentation: the consistent 1000-element beam with
+    ``modal_derivatives=3`` (host set-up, modes, 4096-env float32 against
+    float64 <= 1e-4); a 32-segment parity beam with ``modal_derivatives=3``
+    through ``simulate(engine="pallas")`` at 4096 envs against "xla" in
+    float64 within phase 7's 5e-6 x scale.
+
+Phases 25-32 launch no kernel but the ROM kernels of phase 31's loaded
+ECSW span and phase 32's augmented simulate; every other path of theirs
+must read 0 launches of every kernel.
 
 Launch counts are set to 0 just before each path and read just after it:
 the linear main path (``rollout_power``), ``rollout_pallas``,
@@ -184,7 +214,8 @@ small-beam path in float32 and float64 (19, one launch per frame: 250),
 its float64 oracle (19, the block-tridiagonal kernel 1 + 5000 x 2 times),
 the ``simulate`` and ``batched_rollout`` runs of phase 20 and the adaptive
 generalized-alpha runs with ``"pallas"`` (24: one launch a run, the
-initial acceleration). Every
+initial acceleration); the loaded ECSW span (31) and the augmented
+``simulate(engine="pallas")`` (32). Every
 kernel must have been launched by its own path, and each ROM path must
 launch exactly its kernels, once per Newton iteration of every step. The
 second-to-last lines are the kernels' JSON record (``launches`` from the
@@ -1108,7 +1139,8 @@ def rom_span_bounds(rk, op, B: int, steps: int) -> dict:
 
 
 def rom_paths(crt, rk, dev, card, small_model):
-    """Phases 8-12; returns the ROM kernels' records."""
+    """Phases 8-12; returns the ROM kernels' records and the main path's
+    engines and inputs (phases 29-32 reuse them)."""
     from continuum_robot_tpu_torch.utils import cuda_event_times, force_completion
 
     # -- phase 8: the ROM main path at full width -------------------------------
@@ -1384,7 +1416,7 @@ def rom_paths(crt, rk, dev, card, small_model):
         + (f"; float32 CUDA cores {v['bound_f32'][0]:.4f} ms" if "bound_f32" in v else "")
         + f"), max|k-p| {v['max_abs_err']:.3e}, /scale {v['scaled_err']:.3e}"
         for k, v in records.items()), flush=True)
-    return records
+    return records, dict(model=model, ms=ms, ms_g=ms_g, eta=eta, etad=etad, u_m=u_m)
 
 
 # ---------------------------------------------------------------------------
@@ -2867,6 +2899,427 @@ def control_paths(crt, dev, card, kmods) -> None:
           f"together {sum(secs.values()):.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The rest of the ROM tier (phases 29-32)
+# ---------------------------------------------------------------------------
+
+# Phase 29: modal_rom_adaptive on the ROM main path (its engine, starts and
+# tip load) over `frames` frames of `frame_dt` at rtol near the float32
+# floor (50 eps = 6e-6); `check_envs` envs in float64 against the port on
+# the CPU on the same inputs; simulate(chunk=) on the 8-element beam; the
+# nonlinear_fluid_gravity golden (three Newton iterations, as the JAX test)
+# frame by frame while `golden_budget_s` lasts, held to the JAX test's bound
+# over the frames reached. At the JAX test's rtol 1e-10 one 1 ms frame takes
+# ~3800 trials (~19 s of host dispatch on the CPU), so rtol is 1e-8 (~770
+# trials a frame).
+ROM_ADAPTIVE = dict(frames=20, frame_dt=1e-3, rtol=1e-5, atol=1e-8, n_newton=2, cap=2000,
+                    check_envs=4, vs_cpu_max=1e-10, chunk_envs=64, chunk_frames=3,
+                    chunk_frame_dt=5e-4, chunk_rtol=1e-4,
+                    golden_rtol=1e-8, golden_atol=1e-12, golden_newton=3,
+                    golden_budget_s=8.0, golden_max=3e-4)
+# Phase 30: the ROM main path's beam in water with gravity (fluid density
+# 1000, the reference's C_d 0.82 on 2 pi r L) through simulate(method=
+# "modal_rom", engine="xla"), 4096 envs, `frames` x `substeps` steps, the
+# main path's rho_inf and Newton count; float32 against float64 by norm.
+ROM_FORCED = dict(frames=5, substeps=20, f32_max=1e-3, closure_envs=8, closure_max=1e-12,
+                  path_envs=64, path_steps=20, path_max=1e-9)
+# Phase 31: the trained ECSW engine of phase 9. Tip forces spread over
+# `inside` x the training force (3 N) stay in the trained envelope; `outside`
+# x it (10 x the training amplitude and up) must be flagged in every env.
+ROM_GUARD = dict(frames=10, substeps=20, inside=(0.5, 1.0), outside=(10.0, 15.0),
+                 ecsw_steps=200, carry_steps=200, carry_unroll=8, carry_max=0.05)
+# Phase 32: the implicit phase's consistent 1000-element beam augmented with
+# three modes' derivatives (the JAX package's 256 + loads), `steps` steps at
+# 4096 envs; then a 32-segment parity beam (tests/helpers.py's), 24 modes +
+# derivatives, through simulate(engine="pallas") at 4096 envs against "xla"
+# in float64 within phase 7's bound, from fused_start's tip displacements.
+ROM_AUGMENT = dict(cons_steps=50, cons_newton=2, cons_f32_max=1e-4, segments=32, modes=24,
+                   md=3, envs=4096, frames=10, substeps=5, n_newton=1)
+
+
+def forced_beam(crt, n: int):
+    """The bench beam with the reference's drag columns (C_d 0.82 on 2 pi r L),
+    in water (density 1000) with gravity."""
+    df = bench_beam_dataframe(n, "nonlinear")
+    df["wetted_area"] = 2 * np.pi * 0.005 * df["length"]
+    df["drag_coef"] = 0.82
+    fp = crt.ForceParams(enable_fluid_effects=True, fluid_density=1000.0,
+                         enable_gravity_effects=True)
+    return crt.DynamicEulerBernoulliBeam(df, fp)
+
+
+def rom_tier_main(crt, dev):
+    """The ROM main path's model, engine and inputs and phase 9's trained
+    ECSW engine, for ``--rom-tier`` (the full run reuses phases 8-9's)."""
+    model, ms, eta, etad, u_m, _ = rom_main_path(crt, dev)
+    u_tr = np.zeros(model.n_pos_states)
+    u_tr[-2] = 3.0
+    z = torch.zeros((1, ms.n_modes), dtype=torch.float32, device=dev)
+    _, etas_tr, _ = ms.rollout_frames(z, z, ms.project_force_host(u_tr), 30,
+                                      substeps=20, n_newton=2)
+    ms_g = ms.hyper_reduce(etas_tr[::3, 0, :], tau=1e-3)
+    return dict(model=model, ms=ms, ms_g=ms_g, eta=eta, etad=etad, u_m=u_m)
+
+
+def phase_rom_adaptive(crt, dev, card, main, kmods) -> float:
+    """Phase 29; returns its wall seconds."""
+    from continuum_robot_tpu_torch.models.simulate import make_modal_rom
+
+    t_phase = time.perf_counter()
+    cfg = ROM_ADAPTIVE
+    ms, eta, etad, u_m = main["ms"], main["eta"], main["etad"], main["u_m"]
+    t_eval = np.arange(cfg["frames"] + 1) * cfg["frame_dt"]
+    kw = dict(rtol=cfg["rtol"], atol=cfg["atol"], n_newton=cfg["n_newton"],
+              max_steps_per_interval=cfg["cap"])
+
+    def run():
+        return ms.rollout_adaptive(eta, etad, u_m, t_eval, **kw)
+
+    reset_counts(kmods)
+    (etas, etads, st), first_s = wall(run)
+    require_no_launches(kmods, "modal_rom_adaptive")
+    (_, _, st2), wall_s = wall(run)
+    busy = sum(r[0] for r in kernel_rows(run, dev))
+    q, v = ms.from_modal(etas[-1], etads[-1])
+    require(etas.shape == (cfg["frames"] + 1, N_ENVS, ms.n_modes)
+            and bool(torch.isfinite(q).all() and torch.isfinite(v).all()),
+            "modal_rom_adaptive: bad output")
+    require(int(st.n_incomplete) == 0 and int(st2.n_accepted) == int(st.n_accepted),
+            f"modal_rom_adaptive: {st}")
+    print(f"phase 29 modal_rom_adaptive [{card}]: {N_ENVS} envs x {ms.n_modes} modes, "
+          f"float32, {cfg['frames']} frames of {cfg['frame_dt']} s, rtol {cfg['rtol']}: "
+          f"{int(st.n_accepted)} accepted, {int(st.n_rejected)} rejected, {st.trials_run} "
+          f"trials run, {st.host_reads} host reads; {wall_s * 1e3:.3f} ms = "
+          f"{wall_s * 1e3 / st.trials_run:.3f} ms a trial (first call {first_s * 1e3:.3f} ms); "
+          f"device busy {busy:.3f} ms, share {busy / (wall_s * 1e3):.3f}", flush=True)
+
+    # float64 on a few envs, against the port on the CPU on the same inputs.
+    k = cfg["check_envs"]
+    e64, ed64 = eta[:k].double(), etad[:k].double()
+    card64 = ms.rollout_adaptive(e64, ed64, u_m, t_eval, **kw)
+    with cpu_threads(8):
+        cpu64 = ms.rollout_adaptive(e64.cpu(), ed64.cpu(), u_m, t_eval, **kw)
+    counts = [tuple(int(getattr(s, f)) for f in ("n_accepted", "n_rejected"))
+              for s in (card64[2], cpu64[2])]
+    vs_cpu = max(rel(a.cpu(), b) for a, b in zip(card64[:2], cpu64[:2]))
+    print(f"phase 29 modal_rom_adaptive float64, {k} envs: card vs CPU {vs_cpu:.3e}, "
+          f"(accepted, rejected) card {counts[0]} CPU {counts[1]}", flush=True)
+    require(counts[0] == counts[1] and vs_cpu <= cfg["vs_cpu_max"],
+            f"modal_rom_adaptive float64 card vs CPU: {vs_cpu:.3e}, {counts}")
+
+    # simulate(chunk=) bit for bit the one-call run, on tests/helpers.py's
+    # 8-segment von Karman beam.
+    small = golden_beam(crt, ["nonlinear"] * ROM_SMALL["n_el"])
+    n_s = small.n_pos_states
+    rng = np.random.default_rng(29)
+    x0 = np.zeros((cfg["chunk_envs"], 2 * n_s), np.float32)
+    x0[:, :n_s] = rng.normal(scale=1e-4, size=(cfg["chunk_envs"], n_s))
+    u_s = np.zeros(n_s)
+    u_s[-2] = 0.1
+    skw = dict(method="modal_rom_adaptive", u=u_s, rtol=cfg["chunk_rtol"],
+               atol=cfg["chunk_rtol"] * 1e-3, n_newton=cfg["n_newton"],
+               rho_inf=ROM["rho_inf"], device=dev)
+    t_f = cfg["chunk_frames"] * cfg["chunk_frame_dt"]
+    reset_counts(kmods)
+    one = crt.simulate(small, x0, t_f, cfg["chunk_frame_dt"], **skw)
+    chunked = crt.simulate(small, x0, t_f, cfg["chunk_frame_dt"], chunk=1, **skw)
+    require_no_launches(kmods, "simulate modal_rom_adaptive")
+    same = bool(torch.equal(one.ys, chunked.ys))
+    print(f"phase 29 simulate modal_rom_adaptive: {cfg['chunk_envs']} envs, chunk=1 bit for "
+          f"bit the one-call run: {same} ({int(one.stats.n_accepted)} accepted)", flush=True)
+    require(same and int(chunked.stats.n_accepted) == int(one.stats.n_accepted),
+            "modal_rom_adaptive: chunk= differs from the one-call run")
+
+    # The nonlinear_fluid_gravity golden, span by span within the budget.
+    with open(f"{GOLDEN_DIR}/trajectories_meta.json") as f:
+        meta = json.load(f)
+    y_gold = np.load(f"{GOLDEN_DIR}/trajectories.npz")["nonlinear_fluid_gravity_y"]
+    types, fp = GOLDEN_CONFIGS["nonlinear_fluid_gravity"]
+    beam = golden_beam(crt, types, fp)
+    n = beam.n_pos_states
+    dt = meta["dt"]
+    gms = make_modal_rom(beam, dt, device=dev)
+    u = tip_impulse(n, meta["impulse_amplitude"], meta["impulse_t_end"], torch.float64, dev)
+    u_g = lambda t: gms.project_force(u(t))  # noqa: E731
+    t_gold = np.arange(int(round(meta["t_final"] / dt)) + 1) * dt
+    zero = torch.zeros(gms.n_modes, dtype=torch.float64, device=dev)
+    state, dt_next, i, trials = (zero, zero, None), None, 0, 0
+    frames, frames_d = [zero[None]], [zero[None]]
+    gkw = dict(rtol=cfg["golden_rtol"], atol=cfg["golden_atol"], n_newton=cfg["golden_newton"])
+    reset_counts(kmods)
+    t0 = time.perf_counter()
+    while i < len(t_gold) - 1 and time.perf_counter() - t0 < cfg["golden_budget_s"]:
+        es, eds, stg, state = gms.rollout_adaptive(
+            state[0], state[1], u_g, t_gold[i:i + 2], dt0=dt_next, etadd0=state[2],
+            return_final=True, **gkw)
+        frames.append(es[1:])
+        frames_d.append(eds[1:])
+        dt_next, i, trials = stg.dt_next, i + 1, trials + stg.trials_run
+        require(int(stg.n_incomplete) == 0, "modal_rom_adaptive golden: truncated")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    require_no_launches(kmods, "modal_rom_adaptive golden")
+    qs, vs = gms.from_modal(torch.cat(frames), torch.cat(frames_d))
+    err = golden_err(torch.cat([qs, vs], dim=-1), y_gold[:, : i + 1])
+    print(f"phase 29 modal_rom_adaptive golden nonlinear_fluid_gravity [{card}]: float64, "
+          f"rtol {cfg['golden_rtol']}, reached t={t_gold[i]:.3f} of {meta['t_final']} s in "
+          f"{secs:.2f} s ({i} frames, {trials} trials, {secs / max(trials, 1) * 1e3:.3f} ms "
+          f"a trial); vs golden {err:.3e} (the JAX bound {cfg['golden_max']})",
+          flush=True)
+    require(i >= 1 and err < cfg["golden_max"], f"modal_rom_adaptive golden: {err:.3e}")
+    return time.perf_counter() - t_phase
+
+
+def phase_rom_forced(crt, dev, card, kmods) -> float:
+    """Phase 30; returns its wall seconds."""
+    from continuum_robot_tpu_torch.models.simulate import make_modal_rom
+
+    t_phase = time.perf_counter()
+    cfg = ROM_FORCED
+    model = forced_beam(crt, N_ELEMENTS)
+    n = model.n_pos_states
+    rng = np.random.default_rng(30)
+    x0 = np.zeros((N_ENVS, 2 * n))
+    x0[:, :n] = rng.normal(scale=1e-6, size=(N_ENVS, n))
+    u = np.zeros(n)
+    u[-2] = 0.1
+    dt_f = DT * cfg["substeps"]
+    t_f = cfg["frames"] * dt_f
+    kw = dict(method="modal_rom", u=u, substeps=cfg["substeps"], n_newton=ROM["n_newton"],
+              rho_inf=ROM["rho_inf"], n_modes=ROM["modes"], engine="xla", device=dev)
+    reset_counts(kmods)
+    res64, sim_s = wall(lambda: crt.simulate(model, x0, t_f, dt_f, **kw))
+    require_no_launches(kmods, "simulate modal_rom with forces")
+    # The same drive in float32, its set-up apart from its timing.
+    ms, setup_s = host_secs(lambda: make_modal_rom(
+        model, DT, rho_inf=ROM["rho_inf"], n_modes=ROM["modes"], device=dev,
+        dtype=torch.float32))
+    require(ms.ext_modal is not None and ms.external_force is None,
+            "forced ROM: registry forces not on the split path")
+    x32 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    eta, etad = ms.to_modal(x32[:, :n], x32[:, n:])
+    u_m = ms.project_force_host(u)
+
+    def drive():
+        return ms.rollout_frames(eta, etad, u_m, cfg["frames"], substeps=cfg["substeps"],
+                                 n_newton=ROM["n_newton"])
+
+    reset_counts(kmods)
+    drive()
+    require_no_launches(kmods, "forced ROM rollout")
+    (_, etas, etads), span_s = wall(drive)
+    qs, vs = ms.from_modal(etas, etads)
+    ys32 = torch.cat([qs, vs], dim=-1)
+    ys64 = res64.ys
+    require(tuple(ys64.shape) == (cfg["frames"] + 1, N_ENVS, 2 * n)
+            and bool(torch.isfinite(ys32).all()), "forced ROM: bad output")
+    f32_vs_f64 = max(rel_parts((ys32[-1, :, :n], ys32[-1, :, n:]),
+                               (ys64[-1, :, :n], ys64[-1, :, n:])))
+    steps = cfg["frames"] * cfg["substeps"]
+    print(f"phase 30 forced ROM [{card}]: {N_ELEMENTS} von Karman elements in water with "
+          f"gravity, {ms.n_modes} modes, {N_ENVS} envs, {steps} steps: float32 span "
+          f"{span_s * 1e3:.3f} ms = {steps * N_ENVS / span_s:.4e} env-steps/s (set-up "
+          f"{setup_s:.2f} s apart); simulate float64 {sim_s:.2f} s with its set-up; float32 "
+          f"vs float64 {f32_vs_f64:.3e} (by norm, q and v)", flush=True)
+    require(f32_vs_f64 <= cfg["f32_max"], f"forced ROM float32 vs float64 {f32_vs_f64:.3e}")
+
+    # The closure on the card, float64, against the projected force.
+    k = cfg["closure_envs"]
+    x = torch.as_tensor(rng.normal(scale=1e-3, size=(k, 2 * n)), device=dev)
+    e, ed = ms.to_modal(x[:, :n], x[:, n:])
+    q, v = ms.from_modal(e, ed)
+    agg = model.force_registry.create_aggregated_function()
+    want = ms.project_force(agg(torch.cat([q, v], dim=-1), 0.0))
+    closure = rel(ms.ext_modal(e, ed, 0.0), want)
+    # The split path against the general path on the same basis, float64.
+    general = dataclasses.replace(ms, ext_modal=None, external_force=agg)
+    k = cfg["path_envs"]
+    e64, ed64 = eta[:k].double(), etad[:k].double()
+    split_out = ms.rollout(e64, ed64, u_m, cfg["path_steps"], n_newton=ROM["n_newton"])
+    gen_out = general.rollout(e64, ed64, u_m, cfg["path_steps"], n_newton=ROM["n_newton"])
+    paths = rel_state(split_out, gen_out)
+    print(f"phase 30 forced ROM checks: ext_modal vs PhiW^T compute_forces (float64, {cfg['closure_envs']} "
+          f"envs) {closure:.3e}; split vs general path ({k} envs, {cfg['path_steps']} steps, "
+          f"float64) {paths:.3e}", flush=True)
+    require(closure <= cfg["closure_max"] and paths <= cfg["path_max"],
+            f"forced ROM: closure {closure:.3e}, paths {paths:.3e}")
+    return time.perf_counter() - t_phase
+
+
+def phase_rom_guard(crt, rk, dev, card, main, kmods) -> tuple:
+    """Phase 31; returns (wall seconds, {ROM kernel: launches} of the loaded
+    ECSW span)."""
+    import tempfile
+
+    from continuum_robot_tpu_torch.models.simulate import make_modal_rom
+
+    t_phase = time.perf_counter()
+    cfg = ROM_GUARD
+    model, ms, ms_g = main["model"], main["ms"], main["ms_g"]
+    eta, etad, u_m = main["eta"], main["etad"], main["u_m"]
+    n = model.n_pos_states
+    z = torch.zeros((N_ENVS, ms.n_modes), dtype=torch.float32, device=dev)
+
+    def tip_forces(scale):
+        U = torch.zeros((N_ENVS, n), dtype=torch.float32, device=dev)
+        U[:, -2] = 3.0 * torch.linspace(*scale, N_ENVS, device=dev)
+        return ms_g.project_force(U)
+
+    kw = dict(substeps=cfg["substeps"], n_newton=1)
+    reset_counts(kmods)
+    inside = tip_forces(cfg["inside"])
+    g_in = ms_g.rollout_frames_guarded(z, z, inside, cfg["frames"], **kw)
+    g_out = ms_g.rollout_frames_guarded(z, z, tip_forces(cfg["outside"]), cfg["frames"], **kw)
+    require_no_launches(kmods, "ECSW guard")
+    _, guarded_s = wall(lambda: ms_g.rollout_frames_guarded(z, z, inside, cfg["frames"], **kw))
+    ms_g.rollout_frames(z, z, inside, cfg["frames"], **kw)
+    _, plain_s = wall(lambda: ms_g.rollout_frames(z, z, inside, cfg["frames"], **kw))
+    gi, go = g_in[3], g_out[3]
+    n_in, n_out = int(gi["flagged"].sum()), int(go["flagged"].sum())
+    print(f"phase 31 ECSW guard [{card}]: {N_ENVS} envs, {cfg['frames']} frames x "
+          f"{cfg['substeps']}: guarded {guarded_s * 1e3:.3f} ms vs unguarded "
+          f"{plain_s * 1e3:.3f} ms ({guarded_s / plain_s:.3f}x); tip force "
+          f"{cfg['inside']} x the training 3 N: max residual "
+          f"{float(gi['max_residual'].max()):.3e}, {n_in} flagged; {cfg['outside']} x: min "
+          f"residual {float(go['max_residual'].min()):.3e}, {n_out} of {N_ENVS} flagged "
+          f"(guard_tol {gi['guard_tol']:.3g})", flush=True)
+    require(n_in == 0 and n_out == N_ENVS,
+            f"ECSW guard: {n_in} flagged inside, {n_out} of {N_ENVS} outside")
+
+    # Files: the deployment path rebuilds the engines from disk.
+    with tempfile.TemporaryDirectory() as tmp:
+        bpath = ms.save_basis(f"{tmp}/basis.npz")
+        spath = ms_g.save_ecsw(f"{tmp}/ecsw.npz")
+        ms2, rebuild_s = host_secs(lambda: make_modal_rom(
+            model, DT, rho_inf=ROM["rho_inf"], basis=crt.load_basis(bpath), device=dev,
+            dtype=torch.float32))
+        red2 = ms2.apply_ecsw(*crt.load_ecsw(spath))
+    names = ("Phi", "PhiW", "PhiTM", "Sinv", "Sinv_diag", "lam", "Phi_planar", "PhiW_planar")
+    same_ops = all(np.array_equal(getattr(ms2, k_), getattr(ms, k_)) for k_ in names)
+    same_ops = same_ops and all(np.array_equal(red2.sampled_params[k_], ms_g.sampled_params[k_])
+                                for k_ in ("sel", "xi")) and np.array_equal(
+        red2.PhiW_planar, ms_g.PhiW_planar)
+    require(same_ops, "load_basis/load_ecsw: operators differ from the trained engine's")
+    steps = cfg["ecsw_steps"]
+    n_it = steps * ROM["n_newton"]
+    trained = ms_g.make_pallas_rollout()(eta, etad, u_m, steps, n_newton=ROM["n_newton"])
+    fused2 = red2.make_pallas_rollout()
+    out, counts = counted(rk, lambda: fused2(eta, etad, u_m, steps, n_newton=ROM["n_newton"]))
+    expect_launches(counts, ROM_GATHERED, n_it, "loaded ECSW span")
+    op, e0, ed0, a0, _ = fused2.prepare(eta, etad, u_m)
+    ref = rk.rom_steps_plain(op, e0, ed0, a0, steps, ROM["n_newton"])
+    bit = all(bool(torch.equal(a, b)) for a, b in zip(out, trained))
+    vs_plain = rel_state(out, ref)
+    print(f"phase 31 ECSW files: basis and sample written and loaded, engine rebuilt in "
+          f"{rebuild_s:.2f} s with bit-equal operators; loaded gathered span {N_ENVS} envs x "
+          f"{steps} steps bit for bit the trained engine's: {bit}; vs_plain_rel "
+          f"{vs_plain:.3e}; launches {counts}", flush=True)
+    require(bit and vs_plain <= ROM_SPAN_MAX,
+            f"loaded ECSW span: bit-equal {bit}, vs plain {vs_plain:.3e}")
+
+    # carry_dtype: the main engine's plain stepper with a bfloat16 carry.
+    csteps = cfg["carry_steps"]
+    reset_counts(kmods)
+    base = ms.rollout(eta, etad, u_m, csteps, n_newton=ROM["n_newton"])
+    bf = ms.rollout(eta, etad, u_m, csteps, n_newton=ROM["n_newton"],
+                    unroll=cfg["carry_unroll"], carry_dtype=torch.bfloat16)
+    require_no_launches(kmods, "carry_dtype rollout")
+    _, base_s = wall(lambda: ms.rollout(eta, etad, u_m, csteps, n_newton=ROM["n_newton"]))
+    _, bf_s = wall(lambda: ms.rollout(eta, etad, u_m, csteps, n_newton=ROM["n_newton"],
+                                      unroll=cfg["carry_unroll"], carry_dtype=torch.bfloat16))
+    drift = rel_state(bf, base)
+    print(f"phase 31 carry_dtype=bfloat16 [{card}]: {N_ENVS} envs x {csteps} steps, unroll "
+          f"{cfg['carry_unroll']}: drift {drift:.3e} (by norm, eta and etad); "
+          f"{bf_s * 1e3:.3f} ms vs {base_s * 1e3:.3f} ms with the float32 carry", flush=True)
+    require(bool(torch.isfinite(bf[0]).all()) and drift < cfg["carry_max"],
+            f"carry_dtype drift {drift:.3e}")
+    return time.perf_counter() - t_phase, counts
+
+
+def phase_rom_augment(crt, rk, dev, card, kmods) -> tuple:
+    """Phase 32; returns (wall seconds, {ROM kernel: launches} of the
+    augmented simulate)."""
+    from continuum_robot_tpu_torch.models import simulate as sim_mod
+
+    t_phase = time.perf_counter()
+    cfg = ROM_AUGMENT
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "nonlinear"),
+                                          use_consistent_nonlinear=True)
+    with clocked(sim_mod, "_augment_static") as secs:
+        ms, setup_s = host_secs(lambda: sim_mod.make_modal_rom(
+            model, DT, rho_inf=ROM["rho_inf"], n_modes=ROM["modes"], modal_derivatives=cfg["md"],
+            device=dev, dtype=torch.float32))
+    require(ms.n_modes > ROM["modes"] and ms.lam is None and ms.Sinv_diag is not None,
+            f"consistent ROM: {ms.n_modes} modes, lam {ms.lam is None}, "
+            f"Sinv_diag {ms.Sinv_diag is not None}")
+    n = model.n_pos_states
+    rng = np.random.default_rng(32)
+    q = torch.tensor(rng.normal(scale=1e-6, size=(N_ENVS, n)), dtype=torch.float32, device=dev)
+    u = np.zeros(n)
+    u[-2] = 0.1
+    eta, etad = ms.to_modal(q, torch.zeros_like(q))
+    u_m = ms.project_force_host(u)
+    steps = cfg["cons_steps"]
+    reset_counts(kmods)
+    out32 = ms.rollout(eta, etad, u_m, steps, n_newton=cfg["cons_newton"])
+    out64 = ms.rollout(eta.double(), etad.double(), u_m, steps, n_newton=cfg["cons_newton"])
+    require_no_launches(kmods, "consistent ROM")
+    _, span_s = wall(lambda: ms.rollout(eta, etad, u_m, steps, n_newton=cfg["cons_newton"]))
+    f32_vs_f64 = rel_state(out32, out64)
+    print(f"phase 32 consistent ROM [{card}]: {N_ELEMENTS} consistent von Karman elements, "
+          f"{ROM['modes']} modes + derivatives of {cfg['md']} -> {ms.n_modes} modes (general "
+          f"path, diagonal Newton); host set-up {setup_s:.2f} s (augmentation "
+          f"{sum(secs['_augment_static']):.2f} s); {N_ENVS} envs x {steps} steps float32 "
+          f"{span_s * 1e3:.3f} ms = {steps * N_ENVS / span_s:.4e} env-steps/s; float32 vs "
+          f"float64 {f32_vs_f64:.3e}", flush=True)
+    require(all(bool(torch.isfinite(x).all()) for x in out32)
+            and f32_vs_f64 <= cfg["cons_f32_max"], f"consistent ROM f32 vs f64 {f32_vs_f64:.3e}")
+
+    # The augmented parity basis through the fused ROM kernels.
+    beam = golden_beam(crt, ["nonlinear"] * cfg["segments"])
+    n_a = beam.n_pos_states
+    x0 = fused_start(n_a, cfg["envs"], seed=32)
+    u_a = np.zeros(n_a)
+    u_a[-2] = 0.1
+    dt_f = DT * cfg["substeps"]
+    kw = dict(method="modal_rom", u=u_a, substeps=cfg["substeps"], n_newton=cfg["n_newton"],
+              rho_inf=ROM["rho_inf"], n_modes=cfg["modes"], modal_derivatives=cfg["md"],
+              device=dev)
+    ms_a = sim_mod.make_modal_rom(beam, DT, rho_inf=ROM["rho_inf"], n_modes=cfg["modes"],
+                                  modal_derivatives=cfg["md"], device=dev)
+    res, counts = counted(rk, lambda: crt.simulate(beam, x0, cfg["frames"] * dt_f, dt_f,
+                                                   engine="pallas", **kw))
+    ref = crt.simulate(beam, x0, cfg["frames"] * dt_f, dt_f, engine="xla", **kw)
+    kernels = ROM_WINDOW if ms_a.Sinv_diag is not None else ROM_DENSE
+    expect_launches(counts, kernels, cfg["frames"] * cfg["substeps"] * cfg["n_newton"],
+                    "simulate modal_rom pallas, augmented basis")
+    err = scaled_err(res.ys.double(), ref.ys)
+    print(f"phase 32 augmented parity basis: {cfg['segments']} segments, {cfg['modes']} modes "
+          f"-> {ms_a.n_modes}, diagonal Newton {ms_a.Sinv_diag is not None}; simulate pallas "
+          f"(float32) vs xla (float64), {cfg['envs']} envs, {cfg['frames']} x "
+          f"{cfg['substeps']}: max err / scale {err:.3e} (limit {ROM_SMALL_MAX}); launches "
+          f"{counts}", flush=True)
+    require(ms_a.n_modes > cfg["modes"] and err <= ROM_SMALL_MAX,
+            f"augmented parity basis: {ms_a.n_modes} modes, pallas vs xla {err:.3e}")
+    return time.perf_counter() - t_phase, counts
+
+
+def rom_tier_paths(crt, rk, dev, card, kmods, main=None) -> dict:
+    """Phases 29-32; returns the ROM kernels' launches by path."""
+    t0 = time.perf_counter()
+    if main is None:
+        main = rom_tier_main(crt, dev)
+        print(f"ROM tier set-up (the ROM main path and its ECSW engine): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    secs = {"29": phase_rom_adaptive(crt, dev, card, main, kmods)}
+    secs["30"] = phase_rom_forced(crt, dev, card, kmods)
+    secs["31"], loaded = phase_rom_guard(crt, rk, dev, card, main, kmods)
+    secs["32"], augmented = phase_rom_augment(crt, rk, dev, card, kmods)
+    print(f"phases 29-32 wall: {', '.join(f'{k}: {v:.1f} s' for k, v in secs.items())}; "
+          f"together {sum(secs.values()):.1f} s", flush=True)
+    return {"ecsw:loaded": loaded, "simulate:pallas:augmented": augmented}
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2903,6 +3356,14 @@ def main() -> int:
     if "--control" in args:
         control_paths(crt, dev, card, (kr, rk, kb, kf))
         return 0
+    if "--rom-tier" in args:
+        t0 = time.time()
+        _build.build_all()
+        print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
+        tier = rom_tier_paths(crt, rk, dev, card, (kr, rk, kb, kf))
+        print(f"ROM tier launches by path: {tier}; total {time.time() - t_start:.1f} s",
+              flush=True)
+        return 0
 
     t0 = time.time()
     libs = _build.build_all()
@@ -2927,7 +3388,7 @@ def main() -> int:
 
     engines = small_rom_engines(crt, dev)
     small_err = phase_rom_small(engines, rk, dev)
-    rom_records = rom_paths(crt, rk, dev, card, engines["nonlinear/diag"][0])
+    rom_records, rom_main = rom_paths(crt, rk, dev, card, engines["nonlinear/diag"][0])
     for rec in rom_records.values():
         rec.update(source=ROM_SOURCE, replaces=ROM_REPLACES)
     records.update(rom_records)
@@ -2940,6 +3401,10 @@ def main() -> int:
     records["btd_solve"]["launches_by_path"].update(adaptive_paths(crt, kb, dev, card))
     print(f"adaptive paths done; {time.time() - t_start:.1f} s so far", flush=True)
     control_paths(crt, dev, card, (kr, rk, kb, kf))
+    print(f"control paths done; {time.time() - t_start:.1f} s so far", flush=True)
+    tier = rom_tier_paths(crt, rk, dev, card, (kr, rk, kb, kf), rom_main)
+    for name in rom_records:
+        records[name]["launches_by_path"].update({p: c[name] for p, c in tier.items()})
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

@@ -4,8 +4,9 @@ A second package beside the JAX one (``continuum_robot_tpu``), which stays
 the reference. It holds the model build (CSV/DataFrame -> linear,
 nonlinear von Kármán or hybrid Euler-Bernoulli beam, host float64), the
 linear modal generalized-α engine (:class:`ModalGenAlpha`), the
-nonlinear modal-ROM engine (:class:`ModalROMGenAlpha`, with ECSW
-hyper-reduction), the full-order implicit Newmark and generalized-α
+nonlinear modal-ROM engine (:class:`ModalROMGenAlpha`, with reduced
+external forces, basis augmentation, ECSW hyper-reduction and its guard,
+error-controlled stepping, and basis and sample files), the full-order implicit Newmark and generalized-α
 integrators (:func:`make_newmark_operator`, ``ops/integrators``) with
 registered fluid drag and gravity, the model's ODE right-hand side with the
 explicit RK4 and adaptive Dopri5 integrators, the adaptive implicit
@@ -49,6 +50,8 @@ from .models.simulate import (  # noqa: E402
     ModalROMGenAlpha,
     PiecewiseConstant,
     SimulationResult,
+    load_basis,
+    load_ecsw,
     make_modal_genalpha,
     make_modal_rom,
     make_newmark_operator,
@@ -101,6 +104,8 @@ __all__ = [
     "integrate_generalized_alpha_adaptive",
     "integrate_newmark",
     "integrate_sdirk3_adaptive",
+    "load_basis",
+    "load_ecsw",
     "make_modal_genalpha",
     "make_modal_rom",
     "make_newmark_operator",

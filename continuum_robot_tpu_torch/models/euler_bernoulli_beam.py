@@ -50,8 +50,10 @@ class EulerBernoulliBeam(IBeam):
             parameters: path or DataFrame with columns ``length,
                 elastic_modulus, moment_inertia, density, cross_area, type``.
             use_consistent_nonlinear: select the variationally consistent
-                nonlinear element (recorded; that element is not ported and
-                its force raises ``NotImplementedError``).
+                (energy-gradient) nonlinear element for the nonlinear
+                segments (``assembly.internal_force_full(...,
+                use_consistent=True)``; its symmetric tangent puts the ROM
+                on the ``eigh`` branch).
         """
         self.parameters = load_beam_dataframe(parameters)
         validate_beam_dataframe(self.parameters)

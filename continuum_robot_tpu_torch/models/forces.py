@@ -9,7 +9,9 @@ dtype, batched over any leading axes, keeping the reference quirks of the
 JAX package (gravity's reduced-index plan, drag only where ``w`` and
 ``dw_dt`` survive reduction; PARITY.md). The modal engine refuses
 registered forces (exact superposition holds only for the linear beam);
-the implicit integrators take them through the registry aggregate.
+the implicit integrators take them through the registry aggregate, and the
+modal ROM through each force's reduced closure (``make_reduced_modal``:
+the force projected onto the ROM bases from their restricted rows).
 """
 
 from __future__ import annotations
@@ -21,6 +23,21 @@ import torch
 
 from .abstractions import AbstractForce, AbstractInputHandler
 from .decorators import zero_force
+
+
+def _rows_on(*arrays):
+    """``like -> tuple of tensors``: host float64 ``arrays`` on ``like``'s
+    device and dtype, uploaded once per device and dtype."""
+    uploads = {}
+
+    def get(like):
+        key = (like.device, like.dtype)
+        if key not in uploads:
+            uploads[key] = tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                                 for a in arrays)
+        return uploads[key]
+
+    return get
 
 
 class FluidDynamicsParams:
@@ -109,6 +126,47 @@ class FluidDragForce(AbstractForce):
                 torch.as_tensor(c["drag_factors"], dtype=like.dtype, device=like.device),
             )
         return self._plan_cache[key]
+
+    def make_reduced_modal(self, Phi, PhiW):
+        """Reduced-basis drag closure for the modal ROM's split path.
+
+        Drag reads velocities at the wetted ``w`` rows and writes forces at
+        the same nodes' ``w`` rows, so its modal projection is ``W_out^T
+        d(Phi_v etad)`` with ``Phi_v``/``W_out`` the wetted rows of the
+        bases (built once on the host in float64): equal to ``PhiW^T
+        compute_forces(x, t)`` at ``x = [Phi eta; Phi etad]``.
+
+        Returns ``(eta, etad, t, precision=None) -> (..., m)`` on the
+        tensors' device and dtype (``precision`` is accepted and unused:
+        the products are true float32 or float64), or None when the basis
+        does not match this force's state mapping. Enablement is read at
+        each call.
+        """
+        if self.fluid_coefficients is None:
+            return None
+        c = self.fluid_coefficients
+        Phi = np.asarray(Phi, np.float64)
+        PhiW = np.asarray(PhiW, np.float64)
+        if Phi.shape[0] != c["n_pos_states"]:
+            return None
+        m = Phi.shape[1]
+        vel_rows = np.asarray(c["w_vel_indices"], np.int64) - c["n_pos_states"]
+        if vel_rows.size == 0:
+            return lambda eta, etad, t, precision=None: eta.new_zeros(*eta.shape[:-1], m)
+        rows = _rows_on(
+            np.ascontiguousarray(Phi[vel_rows]),  # Phi_v (k, m)
+            np.ascontiguousarray(PhiW[np.asarray(c["w_pos_indices"])]),  # W_out (k, m)
+            np.asarray(c["drag_factors"], np.float64),
+        )
+
+        def reduced(eta, etad, t, precision=None):
+            if not self.is_enabled():
+                return etad.new_zeros(*eta.shape[:-1], m)
+            Pv, Wo, factors = rows(etad)
+            v = etad @ Pv.T
+            return (-factors * v * v.abs()) @ Wo
+
+        return reduced
 
 
 class GravityForce(AbstractForce):
@@ -238,6 +296,50 @@ class GravityForce(AbstractForce):
                            f_trans[..., plan["seg_ids"]])
         out = x.new_zeros(*x.shape[:-1], n_pos)
         return out.index_add_(-1, plan["targets"], vals)
+
+    def make_reduced_modal(self, Phi, PhiW):
+        """Reduced-basis gravity closure for the modal ROM's split path.
+
+        The averaged rotation of a segment is linear in ``q``, so
+        ``phi_avg = G_in eta`` with ``G_in`` the weighted ``phi_a``/``phi_b``
+        rows of ``Phi``; the test-basis rows grouped by segment fold the
+        scatter into ``WA^T f_axial + WT^T f_trans``. Built once on the host
+        in float64 from :meth:`_indices_for`'s plan, so the reference's
+        reduced-index quirk carries over: equal to ``PhiW^T
+        compute_forces(x, t)``.
+
+        Returns ``(eta, etad, t, precision=None) -> (..., m)``, or None
+        without segment masses. The gravity vector and enablement are read
+        at each call.
+        """
+        if not self._segment_masses:
+            return None
+        Phi = np.asarray(Phi, np.float64)
+        PhiW = np.asarray(PhiW, np.float64)
+        plan = self._indices_for(Phi.shape[0])
+        G_in = (plan["wa"][:, None] * Phi[plan["phi_a"]]
+                + plan["wb"][:, None] * Phi[plan["phi_b"]])  # (n_seg, m)
+        n_seg, m = len(self._segment_masses), Phi.shape[1]
+        WA = np.zeros((n_seg, m))
+        WT = np.zeros((n_seg, m))
+        ax = np.asarray(plan["axial_sel"])
+        np.add.at(WA, plan["seg_ids"][ax], PhiW[plan["targets"][ax]])
+        np.add.at(WT, plan["seg_ids"][~ax], PhiW[plan["targets"][~ax]])
+        rows = _rows_on(G_in, WA, WT, np.asarray(plan["masses"], np.float64))
+
+        def reduced(eta, etad, t, precision=None):
+            if not self.is_enabled():
+                return eta.new_zeros(*eta.shape[:-1], m)
+            gx, gy = float(self.gravity_vector[0]), float(self.gravity_vector[1])
+            Gi, WAt, WTt, mass = rows(eta)
+            phi_avg = eta @ Gi.T
+            cos_phi = torch.cos(phi_avg)
+            sin_phi = torch.sin(phi_avg)
+            f_ax = (cos_phi * gx + sin_phi * gy) * mass * 0.5
+            f_tr = (-sin_phi * gx + cos_phi * gy) * mass * 0.5
+            return f_ax @ WAt + f_tr @ WTt
+
+        return reduced
 
     def is_enabled(self) -> bool:
         return self.enabled

@@ -7,19 +7,24 @@ Counterpart of ``continuum_robot_tpu/models/simulate.py``:
   (:meth:`ModalGenAlpha.rollout_power`), :class:`PiecewiseConstant`
   forcing, :func:`make_modal_genalpha`, :func:`make_modal_rollout_fn`;
 * :class:`ModalROMGenAlpha` (Petrov-Galerkin modal reduction of nonlinear
-  and hybrid beams with the von Kármán correction on a restricted window),
-  :func:`make_modal_rom`, ECSW hyper-reduction
-  (:meth:`ModalROMGenAlpha.hyper_reduce`) and the fused ROM rollout
+  and hybrid beams with the von Kármán correction on a restricted window,
+  or the general full-transform force path), :func:`make_modal_rom` (with
+  reduced fluid drag and gravity, user forces, the consistent element and
+  basis augmentation), ECSW hyper-reduction
+  (:meth:`ModalROMGenAlpha.hyper_reduce`) with its run-time guard
+  (:meth:`ModalROMGenAlpha.ecsw_residual`), the error-controlled
+  :meth:`ModalROMGenAlpha.rollout_adaptive`, basis and sample files
+  (:func:`load_basis`, :func:`load_ecsw`) and the fused ROM rollout
   (:meth:`ModalROMGenAlpha.make_pallas_rollout`);
 * :func:`make_newmark_operator`, the full-order implicit operators
   (block-tridiagonal mass and tangent, the ``btd``/``cr``/``dense_inv``/
   ``pallas`` linear solvers, the last through the CUDA kernel
   ``ops/cuda/btd_solve``);
-* :func:`simulate` for every method of the JAX package but
-  ``"modal_rom_adaptive"``: the explicit ``"rk4"`` and ``"dopri5"`` on the
-  model's RHS, ``"modal"``, ``"modal_rom"``, the fixed-step implicit
-  ``"newmark"`` and ``"generalized_alpha"``, and the adaptive implicit
-  ``"generalized_alpha_adaptive"`` and ``"sdirk3"`` (with ``chunk=``).
+* :func:`simulate` for every method of the JAX package: the explicit
+  ``"rk4"`` and ``"dopri5"`` on the model's RHS, ``"modal"``,
+  ``"modal_rom"``, the fixed-step implicit ``"newmark"`` and
+  ``"generalized_alpha"``, and the adaptive ``"generalized_alpha_adaptive"``,
+  ``"sdirk3"`` and ``"modal_rom_adaptive"`` (with ``chunk=``).
 
 Host setup stays NumPy float64 (eigensolves, map composition, NNLS,
 prefactoring);
@@ -36,6 +41,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -49,10 +56,10 @@ from ..ops.cuda import modal_rollout as kernels
 # Bound of each engine's memo of composed maps and device uploads.
 _MEMO_SIZE = 16
 
-_NOT_PORTED = ("modal_rom_adaptive",)
 _METHODS = (
     "rk4", "dopri5", "newmark", "generalized_alpha", "generalized_alpha_adaptive",
     "implicit_adaptive", "sdirk3", "sdirk3_adaptive", "modal", "modal_rom",
+    "modal_rom_adaptive",
 )
 
 
@@ -819,9 +826,9 @@ def make_modal_genalpha(
     if len(model.force_registry) > 0:
         raise ValueError(
             "Modal stepping (exact superposition) cannot include "
-            "state-dependent registry forces — use the full-order "
-            "simulate(method='newmark') or 'generalized_alpha', which "
-            "evaluate fluid drag and gravity at every step"
+            "state-dependent registry forces — use make_modal_rom / "
+            "simulate(method='modal_rom'): fluid drag and gravity ride "
+            "its split fast path as reduced corrections"
         )
 
     K = np.asarray(model.beam_model.get_stiffness_matrix(), dtype=np.float64)
@@ -860,8 +867,9 @@ def make_modal_rollout_fn(
     if forces_func is not None:
         raise ValueError(
             "method='modal' (exact superposition) cannot include "
-            "state-dependent forces; use method='newmark' or "
-            "'generalized_alpha'"
+            "state-dependent forces; use method='modal_rom' — fluid "
+            "drag/gravity ride its split fast path as reduced "
+            "corrections — or 'newmark'/'generalized_alpha'"
         )
     ms = make_modal_genalpha(model, dt / substeps, rho_inf=rho_inf,
                              rayleigh=rayleigh, device=device, dtype=dtype)
@@ -1226,11 +1234,17 @@ class ModalROMGenAlpha(_Uploads):
     ``[u1, w1, t1, u2, w2, t2]`` with the weights folded into the test
     basis.
 
+    External forces: ``ext_modal`` (registered fluid drag and gravity
+    projected from restricted basis rows, ``forces.*.make_reduced_modal``)
+    rides the split path; ``external_force`` (a user ``forces_func(x, t)``
+    on ``[q; v]``, or the registry aggregate of the consistent element)
+    takes the general path, ``PhiW^T [k(Phi eta) - F(x, t)]`` through the
+    full transforms, as does every engine without ``lam`` (the consistent
+    element).
+
     Fields are host NumPy float64, as in the JAX package. Rollouts run on
     the device and dtype of the state tensors; ``device`` (None: the card)
-    and ``dtype`` apply to inputs given as NumPy arrays. Registered and
-    user external forces (``external_force``, ``ext_modal``) are not ported
-    and must be None.
+    and ``dtype`` apply to inputs given as NumPy arrays.
     """
 
     Phi: np.ndarray  # (n, m) trial basis (right eigenvectors of (K0, M))
@@ -1240,8 +1254,8 @@ class ModalROMGenAlpha(_Uploads):
     rho_inf: float
     dt: float
     internal_force: Callable  # reduced-coordinate element force k(q_red)
-    external_force: Optional[Callable] = None
-    ext_modal: Optional[Callable] = None
+    external_force: Optional[Callable] = None  # (x_red, t) -> force, or None
+    ext_modal: Optional[Callable] = None  # (eta, etad, t, precision) -> (..., m)
     lam: Optional[np.ndarray] = None  # (m,) diag of W^T K0 Phi
     Phi_planar: Optional[np.ndarray] = None  # (3 n_sub, m) window, or (6 s, m) sample
     PhiW_planar: Optional[np.ndarray] = None  # same rows, test basis
@@ -1322,26 +1336,37 @@ class ModalROMGenAlpha(_Uploads):
 
     def _force_modal(self, eta_af, etad_af, t_af, precision=None,
                      nl_precision=None):
-        """Modal residual force ``lam * eta_af + PhiW^T g(Phi eta_af)``.
+        """Modal residual force ``PhiW^T [k(q) - F_ext(x, t)]`` at the alpha
+        point.
 
-        The split fast path only; the basis transforms run as true float32
-        (or float64) ``torch.matmul`` whatever ``precision`` and
-        ``nl_precision`` say (see ``ops/cuda/rom_rollout.py``).
+        Split fast path (``lam`` set, no ``external_force``): ``lam * eta_af
+        + PhiW^T g(Phi eta_af)`` with ``g`` on the restricted window, minus
+        ``ext_modal``. Otherwise the general path: ``k`` and the external
+        force evaluated on the full reduced state ``[Phi eta; Phi etad]``.
+        The basis transforms run as true float32 (or float64)
+        ``torch.matmul`` whatever ``precision`` and ``nl_precision`` say
+        (see ``ops/cuda/rom_rollout.py``).
         """
-        if (self.lam is None or self.external_force is not None
-                or self.ext_modal is not None):
-            raise NotImplementedError(
-                "the general (full-transform) ROM force path and external "
-                "forces are not yet ported"
-            )
-        f_m = self._upload("lam", eta_af) * eta_af
-        if self.planar_correction is not None:
-            q_p = eta_af @ self._upload("Phi_planar", eta_af).T
-            n_sub = q_p.shape[-1] // 3
-            g_p = self.planar_correction(q_p.reshape(*q_p.shape[:-1], 3, n_sub))
-            g_p = g_p.reshape(*q_p.shape[:-1], 3 * n_sub)
-            f_m = f_m + g_p @ self._upload("PhiW_planar", eta_af)
-        return f_m
+        if self.lam is not None and self.external_force is None:
+            f_m = self._upload("lam", eta_af) * eta_af
+            if self.planar_correction is not None:
+                q_p = eta_af @ self._upload("Phi_planar", eta_af).T
+                n_sub = q_p.shape[-1] // 3
+                g_p = self.planar_correction(q_p.reshape(*q_p.shape[:-1], 3, n_sub))
+                g_p = g_p.reshape(*q_p.shape[:-1], 3 * n_sub)
+                f_m = f_m + g_p @ self._upload("PhiW_planar", eta_af)
+            if self.ext_modal is not None:
+                # The same sign as the general path's k(q) - F_ext.
+                nl_prec = precision if nl_precision is None else nl_precision
+                f_m = f_m - self.ext_modal(eta_af, etad_af, t_af, precision=nl_prec)
+            return f_m
+        Phi = self._upload("Phi", eta_af)
+        q_af = eta_af @ Phi.T
+        f = self.internal_force(q_af)
+        if self.external_force is not None:
+            x_af = torch.cat([q_af, etad_af @ Phi.T], dim=-1)
+            f = f - self.external_force(x_af, t_af)
+        return f @ self._upload("PhiW", eta_af)
 
     def _step_fn(self, like, u_modal, n_newton: int, precision=None,
                  nl_precision=None):
@@ -1390,8 +1415,8 @@ class ModalROMGenAlpha(_Uploads):
 
     def initial_accel(self, eta, etad, u_modal, t0=0.0, precision=None,
                       nl_precision=None):
-        """Petrov-Galerkin ``etadd0 = u_modal - PhiW^T k(q0)`` (minus
-        ``cdamp * etad0`` when structurally damped)."""
+        """Petrov-Galerkin ``etadd0 = u_modal + PhiW^T (F_ext - k(q0))``
+        (minus ``cdamp * etad0`` when structurally damped)."""
         eta, etad = self._tensor(eta), self._tensor(etad)
         r = -self._force_modal(eta, etad, t0, precision, nl_precision)
         if self.cdamp is not None:
@@ -1405,18 +1430,133 @@ class ModalROMGenAlpha(_Uploads):
         returns the final ``(eta, etad, etadd)``.
 
         ``n_newton`` modified-Newton corrections per step (1: the
-        semi-implicit throughput scheme). ``unroll`` is accepted for
-        signature parity and unused; ``carry_dtype`` is not ported.
+        semi-implicit throughput scheme). ``carry_dtype`` (e.g.
+        ``torch.bfloat16``) stores the carry between chunks of ``unroll``
+        steps in that dtype while every step computes in the input dtype:
+        one rounding of the state per chunk, then a remainder tail of
+        ``n_steps % unroll`` steps (the JAX package's outer scan). With
+        ``carry_dtype=None`` ``unroll`` changes nothing.
         """
-        if carry_dtype is not None:
-            raise NotImplementedError("carry_dtype is not yet ported")
         eta, etad = self._tensor(eta), self._tensor(etad)
         step = self._step_fn(eta, u_modal, n_newton, precision, nl_precision)
         s = (eta, etad, self.initial_accel(eta, etad, u_modal, t0, precision,
                                            nl_precision))
-        for n in range(int(n_steps)):
+        n_steps = int(n_steps)
+        if carry_dtype is None:
+            for n in range(n_steps):
+                s = step(s, t0 + self.dt * n)
+            return s
+        dtype = eta.dtype
+        k = max(1, min(int(unroll), n_steps))
+        n_outer = n_steps // k
+        carry = tuple(x.to(carry_dtype) for x in s)
+        for o in range(n_outer):
+            s = tuple(x.to(dtype) for x in carry)
+            for n in range(o * k, (o + 1) * k):
+                s = step(s, t0 + self.dt * n)
+            carry = tuple(x.to(carry_dtype) for x in s)
+        s = tuple(x.to(dtype) for x in carry)
+        for n in range(n_outer * k, n_steps):
             s = step(s, t0 + self.dt * n)
         return s
+
+    def rollout_adaptive(self, eta, etad, u_modal, t_eval, rtol: float = 1e-6,
+                         atol: float = 1e-9, dt0: float = None, n_newton: int = 2,
+                         max_steps_per_interval: int = 100_000, safety: float = 0.9,
+                         precision=None, nl_precision=None, etadd0=None,
+                         return_final: bool = False):
+        """Error-controlled ROM stepping: adaptive generalized-α.
+
+        The Zienkiewicz-Xie estimate and controller of
+        ``integrate_generalized_alpha_adaptive``, on
+        ``integrators.adaptive_drive``. The reduced effective Jacobian is
+        diagonal, so a trial dt's "factorization" is the per-mode
+        ``jd = (1-am) + (1-af) beta dt^2 lam (+ (1-af) gamma dt cdamp)``: a
+        rejected trial costs one force evaluation. Error is measured in
+        modal coordinates (``atol`` in modal units); ``rtol``/``atol`` are
+        floored at 50 eps of the state's dtype. A batch shares one step
+        size. Needs ``Sinv_diag``.
+
+        ``dt0`` defaults to ``(t_eval[1] - t_eval[0]) / 16``; ``etadd0``
+        carries an algorithmic acceleration in (else the consistent one at
+        ``t_eval[0]``), and ``return_final=True`` appends the final
+        ``(eta, etad, etadd)``: the exact continuation of
+        ``simulate(chunk=...)``. Returns ``(etas, etads, AdaptiveStats)``,
+        frame axis leading, ``etas[0] = eta``.
+        """
+        if self.Sinv_diag is None:
+            raise ValueError(
+                "rollout_adaptive requires the diagonal reduced effective "
+                "Jacobian (Sinv_diag) — augmented/defective bases with a "
+                "genuinely coupled reduced operator need a dense "
+                "factorization per trial dt; use the fixed-step rollout"
+            )
+        am, af, beta, gamma = self._coeffs()
+        cdamp64 = None if self.cdamp is None else np.asarray(self.cdamp, np.float64)
+        # The reduced operator's diagonal in float64: the split path stores
+        # it; otherwise invert the Sinv_diag relation at self.dt.
+        if self.lam is not None:
+            lam64 = np.asarray(self.lam, np.float64)
+        else:
+            j0 = 1.0 / np.asarray(self.Sinv_diag, np.float64) - (1.0 - am)
+            if cdamp64 is not None:
+                j0 = j0 - (1.0 - af) * gamma * self.dt * cdamp64
+            lam64 = j0 / ((1.0 - af) * beta * self.dt * self.dt)
+
+        eta, etad = self._tensor(eta), self._tensor(etad)
+        if dt0 is None:
+            te = integrators._host_times(t_eval)
+            dt0 = float(te[1] - te[0]) / 16.0
+        dtype = eta.dtype
+        t_eval = torch.as_tensor(integrators._host_times(t_eval), dtype=dtype,
+                                 device=eta.device)
+        lam_j = torch.as_tensor(lam64, dtype=dtype, device=eta.device)
+        cdamp_j = (None if cdamp64 is None
+                   else torch.as_tensor(cdamp64, dtype=dtype, device=eta.device))
+        u_at = ModalGenAlpha._force_at(u_modal, eta)
+        zx_coeff = abs(float(beta - 1.0 / 6.0))
+        rtol, atol = integrators._floored_tols(rtol, atol, dtype)
+        if etadd0 is None:
+            etadd0 = self.initial_accel(eta, etad, u_modal, t_eval[0], precision,
+                                        nl_precision)
+
+        def trial(t, dt, state):
+            q, v, a = state
+            jd = (1.0 - am) + ((1.0 - af) * beta) * dt * dt * lam_j
+            if cdamp_j is not None:
+                jd = jd + ((1.0 - af) * gamma) * dt * cdamp_j
+            t_af = t + (1.0 - af) * dt
+            eta_pred = q + dt * v + (0.5 - beta) * dt * dt * a
+            etad_pred = v + (1.0 - gamma) * dt * a
+            a1 = a
+            for _ in range(int(n_newton)):
+                eta1 = eta_pred + beta * dt * dt * a1
+                etad1 = etad_pred + gamma * dt * a1
+                eta_af = (1.0 - af) * eta1 + af * q
+                etad_af = (1.0 - af) * etad1 + af * v
+                a_am = (1.0 - am) * a1 + am * a
+                r = a_am + self._force_modal(
+                    eta_af, etad_af, t_af, precision, nl_precision
+                ) - u_at(t_af)
+                if cdamp_j is not None:
+                    r = r + cdamp_j * etad_af
+                a1 = a1 - r / jd
+            q1 = eta_pred + beta * dt * dt * a1
+            v1 = etad_pred + gamma * dt * a1
+            e = zx_coeff * dt * dt * (a1 - a)
+            scale = atol + rtol * torch.maximum(q.abs(), q1.abs())
+            return (q1, v1, a1), torch.sqrt(((e / scale) ** 2).mean())
+
+        state_f, (etas, etads), stats = integrators.adaptive_drive(
+            trial, (eta, etad, etadd0), t_eval, integrators._controller_dt(dt0, eta),
+            -1.0 / 3.0, max_steps_per_interval=max_steps_per_interval, safety=safety,
+            frame_out=lambda s: (s[0], s[1]),
+        )
+        etas = torch.cat([eta[None], etas], dim=0)
+        etads = torch.cat([etad[None], etads], dim=0)
+        if return_final:
+            return etas, etads, stats, state_f
+        return etas, etads, stats
 
     def rollout_frames(self, eta, etad, u_modal, n_frames: int,
                        substeps: int = 1, t0: float = 0.0, n_newton: int = 1,
@@ -1450,9 +1590,16 @@ class ModalROMGenAlpha(_Uploads):
         are float32 products for ``nl_precision="highest"`` and 3xTF32
         tensor-core products for the other tiers (about 1e-6 of the
         output's scale against float32; see ``ops/cuda/rom_rollout.py``)."""
-        if self.ext_modal is not None or self.external_force is not None:
+        if self.ext_modal is not None:
             raise ValueError(
-                "the fused ROM kernel supports no external forces"
+                "the fused Pallas ROM kernel does not evaluate reduced "
+                "external forces (fluid/gravity) in-kernel — run forced "
+                "beams on the XLA split path (simulate(engine='xla'), "
+                "rollout/rollout_frames/rollout_adaptive)"
+            )
+        if self.external_force is not None:
+            raise ValueError(
+                "the fused Pallas ROM kernel supports no external forces"
             )
         from ..ops.cuda.rom_rollout import FusedROMRollout
 
@@ -1460,16 +1607,15 @@ class ModalROMGenAlpha(_Uploads):
 
     # -- ECSW hyper-reduction (host float64) -----------------------------------
 
-    def _split_window(self, what: str):
+    def _split_window(self, what: str, why: str = ""):
         if self.lam is None or self.planar_correction is None:
             raise ValueError(
                 f"{what} requires the split planar fast path "
                 "(parity nonlinear/hybrid beam, no external forces)"
             )
         if self.external_force is not None:
-            raise ValueError(
-                f"{what} does not support engines with external forces"
-            )
+            # The general path never evaluates the sample.
+            raise ValueError(f"{what} does not support engines with external forces{why}")
         if self.window_params is None:
             raise ValueError("engine is already hyper-reduced")
 
@@ -1486,7 +1632,8 @@ class ModalROMGenAlpha(_Uploads):
         ``return_info`` also ``{n_sampled, weights, train_residual,
         snapshot_residuals, snapshot_residual_max}``. Host float64.
         """
-        self._split_window("hyper_reduce")
+        self._split_window("hyper_reduce", " (registry or forces_func): the correction "
+                           "sample is only evaluated on the split fast path")
         wp = self.window_params
         L = np.asarray(wp["length"], np.float64)
         D = np.asarray(wp["EI"], np.float64)
@@ -1634,6 +1781,130 @@ class ModalROMGenAlpha(_Uploads):
             },
         )
 
+    # -- the ECSW guard --------------------------------------------------------
+
+    def ecsw_residual(self, eta):
+        """Per-env relative residual of the trained sample against the full
+        correction: ``|f_sampled(eta) - f_full(eta)| / |f_full(eta)|`` in the
+        modal force norm, the quantity ECSW training bounded by ``tau`` over
+        its snapshots. States outside the trained envelope read ``>> tau``.
+        Costs one full correction evaluation; a hyper-reduced engine only.
+        """
+        if self.guard_Phi is None:
+            raise ValueError(
+                "ecsw_residual requires a hyper-reduced engine "
+                "(call hyper_reduce first)"
+            )
+        eta = self._tensor(eta)
+
+        def reduced_correction(phi_name, w_name, g_fn):
+            q_p = eta @ self._upload(phi_name, eta).T
+            n3 = q_p.shape[-1]
+            g = g_fn(q_p.reshape(*q_p.shape[:-1], 3, n3 // 3)).reshape(q_p.shape)
+            return g @ self._upload(w_name, eta)
+
+        f_s = reduced_correction("Phi_planar", "PhiW_planar", self.planar_correction)
+        f_full = reduced_correction("guard_Phi", "guard_PhiW", self.guard_correction)
+        num = torch.linalg.vector_norm(f_s - f_full, dim=-1)
+        den = torch.linalg.vector_norm(f_full, dim=-1)
+        return num / torch.clamp_min(den, 1e-30)
+
+    def rollout_frames_guarded(self, eta, etad, u_modal, n_frames: int,
+                               substeps: int = 1, t0: float = 0.0, n_newton: int = 1,
+                               precision=None, nl_precision=None,
+                               guard_tol: float = None):
+        """:meth:`rollout_frames` with an ECSW envelope audit at every frame
+        (:meth:`ecsw_residual` of the frame's ``eta``; about ``1/substeps``
+        of an unreduced rollout's work). Returns ``(ts, etas, etads,
+        guard)``, ``guard`` a dict: ``max_residual`` (per env, the running
+        max), ``flagged`` (``max_residual > guard_tol``) and ``guard_tol``
+        (default 10 x the training tau, 1e-3 when none was recorded).
+        """
+        if self.guard_Phi is None:
+            raise ValueError(
+                "rollout_frames_guarded requires a hyper-reduced engine"
+            )
+        if guard_tol is None:
+            guard_tol = 10.0 * (self.guard_train_tau or 1e-3)
+        eta, etad = self._tensor(eta), self._tensor(etad)
+        step = self._step_fn(eta, u_modal, n_newton, precision, nl_precision)
+        s = (eta, etad, self.initial_accel(eta, etad, u_modal, t0, precision,
+                                           nl_precision))
+        h = self.dt
+        res_max = eta.new_zeros(eta.shape[:-1])
+        qs, vs = [eta], [etad]
+        for i in range(int(n_frames)):
+            t_frame = t0 + (i * substeps) * h
+            for j in range(int(substeps)):
+                s = step(s, t_frame + j * h)
+            res_max = torch.maximum(res_max, self.ecsw_residual(s[0]))
+            qs.append(s[0])
+            vs.append(s[1])
+        ts = t0 + (h * substeps) * torch.arange(
+            int(n_frames) + 1, dtype=torch.float64, device=eta.device
+        )
+        guard = {"max_residual": res_max, "flagged": res_max > guard_tol,
+                 "guard_tol": guard_tol}
+        return ts, torch.stack(qs), torch.stack(vs), guard
+
+    # -- basis and sample files ------------------------------------------------
+
+    def save_basis(self, path: str) -> str:
+        """Write the Petrov-Galerkin basis as ``.npz`` (keys ``V``, ``W``, the
+        JAX package's): ``make_modal_rom(model, dt, ...,
+        basis=load_basis(path))`` rebuilds the engine without the
+        eigensolve. Augmented bases are written as they are."""
+        d = os.path.dirname(os.path.abspath(path))
+        if d:
+            os.makedirs(d, exist_ok=True)
+        np.savez(path, V=self.Phi, W=self.PhiW)
+        return path
+
+    def save_ecsw(self, path: str) -> str:
+        """Write the trained ECSW sample as ``.npz`` (keys ``sel``, ``xi``,
+        ``train_tau`` (-1 for none), ``n_modes``, the JAX package's):
+        deploy it with ``ms.apply_ecsw(*load_ecsw(path))`` on an engine
+        rebuilt with the same configuration."""
+        if self.sampled_params is None or "sel" not in self.sampled_params:
+            raise ValueError(
+                "save_ecsw requires a hyper-reduced engine (hyper_reduce "
+                "or apply_ecsw)"
+            )
+        d = os.path.dirname(os.path.abspath(path))
+        if d:
+            os.makedirs(d, exist_ok=True)
+        np.savez(
+            path,
+            sel=self.sampled_params["sel"],
+            xi=self.sampled_params["xi"],
+            train_tau=np.float64(
+                -1.0 if self.guard_train_tau is None else self.guard_train_tau
+            ),
+            n_modes=np.int64(self.n_modes),
+        )
+        return path
+
+
+def load_basis(path: str):
+    """``(V, W)`` float64 from a file of :meth:`ModalROMGenAlpha.save_basis`
+    (either package's); pass as ``make_modal_rom(..., basis=...)``."""
+    data = np.load(path if path.endswith(".npz") else path + ".npz")
+    return np.asarray(data["V"], np.float64), np.asarray(data["W"], np.float64)
+
+
+def load_ecsw(path: str):
+    """``(sel, xi_sel, train_tau)`` from a file of
+    :meth:`ModalROMGenAlpha.save_ecsw` (either package's); pass to
+    :meth:`ModalROMGenAlpha.apply_ecsw` on an engine rebuilt with the same
+    configuration."""
+    data = np.load(path if path.endswith(".npz") else path + ".npz")
+    tau = float(data["train_tau"])
+    return (
+        np.asarray(data["sel"], np.int64),
+        np.asarray(data["xi"], np.float64),
+        None if tau < 0 else tau,
+    )
+
 
 def _ecsw_nnls(G, d, tau: float) -> np.ndarray:
     """Sparse nonnegative weights by early-stopped Lawson-Hanson NNLS.
@@ -1645,8 +1916,6 @@ def _ecsw_nnls(G, d, tau: float) -> np.ndarray:
     nonpositive) are banned rather than looped on; if the iteration budget
     runs out first, a warning reports the residual reached.
     """
-    import warnings
-
     n_rows, E = G.shape
     xi = np.zeros(E)
     passive: list = []
@@ -1753,6 +2022,223 @@ def _lowest_modes_sparse(K, M, k: int):
     return w[order], V[:, order]
 
 
+def _augment_static(K0, M, V, W, static_vectors, max_extra=None,
+                    dense_threshold: int = 2000):
+    """Augment a truncated basis for static load patterns, participation
+    selected (host float64, the JAX package's algorithm).
+
+    ``K0^{-1} b`` itself is not added (the parity tangent is non-symmetric:
+    the augmented subspace would give the reduced operator complex Ritz
+    pairs); instead the true real eigenpairs of ``(K0, M)`` that dominate
+    each static response join the basis, so the reduced operator stays
+    diagonal and real. Candidates come from a dense two-sided ``eig`` up to
+    ``dense_threshold`` DOFs, else from shift-invert Arnoldi at each
+    response's deflated Rayleigh quotient. Near-defective candidates (the
+    complex-adjacent band of a large parity mesh) are filtered out; when
+    nothing is left the basis is returned as it was, with a warning.
+    ``static_vectors``: ``(n,)`` or ``(n, k)`` reduced-coordinate loads;
+    ``max_extra`` caps the added modes (default ``4 k``).
+    """
+    n = K0.shape[0]
+    Bv = np.asarray(static_vectors, np.float64)
+    if Bv.ndim == 1:
+        Bv = Bv[:, None]
+    if Bv.shape[0] != n:
+        raise ValueError(
+            f"static_vectors must have leading dimension {n} "
+            f"(got {Bv.shape})"
+        )
+    m0 = V.shape[1]
+    if max_extra is None:
+        max_extra = 4 * Bv.shape[1]
+    max_extra = min(max_extra, n - m0)
+    if max_extra <= 0:
+        return V, W
+
+    def _noop(reason):
+        warnings.warn(
+            "ROM basis augmentation added no modes: " + reason + ". If the "
+            "static content lives in a complex band of the parity "
+            "tangent's spectrum (large meshes), no real-stable "
+            "eigen-augmentation exists; consider "
+            "use_consistent_nonlinear=True (symmetric tangent, all bands "
+            "real).",
+            stacklevel=3,
+        )
+        return V, W
+
+    X = np.linalg.solve(K0, Bv)  # (n, k) static responses
+    if n <= dense_threshold:
+        vr_c, wl_c = _candidate_pairs_dense(K0, M, m0)
+    else:
+        vr_c, wl_c = _candidate_pairs_sparse(K0, M, V, W, X)
+    if vr_c.shape[1] == 0:
+        return _noop("no real candidate eigenpairs found")
+    Mv = M @ vr_c
+    denom = np.einsum("ij,ij->j", wl_c, Mv)
+    # Conditioning filter: the cosine of the left / M-right angle.
+    # Near-defective pairs scaled by 1/denom would send the ROM to NaN.
+    cos = np.abs(denom) / (
+        np.linalg.norm(wl_c, axis=0) * np.linalg.norm(Mv, axis=0) + 1e-300
+    )
+    ok = cos > 1e-3
+    vr_c, wl_c, denom = vr_c[:, ok], wl_c[:, ok], denom[ok]
+    if vr_c.shape[1] == 0:
+        return _noop("all candidate eigenpairs are near-defective")
+    # Each candidate's expansion coefficient in each normalized static
+    # response (biorthogonality); score = the worst case over the loads.
+    coeff = (wl_c.T @ (M @ X)) / denom[:, None]  # (n_cand, k)
+    resp_scale = np.abs(coeff).max(axis=0) + 1e-300
+    score = np.abs(coeff / resp_scale[None, :]).max(axis=1)
+    top = np.argsort(score)[::-1][:max_extra]
+    top = top[score[top] > 1e-6]
+    if top.size == 0:
+        return _noop("no candidate participates in the static responses")
+    V2 = np.concatenate([V, vr_c[:, top]], axis=1)
+    W2 = np.concatenate([W, wl_c[:, top] / denom[top][None, :]], axis=1)
+    # Joint biorthonormalization removes roundoff-level cross terms.
+    D = W2.T @ M @ V2
+    W2 = W2 @ np.linalg.inv(D).T
+    return V2, W2
+
+
+def _candidate_pairs_dense(K0, M, m0):
+    """Every real eigenpair of ``(K0, M)`` above the lowest ``m0`` real
+    ones, by dense two-sided ``eig``; near-real conjugate duplicates are
+    dropped (their equal columns would make the joint Gram singular)."""
+    from scipy.linalg import eig
+
+    w_all, Wl, Vr = eig(K0, M, left=True, right=True)
+    order = np.argsort(w_all.real)
+    w_all, Vr, Wl = w_all[order], Vr[:, order], Wl[:, order]
+    real_idx = np.flatnonzero(
+        np.abs(w_all.imag) <= 1e-8 * np.abs(w_all.real).max()
+    )
+    cand = real_idx[m0:]
+    keep, seen = [], []
+    for i in cand:
+        li = w_all[i].real
+        if any(abs(li - l0) <= 1e-9 * abs(l0) for l0 in seen):
+            continue
+        seen.append(li)
+        keep.append(i)
+    cand = np.asarray(keep, dtype=int)
+    return Vr[:, cand].real, Wl[:, cand].real
+
+
+def _candidate_pairs_sparse(K0, M, V, W, X, k_per_shift: int = 16):
+    """Candidate eigenpairs near each static response's band: shift-invert
+    Arnoldi on ``(K0, M)`` at the Rayleigh quotient of the response with
+    the retained band projected out, each real hit's left vector by
+    shifted inverse iteration on ``K0^T`` at its eigenvalue (the best of
+    three iterates). Complex, retained-band, duplicate and unconverged hits
+    are dropped; failed shifts are skipped."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import ArpackError, ArpackNoConvergence, eigs, splu
+
+    Ks = sp.csc_matrix(K0)
+    Ms = sp.csc_matrix(M)
+    lam_ret = np.einsum("ij,ij->j", W, K0 @ V)
+    lam_floor = lam_ret.max() * (1.0 + 1e-6)
+    n = K0.shape[0]
+
+    def left_vector(lam):
+        try:
+            lu = splu(sp.csc_matrix(K0.T - lam * (1.0 + 1e-7) * M))
+        except RuntimeError:
+            return None
+        y = np.full(n, 1.0 / np.sqrt(n))
+        best, best_res = None, np.inf
+        for _ in range(3):
+            y = lu.solve(np.asarray(M @ y))
+            y = y / np.linalg.norm(y)
+            res = np.linalg.norm(K0.T @ y - lam * (M @ y)) / abs(lam)
+            if res < best_res:
+                best, best_res = y, res
+            if res < 1e-9:
+                break
+        return best if best_res < 1e-6 else None
+
+    vr_list, wl_list, lam_list = [], [], []
+    for col in range(X.shape[1]):
+        x = X[:, col]
+        x_perp = x - V @ (W.T @ (M @ x))
+        denom = float(x_perp @ (M @ x_perp))
+        if denom <= 0:
+            continue
+        sigma = float(x_perp @ (K0 @ x_perp)) / denom
+        try:
+            wr, Vr = eigs(Ks, k=k_per_shift, M=Ms, sigma=sigma, which="LM")
+        except (ArpackError, ArpackNoConvergence):
+            continue
+        scale_w = max(np.abs(wr.real).max(), 1e-300)
+        for i in range(wr.size):
+            li = wr[i]
+            if abs(li.imag) > 1e-8 * scale_w or li.real <= lam_floor:
+                continue
+            # ARPACK re-finds a mode across shifts with ~1e-8 scatter.
+            if any(abs(li.real - l0) <= 1e-6 * abs(l0) for l0 in lam_list):
+                continue
+            y = left_vector(li.real)
+            if y is None:
+                continue
+            lam_list.append(li.real)
+            vr_list.append(Vr[:, i].real)
+            wl_list.append(y)
+    if not vr_list:
+        return np.zeros((n, 0)), np.zeros((n, 0))
+    return np.stack(vr_list, axis=1), np.stack(wl_list, axis=1)
+
+
+def _modal_derivative_loads(k_red_np, K0, V, md: int) -> np.ndarray:
+    """The quadratic-coupling loads ``G2(phi_i, phi_j)``, ``i <= j < md``,
+    as columns ``(n, md (md + 1) / 2)``, extracted exactly from ``F(q) =
+    k(q) - K0 q``: ``G2(a, a) = (F(a) + F(-a)) / 2`` (the cubic cancels)
+    and ``G2(a, b)`` by polarization. ``k_red_np`` is a host float64
+    reduced internal force."""
+
+    def F(q):
+        return k_red_np(q) - K0 @ q
+
+    def G2_aa(a):
+        return 0.5 * (F(a) + F(-a))
+
+    cols = []
+    base = [G2_aa(V[:, i]) for i in range(md)]
+    for i in range(md):
+        cols.append(base[i])
+        for j in range(i + 1, md):
+            mixed = G2_aa(V[:, i] + V[:, j])
+            cols.append(0.5 * (mixed - base[i] - base[j]))
+    return np.stack(cols, axis=1)
+
+
+def _make_ext_modal(forces, Phi, PhiW):
+    """The sum of the registry forces' reduced closures
+    (``make_reduced_modal``), ``(eta_af, etad_af, t_af, precision) -> (...,
+    m)``, or None when any force has none (the caller then takes the
+    general path)."""
+    closures = []
+    for force in forces:
+        maker = getattr(force, "make_reduced_modal", None)
+        cl = None if maker is None else maker(Phi, PhiW)
+        if cl is None:
+            return None
+        closures.append(cl)
+    if not closures:
+        return None
+    if len(closures) == 1:
+        return closures[0]
+
+    def ext_modal(eta_af, etad_af, t_af, precision=None):
+        total = closures[0](eta_af, etad_af, t_af, precision=precision)
+        for cl in closures[1:]:
+            total = total + cl(eta_af, etad_af, t_af, precision=precision)
+        return total
+
+    return ext_modal
+
+
 def make_modal_rom(
     model,
     dt: float,
@@ -1771,47 +2257,50 @@ def make_modal_rom(
     Right/left eigenvectors of the pencil ``(K0, M)`` with K0 the exact
     zero-state tangent (:func:`reduce_matrix_dense`), biorthonormalized to
     ``W^T M V = I``. Three branches, as in the JAX package: symmetric K0
-    (all-linear beams) takes ``eigh``; a truncated basis with ``n_modes <=
-    n / 4`` two shift-invert Arnoldi runs (right and left); otherwise the
-    dense two-sided ``eig``. ``n_modes=None`` keeps the full basis.
+    (all-linear beams, the consistent element) takes ``eigh`` with ``W =
+    V``; a truncated basis with ``n_modes <= n / 4`` two shift-invert
+    Arnoldi runs (right and left); otherwise the dense two-sided ``eig``.
+    ``n_modes=None`` keeps the full basis.
+
+    Forces: registered fluid drag and gravity take their reduced closures
+    on the split path (``ext_modal``) unless the element is the consistent
+    one or a force has no closure; then the registry aggregate takes the
+    general path, as does an explicit ``forces_func(x, t)`` always. The
+    consistent element (``use_consistent_nonlinear``) has no split path
+    (``lam`` is None).
+
+    ``static_vectors`` (``(n,)`` or ``(n, k)`` reduced loads) and
+    ``modal_derivatives=md`` (the quadratic loads of the first ``md``
+    modes) augment a truncated basis with the real eigenpairs that carry
+    their static responses (:func:`_augment_static`); a coupled augmented
+    operator leaves ``Sinv_diag`` None. The consistent element's loads are
+    evaluated with the port's torch force on CPU float64 tensors.
 
     ``rayleigh``: ``(alpha, beta)`` structural damping ``C = alpha M +
     beta K0``, diagonal in this basis (``cdamp = alpha + beta lam``) and
     exact in the residual and the effective Jacobian. ``basis``: a
-    precomputed biorthonormal ``(V, W)`` pair; skips the eigensolve.
-    ``device``/``dtype``: where inputs given as NumPy arrays go (None: the
-    card).
-
-    Not ported (raise ``NotImplementedError``): registered or user
-    external forces (``forces_func``, the model's force registry), basis
-    augmentation (``static_vectors``, ``modal_derivatives``) and the ROM of
-    the consistent element.
+    precomputed biorthonormal ``(V, W)`` pair (:func:`load_basis`); skips
+    the eigensolve, and ``n_modes``, ``static_vectors`` and
+    ``modal_derivatives`` are then ignored. ``device``/``dtype``: where
+    inputs given as NumPy arrays go (None: the card).
     """
     from scipy.linalg import eig, eigh
 
     device = resolve_device(device)
-    if forces_func is not None or len(model.force_registry) > 0:
-        raise NotImplementedError(
-            "external forces on the modal ROM (forces_func, registered "
-            "fluid/gravity) are not yet ported"
-        )
-    if basis is None and (static_vectors is not None or modal_derivatives > 0):
-        raise NotImplementedError(
-            "static_vectors / modal_derivatives basis augmentation is not "
-            "yet ported"
-        )
-    if getattr(model, "use_consistent_nonlinear", False):
-        raise NotImplementedError(
-            "the modal ROM of the consistent (energy-gradient) element is "
-            "not yet ported"
-        )
     arrays = model.beam_model.arrays
     bc_info = model.beam_model.bc_info
     free = bc_info.free_dofs
     n_full = bc_info.n_dofs_full
+    use_consistent = getattr(model, "use_consistent_nonlinear", False)
+
+    # Registry forces prefer their reduced closures (built after the basis);
+    # an explicit forces_func always takes the general path.
+    registry_forces = None
+    if forces_func is None and len(model.force_registry) > 0:
+        registry_forces = model.force_registry.get_registered_forces()
 
     M = np.asarray(model.beam_model.M.toarray(), dtype=np.float64)
-    K0 = reduce_matrix_dense(arrays, free)
+    K0 = reduce_matrix_dense(arrays, free, use_consistent=use_consistent)
 
     sym_scale = np.abs(K0).max()
     if basis is not None:
@@ -1828,6 +2317,8 @@ def make_modal_rom(
                 f"basis is not biorthonormal (|W^T M V - I| = {bi_err:.2e})"
                 " — was it built for this beam configuration?"
             )
+        static_vectors = None
+        modal_derivatives = 0
     elif np.abs(K0 - K0.T).max() <= 1e-9 * sym_scale:
         lam, V = eigh(K0, M)  # symmetric: M-orthonormal already
         W = V
@@ -1857,6 +2348,37 @@ def make_modal_rom(
         D = W.T @ M @ V
         W = W @ np.linalg.inv(D).T
 
+    if modal_derivatives > 0:
+        md = min(int(modal_derivatives), V.shape[1])
+        if use_consistent:
+            # The set-up is host-side: the port's torch force on CPU
+            # float64 tensors, whatever the engine's device.
+            k_cons = assembly.make_reduced_internal_force(arrays, free, n_full,
+                                                          use_consistent=True)
+
+            def k_red_eval(q):
+                return k_cons(torch.as_tensor(q, dtype=torch.float64)).numpy()
+
+        else:
+            k_red_eval = assembly.make_reduced_internal_force_np(arrays, free, n_full)
+        md_loads = _modal_derivative_loads(k_red_eval, K0, V, md)
+        if static_vectors is None:
+            static_vectors = md_loads
+        else:
+            sv = np.asarray(static_vectors, np.float64)
+            if sv.ndim == 1:
+                sv = sv[:, None]
+            static_vectors = np.concatenate([sv, md_loads], axis=1)
+    if static_vectors is not None and V.shape[1] < K0.shape[0]:
+        V, W = _augment_static(K0, M, V, W, static_vectors)
+
+    ext_modal = None
+    if registry_forces is not None:
+        if not use_consistent:  # the consistent element has no split path
+            ext_modal = _make_ext_modal(registry_forces, V, W)
+        if ext_modal is None:
+            forces_func = model.force_registry.create_aggregated_function()
+
     am = (2.0 * rho_inf - 1.0) / (rho_inf + 1.0)
     af = rho_inf / (rho_inf + 1.0)
     beta = 0.25 * (1.0 - am + af) ** 2
@@ -1880,16 +2402,22 @@ def make_modal_rom(
     if offdiag <= 1e-9 * float(Sd.max()):
         Sinv_diag = np.ascontiguousarray(1.0 / np.diag(S))
 
-    internal_force = assembly.make_reduced_internal_force(arrays, free, n_full)
-    lam = np.ascontiguousarray(np.diag(K0r))
-    Phi_p = W_p = planar_correction = window_params = None
-    elem_sl, node_sl = assembly.nonlinear_support(arrays)
-    if elem_sl is not None:
-        # Fold the zero rows of constrained DOFs and the planar permutation
-        # into the bases once, restricted to the nonlinear node window.
-        Phi_p, W_p, planar_correction, window_params = _planar_window(
-            arrays, bc_info, V, W, elem_sl, node_sl
-        )
+    internal_force = assembly.make_reduced_internal_force(
+        arrays, free, n_full, use_consistent=use_consistent
+    )
+    lam = Phi_p = W_p = planar_correction = window_params = None
+    if not use_consistent:
+        # Split fast path: the reduced linear operator is diag(W^T K0 V);
+        # only the element correction flows through the basis transforms.
+        lam = np.ascontiguousarray(np.diag(K0r))
+        elem_sl, node_sl = assembly.nonlinear_support(arrays)
+        if elem_sl is not None:
+            # Fold the zero rows of constrained DOFs and the planar
+            # permutation into the bases once, restricted to the nonlinear
+            # node window.
+            Phi_p, W_p, planar_correction, window_params = _planar_window(
+                arrays, bc_info, V, W, elem_sl, node_sl
+            )
     return ModalROMGenAlpha(
         Phi=V,
         PhiW=W,
@@ -1898,6 +2426,8 @@ def make_modal_rom(
         rho_inf=rho_inf,
         dt=dt,
         internal_force=internal_force,
+        external_force=forces_func,
+        ext_modal=ext_modal,
         lam=lam,
         Phi_planar=Phi_p,
         PhiW_planar=W_p,
@@ -1956,23 +2486,22 @@ def _frames_result(ms, x0, u_modal, n_steps, substeps, drive):
     return SimulationResult(ts=ts, ys=ys, stats=None)
 
 
-def _simulate_modal_rom(model, x0, n_steps, dt, u, substeps, n_newton,
-                        rho_inf, n_modes, nl_precision, static_vectors,
-                        modal_derivatives, rayleigh, engine):
-    """``simulate(method="modal_rom")``: the plain stepper (``"xla"``) or
-    the fused ROM kernels (``"pallas"``, float32 as in the JAX package)."""
-    ms = make_modal_rom(
-        model, dt / substeps, rho_inf=rho_inf, n_modes=n_modes,
-        static_vectors=static_vectors, modal_derivatives=modal_derivatives,
-        rayleigh=rayleigh, device=x0.device, dtype=x0.dtype,
-    )
+def _rom_force(ms, u):
+    """The modal input of ``simulate``'s ROM methods: None, a callable of
+    t, or the host projection of a constant force."""
+    if u is None:
+        return None
+    if callable(u):
+        return lambda t: ms.project_force(u(t))
+    return ms.project_force_host(u)
+
+
+def _simulate_modal_rom(ms, x0, n_steps, u, substeps, n_newton, nl_precision, engine):
+    """``simulate(method="modal_rom")`` on the engine ``ms``: the plain
+    stepper (``"xla"``) or the fused ROM kernels (``"pallas"``, float32 as
+    in the JAX package, which refuse external forces)."""
     if engine == "xla":
-        if u is None:
-            u_modal = None
-        elif callable(u):
-            u_modal = lambda t: ms.project_force(u(t))  # noqa: E731
-        else:
-            u_modal = ms.project_force_host(u)
+        u_modal = _rom_force(ms, u)
         n = x0.shape[-1] // 2
         eta, etad = ms.to_modal(x0[..., :n], x0[..., n:])
         ts, etas, etads = ms.rollout_frames(
@@ -2029,8 +2558,40 @@ def make_implicit_rollout_fn(model, dt: float, n_steps: int, method: str, u=None
     return rollout
 
 
-_CHUNKED = ("generalized_alpha_adaptive", "implicit_adaptive", "sdirk3",
-            "sdirk3_adaptive")
+def _simulate_modal_rom_adaptive(ms, x0, n_steps, dt, u, rtol, atol, n_newton,
+                                 nl_precision, chunk):
+    """``simulate(method="modal_rom_adaptive")``: :meth:`rollout_adaptive`
+    over the output grid, in one call or one per ``chunk`` intervals."""
+    u_modal = _rom_force(ms, u)
+    t_eval = np.arange(n_steps + 1) * dt
+
+    def chunk_fn(state, t_grid, dt0):
+        # (x,) on the first chunk, then the modal (eta, etad, etadd).
+        if len(state) == 1:
+            nx = state[0].shape[-1] // 2
+            eta, etad = ms.to_modal(state[0][..., :nx], state[0][..., nx:])
+            etadd = None
+        else:
+            eta, etad, etadd = state
+        etas, etads, stats, fin = ms.rollout_adaptive(
+            eta, etad, u_modal, t_grid, rtol=rtol, atol=atol, dt0=dt0,
+            n_newton=n_newton, nl_precision=nl_precision, etadd0=etadd,
+            return_final=True,
+        )
+        qs, vs = ms.from_modal(etas, etads)
+        return torch.cat([qs, vs], dim=-1), stats, fin
+
+    # Every engine's monolithic default first step, (te[1] - te[0]) / 16.
+    if chunk is None:
+        ys, stats, _ = chunk_fn((x0,), t_eval, dt / 16.0)
+    else:
+        ys, stats = _run_chunked(chunk_fn, (x0,), t_eval, chunk, dt / 16.0)
+    return SimulationResult(ts=_times(t_eval, x0), ys=ys, stats=stats)
+
+
+_IMPLICIT_ADAPTIVE = ("generalized_alpha_adaptive", "implicit_adaptive", "sdirk3",
+                      "sdirk3_adaptive")
+_CHUNKED = _IMPLICIT_ADAPTIVE + ("modal_rom_adaptive",)
 
 
 def _times(t_eval: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -2113,10 +2674,13 @@ def simulate(
     Zienkiewicz-Xie estimate, ``rho_inf``) and ``"sdirk3"`` (alias
     ``"sdirk3_adaptive"``; L-stable SDIRK3), whose ``rtol``/``atol`` pick
     every step (first step ``dt/16``) and whose trial systems are factored
-    at the trial dt. The adaptive methods return :class:`AdaptiveStats`
-    in ``stats``; a batched ``x0`` shares one step-size controller (for
-    per-environment control call the integrators with ``per_env=True``).
-    ``"modal_rom_adaptive"`` raises ``NotImplementedError``. ``jit`` is
+    at the trial dt; ``"modal_rom_adaptive"`` (the same controller on the
+    ROM, :meth:`ModalROMGenAlpha.rollout_adaptive`: a trial dt's
+    factorization is a per-mode reciprocal). The adaptive methods return
+    :class:`AdaptiveStats` in ``stats``; a batched ``x0`` shares one
+    step-size controller (for per-environment control call the implicit
+    integrators with ``per_env=True``). ``forces_func`` and the model's
+    registered forces reach every method but ``"modal"``. ``jit`` is
     accepted and unused. ``nl_precision``
     picks the ROM transforms' tier on the card with ``engine="pallas"``:
     "highest" is float32, the other tiers 3xTF32 tensor-core products
@@ -2141,7 +2705,9 @@ def simulate(
             :class:`PiecewiseConstant` force). On CPU tensors the kernels
             run their plain versions.
         rayleigh: optional ``(alpha, beta)`` Rayleigh damping.
-        chunk: the implicit adaptive methods only — drive the span one
+        static_vectors, modal_derivatives: the ROM methods only — basis
+            augmentation (:func:`make_modal_rom`).
+        chunk: the adaptive methods only — drive the span one
             call per ``chunk`` output intervals, each warm-restarted from
             the controller's proposal (``stats.dt_next``) and the engine's
             carry: the same trajectory and step sequence, bit for bit, as
@@ -2188,8 +2754,6 @@ def simulate(
                 "fused kernels bake the modal force in); use engine='xla' "
                 "for time-varying inputs"
             )
-    if method in _NOT_PORTED:
-        raise NotImplementedError(f"method={method!r} is not yet ported")
     if method not in _METHODS:
         raise ValueError(f"Unknown method: {method}")
     if chunk is not None and method not in _CHUNKED:
@@ -2218,7 +2782,20 @@ def simulate(
                                                    atol=atol, dt0=dt / 10.0)
         return SimulationResult(ts=_times(t_eval, x0), ys=xs, stats=stats)
 
-    if method in _CHUNKED:
+    if method in ("modal_rom", "modal_rom_adaptive"):
+        ms = make_modal_rom(
+            model, dt / substeps, rho_inf=rho_inf, n_modes=n_modes,
+            forces_func=forces_func, static_vectors=static_vectors,
+            modal_derivatives=modal_derivatives, rayleigh=rayleigh,
+            device=x0.device, dtype=x0.dtype,
+        )
+        if method == "modal_rom":
+            return _simulate_modal_rom(ms, x0, n_steps, u, substeps, n_newton,
+                                       nl_precision, engine)
+        return _simulate_modal_rom_adaptive(ms, x0, n_steps, dt, u, rtol, atol, n_newton,
+                                            nl_precision, chunk)
+
+    if method in _IMPLICIT_ADAPTIVE:
         # Error-controlled implicit stepping: trial-dt factorizations of the
         # operator's not-prefactored systems.
         op = make_newmark_operator(model, forces_func=forces_func, dt=None,
@@ -2262,17 +2839,6 @@ def simulate(
             rho_inf=rho_inf, device=x0.device, dtype=x0.dtype,
         )(x0)
         return SimulationResult(ts=ts, ys=ys, stats=None)
-
-    if method == "modal_rom":
-        if forces_func is not None:
-            raise NotImplementedError(
-                "external forces on the modal ROM (forces_func) are not "
-                "yet ported"
-            )
-        return _simulate_modal_rom(
-            model, x0, n_steps, dt, u, substeps, n_newton, rho_inf, n_modes,
-            nl_precision, static_vectors, modal_derivatives, rayleigh, engine,
-        )
 
     if engine == "xla":
         rollout = make_modal_rollout_fn(

@@ -214,10 +214,12 @@ def test_chunk_validation_and_the_methods_left():
                       device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         tcrt.simulate(tm, x0, 4e-4, 1e-4, method="sdirk3", chunk=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="modal_rom_adaptive"):
-        tcrt.simulate(tm, x0, 4e-4, 1e-4, method="modal_rom_adaptive", chunk=2,
+    # No method is left unported: modal_rom_adaptive takes chunk= too.
+    assert not hasattr(tsim, "_NOT_PORTED")
+    assert "modal_rom_adaptive" in tsim._CHUNKED
+    with pytest.raises(ValueError, match="chunk"):
+        tcrt.simulate(tm, x0, 4e-4, 1e-4, method="modal_rom_adaptive", chunk=0,
                       device="cpu")
-    assert tsim._NOT_PORTED == ("modal_rom_adaptive",)
     with pytest.raises(ValueError, match="Unknown method"):
         tcrt.simulate(tm, x0, 4e-4, 1e-4, method="lsoda", device="cpu")
 

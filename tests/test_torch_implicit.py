@@ -225,13 +225,15 @@ def test_contracts(beams, helpers):
     z = torch.zeros(tm.n_pos_states, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="remat"):
         ti.integrate_generalized_alpha(op, z, z, 0.0, DT, 2, remat=True)
-    with pytest.raises(NotImplementedError, match="modal_rom_adaptive"):
-        tcrt.simulate(tm, x0, 1e-3, 1e-4, method="modal_rom_adaptive", device="cpu")
-    with pytest.raises(NotImplementedError, match="consistent"):
-        tcrt.make_modal_rom(
-            tcrt.DynamicEulerBernoulliBeam(helpers.nonlinear_csv(4),
-                                           use_consistent_nonlinear=True),
-            DT, n_modes=4, device="cpu")
+    # The ROM tier runs on the CPU too: the adaptive ROM and the consistent
+    # element's ROM (no split path: lam is None).
+    res = tcrt.simulate(tm, x0, 1e-3, 1e-4, method="modal_rom_adaptive", device="cpu")
+    assert res.stats is not None and bool(torch.isfinite(res.ys).all())
+    cons = tcrt.make_modal_rom(
+        tcrt.DynamicEulerBernoulliBeam(helpers.nonlinear_csv(4),
+                                       use_consistent_nonlinear=True),
+        DT, n_modes=4, device="cpu")
+    assert cons.lam is None and cons.n_modes == 4
     # A single environment (no batch axis) runs through every mode.
     ys = {m: tcrt.simulate(tm, x0, 2e-4, 1e-4, method="newmark", linear_solver=m,
                            u=np.ones(tm.n_pos_states), device="cpu").ys

@@ -194,8 +194,8 @@ def test_simulate_tip_impulse(models, engine):
 
 
 @pytest.mark.parametrize("kwargs, exc", [
-    (dict(method="modal_rom_adaptive", chunk=2), NotImplementedError),
-    (dict(method="modal_rom_adaptive"), NotImplementedError),
+    (dict(method="modal_rom_adaptive", chunk=0), ValueError),
+    (dict(method="modal_rom_adaptive", engine="pallas"), ValueError),
     (dict(method="bogus"), ValueError),
     (dict(method="modal", engine="triton"), ValueError),
     (dict(method="newmark", engine="power"), ValueError),

@@ -42,7 +42,7 @@ def test_port_imports_no_jax(path):
 
 def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
-    assert {"simulate.py", "modal_rollout.py", "_build.py", "convert.py",
+    assert {"simulate.py", "forces.py", "modal_rollout.py", "_build.py", "convert.py",
             "chip_smoke.py"} <= names
 
 

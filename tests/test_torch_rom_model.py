@@ -6,7 +6,7 @@ planar internal forces (rtol 1e-12), the zero-state tangent K0
 (1e-12 max|K0|), and ``make_modal_rom`` with a shared basis (rtol 1e-12)
 and with its own eigensolve on each branch (eigenvalues rtol 1e-9, bases
 after canonical signs 1e-8). Also: entry points default to the card, and
-the parts that are not ported raise.
+the parts of the ROM tier that once raised now run.
 """
 
 import numpy as np
@@ -187,28 +187,29 @@ def test_entry_points_default_to_the_card(beams, monkeypatch, entry):
 
 
 def test_unported_parts_raise(beams, tmp_path):
+    """The parts of the ROM tier that raised before they were ported now
+    build and run (tests/test_torch_rom_forces.py, _adaptive.py and
+    _basis.py hold them to the JAX package)."""
     _, tb = beams["nonlinear"]
-    with pytest.raises(NotImplementedError):
-        ts.make_modal_rom(tb, DT, n_modes=4, static_vectors=np.ones(24),
-                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        ts.make_modal_rom(tb, DT, n_modes=4, forces_func=lambda x, t: x,
-                          device="cpu")
+    aug = ts.make_modal_rom(tb, DT, n_modes=4, static_vectors=np.ones(24),
+                            device="cpu")
+    assert aug.n_modes >= 4
+    user = ts.make_modal_rom(tb, DT, n_modes=4, forces_func=lambda x, t: x[..., :24],
+                             device="cpu")
+    assert user.external_force is not None and user.ext_modal is None
     fluid = tm.DynamicEulerBernoulliBeam(
         helpers.nonlinear_csv(3, path=str(tmp_path / "f.csv")),
         tm.ForceParams(enable_fluid_effects=True, fluid_density=1000.0),
     )
-    with pytest.raises(NotImplementedError):
-        ts.make_modal_rom(fluid, DT, device="cpu")
+    assert ts.make_modal_rom(fluid, DT, device="cpu").ext_modal is not None
     consistent = tm.DynamicEulerBernoulliBeam(
         helpers.nonlinear_csv(3, path=str(tmp_path / "c.csv")),
         use_consistent_nonlinear=True,
     )
-    with pytest.raises(NotImplementedError):
-        ts.make_modal_rom(consistent, DT, device="cpu")
+    assert ts.make_modal_rom(consistent, DT, device="cpu").lam is None
     x0 = np.zeros(2 * tb.n_pos_states)
-    with pytest.raises(NotImplementedError):
-        ts.simulate(tb, x0, 1e-3, 1e-3, method="modal_rom_adaptive", device="cpu")
+    res = ts.simulate(tb, x0, 1e-3, 1e-3, method="modal_rom_adaptive", device="cpu")
+    assert res.ys.shape == (2, 2 * tb.n_pos_states)
     port = ts.make_modal_rom(tb, DT, n_modes=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.rollout(np.zeros(4), np.zeros(4), None, 2, carry_dtype=torch.float16)
+    out = port.rollout(np.zeros(4), np.zeros(4), None, 2, carry_dtype=torch.float16)
+    assert out[0].dtype == torch.float64
