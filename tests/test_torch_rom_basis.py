@@ -241,6 +241,29 @@ def test_files_load_in_either_package(trained, tmp_path):
     assert torch.isfinite(red2.ecsw_residual(eta0)).all()
 
 
+@pytest.mark.cuda
+def test_files_from_jax_drive_the_kernels_on_the_card(trained, tmp_path):
+    """Files the JAX package wrote rebuild the engine on the card: the
+    loaded sample's fused gathered span (the CUDA ROM kernels) is bit for
+    bit the span of the engine given the same basis and sample directly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    jms, _, jred, _, _, u_m, tb = trained
+    basis = ts.load_basis(jms.save_basis(str(tmp_path / "basis.npz")))
+    sample = ts.load_ecsw(jred.save_ecsw(str(tmp_path / "ecsw.npz")))
+    kw = dict(rho_inf=0.5, device="cuda", dtype=torch.float32)
+    direct = ts.make_modal_rom(tb, 1e-4, basis=(jms.Phi, jms.PhiW), **kw).apply_ecsw(
+        jred.sampled_params["sel"], jred.sampled_params["xi"], train_tau=1e-3)
+    loaded = ts.make_modal_rom(tb, 1e-4, basis=basis, **kw).apply_ecsw(*sample)
+    eta = torch.zeros((64, 24), dtype=torch.float32, device="cuda")
+    eta[:, 0] = torch.linspace(5e-4, 1e-3, 64, device="cuda")
+    u32 = np.asarray(u_m, np.float32)
+    spans = [engine.make_pallas_rollout()(eta, 0 * eta, u32, 100, n_newton=1)
+             for engine in (direct, loaded)]
+    assert all(torch.equal(a, b) for a, b in zip(*spans))
+    assert all(bool(torch.isfinite(x).all()) for x in spans[1])
+
+
 # -- carry_dtype -----------------------------------------------------------------
 
 
