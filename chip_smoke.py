@@ -176,8 +176,9 @@ Phases, one line each (any failure exits non-zero):
     trials, ms a trial and the device's busy share; 4 envs in float64 held
     to the port on the CPU on the same inputs (equal counts, <= 1e-10);
     ``simulate(method="modal_rom_adaptive", chunk=1)`` bit for bit the
-    one-call run; the nonlinear_fluid_gravity golden at the JAX test's
-    tolerances span by span for ``ROM_ADAPTIVE["golden_budget_s"]``,
+    one-call run; the nonlinear_fluid_gravity golden at rtol 1e-8 (the JAX
+    test's 1e-10 would take about 3800 trials for one 1 ms frame, 1e-8
+    about 813) span by span for ``ROM_ADAPTIVE["golden_budget_s"]``,
     within the JAX bound 3e-4 over the frames reached;
 30. forced ROM: the ROM main path's beam in water with gravity through
     ``simulate(method="modal_rom", engine="xla")`` at 4096 envs (float64)
@@ -1138,6 +1139,23 @@ def rom_span_bounds(rk, op, B: int, steps: int) -> dict:
                 epi_ops=epi_ops, af_ops=af_ops, splits=splits, counter_op=counter_op)
 
 
+def train_main_ecsw(ms, n_red: int, dev):
+    """Phase 9's ECSW training on the ROM main path's engine: a 3 N tip load,
+    30 frames x 20 substeps on 1 env, 2 Newton iterations, snapshots
+    [::3], tau 1e-3. Returns the reduced engine, the NNLS info and the
+    seconds of the training rollout and of the NNLS."""
+    u_tr = np.zeros(n_red)
+    u_tr[-2] = 3.0
+    z = torch.zeros((1, ms.n_modes), dtype=torch.float32, device=dev)
+    t0 = time.time()
+    _, etas_tr, _ = ms.rollout_frames(z, z, ms.project_force_host(u_tr), 30,
+                                      substeps=20, n_newton=2)
+    train_s = time.time() - t0
+    t0 = time.time()
+    ms_g, info = ms.hyper_reduce(etas_tr[::3, 0, :], tau=1e-3, return_info=True)
+    return ms_g, info, train_s, time.time() - t0
+
+
 def rom_paths(crt, rk, dev, card, small_model):
     """Phases 8-12; returns the ROM kernels' records and the main path's
     engines and inputs (phases 29-32 reuse them)."""
@@ -1188,16 +1206,7 @@ def rom_paths(crt, rk, dev, card, small_model):
     require(h_rel <= ROM_SPAN_MAX, f"ROM highest kernel vs plain span {h_rel:.3e}")
 
     # -- phase 9: ECSW at full width ----------------------------------------------
-    u_tr = np.zeros(n_red)
-    u_tr[-2] = 3.0
-    z = torch.zeros((1, ms.n_modes), dtype=torch.float32, device=dev)
-    t0 = time.time()
-    _, etas_tr, _ = ms.rollout_frames(z, z, ms.project_force_host(u_tr), 30,
-                                      substeps=20, n_newton=2)
-    train_s = time.time() - t0
-    t0 = time.time()
-    ms_g, info = ms.hyper_reduce(etas_tr[::3, 0, :], tau=1e-3, return_info=True)
-    nnls_s = time.time() - t0
+    ms_g, info, train_s, nnls_s = train_main_ecsw(ms, n_red, dev)
     fused_g = ms_g.make_pallas_rollout()
     out_g, paths["ecsw"] = counted(
         rk, lambda: fused_g(eta, etad, u_m, N_STEPS, n_newton=ROM["n_newton"]))
@@ -2952,12 +2961,7 @@ def rom_tier_main(crt, dev):
     """The ROM main path's model, engine and inputs and phase 9's trained
     ECSW engine, for ``--rom-tier`` (the full run reuses phases 8-9's)."""
     model, ms, eta, etad, u_m, _ = rom_main_path(crt, dev)
-    u_tr = np.zeros(model.n_pos_states)
-    u_tr[-2] = 3.0
-    z = torch.zeros((1, ms.n_modes), dtype=torch.float32, device=dev)
-    _, etas_tr, _ = ms.rollout_frames(z, z, ms.project_force_host(u_tr), 30,
-                                      substeps=20, n_newton=2)
-    ms_g = ms.hyper_reduce(etas_tr[::3, 0, :], tau=1e-3)
+    ms_g = train_main_ecsw(ms, model.n_pos_states, dev)[0]
     return dict(model=model, ms=ms, ms_g=ms_g, eta=eta, etad=etad, u_m=u_m)
 
 

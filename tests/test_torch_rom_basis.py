@@ -14,12 +14,14 @@ Both packages built from one CSV, float64 on the CPU:
   out-of-envelope states, and ``rollout_frames_guarded``;
 * ``.npz`` files written by either package load in the other bit for bit,
   and a reapplied sample reproduces the trained engine's rollout exactly;
-* ``carry_dtype`` (``TestScanUnroll``) and the refusal messages.
+* ``carry_dtype`` (``TestScanUnroll``), with a bf16 carry held to the JAX
+  package's (1e-10), and the refusal messages.
 """
 
 import os
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -269,18 +271,18 @@ def test_files_from_jax_drive_the_kernels_on_the_card(trained, tmp_path):
 
 @pytest.fixture(scope="module")
 def small():
-    _, tb = pair(6)
+    jb, tb = pair(6)
     ms = ts.make_modal_rom(tb, 1e-4, rho_inf=0.7, device="cpu")
     n = tb.n_pos_states
     rng = np.random.default_rng(7)
     q = torch.tensor(rng.normal(scale=1e-6, size=(4, n)))
     eta, etad = ms.to_modal(q, torch.zeros_like(q))
-    return ms, eta, etad, ms.project_force_host(tip(n, 0.1))
+    return ms, eta, etad, ms.project_force_host(tip(n, 0.1)), jb
 
 
 def test_carry_dtype_same_dtype_is_neutral(small):
     """37 = 4 x 9 + 1 steps: the chunked loop and its remainder tail."""
-    ms, eta, etad, u_m = small
+    ms, eta, etad, u_m, _ = small
     base = ms.rollout(eta, etad, u_m, 37, n_newton=2)
     out = ms.rollout(eta, etad, u_m, 37, n_newton=2, unroll=4, carry_dtype=torch.float64)
     for a, b in zip(out, base):
@@ -288,7 +290,7 @@ def test_carry_dtype_same_dtype_is_neutral(small):
 
 
 def test_bf16_carry_tracks_float32(small):
-    ms, eta, etad, u_m = small
+    ms, eta, etad, u_m, _ = small
     eta, etad = eta.float(), etad.float()
     base = ms.rollout(eta, etad, u_m, 200, n_newton=1)
     out = ms.rollout(eta, etad, u_m, 200, n_newton=1, unroll=8, carry_dtype=torch.bfloat16)
@@ -296,6 +298,25 @@ def test_bf16_carry_tracks_float32(small):
         assert a.dtype == torch.float32 and torch.isfinite(a).all()
         a, b = a.double(), b.double()
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 0.05
+
+
+def test_bf16_carry_matches_jax(small):
+    """The JAX package's engine on the same basis, float64 steps with a bf16
+    carry, 37 = 4 x 9 + 1 steps: both round to nearest even at the same
+    points (once per chunk, then the tail), so the states agree far below
+    one bf16 ulp; a different downcast point or tail order would not."""
+    ms, eta, etad, u_m, jb = small
+    jms = js.make_modal_rom(jb, 1e-4, rho_inf=0.7,
+                            basis=(np.asarray(ms.Phi), np.asarray(ms.PhiW)))
+    kw = dict(n_newton=2, unroll=4)
+    ref = jms.rollout(eta.numpy(), etad.numpy(), u_m, 37,
+                      carry_dtype=jnp.bfloat16, **kw)
+    got = ms.rollout(eta, etad, u_m, 37, carry_dtype=torch.bfloat16, **kw)
+    plain = ms.rollout(eta, etad, u_m, 37, **kw)
+    for a, b, c in zip(got, ref, plain):
+        assert a.dtype == torch.float64
+        assert scaled(a, b) <= TOL
+        assert scaled(c, b) > 1e3 * TOL  # the bf16 rounding is visible
 
 
 # -- refusals --------------------------------------------------------------------
