@@ -8,6 +8,7 @@
     python3 chip_smoke.py --profile fused     # fused small-beam span under torch.profiler
     python3 chip_smoke.py --control           # phases 25-28 alone (no kernel is built)
     python3 chip_smoke.py --rom-tier          # phases 29-32 alone (the ROM main path rebuilt)
+    python3 chip_smoke.py --parallel          # phases 33-38 alone (the parallel layer)
 
 Phases, one line each (any failure exits non-zero):
 
@@ -3324,6 +3325,353 @@ def rom_tier_paths(crt, rk, dev, card, kmods, main=None) -> dict:
     return {"ecsw:loaded": loaded, "simulate:pallas:augmented": augmented}
 
 
+# Phases 33-38: the parallel layer at world size 1 (one card: NCCL allows one
+# rank a GPU, so dp = sp = 1 here; several shards are held to the JAX package
+# on gloo CPU ranks by tests/test_torch_spatial*.py and test_torch_parallel.py).
+# The SPIKE row is the JAX package's bench.py sharded_genalpha row
+# (bench.py:652-760): the 1000-element linear beam, 4096 envs, float32, node
+# layout, dt 1e-4, rho_inf 0.8, one Newton iteration; the span is cut from
+# 2000 steps to SPIKE["steps"] (3 frames) and held to the single-device
+# implicit gen-alpha over the same span.
+SPIKE = dict(envs=4096, frames=3, substeps=100, rho_inf=0.8, n_newton=1, time_steps=50,
+             f64_envs=16, f64_steps=40)
+# float32 SPIKE span against the single-device float32 span, q and v each by
+# norm; both carry float32 roundoff amplified by the effective Jacobian's
+# conditioning (the float32 implicit main path reads ~9.4e-3 in v against
+# float64 over 2000 steps, phase 14): the bound of phase 14's f32 check.
+SPIKE_F32_MAX = IMP_F32_MAX
+SPIKE_F64_MAX = 1e-9  # float64 SPIKE vs float64 single device, x state scale
+PAR_SMALL = dict(n_el=14, t_final=4e-4, dt=1e-4, rtol=1e-6, atol=1e-9)
+PAR_ADAPTIVE_MAX = 1e-9  # adaptive methods, equal counts, x state scale (float64)
+PAR_RK4_MAX = 1e-6  # RK4 through the CG mass solve (cg_tol 1e-8), the JAX test's bound
+PAR_MODAL = dict(envs=64, frames=10, substeps=20)
+PAR_MODAL_MAX = 1e-5  # float32, the sharded transforms' sums in another order
+PAR_ROM_MAX = 1e-10  # float64 sharded ROM vs simulate, x state scale
+PAR_BATCH = dict(envs=64, frames=10, substeps=20)
+
+
+@contextlib.contextmanager
+def memo_modal_engines():
+    """While open, ``make_modal_genalpha`` (in ``simulate`` and in
+    ``parallel/spatial_modal``) returns one engine per argument set: the
+    1000-element eigensolve runs once for phase 36's six rollouts."""
+    from continuum_robot_tpu_torch.models import simulate as sim_mod
+    from continuum_robot_tpu_torch.parallel import spatial_modal as sm_mod
+
+    real, memo = sim_mod.make_modal_genalpha, {}
+
+    def cached(model, dt, **kw):
+        key = (id(model), float(dt), tuple(sorted((k, str(v)) for k, v in kw.items())))
+        if key not in memo:
+            memo[key] = real(model, dt, **kw)
+        return memo[key]
+
+    with replaced(sim_mod, "make_modal_genalpha", cached), \
+            replaced(sm_mod, "make_modal_genalpha", cached):
+        yield
+
+
+def spike_inputs(model, beam, envs: int, dtype, dev):
+    """bench.py's sharded row inputs: tip displacements ~ N(0, 1e-6) on every
+    free DOF, tip force 0.1; reduced, node-layout and force tensors."""
+    from continuum_robot_tpu_torch.parallel import facade, reduced_to_node_layout
+
+    n = model.n_pos_states
+    rng = np.random.default_rng(0)
+    x_red = np.zeros((envs, 2 * n))
+    x_red[:, :n] = rng.normal(scale=1e-6, size=(envs, n))
+    u_red = np.zeros(n)
+    u_red[-2] = 0.1
+    x = torch.tensor(x_red, dtype=dtype, device=dev)
+    xn = reduced_to_node_layout(model, x, beam.n_nodes)
+    return x, u_red, xn, facade._node_force(model, u_red, beam.n_nodes, xn)
+
+
+def phase_spike(crt, kb, dev, card, mesh) -> dict:
+    """Phase 34; returns ({path: btd_solve launches}, {solver: ms a step})."""
+    from continuum_robot_tpu_torch import parallel as tpar
+    from continuum_robot_tpu_torch.parallel import facade, spatial_implicit as si
+
+    t_phase = time.perf_counter()
+    cfg = SPIKE
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "linear"))
+    beam = tpar.make_spatial_beam(model.beam_model.arrays,
+                                  model.beam_model.bc_info.free_mask.reshape(-1, 3), mesh)
+    h, sub, frames = DT, cfg["substeps"], cfg["frames"]
+    steps = frames * sub
+    kw = dict(rho_inf=cfg["rho_inf"], n_newton=cfg["n_newton"])
+    rolls = {s: tpar.build_spatial_genalpha(beam, h, local_solver=s, **kw)
+             for s in si.LOCAL_SOLVERS}
+    x, u_red, xn, u_node = spike_inputs(model, beam, cfg["envs"], torch.float32, dev)
+    prep_s = {}
+    for s, roll in rolls.items():  # the SPIKE preparations (memoized per dtype)
+        _, prep_s[s] = wall(lambda roll=roll: roll(xn, 1, u=u_node, substeps=1))
+    (ts, xs), counts = counted(kb, lambda: rolls["thomas"](xn, frames, u=u_node,
+                                                          substeps=sub))
+    want = 1 + steps * cfg["n_newton"]
+    ys = facade._node_frames_to_reduced(model, xs)
+    ref = crt.simulate(model, x, steps * h, sub * h, method="generalized_alpha", u=u_red,
+                       substeps=sub, linear_solver="pallas", device=dev,
+                       dtype=torch.float32, **kw).ys
+    n = model.n_pos_states
+    parts = rel_parts((ys[-1, :, :n], ys[-1, :, n:]), (ref[-1, :, :n], ref[-1, :, n:]))
+    others = {}
+    for s in ("cr", "dense"):
+        ys_s = facade._node_frames_to_reduced(
+            model, rolls[s](xn, frames, u=u_node, substeps=sub)[1])
+        others[s] = rel_parts((ys_s[-1, :, :n], ys_s[-1, :, n:]), (ys[-1, :, :n], ys[-1, :, n:]))
+    finite = bool(torch.isfinite(xs).all())
+    print(f"phase 34 SPIKE gen-alpha [{card}]: {N_ELEMENTS} linear elements ({beam.n_nodes} "
+          f"nodes, sp=1), {cfg['envs']} envs float32, {steps} steps dt={h} rho_inf="
+          f"{cfg['rho_inf']} n_newton={cfg['n_newton']}; preparations (host + card) "
+          f"{', '.join(f'{k} {v:.2f} s' for k, v in prep_s.items())}; thomas vs the "
+          f"single-device implicit gen-alpha (linear_solver='pallas'), q and v by norm: "
+          f"{parts[0]:.3e}, {parts[1]:.3e} (limit {SPIKE_F32_MAX}); cr and dense vs thomas: "
+          f"{others}; btd_solve launches {counts['btd_solve']} (expected {want}); finite "
+          f"{finite}", flush=True)
+    require(finite and max(parts) <= SPIKE_F32_MAX,
+            f"SPIKE f32 span vs single device: {parts}")
+    require(all(max(v) <= SPIKE_F32_MAX for v in others.values()),
+            f"SPIKE local solvers disagree: {others}")
+    expect_launches(counts, ("btd_solve",), want, "SPIKE thomas span")
+
+    # float64 at a small batch: the same recurrence as the single device.
+    cfg64 = cfg["f64_envs"], cfg["f64_steps"]
+    x64, _, xn64, u64 = spike_inputs(model, beam, cfg64[0], torch.float64, dev)
+    ys64 = facade._node_frames_to_reduced(
+        model, rolls["thomas"](xn64, 1, u=u64, substeps=cfg64[1])[1])
+    ref64 = crt.simulate(model, x64, cfg64[1] * h, cfg64[1] * h, method="generalized_alpha",
+                         u=u_red, substeps=cfg64[1], linear_solver="pallas", device=dev,
+                         **kw).ys
+    err64 = scaled_err((ys64[..., :n], ys64[..., n:]), (ref64[..., :n], ref64[..., n:]))
+    print(f"phase 34 SPIKE float64 [{card}]: {cfg64[0]} envs x {cfg64[1]} steps vs the "
+          f"single device: max err / scale {err64:.3e} (limit {SPIKE_F64_MAX})", flush=True)
+    require(err64 <= SPIKE_F64_MAX, f"SPIKE float64 vs single device {err64:.3e}")
+
+    # ms a step of each local solver (CUDA events, best of 3 after a warm-up).
+    T = cfg["time_steps"]
+    step_ms = {}
+    for s, roll in rolls.items():
+        fn = (lambda roll=roll: roll(xn, 1, u=u_node, substeps=T))
+        fn()
+        step_ms[s] = min(timed_once(fn, dev)[1] for _ in range(3)) / T
+    fn = lambda: rolls["thomas"](xn, 1, u=u_node, substeps=T)  # noqa: E731
+    busy, wall_ms, share = busy_share(fn, dev)
+    rows = kernel_rows(fn, dev)
+    print(f"phase 34 SPIKE thomas span by kernel [{card}]: " + "; ".join(
+        f"{k[:60]} {ms:.3f} ms x{n}" for ms, n, k in rows[:8]), flush=True)
+    best = min(step_ms, key=step_ms.get)
+    print(f"phase 34 SPIKE timings [{card}]: ms a step ({cfg['envs']} envs, {T} steps, "
+          f"float32): {', '.join(f'{k} {v:.4f}' for k, v in step_ms.items())}; fastest "
+          f"{best}; card default local_solver {si.CARD_LOCAL_SOLVER}; thomas span busy "
+          f"{busy:.3f} of {wall_ms:.3f} ms ({share:.3f}); {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    require(si.resolve_local_solver(None, dev) == si.CARD_LOCAL_SOLVER,
+            "the card's default local solver")
+    return {"spike:thomas": counts["btd_solve"]}, step_ms
+
+
+def phase_parallel_small(crt, kb, dev, card, mesh) -> dict:
+    """Phase 35: simulate_sharded's adaptive gen-alpha, SDIRK3 and RK4 (CG)
+    against simulate() on the card, float64; returns btd_solve launches."""
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    cfg = PAR_SMALL
+    model = golden_beam(crt, mixed_types(cfg["n_el"]))
+    n = model.n_pos_states
+    x0 = np.zeros(2 * n)
+    x0[n - 2] = 2e-4
+    u = np.zeros(n)
+    u[n - 2] = 0.05
+    launches = {}
+    for method, kw in (("generalized_alpha_adaptive", dict(rho_inf=0.9)), ("sdirk3", {}),
+                       ("rk4", dict(substeps=2))):
+        adaptive = method != "rk4"
+        if adaptive:
+            kw = dict(kw, rtol=cfg["rtol"], atol=cfg["atol"])
+        args = (model, x0, cfg["t_final"], cfg["dt"])
+        res, counts = counted(kb, lambda: tpar.simulate_sharded(*args[:4], mesh, method=method,
+                                                                u=u, **kw))
+        ref = crt.simulate(*args, method=method, u=u, device=dev, **kw)
+        err = scaled_err((res.ys,), (ref.ys,))
+        line = f"phase 35 simulate_sharded {method} [{card}]: max err / scale {err:.3e}"
+        if adaptive:
+            same = [int(getattr(res.stats, k)) == int(getattr(ref.stats, k))
+                    for k in ("n_accepted", "n_rejected")]
+            line += (f"; accepted {int(res.stats.n_accepted)}/{int(ref.stats.n_accepted)}, "
+                     f"rejected {int(res.stats.n_rejected)}/{int(ref.stats.n_rejected)}")
+            require(all(same), f"{method}: counts differ from simulate()")
+            launches[f"simulate_sharded:{method}"] = counts["btd_solve"]
+        else:
+            line += f"; CG cap hits {int(res.stats['cg_incomplete'])}"
+        print(line + f"; btd_solve launches {counts['btd_solve']}", flush=True)
+        require(err <= (PAR_ADAPTIVE_MAX if adaptive else PAR_RK4_MAX),
+                f"simulate_sharded {method} vs simulate {err:.3e}")
+        require(not adaptive or counts["btd_solve"] > 0,
+                f"{method}: the SPIKE thomas solves launched no btd_solve kernel")
+    return launches
+
+
+def phase_parallel_modal(crt, kr, dev, card, mesh) -> dict:
+    """Phase 36: the sharded modal engines on the 1000-element beam against
+    simulate(method="modal"); returns {kernel: launches} of the kernel engines."""
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    cfg = PAR_MODAL
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "linear"))
+    n = model.n_pos_states
+    rng = np.random.default_rng(36)
+    x0 = torch.zeros((cfg["envs"], 2 * n), dtype=torch.float32, device=dev)
+    x0[:, :n] = torch.tensor(rng.normal(scale=1e-6, size=(cfg["envs"], n)), device=dev)
+    u = np.zeros(n)
+    u[-2] = 0.1
+    dt_f = DT * cfg["substeps"]
+    kw = dict(method="modal", u=u, substeps=cfg["substeps"], rho_inf=RHO_INF)
+    out = {}
+    with memo_modal_engines():
+        for engine, kernel in (("xla", None), ("pallas", "modal_frames"),
+                               ("power", "affine_frames")):
+            res, counts = counted(kr, lambda: tpar.simulate_sharded(
+                model, x0, cfg["frames"] * dt_f, dt_f, mesh, engine=engine, **kw))
+            ref = crt.simulate(model, x0, cfg["frames"] * dt_f, dt_f, engine=engine,
+                               device=dev, **kw)
+            err = scaled_err((res.ys,), (ref.ys.movedim(1, 0),))
+            print(f"phase 36 simulate_sharded modal engine={engine} [{card}]: {N_ELEMENTS} "
+                  f"elements, {cfg['envs']} envs float32, {cfg['frames']} frames x "
+                  f"{cfg['substeps']}: vs simulate max err / scale {err:.3e} (limit "
+                  f"{PAR_MODAL_MAX}); launches {counts}", flush=True)
+            require(err <= PAR_MODAL_MAX and bool(torch.isfinite(res.ys).all()),
+                    f"sharded modal {engine} vs simulate {err:.3e}")
+            if kernel is None:
+                require(not any(counts.values()), f"sharded modal xla: launches {counts}")
+            else:
+                expect_launches(counts, (kernel,), 1, f"simulate_sharded modal {engine}")
+                out[kernel] = counts[kernel]
+    return out
+
+
+def phase_parallel_rom(crt, dev, card, mesh) -> None:
+    """Phase 37: the sharded ROM, fixed-step, adaptive, forced and guarded,
+    against simulate()/the single-device engine on the card (float64)."""
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    cfg = PAR_SMALL
+    fp = dict(enable_gravity_effects=True, gravity_vector=[0.0, -9.81, 0.0],
+              enable_fluid_effects=True, fluid_density=1000.0)
+    types = mixed_types(cfg["n_el"])
+    for label, model in (("plain", golden_beam(crt, types)),
+                         ("forced", golden_beam(crt, types, fp))):
+        n = model.n_pos_states
+        x0 = np.zeros((3, 2 * n))
+        x0[:, n - 2] = [1e-4, 2e-4, -1e-4]
+        u = np.zeros(n)
+        u[n - 2] = 0.05
+        for method, kw in (("modal_rom", dict(substeps=4, n_newton=2)),
+                           ("modal_rom_adaptive", dict(rtol=cfg["rtol"], atol=1e-12))):
+            xs = x0 if method == "modal_rom" else x0[0]
+            res = tpar.simulate_sharded(model, xs, cfg["t_final"], cfg["dt"], mesh,
+                                        method=method, u=u, **kw)
+            ref = crt.simulate(model, xs, cfg["t_final"], cfg["dt"], method=method, u=u,
+                               device=dev, **kw)
+            ys_ref = ref.ys.movedim(1, 0) if ref.ys.dim() == 3 else ref.ys
+            err = scaled_err((res.ys,), (ys_ref,))
+            line = (f"phase 37 sharded ROM {label} {method} [{card}]: max err / scale "
+                    f"{err:.3e} (limit {PAR_ROM_MAX})")
+            if res.stats is not None:
+                line += (f"; accepted {int(res.stats.n_accepted)}/"
+                         f"{int(ref.stats.n_accepted)}")
+                require(int(res.stats.n_accepted) == int(ref.stats.n_accepted)
+                        and int(res.stats.n_rejected) == int(ref.stats.n_rejected),
+                        f"sharded {method}: counts differ")
+            print(line, flush=True)
+            require(err <= PAR_ROM_MAX, f"sharded ROM {label} {method} {err:.3e}")
+
+    # ECSW guard: the sharded audit against the single-device one.
+    model = golden_beam(crt, ["nonlinear"] * 22)
+    eng = tpar.build_spatial_modal_rom(model, mesh, DT, rho_inf=0.5, n_modes=16)
+    n = model.n_pos_states
+    u = np.zeros(n)
+    u[-2] = 3.0
+    u_m = eng.ms.project_force_host(u)
+    z = torch.zeros((1, 16), dtype=torch.float64, device=dev)
+    snaps = eng.ms.rollout_frames(z, z, u_m, 20, substeps=10, n_newton=2)[1][::2, 0]
+    red = eng.hyper_reduce(snaps.cpu().numpy(), tau=1e-3)
+    e0, z1 = snaps[-1], torch.zeros(16, dtype=torch.float64, device=dev)
+    g = red.rollout_frames_guarded(e0, z1, u_m, 4, substeps=5)
+    g1 = red.ms.rollout_frames_guarded(e0, z1, u_m, 4, substeps=5)
+    err = scaled_err((g[1],), (g1[1],))
+    res_err = abs(float(g[3]["max_residual"]) - float(g1[3]["max_residual"])) / float(
+        g1[3]["max_residual"])
+    print(f"phase 37 sharded ECSW guard [{card}]: {red.ms.sampled_params['sel'].size} sampled "
+          f"of 22; guarded frames vs single device {err:.3e}, max residual "
+          f"{float(g[3]['max_residual']):.3e} (rel diff {res_err:.3e}), flagged "
+          f"{bool(g[3]['flagged'])}", flush=True)
+    require(err <= PAR_ROM_MAX and res_err <= 1e-8 and not bool(g[3]["flagged"]),
+            f"sharded ECSW guard: {err:.3e}, {res_err:.3e}")
+
+
+def mixed_types(n: int) -> list:
+    """Half linear, half von Karman elements (the tests' hybrid beam)."""
+    return ["linear"] * (n // 2) + ["nonlinear"] * (n - n // 2)
+
+
+def phase_parallel_batched(crt, kb, dev, card, mesh) -> dict:
+    """Phase 38: batched_rollout(mesh=) against the one-device call, and
+    dryrun_multichip(1); returns btd_solve launches of the mesh rollout."""
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    cfg = PAR_BATCH
+    model = golden_beam(crt, ["linear"] * 6)
+    n = model.n_pos_states
+    x0 = torch.zeros((cfg["envs"], 2 * n), dtype=torch.float64, device=dev)
+    x0[:, n - 2] = torch.linspace(1e-4, 2e-3, cfg["envs"], dtype=torch.float64)
+    dt_f = 1e-4 * cfg["substeps"]
+    kw = dict(method="generalized_alpha", substeps=cfg["substeps"], linear_solver="pallas")
+    res, counts = counted(kb, lambda: tpar.batched_rollout(
+        model, x0, cfg["frames"] * dt_f, dt_f, mesh=mesh, **kw))
+    ref = tpar.batched_rollout(model, x0, cfg["frames"] * dt_f, dt_f, **kw)
+    full = res.ys.full_tensor()
+    st, st1 = tpar.sweep_statistics(res.ys), tpar.sweep_statistics(ref.ys)
+    same = bool(torch.equal(full, ref.ys)) and all(
+        float(st[k]) == float(st1[k]) for k in st)
+    print(f"phase 38 batched_rollout(mesh=) [{card}]: {cfg['envs']} envs, placements "
+          f"{res.ys.placements}, bit for bit the one-device rollout and its statistics: "
+          f"{same}; btd_solve launches {counts['btd_solve']}", flush=True)
+    require(same, "batched_rollout(mesh=) differs from the one-device rollout")
+    t0 = time.perf_counter()
+    summary = tpar.dryrun_multichip(1, timeout=240.0)
+    print(f"phase 38 dryrun_multichip(1) (one spawned gloo CPU rank): {summary}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"batched_rollout:mesh": counts["btd_solve"]}
+
+
+def parallel_paths(crt, kb, kr, dev, card) -> tuple:
+    """Phases 33-38; returns (btd_solve launches by path, modal kernels'
+    launches, SPIKE ms a step by local solver)."""
+    import torch.distributed as dist
+
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    t0 = time.perf_counter()
+    backend = tpar.init_process_group(dev)
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version()) if dev.type == "cuda" else "-"
+    mesh = tpar.make_mesh({"dp": 1, "sp": 1}, device=dev)
+    print(f"phase 33 process group: backend {backend}, NCCL {nccl}, world "
+          f"{dist.get_world_size()}, FileStore, mesh {tuple(mesh.mesh_dim_names)} "
+          f"{tuple(mesh.mesh.shape)}", flush=True)
+    require(backend == ("nccl" if dev.type == "cuda" else "gloo"), f"backend {backend}")
+    try:
+        btd, step_ms = phase_spike(crt, kb, dev, card, mesh)
+        btd.update(phase_parallel_small(crt, kb, dev, card, mesh))
+        modal = phase_parallel_modal(crt, kr, dev, card, mesh)
+        phase_parallel_rom(crt, dev, card, mesh)
+        btd.update(phase_parallel_batched(crt, kb, dev, card, mesh))
+    finally:
+        dist.destroy_process_group()
+    print(f"phases 33-38: {time.perf_counter() - t0:.1f} s", flush=True)
+    return btd, modal, step_ms
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3359,6 +3707,14 @@ def main() -> int:
         return 0
     if "--control" in args:
         control_paths(crt, dev, card, (kr, rk, kb, kf))
+        return 0
+    if "--parallel" in args:
+        t0 = time.time()
+        _build.build_all()
+        print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
+        btd, modal, step_ms = parallel_paths(crt, kb, kr, dev, card)
+        print(f"parallel launches by path: btd_solve {btd}, {modal}; SPIKE ms a step "
+              f"{step_ms}; total {time.time() - t_start:.1f} s", flush=True)
         return 0
     if "--rom-tier" in args:
         t0 = time.time()
@@ -3409,6 +3765,13 @@ def main() -> int:
     tier = rom_tier_paths(crt, rk, dev, card, (kr, rk, kb, kf), rom_main)
     for name in rom_records:
         records[name]["launches_by_path"].update({p: c[name] for p, c in tier.items()})
+    print(f"ROM tier done; {time.time() - t_start:.1f} s so far", flush=True)
+    btd, modal, _ = parallel_paths(crt, kb, kr, dev, card)
+    records["btd_solve"]["launches_by_path"].update(btd)
+    records["modal_frames"]["launches_by_path"]["simulate_sharded:pallas"] = modal[
+        "modal_frames"]
+    records["affine_frames"]["launches_by_path"]["simulate_sharded:power"] = modal[
+        "affine_frames"]
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

@@ -1,12 +1,14 @@
-"""Batched rollouts on one device.
+"""Batched and mesh-sharded rollouts.
 
-Counterpart of the single-device half of
-``continuum_robot_tpu/parallel/rollout.py``. Thousands of independent
-environments are one leading batch axis: the port's engines step a
-``(B, 2n)`` batch of states directly, so :func:`build_rollout_fn` returns a
-closure over that batch and :func:`batched_rollout` calls it once, with no
-``vmap``. Sharding the environment axis over a device mesh (``mesh=``) is
-the parallel layer, not ported yet.
+Counterpart of ``continuum_robot_tpu/parallel/rollout.py``. Thousands of
+independent environments are one leading batch axis: the port's engines
+step a ``(B, 2n)`` batch of states directly, so :func:`build_rollout_fn`
+returns a closure over that batch and :func:`batched_rollout` calls it
+once, with no ``vmap``. With a device mesh (``mesh=``) the environment axis
+is split over the mesh axis ``batch_axis``: each rank runs its block (no
+communication; environments are independent) and ``ys`` comes back as a
+DTensor sharded on the environment axis, so reductions such as
+:func:`sweep_statistics` are global.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..models.simulate import (
     PiecewiseConstant,
@@ -139,18 +142,23 @@ def build_rollout_fn(
 def batched_rollout(model, x0_batch, t_final: float, dt: float, mesh=None,
                     batch_axis: str = "dp", device=None, dtype: torch.dtype = None,
                     **kwargs) -> SimulationResult:
-    """Run a batch of rollouts on one device.
+    """Run a batch of rollouts, optionally split over a device mesh.
 
     ``x0_batch``: ``(n_envs, 2*n_free)``, a tensor (kept on its device
     unless ``device`` is given) or a NumPy array (put on ``device``, by
     default the card); ``dtype`` defaults to its own. ``kwargs`` go to
     :func:`build_rollout_fn`. Returns ``ys`` as ``(frames, envs, state)``.
-    A device ``mesh`` (and its ``batch_axis``) belongs to the parallel
-    layer, not ported yet: a mesh raises ``NotImplementedError``.
+
+    ``mesh`` (a ``DeviceMesh``, :func:`make_mesh`; every rank calls with the
+    same inputs): the environments are split over ``batch_axis`` in
+    DTensor ``Shard`` chunks, each rank runs its chunk on the mesh's device
+    and ``ys`` stays sharded: a DTensor of global shape ``(frames, envs,
+    state)`` placed ``Shard(1)`` on ``batch_axis`` (replicated over the
+    mesh's other axes).
     """
-    del batch_axis
     if mesh is not None:
-        raise NotImplementedError("sharded batched rollouts (mesh=) are not yet ported")
+        return _batched_rollout_mesh(model, x0_batch, t_final, dt, mesh, batch_axis,
+                                     dtype, kwargs)
     if isinstance(x0_batch, torch.Tensor):
         x0 = x0_batch if device is None else x0_batch.to(device)
     else:
@@ -163,18 +171,47 @@ def batched_rollout(model, x0_batch, t_final: float, dt: float, mesh=None,
     return SimulationResult(ts=ts, ys=ys)
 
 
-def sweep_statistics(ys: torch.Tensor) -> dict:
+def _batched_rollout_mesh(model, x0_batch, t_final, dt, mesh, batch_axis, dtype, kwargs):
+    from .collectives import MeshAxis, env_chunk
+    from .mesh import mesh_device
+
+    ax = MeshAxis(mesh, batch_axis)
+    dev = mesh_device(mesh)
+    x0 = (x0_batch.to(dev) if isinstance(x0_batch, torch.Tensor)
+          else torch.as_tensor(np.asarray(x0_batch), device=dev))
+    if dtype is not None:
+        x0 = x0.to(dtype)
+    n = x0.shape[0]
+    c = env_chunk(n, ax)
+    lo = min(ax.index * c, n)
+    hi = min(lo + c, n)
+    rollout = build_rollout_fn(model, t_final, dt, device=dev, dtype=x0.dtype, **kwargs)
+    # A rank past the last environment runs a copy of it for the frame times.
+    ts, ys = rollout(x0[lo:hi] if hi > lo else x0[-1:])
+    ys = ys[:, : hi - lo]
+    place = [Shard(1) if name == batch_axis else Replicate() for name in mesh.mesh_dim_names]
+    shape = torch.Size((ys.shape[0], n) + tuple(ys.shape[2:]))
+    ys = DTensor.from_local(ys, mesh, place, run_check=False, shape=shape,
+                            stride=torch.empty(shape, device="meta").stride())
+    return SimulationResult(ts=ts, ys=ys)
+
+
+def sweep_statistics(ys) -> dict:
     """Cross-env summary statistics of a sweep, as 0-d tensors.
 
     ``ys`` layout is ``[..., q; v]``: the tip transverse displacement is
     position index ``n-2`` (the last free node's w), NOT ``-2`` (which would
-    be the tip *velocity*).
+    be the tip *velocity*). A DTensor ``ys`` (:func:`batched_rollout` with
+    a mesh) gives the global statistics, the same on every rank.
     """
     n = ys.shape[-1] // 2
     tip = ys[..., n - 2]
-    return {
+    out = {
         "tip_abs_max": tip.abs().max(),
         "tip_mean_final": tip[-1].mean(),
         "tip_vel_abs_max": ys[..., -2].abs().max(),
         "state_rms": torch.sqrt(torch.mean(ys**2)),
     }
+    if isinstance(ys, DTensor):
+        out = {k: v.full_tensor() for k, v in out.items()}
+    return out

@@ -150,5 +150,16 @@ def test_batched_rollout_equals_simulate_and_contracts():
     assert torch.equal(res.ys, sim.ys)
     with pytest.raises(NotImplementedError, match="sdirk3"):
         tpar.batched_rollout(tb, x0, 0.002, 1e-3, method="sdirk3", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpar.batched_rollout(tb, x0, 0.002, 1e-3, mesh=object(), method="modal")
+    # A one-rank gloo dp mesh: the envs' block is the whole batch, ys a
+    # DTensor equal to simulate()'s.
+    import torch.distributed as dist
+
+    tpar.init_process_group("cpu")
+    try:
+        mesh = tpar.make_mesh({"dp": 1}, device="cpu")
+        res_m = tpar.batched_rollout(tb, x0, 0.002, 1e-3, mesh=mesh, **kw)
+        assert torch.equal(res_m.ys.full_tensor(), sim.ys)
+        stats = tpar.sweep_statistics(res_m.ys)
+        assert float(stats["tip_abs_max"]) == float(tpar.sweep_statistics(sim.ys)["tip_abs_max"])
+    finally:
+        dist.destroy_process_group()

@@ -186,7 +186,7 @@ def test_entry_points_default_to_the_card(beams, monkeypatch, entry):
     assert ts.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_parts_raise(beams, tmp_path):
+def test_rom_tier_parts_run(beams, tmp_path):
     """The parts of the ROM tier that raised before they were ported now
     build and run (tests/test_torch_rom_forces.py, _adaptive.py and
     _basis.py hold them to the JAX package)."""
