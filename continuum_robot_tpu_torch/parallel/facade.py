@@ -7,12 +7,12 @@ axis: reduced ``[q; v]`` in, :class:`SimulationResult` out (the same on
 every rank), fluid drag and gravity wired from the model's
 :class:`ForceParams`. A workload moves from one device to a mesh by adding
 ``mesh=``, without the node-layout plumbing (``make_spatial_beam``,
-``reduced_to_node_layout``, the per-engine builders) underneath.
+``reduced_to_node_layout``, the per-engine ``build_spatial_*`` functions) underneath.
 
 Every method of ``simulate()`` with a sharded engine is dispatched here:
 the node-layout engines (rk4, gen-α, adaptive gen-α, SDIRK3) and the modal
 tier (modal, modal_rom, modal_rom_adaptive, :func:`_simulate_sharded_modal`).
-The ECSW workflows keep the builder API (``build_spatial_modal_rom``).
+The ECSW workflows keep the engine API (``build_spatial_modal_rom``).
 """
 
 from __future__ import annotations
@@ -245,7 +245,7 @@ def simulate_sharded(
     if callable(u):
         raise ValueError(
             "simulate_sharded takes a constant reduced force vector; "
-            "for time-varying inputs use the per-engine builders"
+            "for time-varying inputs use the per-engine rollouts (build_spatial_*)"
         )
     u_node = None if u is None else _node_force(model, u, beam.n_nodes, x0)
     n_frames = int(round(t_final / dt))
@@ -275,13 +275,13 @@ def simulate_sharded(
         )
         ts, xs = roll(xn, n_frames, u=u_node, substeps=substeps)
     else:
-        builder = (build_spatial_genalpha_adaptive if method == "generalized_alpha_adaptive"
+        build = (build_spatial_genalpha_adaptive if method == "generalized_alpha_adaptive"
                    else build_spatial_sdirk3)
         kw = dict(n_newton=2 if n_newton is None else n_newton, local_solver=local_solver,
                   **kw_forces)
         if method == "generalized_alpha_adaptive":
             kw["rho_inf"] = rho_inf
-        roll = builder(beam, **kw)
+        roll = build(beam, **kw)
         t_eval = np.linspace(0.0, t_final, n_frames + 1)
         if chunk is None:
             xs, stats = roll(xn, t_eval, u=u_node, rtol=rtol, atol=atol)
@@ -291,7 +291,7 @@ def simulate_sharded(
         ts = torch.as_tensor(t_eval, dtype=torch.float64, device=x0.device)
 
     ys = _node_frames_to_reduced(model, xs)
-    if batched:  # the builders put frames first, envs second
+    if batched:  # the node-layout rollouts put frames first, envs second
         ys = ys.movedim(1, 0)
     return SimulationResult(ts=ts, ys=ys, stats=stats)
 
@@ -361,7 +361,7 @@ def _simulate_sharded_modal(
             "simulate_sharded takes a constant reduced force vector "
             "(engine='power' additionally accepts a PiecewiseConstant "
             "schedule, matching simulate()); for arbitrary time-varying "
-            "inputs use the per-engine builders"
+            "inputs use the per-engine rollouts (build_spatial_*)"
         )
 
     h = dt / substeps

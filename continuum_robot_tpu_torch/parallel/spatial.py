@@ -332,7 +332,7 @@ def _local_params(beam: SpatialBeam, like: torch.Tensor):
 
 
 class _Consts:
-    """Per-(device, dtype) memo of a builder's local constants."""
+    """Per-(device, dtype) memo of an engine's local constants."""
 
     def __init__(self, build):
         self._build = build

@@ -22,7 +22,7 @@ as one matrix product). The default is ``"thomas"`` on the CPU and
 :data:`CARD_LOCAL_SOLVER` on the card.
 
 Every rank runs the same program on its node block, environments on
-leading axes (split over ``dp``); the builders' rollouts take and return
+leading axes (split over ``dp``); the engines' rollouts take and return
 global node-layout arrays. Adaptive rollouts of a batch control each
 environment's step (``per_env`` of ``integrators.adaptive_drive``, the
 JAX package's ``vmap``); their error norms are ``psum``-contracted, so
@@ -260,12 +260,12 @@ def _spike_apply(cols, vec):
 
 
 # ---------------------------------------------------------------------------
-# The shared setup of the three builders
+# The shared setup of the three implicit engines
 # ---------------------------------------------------------------------------
 
 
-def _builder_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
-    """Host constants of the implicit builders and a memo of their local
+def _implicit_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
+    """Host constants of the implicit engines and a memo of their local
     tensors per device and dtype.
 
     Shard-aligned mass bands without BC masking (masking is applied on the
@@ -273,7 +273,7 @@ def _builder_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
     masks (shard k's rows are the free masks of its neighbours' interface
     nodes; the ring's seams get zeros, which zero the wraparound couplings
     exactly), the drag factors and gravity masses. The zero-state tangent
-    (the modified Newton of every builder) is environment-independent, so
+    (the modified Newton of every engine) is environment-independent, so
     its blocks are computed once per device and dtype.
     """
     S, Np = beam.n_shards, beam.n_nodes
@@ -311,7 +311,7 @@ def _builder_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
 
 
 class _Forces:
-    """The force terms every implicit builder shares, on one shard."""
+    """The force terms every implicit engine shares, on one shard."""
 
     def __init__(self, c, sp, setup, node_force, use_consistent):
         self.c, self.sp, self.s = c, sp, setup
@@ -477,7 +477,7 @@ def build_spatial_genalpha(
     am, af, beta, gamma = coeffs
     c_jac = (1.0 - af) * beta * dt * dt
     a_jac = 1.0 - am
-    setup = _builder_setup(beam, fluid_density, gravity, use_consistent)
+    setup = _implicit_setup(beam, fluid_density, gravity, use_consistent)
     has_nf = node_force is not None
     if local_solver is not None:
         resolve_local_solver(local_solver, "cpu")
@@ -599,7 +599,7 @@ def build_spatial_genalpha_adaptive(
     am, af, beta, gamma = coeffs
     a_jac = 1.0 - am
     zx_coeff = abs(float(beta - 1.0 / 6.0))
-    setup = _builder_setup(beam, fluid_density, gravity, use_consistent)
+    setup = _implicit_setup(beam, fluid_density, gravity, use_consistent)
     has_nf = node_force is not None
     if local_solver is not None:
         resolve_local_solver(local_solver, "cpu")
@@ -679,12 +679,12 @@ def build_spatial_sdirk3(
 
     Returns ``rollout(x0, t_eval, u=None, rtol=1e-6, atol=1e-9, dt0=None,
     arrays=None) -> (xs, AdaptiveStats)`` with the contracts of the adaptive
-    gen-α builder. The trial state is ``(q, v)``: restarting from a frame
+    gen-α engine. The trial state is ``(q, v)``: restarting from a frame
     with ``dt0=stats.dt_next`` continues a span exactly.
     """
     G, A_, B_, BH, C_ = (integrators._SD_G, integrators._SD_A, integrators._SD_B,
                          integrators._SD_BHAT, integrators._SD_C)
-    setup = _builder_setup(beam, fluid_density, gravity, use_consistent)
+    setup = _implicit_setup(beam, fluid_density, gravity, use_consistent)
     has_fluid, has_gravity = setup["has_fluid"], setup["has_gravity"]
     has_nf = node_force is not None
     if local_solver is not None:

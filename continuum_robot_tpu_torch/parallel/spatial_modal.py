@@ -521,7 +521,7 @@ class SpatialModalROM(_SpatialModalBase):
 
 
 def _padded_layout(model, n_shards: int):
-    """Shared node/element padding and scatter geometry of both builders."""
+    """Shared node/element padding and scatter geometry of both engines."""
     bc_info = model.beam_model.bc_info
     arrays = model.beam_model.arrays
     padded, n_pad_nodes = pad_arrays_for_shards(arrays, n_shards)

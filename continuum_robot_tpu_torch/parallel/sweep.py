@@ -3,7 +3,7 @@
 The JAX package's ``continuum_robot_tpu/parallel/sweep.py`` is the
 differentiable-parameter path (``jax.grad`` through batched
 ``BeamArrays``). It comes in the next slice of the port, together with the
-traced ``arrays=`` of the sharded builders and
+traced ``arrays=`` of the sharded engines and
 ``integrate_generalized_alpha(remat=True)``; until then every entry point
 here raises ``NotImplementedError``.
 """

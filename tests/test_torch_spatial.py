@@ -137,7 +137,7 @@ def _specs():
     u_node = _node(free, Np, np.r_[u_red, np.zeros(n)])[0]
     specs["ga_forces"] = dict(case="genalpha_case", mesh=SP4, csv=csv,
                               x_node=_node(free, Np, x_red), u_node=u_node, dt=1e-4,
-                              n_frames=3, substeps=2, with_nf=True, builder_kw=FORCES)
+                              n_frames=3, substeps=2, with_nf=True, engine_kw=FORCES)
 
     csv = helpers.linear_csv(14)
     free = free_of(csv)
@@ -150,7 +150,7 @@ def _specs():
     for eng, kw in (("genalpha", dict(rho_inf=0.9, n_newton=2)), ("sdirk3", dict(n_newton=2))):
         specs[f"ad_{eng}"] = dict(case="adaptive_case", mesh=SP4, csv=csv,
                                   x_node=np.zeros((2, Np, 3)), u_node=u_node, t_eval=t_eval,
-                                  engine=eng, builder_kw=kw)
+                                  engine=eng, engine_kw=kw)
     meta["ad"] = dict(u_red=u_red, t_eval=t_eval)
     # Two environments of very different energy: per-environment step control.
     Np2 = n_pad(14, 2)
@@ -161,7 +161,7 @@ def _specs():
     specs["ad_batched"] = dict(case="adaptive_case", mesh=DPSP, csv=csv,
                                x_node=_node(free, Np2, xb), u_node=None,
                                t_eval=np.linspace(0.0, 5e-4, 3), engine="genalpha",
-                               builder_kw=dict(rho_inf=0.9), rtol=1e-4, atol=1e-10)
+                               engine_kw=dict(rho_inf=0.9), rtol=1e-4, atol=1e-10)
     # SDIRK3 with drag, gravity and a nodewise force on a hybrid beam.
     csv = helpers.mixed_csv(14)
     free = free_of(csv)
@@ -172,7 +172,7 @@ def _specs():
                               x_node=_node(free, Np, x_red),
                               u_node=_node(free, Np, np.r_[u_red, np.zeros(n)])[0],
                               t_eval=np.linspace(0.0, 6e-4, 3), engine="sdirk3",
-                              builder_kw=dict(n_newton=2, **FORCES), with_nf=True)
+                              engine_kw=dict(n_newton=2, **FORCES), with_nf=True)
 
     csv = helpers.write_beam_csv(["linear"] * 240)
     n = len(free_of(csv))
@@ -264,7 +264,7 @@ def _jax_rk4(spec):
 def _jax_genalpha(spec):
     jax, jnp, _, jpar = _jax()
     _, _, beam = _jax_beam(spec["csv"], spec["mesh"])
-    kw = dict(spec.get("builder_kw") or {})
+    kw = dict(spec.get("engine_kw") or {})
     if spec.get("with_nf"):
         kw["node_force"] = _jax_node_force()
     roll = jpar.build_spatial_genalpha(beam, spec["dt"], rho_inf=0.8, n_newton=2, **kw)
@@ -276,7 +276,7 @@ def _jax_genalpha(spec):
 def _jax_adaptive(spec):
     jax, jnp, _, jpar = _jax()
     _, _, beam = _jax_beam(spec["csv"], spec["mesh"])
-    kw = dict(spec["builder_kw"])
+    kw = dict(spec["engine_kw"])
     if spec.get("with_nf"):
         kw["node_force"] = _jax_node_force()
     build = (jpar.build_spatial_genalpha_adaptive if spec["engine"] == "genalpha"

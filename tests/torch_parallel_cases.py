@@ -155,7 +155,7 @@ def spatial_rollout_case(mesh, csv, x0, kw, **_):
 
 
 # ---------------------------------------------------------------------------
-# SPIKE and the implicit builders
+# SPIKE and the implicit engines
 # ---------------------------------------------------------------------------
 
 
@@ -186,10 +186,10 @@ def spike_case(mesh, csv, r, **_):
 
 
 def genalpha_case(mesh, csv, x_node, u_node, dt, n_frames, substeps, n_newton=2,
-                  forces=None, builder_kw=None, with_nf=False, chunk_at=None, **_):
+                  forces=None, engine_kw=None, with_nf=False, chunk_at=None, **_):
     model = port_model(csv, forces)
     beam = spatial_beam(model, mesh)
-    kw = dict(builder_kw or {})
+    kw = dict(engine_kw or {})
     if with_nf:
         kw["node_force"] = node_force
     roll = tpar.build_spatial_genalpha(beam, dt, rho_inf=0.8, n_newton=n_newton, **kw)
@@ -209,10 +209,10 @@ def genalpha_case(mesh, csv, x_node, u_node, dt, n_frames, substeps, n_newton=2,
 
 
 def adaptive_case(mesh, csv, x_node, u_node, t_eval, engine, forces=None,
-                  builder_kw=None, with_nf=False, rtol=1e-6, atol=1e-9, **_):
+                  engine_kw=None, with_nf=False, rtol=1e-6, atol=1e-9, **_):
     model = port_model(csv, forces)
     beam = spatial_beam(model, mesh)
-    kw = dict(builder_kw or {})
+    kw = dict(engine_kw or {})
     if with_nf:
         kw["node_force"] = node_force
     build = (tpar.build_spatial_genalpha_adaptive if engine == "genalpha"
