@@ -3335,12 +3335,16 @@ def rom_tier_paths(crt, rk, dev, card, kmods, main=None) -> dict:
 # implicit gen-alpha over the same span.
 SPIKE = dict(envs=4096, frames=3, substeps=100, rho_inf=0.8, n_newton=1, time_steps=50,
              f64_envs=16, f64_steps=40)
-# float32 SPIKE span against the single-device float32 span, q and v each by
-# norm; both carry float32 roundoff amplified by the effective Jacobian's
-# conditioning (the float32 implicit main path reads ~9.4e-3 in v against
-# float64 over 2000 steps, phase 14): the bound of phase 14's f32 check.
-SPIKE_F32_MAX = IMP_F32_MAX
-SPIKE_F64_MAX = 1e-9  # float64 SPIKE vs float64 single device, x state scale
+# float32 spans of the same recurrence in another order of operations, q and
+# v each by norm: the SPIKE thomas span against the single-device span, and
+# the plain cr and dense local solvers against thomas. On the H100 they read
+# 9.6e-5 / 2.7e-4 (thomas vs single device) and 6.0e-5 / 2.9e-4 (cr),
+# 5.7e-5 / 3.1e-4 (dense) over 300 steps.
+SPIKE_F32_MAX = 1e-3
+# float64: the SPIKE spans (thomas through the btd_solve kernel, cr and
+# dense plain) against the plain single-device implicit gen-alpha
+# (linear_solver="cr"), x state scale.
+SPIKE_F64_MAX = 1e-9
 PAR_SMALL = dict(n_el=14, t_final=4e-4, dt=1e-4, rtol=1e-6, atol=1e-9)
 PAR_ADAPTIVE_MAX = 1e-9  # adaptive methods, equal counts, x state scale (float64)
 PAR_RK4_MAX = 1e-6  # RK4 through the CG mass solve (cg_tol 1e-8), the JAX test's bound
@@ -3435,18 +3439,23 @@ def phase_spike(crt, kb, dev, card, mesh) -> dict:
             f"SPIKE local solvers disagree: {others}")
     expect_launches(counts, ("btd_solve",), want, "SPIKE thomas span")
 
-    # float64 at a small batch: the same recurrence as the single device.
+    # float64 at a small batch: each local solver's span against the plain
+    # single-device implicit gen-alpha (block cyclic reduction, no kernel).
     cfg64 = cfg["f64_envs"], cfg["f64_steps"]
     x64, _, xn64, u64 = spike_inputs(model, beam, cfg64[0], torch.float64, dev)
-    ys64 = facade._node_frames_to_reduced(
-        model, rolls["thomas"](xn64, 1, u=u64, substeps=cfg64[1])[1])
     ref64 = crt.simulate(model, x64, cfg64[1] * h, cfg64[1] * h, method="generalized_alpha",
-                         u=u_red, substeps=cfg64[1], linear_solver="pallas", device=dev,
+                         u=u_red, substeps=cfg64[1], linear_solver="cr", device=dev,
                          **kw).ys
-    err64 = scaled_err((ys64[..., :n], ys64[..., n:]), (ref64[..., :n], ref64[..., n:]))
+    err64 = {}
+    for s, roll in rolls.items():
+        ys64 = facade._node_frames_to_reduced(model, roll(xn64, 1, u=u64,
+                                                          substeps=cfg64[1])[1])
+        err64[s] = scaled_err((ys64[..., :n], ys64[..., n:]), (ref64[..., :n], ref64[..., n:]))
     print(f"phase 34 SPIKE float64 [{card}]: {cfg64[0]} envs x {cfg64[1]} steps vs the "
-          f"single device: max err / scale {err64:.3e} (limit {SPIKE_F64_MAX})", flush=True)
-    require(err64 <= SPIKE_F64_MAX, f"SPIKE float64 vs single device {err64:.3e}")
+          f"plain single-device span (linear_solver='cr'): max err / scale "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in err64.items())} (limit {SPIKE_F64_MAX})",
+          flush=True)
+    require(max(err64.values()) <= SPIKE_F64_MAX, f"SPIKE float64 vs single device {err64}")
 
     # ms a step of each local solver (CUDA events, best of 3 after a warm-up).
     T = cfg["time_steps"]
@@ -3463,11 +3472,11 @@ def phase_spike(crt, kb, dev, card, mesh) -> dict:
     best = min(step_ms, key=step_ms.get)
     print(f"phase 34 SPIKE timings [{card}]: ms a step ({cfg['envs']} envs, {T} steps, "
           f"float32): {', '.join(f'{k} {v:.4f}' for k, v in step_ms.items())}; fastest "
-          f"{best}; card default local_solver {si.CARD_LOCAL_SOLVER}; thomas span busy "
+          f"{best}; default local_solver {si.resolve_local_solver(None)}; thomas span busy "
           f"{busy:.3f} of {wall_ms:.3f} ms ({share:.3f}); {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    require(si.resolve_local_solver(None, dev) == si.CARD_LOCAL_SOLVER,
-            "the card's default local solver")
+    require(best == si.resolve_local_solver(None),
+            f"the default local solver is not the fastest on the card: {step_ms}")
     return {"spike:thomas": counts["btd_solve"]}, step_ms
 
 
@@ -3640,7 +3649,7 @@ def phase_parallel_batched(crt, kb, dev, card, mesh) -> dict:
     require(same, "batched_rollout(mesh=) differs from the one-device rollout")
     t0 = time.perf_counter()
     summary = tpar.dryrun_multichip(1, timeout=240.0)
-    print(f"phase 38 dryrun_multichip(1) (one spawned gloo CPU rank): {summary}; "
+    print(f"phase 38 dryrun_multichip(1) (one gloo CPU rank): {summary}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return {"batched_rollout:mesh": counts["btd_solve"]}
 
@@ -3654,20 +3663,20 @@ def parallel_paths(crt, kb, kr, dev, card) -> tuple:
 
     t0 = time.perf_counter()
     backend = tpar.init_process_group(dev)
-    nccl = ".".join(str(v) for v in torch.cuda.nccl.version()) if dev.type == "cuda" else "-"
-    mesh = tpar.make_mesh({"dp": 1, "sp": 1}, device=dev)
-    print(f"phase 33 process group: backend {backend}, NCCL {nccl}, world "
-          f"{dist.get_world_size()}, FileStore, mesh {tuple(mesh.mesh_dim_names)} "
-          f"{tuple(mesh.mesh.shape)}", flush=True)
-    require(backend == ("nccl" if dev.type == "cuda" else "gloo"), f"backend {backend}")
     try:
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version()) if dev.type == "cuda" else "-"
+        mesh = tpar.make_mesh({"dp": 1, "sp": 1}, device=dev)
+        print(f"phase 33 process group: backend {backend}, NCCL {nccl}, world "
+              f"{dist.get_world_size()}, FileStore, mesh {tuple(mesh.mesh_dim_names)} "
+              f"{tuple(mesh.mesh.shape)}", flush=True)
+        require(backend == ("nccl" if dev.type == "cuda" else "gloo"), f"backend {backend}")
         btd, step_ms = phase_spike(crt, kb, dev, card, mesh)
         btd.update(phase_parallel_small(crt, kb, dev, card, mesh))
         modal = phase_parallel_modal(crt, kr, dev, card, mesh)
         phase_parallel_rom(crt, dev, card, mesh)
         btd.update(phase_parallel_batched(crt, kb, dev, card, mesh))
     finally:
-        dist.destroy_process_group()
+        tpar.destroy_process_group()
     print(f"phases 33-38: {time.perf_counter() - t0:.1f} s", flush=True)
     return btd, modal, step_ms
 

@@ -7,7 +7,7 @@ Every rank of a ``torch.distributed`` world runs the same program
 entry points take and return global arrays, the same on every rank.
 """
 
-from .collectives import init_process_group, launch
+from .collectives import destroy_process_group, init_process_group, launch
 from .dryrun import dryrun_multichip
 from .facade import simulate_sharded
 from .mesh import batch_sharding, make_mesh, replicated
@@ -55,6 +55,7 @@ __all__ = [
     "build_spatial_modal_rom",
     "build_spatial_rhs",
     "build_spatial_sdirk3",
+    "destroy_process_group",
     "dryrun_multichip",
     "init_process_group",
     "launch",

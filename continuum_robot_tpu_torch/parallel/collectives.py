@@ -23,12 +23,15 @@ values only.
 
 :func:`init_process_group` opens the world on a ``FileStore`` (no TCP port
 to pick or collide on): NCCL for a CUDA device, gloo for the CPU, nothing
-else. :func:`launch` runs a function on N spawned CPU ranks and returns
-their results, killing every rank after a time limit.
+else; :func:`destroy_process_group` closes it. :func:`launch` runs a
+function on N CPU ranks (forked from a server process that has imported
+the package once) and returns their results, killing every rank after a
+time limit.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import multiprocessing
@@ -45,6 +48,10 @@ import torch.distributed as dist
 
 from ..models.simulate import resolve_device
 
+# The temporary directory of the store init_process_group made itself (a
+# world of size 1), removed by destroy_process_group.
+_own_store_dir = None
+
 
 def init_process_group(device=None, rank: int = 0, world_size: int = 1,
                        init_file: Optional[str] = None) -> str:
@@ -53,9 +60,11 @@ def init_process_group(device=None, rank: int = 0, world_size: int = 1,
     ``device`` (None: the card, :func:`resolve_device`) picks the backend:
     NCCL for CUDA (bound to that device), gloo for the CPU. The ranks meet on
     a ``FileStore`` at ``init_file``, by default a new file in a temporary
-    directory (enough for ``world_size=1``; N ranks must share one path). An
-    already open group is kept when its backend matches and raises when not.
+    directory (enough for ``world_size=1``; N ranks must share one path),
+    removed by :func:`destroy_process_group`. An already open group is kept
+    when its backend matches and raises when not.
     """
+    global _own_store_dir
     device = resolve_device(device)
     backends = {"cuda": "nccl", "cpu": "gloo"}
     if device.type not in backends:
@@ -71,7 +80,8 @@ def init_process_group(device=None, rank: int = 0, world_size: int = 1,
     if init_file is None:
         if world_size != 1:
             raise ValueError("ranks of a world larger than 1 must share init_file")
-        init_file = os.path.join(tempfile.mkdtemp(prefix="crt_store_"), "store")
+        _own_store_dir = tempfile.mkdtemp(prefix="crt_store_")
+        init_file = os.path.join(_own_store_dir, "store")
     store = dist.FileStore(init_file, world_size)
     kw = {}
     if device.type == "cuda":
@@ -79,6 +89,17 @@ def init_process_group(device=None, rank: int = 0, world_size: int = 1,
         kw["device_id"] = device
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size, **kw)
     return backend
+
+
+def destroy_process_group() -> None:
+    """Close the default process group (if open) and remove the store
+    directory that :func:`init_process_group` made for it."""
+    global _own_store_dir
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if _own_store_dir is not None:
+        shutil.rmtree(_own_store_dir, ignore_errors=True)
+        _own_store_dir = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -245,7 +266,7 @@ def gather_env_blocks(y: torch.Tensor, axis: MeshAxis, n: int, dim: int = 0) -> 
 
 
 # ---------------------------------------------------------------------------
-# Launcher: N spawned CPU ranks on a FileStore
+# Launcher: N CPU ranks on a FileStore
 # ---------------------------------------------------------------------------
 
 
@@ -266,24 +287,37 @@ def _to_host(obj):
     return obj
 
 
-def _rank_main(fn, rank, world_size, init_file, results, args, kwargs, threads):
+def _rank_main(fn, rank, world_size, init_file, results, args, kwargs):
     try:
-        torch.set_num_threads(threads)
+        torch.set_num_threads(1)
         init_process_group("cpu", rank=rank, world_size=world_size, init_file=init_file)
         out = _to_host(fn(*args, **kwargs))
         results.put((rank, True, out))
     except Exception:  # report the failure to the parent, then exit
         results.put((rank, False, traceback.format_exc()))
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        destroy_process_group()
+
+
+def _stop_servers() -> None:
+    """Stop and reap the fork server and the resource tracker that the
+    launcher's first world started, so that no process outlives this one."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
 
 
 class World:
-    """N spawned CPU ranks running one function (:func:`start`)."""
+    """N CPU ranks running one function (:func:`start`)."""
 
-    def __init__(self, fn, n_ranks, args, kwargs, timeout, threads):
-        ctx = multiprocessing.get_context("spawn")
+    def __init__(self, fn, n_ranks, args, kwargs, timeout):
+        ctx = multiprocessing.get_context("forkserver")
+        # The server imports these once; each rank is a fork of it.
+        ctx.set_forkserver_preload([__name__, "torch.distributed.tensor", "torch._dynamo",
+                                  fn.__module__])
+        atexit.unregister(_stop_servers)
+        atexit.register(_stop_servers)
         self._name = getattr(fn, "__name__", str(fn))
         self._n = n_ranks
         self._tmp = tempfile.mkdtemp(prefix="crt_launch_")
@@ -291,13 +325,17 @@ class World:
         self._procs = [
             ctx.Process(target=_rank_main, daemon=True,
                         args=(fn, r, n_ranks, os.path.join(self._tmp, "store"),
-                              self._results, args, kwargs, threads))
+                              self._results, args, kwargs))
             for r in range(n_ranks)
         ]
         self._deadline = time.monotonic() + timeout
         self._timeout = timeout
-        for p in self._procs:
-            p.start()
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self.kill()
+            raise
 
     def kill(self) -> None:
         """Stop every rank now (results are dropped)."""
@@ -350,24 +388,25 @@ class World:
         return out
 
 
-def start(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, threads: int = 1,
-          **kwargs) -> World:
-    """Start ``fn(*args, **kwargs)`` on ``n_ranks`` spawned CPU ranks (gloo)
-    and return at once; :meth:`World.result` collects (see :func:`launch`).
+def start(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, **kwargs) -> World:
+    """Start ``fn(*args, **kwargs)`` on ``n_ranks`` CPU ranks (gloo) and
+    return at once; :meth:`World.result` collects (see :func:`launch`).
     The time limit counts from the start."""
-    return World(fn, int(n_ranks), args, kwargs, timeout, threads)
+    return World(fn, int(n_ranks), args, kwargs, timeout)
 
 
-def launch(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, threads: int = 1,
-           **kwargs) -> list:
-    """Run ``fn(*args, **kwargs)`` on ``n_ranks`` spawned CPU ranks (gloo).
+def launch(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, **kwargs) -> list:
+    """Run ``fn(*args, **kwargs)`` on ``n_ranks`` CPU ranks (gloo).
 
-    Each rank opens the world on one ``FileStore`` in a temporary directory
-    before it calls ``fn``; ``fn`` must be importable by name (a module-level
-    function) and its module must not need JAX. Tensors in the results come
+    The ranks are forked from a ``multiprocessing`` fork server, a fresh
+    process that imports this package and ``fn``'s module once (so a
+    second world starts in a fraction of a second). Each rank runs on one
+    thread and opens the world on one ``FileStore`` in a temporary
+    directory before it calls ``fn``; ``fn`` must be importable by name (a
+    module-level function) and its module must not need JAX. Tensors in the results come
     back as NumPy arrays. Returns the results in rank order. A rank that
     raises or dies, or a world that has not finished after ``timeout``
     seconds, kills every rank and raises (``RuntimeError`` with the rank's
     traceback, ``TimeoutError``).
     """
-    return start(fn, n_ranks, *args, timeout=timeout, threads=threads, **kwargs).result()
+    return start(fn, n_ranks, *args, timeout=timeout, **kwargs).result()

@@ -186,8 +186,7 @@ def simulate_sharded(
             :class:`PiecewiseConstant`). Stepping is replicated either way.
         local_solver: the within-shard solve of the SPIKE methods,
             ``"thomas"`` | ``"cr"`` | ``"dense"``, all exact; None:
-            ``"thomas"`` on the CPU, ``spatial_implicit.CARD_LOCAL_SOLVER``
-            on the card.
+            ``"thomas"`` (the ``btd_solve`` kernel on the card).
         chunk: adaptive methods only — drive the span one call per ``chunk``
             output intervals, threading the controller's proposal and the
             full carry (bit for bit the one-call drive).

@@ -18,8 +18,11 @@ The local solve is ``"thomas"`` (block Thomas: on a CUDA tensor with
 factors shared by every environment the hand-written kernel
 ``ops/cuda/btd_solve``, otherwise the plain sweep of ``ops/banded``),
 ``"cr"`` (block cyclic reduction) or ``"dense"`` (the ``(3m, 3m)`` inverse
-as one matrix product). The default is ``"thomas"`` on the CPU and
-:data:`CARD_LOCAL_SOLVER` on the card.
+as one matrix product). The default is ``"thomas"`` (the JAX package's
+TPU default ``"dense"`` is a TPU workaround; on the H100 the kernel route
+is the fastest of the three at the full width of the sharded gen-alpha
+row, 1000 elements x 4096 envs float32, as chip_smoke.py's SPIKE phase
+measures and checks).
 
 Every rank runs the same program on its node block, environments on
 leading axes (split over ``dp``); the engines' rollouts take and return
@@ -63,10 +66,6 @@ from .spatial import (
 )
 
 LOCAL_SOLVERS = ("thomas", "cr", "dense")
-# The within-shard solve the card takes by default: measured at the full
-# width of the sharded gen-alpha row (1000 elements, 4096 envs, float32) by
-# chip_smoke.py's SPIKE phase, each local solver timed in one call.
-CARD_LOCAL_SOLVER = "thomas"
 
 NEXT_SLICE = (
     "the differentiable-parameter path (traced arrays=, parallel/sweep.py, "
@@ -152,11 +151,10 @@ def _spike_local_solve(prep, rhs):
     return out.reshape(rhs.shape)
 
 
-def resolve_local_solver(local_solver, device) -> str:
-    """The within-shard solve: ``local_solver``, or by default ``"thomas"``
-    on the CPU and :data:`CARD_LOCAL_SOLVER` on the card."""
+def resolve_local_solver(local_solver) -> str:
+    """The within-shard solve: ``local_solver``, by default ``"thomas"``."""
     if local_solver is None:
-        return CARD_LOCAL_SOLVER if torch.device(device).type == "cuda" else "thomas"
+        return "thomas"
     if local_solver not in LOCAL_SOLVERS:
         raise ValueError(
             f"local_solver must be 'thomas', 'cr' or 'dense', got {local_solver!r}"
@@ -479,14 +477,12 @@ def build_spatial_genalpha(
     a_jac = 1.0 - am
     setup = _implicit_setup(beam, fluid_density, gravity, use_consistent)
     has_nf = node_force is not None
-    if local_solver is not None:
-        resolve_local_solver(local_solver, "cpu")
+    solver = resolve_local_solver(local_solver)
     preps = {}
 
     def prepared(like, forces):
         key = (like.device, like.dtype)
         if key not in preps:
-            solver = resolve_local_solver(local_solver, like.device)
             c = forces.c
             preps[key] = (forces.prep(a_jac, c_jac, solver),
                           spike_prepare(c["md_bc"], c["ml_bc"], c["mu_bc"], beam.sp, solver))
@@ -601,15 +597,13 @@ def build_spatial_genalpha_adaptive(
     zx_coeff = abs(float(beta - 1.0 / 6.0))
     setup = _implicit_setup(beam, fluid_density, gravity, use_consistent)
     has_nf = node_force is not None
-    if local_solver is not None:
-        resolve_local_solver(local_solver, "cpu")
+    solver = resolve_local_solver(local_solver)
 
     def rollout(x0, t_eval, u=None, rtol: float = 1e-6, atol: float = 1e-9,
                 dt0: float = None, arrays=None, return_carry: bool = False):
         if arrays is not None:
             raise NotImplementedError(NEXT_SLICE)
         x0, n_env, x, t_eval_np, dt0, per_env = _adaptive_inputs(beam, x0, t_eval, dt0)
-        solver = resolve_local_solver(local_solver, x0.device)
         sp = beam.sp
         c = setup["consts"](x0)
         F = _Forces(c, sp, setup, node_force, use_consistent)
@@ -687,15 +681,13 @@ def build_spatial_sdirk3(
     setup = _implicit_setup(beam, fluid_density, gravity, use_consistent)
     has_fluid, has_gravity = setup["has_fluid"], setup["has_gravity"]
     has_nf = node_force is not None
-    if local_solver is not None:
-        resolve_local_solver(local_solver, "cpu")
+    solver = resolve_local_solver(local_solver)
 
     def rollout(x0, t_eval, u=None, rtol: float = 1e-6, atol: float = 1e-9,
                 dt0: float = None, arrays=None):
         if arrays is not None:
             raise NotImplementedError(NEXT_SLICE)
         x0, n_env, x, t_eval_np, dt0, per_env = _adaptive_inputs(beam, x0, t_eval, dt0)
-        solver = resolve_local_solver(local_solver, x0.device)
         sp = beam.sp
         c = setup["consts"](x0)
         F = _Forces(c, sp, setup, node_force, use_consistent)

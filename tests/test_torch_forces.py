@@ -162,4 +162,5 @@ def test_batched_rollout_equals_simulate_and_contracts():
         stats = tpar.sweep_statistics(res_m.ys)
         assert float(stats["tip_abs_max"]) == float(tpar.sweep_statistics(sim.ys)["tip_abs_max"])
     finally:
-        dist.destroy_process_group()
+        tpar.destroy_process_group()
+    assert not dist.is_initialized()

@@ -1,6 +1,6 @@
 """The port's parallel runtime and ``simulate_sharded`` on 2 gloo ranks.
 
-One world of 2 spawned CPU ranks runs every case: the collectives on a
+One world of 2 CPU ranks runs every case: the collectives on a
 1-D mesh (ring ``ppermute`` both ways, a partial perm, ``psum``,
 ``all_gather``, environment blocks), ``make_mesh``'s validation,
 ``batched_rollout(mesh=)`` over ``dp`` (a DTensor; ``sweep_statistics`` of
@@ -21,6 +21,8 @@ The world has a 180 s limit. Also here: the launcher's own contract (a
 failing rank and a time limit raise and leave no rank behind).
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,7 @@ from continuum_robot_tpu_torch.models.simulate import PiecewiseConstant
 from continuum_robot_tpu_torch.parallel import collectives
 
 N_RANKS = 2
+JAX_THREADS = 2  # the JAX references are compiled two at a time
 SP2 = {"sp": 2}
 DP2 = {"dp": 2}
 
@@ -215,7 +218,9 @@ def world():
     specs, meta = _specs()
     w = collectives.start(cases.run_cases, N_RANKS, specs, timeout=180.0)
     try:
-        refs = {name: _jax_facade(name, specs[name]) for name in JAX_CASES}
+        with ThreadPoolExecutor(JAX_THREADS) as pool:  # XLA compiles off the GIL
+            futs = {name: pool.submit(_jax_facade, name, specs[name]) for name in JAX_CASES}
+            refs = {name: f.result() for name, f in futs.items()}
     except BaseException:
         w.kill()
         raise
@@ -293,9 +298,26 @@ def test_launcher_reports_a_failed_rank():
         collectives.launch(cases.fail_on_rank, 2, 1, timeout=60.0)
 
 
+def test_destroy_removes_the_store():
+    """A one-rank world's store lives in a temporary directory of its own,
+    which destroy_process_group removes with the group."""
+    import os
+
+    import torch.distributed as dist
+
+    collectives.init_process_group("cpu")
+    store_dir = collectives._own_store_dir
+    try:
+        assert store_dir is not None and os.path.isdir(store_dir)
+    finally:
+        collectives.destroy_process_group()
+    assert not os.path.exists(store_dir) and not dist.is_initialized()
+    assert collectives._own_store_dir is None
+
+
 def test_launcher_time_limit():
     with pytest.raises(TimeoutError, match="did not finish within"):
-        collectives.launch(cases.sleep_case, 1, 60.0, timeout=3.0)
+        collectives.launch(cases.sleep_case, 1, 60.0, timeout=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -422,8 +444,6 @@ def test_spike_thomas_launches_the_kernel_on_card(cuda_device):
     solves are the btd_solve kernel, one launch a Newton correction plus
     the initial acceleration, and the span is the single-device implicit
     gen-alpha's (float64, 1e-12 of the state's scale)."""
-    import torch.distributed as dist
-
     from continuum_robot_tpu_torch import parallel as tpar
     from continuum_robot_tpu_torch.ops.cuda import btd_solve as kb
     from continuum_robot_tpu_torch.parallel import facade
@@ -453,4 +473,4 @@ def test_spike_thomas_launches_the_kernel_on_card(cuda_device):
         ys = facade._node_frames_to_reduced(model, xs)
         assert _rel(ys.cpu(), ref.ys.cpu()) <= 1e-12
     finally:
-        dist.destroy_process_group()
+        tpar.destroy_process_group()

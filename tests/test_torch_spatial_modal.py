@@ -1,6 +1,6 @@
 """The node-sharded modal tier of the port (``parallel/spatial_modal.py``).
 
-One gloo world of 4 spawned CPU ranks runs every case (4-shard ``sp`` mesh
+One gloo world of 4 CPU ranks runs every case (4-shard ``sp`` mesh
 and 2 x 2 ``dp x sp``). Each sharded engine is held to the single-device
 engine it splits, built in the same rank on the same basis (the JAX test
 ``TestSpatialModalROM``'s pattern), and the ROM's rollout to the JAX
@@ -46,7 +46,7 @@ def _specs():
     # decide nothing.
     rom = tcrt.make_modal_rom(model, 1e-4, rho_inf=0.5, device="cpu")
     basis = (rom.Phi, rom.PhiW)
-    t_ad = np.linspace(0.0, 2e-4, 3)
+    t_ad = np.linspace(0.0, 5e-5, 3)
     specs["hyb"] = dict(case="rom_engine_case", mesh=SP4, csv=csv_h, x_red=x, u_red=u,
                         basis=basis, adaptive_t=t_ad)
     specs["hyb_damped"] = dict(case="rom_engine_case", mesh=SP4, csv=csv_h, x_red=x,
@@ -57,7 +57,7 @@ def _specs():
                              n_newton=1)
     xb = rng.normal(scale=1e-4, size=(3, 2 * n))
     specs["batch"] = dict(case="rom_engine_case", mesh=DPSP, csv=csv_h, x_red=xb, u_red=u,
-                          n_frames=3, substeps=2, adaptive_t=np.linspace(0.0, 1e-4, 2),
+                          n_frames=3, substeps=2, adaptive_t=np.linspace(0.0, 2.5e-5, 2),
                           solo=True)
     csv22 = helpers.nonlinear_csv(22)
     n22 = tcrt.DynamicEulerBernoulliBeam(csv22).n_pos_states

@@ -300,18 +300,34 @@ def modal_transforms_case(mesh, csv, x_node, u_node, kind="rom", **_):
     return out
 
 
+def simulate_case(csv, x0, kw, **_):
+    """The port's single-device ``simulate()``: a reference one rank runs."""
+    kw = dict(kw)
+    t_final, dt = kw.pop("t_final"), kw.pop("dt")
+    res = tcrt.simulate(port_model(csv), x0, t_final, dt, device="cpu", **kw)
+    return dict(ts=res.ts, ys=res.ys, stats=res.stats)
+
+
 def run_cases(specs: dict) -> dict:
     """Rank entry: run every case of ``specs`` (name -> case dict), one
-    mesh per distinct axis-size dict, in the order given."""
+    mesh per distinct axis-size dict, in the order given. A case with a
+    ``rank`` instead of a ``mesh`` is a single-device reference: that rank
+    alone runs it, after the sharded cases."""
     meshes = {}
     out = {}
     for name, spec in specs.items():
+        if "rank" in spec:
+            continue
         key = tuple(spec["mesh"].items())
         if key not in meshes:
             meshes[key] = tpar.make_mesh(dict(spec["mesh"]), device="cpu")
         fn = globals()[spec["case"]]
         out[name] = fn(meshes[key], **{k: v for k, v in spec.items()
                                        if k not in ("case", "mesh")})
+    for name, spec in specs.items():
+        if spec.get("rank") == torch.distributed.get_rank():
+            out[name] = globals()[spec["case"]](**{k: v for k, v in spec.items()
+                                                   if k not in ("case", "rank")})
     return out
 
 
