@@ -9,6 +9,7 @@
     python3 chip_smoke.py --control           # phases 25-28 alone (no kernel is built)
     python3 chip_smoke.py --rom-tier          # phases 29-32 alone (the ROM main path rebuilt)
     python3 chip_smoke.py --parallel          # phases 33-38 alone (the parallel layer)
+    python3 chip_smoke.py --cards 4           # phases 33-38, then 39-44 on four cards
 
 Phases, one line each (any failure exits non-zero):
 
@@ -197,6 +198,25 @@ Phases, one line each (any failure exits non-zero):
     float64 <= 1e-4); a 32-segment parity beam with ``modal_derivatives=3``
     through ``simulate(engine="pallas")`` at 4096 envs against "xla" in
     float64 within phase 7's 5e-6 x scale.
+33-38. the parallel layer at world size 1 (``--parallel``): the process
+    group, the SPIKE gen-alpha row (34), ``simulate_sharded``'s adaptive,
+    SDIRK3 and RK4 paths (35), its modal (36) and ROM engines (37),
+    ``batched_rollout(mesh=)`` and ``dryrun_multichip(1)``, one NCCL rank on
+    the card (38);
+39-44. ``--cards 4`` only, after phases 33-38 (their results are the
+    oracle): a world of four ranks, one a card over NCCL. 39 the runtime
+    (``ppermute`` both ways, ``psum``, ``all_gather`` on sp = 4 and on both
+    axes of dp x sp = 2 x 2, exact); 40 the SPIKE row at sp = 4 and 41 at
+    2 x 2 (thomas against phase 34's thomas span, cr and dense against
+    thomas, <= 1e-3; float64 against the plain single-device span, <= 1e-9;
+    1 + steps x n_newton ``btd_solve`` launches on every rank; ms a step
+    beside phase 34's, each rank's busy share and NCCL time a step); 42
+    ``batched_rollout(mesh=)`` at dp = 4 over the same batch, each card's
+    block bit for bit the one-card rollout's rows, env-steps/s of both; 43
+    phases 35-37 at sp = 4 against their world-size-1 results (equal
+    adaptive counts, one ``modal_frames`` / ``affine_frames`` launch a
+    rank); 44 ``dryrun_multichip(4)`` (2 x 2). A failure on any rank fails
+    the run with that rank's traceback.
 
 Phases 25-32 launch no kernel but the ROM kernels of phase 31's loaded
 ECSW span and phase 32's augmented simulate; every other path of theirs
@@ -359,11 +379,17 @@ def require(cond: bool, msg: str) -> None:
 
 
 def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them; on a
+    machine of several cards, "N x <line>" when they are alike, else the
+    lines joined by " | "."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
-    return out.stdout.strip()
+    lines = out.stdout.strip().splitlines()
+    if len(set(lines)) == 1 and len(lines) > 1:
+        return f"{len(lines)} x {lines[0]}"
+    return " | ".join(lines)
 
 
 def bench_beam_dataframe(n: int, kind: str = "linear"):
@@ -3325,19 +3351,19 @@ def rom_tier_paths(crt, rk, dev, card, kmods, main=None) -> dict:
     return {"ecsw:loaded": loaded, "simulate:pallas:augmented": augmented}
 
 
-# Phases 33-38: the parallel layer at world size 1 (one card: NCCL allows one
-# rank a GPU, so dp = sp = 1 here; several shards are held to the JAX package
-# on gloo CPU ranks by tests/test_torch_spatial*.py and test_torch_parallel.py).
-# The SPIKE row is the JAX package's bench.py sharded_genalpha row
-# (bench.py:652-760): the 1000-element linear beam, 4096 envs, float32, node
-# layout, dt 1e-4, rho_inf 0.8, one Newton iteration; the span is cut from
-# 2000 steps to SPIKE["steps"] (3 frames) and held to the single-device
-# implicit gen-alpha over the same span.
+# Phases 33-38: the parallel layer at world size 1 (one card). The SPIKE row
+# is the JAX package's bench.py sharded_genalpha row (bench.py:652-760): the
+# 1000-element linear beam, 4096 envs, float32, node layout, dt 1e-4,
+# rho_inf 0.8, one Newton iteration; the span is cut from 2000 steps to
+# SPIKE["steps"] (3 frames) and held to the single-device implicit gen-alpha
+# over the same span. With --cards 4, phases 39-44 run the same paths on four
+# cards (one rank a card, NCCL) and hold them to these world-size-1 results.
 SPIKE = dict(envs=4096, frames=3, substeps=100, rho_inf=0.8, n_newton=1, time_steps=50,
              f64_envs=16, f64_steps=40)
 # float32 spans of the same recurrence in another order of operations, q and
-# v each by norm: the SPIKE thomas span against the single-device span, and
-# the plain cr and dense local solvers against thomas. On the H100 they read
+# v each by norm: the SPIKE thomas span against the single-device span (at
+# world size 1) or the world-size-1 thomas span (on four cards), and the
+# plain cr and dense local solvers against thomas. On the H100 they read
 # 9.6e-5 / 2.7e-4 (thomas vs single device) and 6.0e-5 / 2.9e-4 (cr),
 # 5.7e-5 / 3.1e-4 (dense) over 300 steps.
 SPIKE_F32_MAX = 1e-3
@@ -3352,6 +3378,38 @@ PAR_MODAL = dict(envs=64, frames=10, substeps=20)
 PAR_MODAL_MAX = 1e-5  # float32, the sharded transforms' sums in another order
 PAR_ROM_MAX = 1e-10  # float64 sharded ROM vs simulate, x state scale
 PAR_BATCH = dict(envs=64, frames=10, substeps=20)
+N_CARDS = 4  # --cards: sp = 4, dp x sp = 2 x 2 and dp = 4 need four
+CARDS_TIMEOUT = 420.0  # s: the four ranks of phases 39-43 together
+
+
+def lead() -> bool:
+    """Whether this process prints a phase's line: rank 0 of an open
+    world, or a process with none."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def say(line: str) -> None:
+    if lead():
+        print(line, flush=True)
+
+
+def host_syncs(fn):
+    """``(fn(), n)``: ``n`` the host synchronisations ``fn`` makes (reads
+    of device values and blocking copies), counted by torch's CUDA
+    sync-debug warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 @contextlib.contextmanager
@@ -3387,16 +3445,30 @@ def spike_inputs(model, beam, envs: int, dtype, dev):
     u_red = np.zeros(n)
     u_red[-2] = 0.1
     x = torch.tensor(x_red, dtype=dtype, device=dev)
+    if beam is None:
+        return x, u_red
     xn = reduced_to_node_layout(model, x, beam.n_nodes)
     return x, u_red, xn, facade._node_force(model, u_red, beam.n_nodes, xn)
 
 
-def phase_spike(crt, kb, dev, card, mesh) -> dict:
-    """Phase 34; returns ({path: btd_solve launches}, {solver: ms a step})."""
+def mesh_shape(mesh) -> str:
+    return " x ".join(f"{k}={v}" for k, v in zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
+
+
+def phase_spike(crt, kb, dev, card, mesh, label: str = "phase 34", ref_end=None) -> dict:
+    """The SPIKE gen-alpha row: phase 34 at world size 1, phases 40 (sp = 4)
+    and 41 (dp x sp = 2 x 2) on four cards. ``ref_end`` is the
+    world-size-1 thomas span's reduced endpoint (None: this is that run,
+    held to the single-device implicit gen-alpha). Returns this rank's
+    readings: the thomas span's btd_solve launches, ms a step by local
+    solver, the thomas span's busy share (NCCL kernels apart), its NCCL
+    device ms a step and host synchronisations a step, its top device rows
+    and its endpoint."""
     from continuum_robot_tpu_torch import parallel as tpar
     from continuum_robot_tpu_torch.parallel import facade, spatial_implicit as si
 
     t_phase = time.perf_counter()
+    oracle_run = ref_end is None
     cfg = SPIKE
     model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "linear"))
     beam = tpar.make_spatial_beam(model.beam_model.arrays,
@@ -3414,30 +3486,34 @@ def phase_spike(crt, kb, dev, card, mesh) -> dict:
                                                           substeps=sub))
     want = 1 + steps * cfg["n_newton"]
     ys = facade._node_frames_to_reduced(model, xs)
-    ref = crt.simulate(model, x, steps * h, sub * h, method="generalized_alpha", u=u_red,
-                       substeps=sub, linear_solver="pallas", device=dev,
-                       dtype=torch.float32, **kw).ys
+    end = ys[-1]
+    against = "the world-size-1 thomas span"
+    if oracle_run:
+        against = "the single-device implicit gen-alpha (linear_solver='pallas')"
+        ref_end = crt.simulate(model, x, steps * h, sub * h, method="generalized_alpha",
+                               u=u_red, substeps=sub, linear_solver="pallas", device=dev,
+                               dtype=torch.float32, **kw).ys[-1]
     n = model.n_pos_states
-    parts = rel_parts((ys[-1, :, :n], ys[-1, :, n:]), (ref[-1, :, :n], ref[-1, :, n:]))
+    parts = rel_parts((end[:, :n], end[:, n:]), (ref_end[:, :n], ref_end[:, n:]))
     others = {}
     for s in ("cr", "dense"):
         ys_s = facade._node_frames_to_reduced(
             model, rolls[s](xn, frames, u=u_node, substeps=sub)[1])
-        others[s] = rel_parts((ys_s[-1, :, :n], ys_s[-1, :, n:]), (ys[-1, :, :n], ys[-1, :, n:]))
-    finite = bool(torch.isfinite(xs).all())
-    print(f"phase 34 SPIKE gen-alpha [{card}]: {N_ELEMENTS} linear elements ({beam.n_nodes} "
-          f"nodes, sp=1), {cfg['envs']} envs float32, {steps} steps dt={h} rho_inf="
-          f"{cfg['rho_inf']} n_newton={cfg['n_newton']}; preparations (host + card) "
-          f"{', '.join(f'{k} {v:.2f} s' for k, v in prep_s.items())}; thomas vs the "
-          f"single-device implicit gen-alpha (linear_solver='pallas'), q and v by norm: "
-          f"{parts[0]:.3e}, {parts[1]:.3e} (limit {SPIKE_F32_MAX}); cr and dense vs thomas: "
-          f"{others}; btd_solve launches {counts['btd_solve']} (expected {want}); finite "
-          f"{finite}", flush=True)
+        others[s] = rel_parts((ys_s[-1, :, :n], ys_s[-1, :, n:]), (end[:, :n], end[:, n:]))
+    del ys, xs
+    finite = bool(torch.isfinite(end).all())
+    say(f"{label} SPIKE gen-alpha [{card}]: {N_ELEMENTS} linear elements ({beam.n_nodes} "
+        f"nodes, {mesh_shape(mesh)}), {cfg['envs']} envs float32, {steps} steps dt={h} "
+        f"rho_inf={cfg['rho_inf']} n_newton={cfg['n_newton']}; preparations (host + card) "
+        f"{', '.join(f'{k} {v:.2f} s' for k, v in prep_s.items())}; thomas vs {against}, "
+        f"q and v by norm: {parts[0]:.3e}, {parts[1]:.3e} (limit {SPIKE_F32_MAX}); cr and "
+        f"dense vs thomas: {others}; btd_solve launches {counts['btd_solve']} (expected "
+        f"{want} a rank); finite {finite}")
     require(finite and max(parts) <= SPIKE_F32_MAX,
-            f"SPIKE f32 span vs single device: {parts}")
+            f"{label} SPIKE f32 span vs {against}: {parts}")
     require(all(max(v) <= SPIKE_F32_MAX for v in others.values()),
-            f"SPIKE local solvers disagree: {others}")
-    expect_launches(counts, ("btd_solve",), want, "SPIKE thomas span")
+            f"{label} SPIKE local solvers disagree: {others}")
+    expect_launches(counts, ("btd_solve",), want, f"{label} SPIKE thomas span")
 
     # float64 at a small batch: each local solver's span against the plain
     # single-device implicit gen-alpha (block cyclic reduction, no kernel).
@@ -3451,13 +3527,14 @@ def phase_spike(crt, kb, dev, card, mesh) -> dict:
         ys64 = facade._node_frames_to_reduced(model, roll(xn64, 1, u=u64,
                                                           substeps=cfg64[1])[1])
         err64[s] = scaled_err((ys64[..., :n], ys64[..., n:]), (ref64[..., :n], ref64[..., n:]))
-    print(f"phase 34 SPIKE float64 [{card}]: {cfg64[0]} envs x {cfg64[1]} steps vs the "
-          f"plain single-device span (linear_solver='cr'): max err / scale "
-          f"{', '.join(f'{k} {v:.3e}' for k, v in err64.items())} (limit {SPIKE_F64_MAX})",
-          flush=True)
-    require(max(err64.values()) <= SPIKE_F64_MAX, f"SPIKE float64 vs single device {err64}")
+    say(f"{label} SPIKE float64 [{card}]: {cfg64[0]} envs x {cfg64[1]} steps vs the "
+        f"plain single-device span (linear_solver='cr'): max err / scale "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in err64.items())} (limit {SPIKE_F64_MAX})")
+    require(max(err64.values()) <= SPIKE_F64_MAX,
+            f"{label} SPIKE float64 vs single device {err64}")
 
-    # ms a step of each local solver (CUDA events, best of 3 after a warm-up).
+    # ms a step of each local solver (CUDA events, best of 3 after a
+    # warm-up); one profiled thomas span: device rows, NCCL's share apart.
     T = cfg["time_steps"]
     step_ms = {}
     for s, roll in rolls.items():
@@ -3465,24 +3542,36 @@ def phase_spike(crt, kb, dev, card, mesh) -> dict:
         fn()
         step_ms[s] = min(timed_once(fn, dev)[1] for _ in range(3)) / T
     fn = lambda: rolls["thomas"](xn, 1, u=u_node, substeps=T)  # noqa: E731
-    busy, wall_ms, share = busy_share(fn, dev)
     rows = kernel_rows(fn, dev)
-    print(f"phase 34 SPIKE thomas span by kernel [{card}]: " + "; ".join(
-        f"{k[:60]} {ms:.3f} ms x{n}" for ms, n, k in rows[:8]), flush=True)
+    nccl = sum(r[0] for r in rows if "nccl" in r[2].lower())
+    busy = sum(r[0] for r in rows) - nccl
+    wall_ms = step_ms["thomas"] * T
+    _, syncs = host_syncs(fn)
+    issue = dispatch_us(fn, dev, n=1) / 1e3 / T  # the host's issue of a step, no wait
+    say(f"{label} SPIKE thomas span by kernel (rank 0) [{card}]: " + "; ".join(
+        f"{k[:60]} {ms:.3f} ms x{c}" for ms, c, k in rows[:8]))
     best = min(step_ms, key=step_ms.get)
-    print(f"phase 34 SPIKE timings [{card}]: ms a step ({cfg['envs']} envs, {T} steps, "
-          f"float32): {', '.join(f'{k} {v:.4f}' for k, v in step_ms.items())}; fastest "
-          f"{best}; default local_solver {si.resolve_local_solver(None)}; thomas span busy "
-          f"{busy:.3f} of {wall_ms:.3f} ms ({share:.3f}); {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
-    require(best == si.resolve_local_solver(None),
-            f"the default local solver is not the fastest on the card: {step_ms}")
-    return {"spike:thomas": counts["btd_solve"]}, step_ms
+    say(f"{label} SPIKE timings (rank 0) [{card}]: ms a step ({cfg['envs']} envs, {T} steps, "
+        f"float32): {', '.join(f'{k} {v:.4f}' for k, v in step_ms.items())}; fastest "
+        f"{best}; default local_solver {si.resolve_local_solver(None)}; thomas span busy "
+        f"(NCCL apart) {busy:.3f} of {wall_ms:.3f} ms ({busy / wall_ms:.3f}), NCCL kernels "
+        f"{nccl / T:.4f} ms a step (waits included, under the profiler), host issue "
+        f"{issue:.4f} ms a step, host syncs {syncs / T:.2f} a step; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if oracle_run:
+        require(best == si.resolve_local_solver(None),
+                f"the default local solver is not the fastest on the card: {step_ms}")
+    return dict(launches=counts["btd_solve"], step_ms=step_ms, busy=busy / wall_ms,
+                nccl_ms_step=nccl / T, syncs_step=syncs / T, issue_ms_step=issue,
+                rows=[(round(ms / T, 5), c, k[:80]) for ms, c, k in rows[:6]], end=end)
 
 
-def phase_parallel_small(crt, kb, dev, card, mesh) -> dict:
-    """Phase 35: simulate_sharded's adaptive gen-alpha, SDIRK3 and RK4 (CG)
-    against simulate() on the card, float64; returns btd_solve launches."""
+def phase_parallel_small(crt, kb, dev, card, mesh, label: str = "phase 35",
+                         ref=None) -> tuple:
+    """simulate_sharded's adaptive gen-alpha, SDIRK3 and RK4 (CG) on the card,
+    float64: phase 35 against simulate(), phase 43 against phase 35's
+    results ``ref``. Returns (btd_solve launches by path, {method: result
+    and counts, host syncs})."""
     from continuum_robot_tpu_torch import parallel as tpar
 
     cfg = PAR_SMALL
@@ -3492,38 +3581,56 @@ def phase_parallel_small(crt, kb, dev, card, mesh) -> dict:
     x0[n - 2] = 2e-4
     u = np.zeros(n)
     u[n - 2] = 0.05
-    launches = {}
+    launches, out = {}, {}
     for method, kw in (("generalized_alpha_adaptive", dict(rho_inf=0.9)), ("sdirk3", {}),
                        ("rk4", dict(substeps=2))):
         adaptive = method != "rk4"
         if adaptive:
             kw = dict(kw, rtol=cfg["rtol"], atol=cfg["atol"])
         args = (model, x0, cfg["t_final"], cfg["dt"])
-        res, counts = counted(kb, lambda: tpar.simulate_sharded(*args[:4], mesh, method=method,
-                                                                u=u, **kw))
-        ref = crt.simulate(*args, method=method, u=u, device=dev, **kw)
-        err = scaled_err((res.ys,), (ref.ys,))
-        line = f"phase 35 simulate_sharded {method} [{card}]: max err / scale {err:.3e}"
+        t0 = time.perf_counter()
+        (res, syncs), counts = counted(kb, lambda: host_syncs(
+            lambda: tpar.simulate_sharded(*args[:4], mesh, method=method, u=u, **kw)))
+        secs = time.perf_counter() - t0
+        got = dict(ys=res.ys, syncs=syncs)
         if adaptive:
-            same = [int(getattr(res.stats, k)) == int(getattr(ref.stats, k))
-                    for k in ("n_accepted", "n_rejected")]
-            line += (f"; accepted {int(res.stats.n_accepted)}/{int(ref.stats.n_accepted)}, "
-                     f"rejected {int(res.stats.n_rejected)}/{int(ref.stats.n_rejected)}")
-            require(all(same), f"{method}: counts differ from simulate()")
+            got.update(acc=int(res.stats.n_accepted), rej=int(res.stats.n_rejected))
+        if ref is None:
+            sim = crt.simulate(*args, method=method, u=u, device=dev, **kw)
+            want = dict(ys=sim.ys)
+            if adaptive:
+                want.update(acc=int(sim.stats.n_accepted), rej=int(sim.stats.n_rejected))
+            against = "simulate"
+        else:
+            want, against = ref[method], "world size 1"
+        err = scaled_err((res.ys,), (want["ys"],))
+        line = (f"{label} simulate_sharded {method} ({mesh_shape(mesh)}) [{card}]: vs "
+                f"{against} max err / scale {err:.3e}")
+        if adaptive:
+            line += (f"; accepted {got['acc']}/{want['acc']}, rejected "
+                     f"{got['rej']}/{want['rej']}")
+            require((got["acc"], got["rej"]) == (want["acc"], want["rej"]),
+                    f"{label} {method}: counts differ from {against}")
             launches[f"simulate_sharded:{method}"] = counts["btd_solve"]
+            steps = got["acc"] + got["rej"]
         else:
             line += f"; CG cap hits {int(res.stats['cg_incomplete'])}"
-        print(line + f"; btd_solve launches {counts['btd_solve']}", flush=True)
+            steps = int(round(cfg["t_final"] / cfg["dt"])) * kw["substeps"]
+        say(line + f"; btd_solve launches {counts['btd_solve']}; host syncs {syncs} over "
+            f"{steps} {'trials' if adaptive else 'RK4 steps'} (set-up included); {secs:.2f} s")
         require(err <= (PAR_ADAPTIVE_MAX if adaptive else PAR_RK4_MAX),
-                f"simulate_sharded {method} vs simulate {err:.3e}")
+                f"{label} simulate_sharded {method} vs {against} {err:.3e}")
         require(not adaptive or counts["btd_solve"] > 0,
                 f"{method}: the SPIKE thomas solves launched no btd_solve kernel")
-    return launches
+        out[method] = got
+    return launches, out
 
 
-def phase_parallel_modal(crt, kr, dev, card, mesh) -> dict:
-    """Phase 36: the sharded modal engines on the 1000-element beam against
-    simulate(method="modal"); returns {kernel: launches} of the kernel engines."""
+def phase_parallel_modal(crt, kr, dev, card, mesh, label: str = "phase 36",
+                         ref=None) -> tuple:
+    """The sharded modal engines on the 1000-element beam: phase 36 against
+    simulate(method="modal"), phase 43 against phase 36's results ``ref``;
+    returns ({kernel: launches} of the kernel engines, {engine: frames})."""
     from continuum_robot_tpu_torch import parallel as tpar
 
     cfg = PAR_MODAL
@@ -3536,40 +3643,48 @@ def phase_parallel_modal(crt, kr, dev, card, mesh) -> dict:
     u[-2] = 0.1
     dt_f = DT * cfg["substeps"]
     kw = dict(method="modal", u=u, substeps=cfg["substeps"], rho_inf=RHO_INF)
-    out = {}
+    launches, out = {}, {}
     with memo_modal_engines():
         for engine, kernel in (("xla", None), ("pallas", "modal_frames"),
                                ("power", "affine_frames")):
-            res, counts = counted(kr, lambda: tpar.simulate_sharded(
-                model, x0, cfg["frames"] * dt_f, dt_f, mesh, engine=engine, **kw))
-            ref = crt.simulate(model, x0, cfg["frames"] * dt_f, dt_f, engine=engine,
-                               device=dev, **kw)
-            err = scaled_err((res.ys,), (ref.ys.movedim(1, 0),))
-            print(f"phase 36 simulate_sharded modal engine={engine} [{card}]: {N_ELEMENTS} "
-                  f"elements, {cfg['envs']} envs float32, {cfg['frames']} frames x "
-                  f"{cfg['substeps']}: vs simulate max err / scale {err:.3e} (limit "
-                  f"{PAR_MODAL_MAX}); launches {counts}", flush=True)
+            (res, secs), counts = counted(kr, lambda: wall(lambda: tpar.simulate_sharded(
+                model, x0, cfg["frames"] * dt_f, dt_f, mesh, engine=engine, **kw)))
+            if ref is None:
+                want = crt.simulate(model, x0, cfg["frames"] * dt_f, dt_f, engine=engine,
+                                    device=dev, **kw).ys.movedim(1, 0)
+                against = "simulate"
+            else:
+                want, against = ref[engine], "world size 1"
+            err = scaled_err((res.ys,), (want,))
+            say(f"{label} simulate_sharded modal engine={engine} ({mesh_shape(mesh)}) "
+                f"[{card}]: {N_ELEMENTS} elements, {cfg['envs']} envs float32, "
+                f"{cfg['frames']} frames x {cfg['substeps']}: vs {against} max err / scale "
+                f"{err:.3e} (limit {PAR_MODAL_MAX}); launches {counts}; {secs:.2f} s (the "
+                f"first: the host eigensolve)")
             require(err <= PAR_MODAL_MAX and bool(torch.isfinite(res.ys).all()),
-                    f"sharded modal {engine} vs simulate {err:.3e}")
+                    f"{label} sharded modal {engine} vs {against} {err:.3e}")
             if kernel is None:
                 require(not any(counts.values()), f"sharded modal xla: launches {counts}")
             else:
-                expect_launches(counts, (kernel,), 1, f"simulate_sharded modal {engine}")
-                out[kernel] = counts[kernel]
-    return out
+                expect_launches(counts, (kernel,), 1, f"{label} simulate_sharded modal {engine}")
+                launches[kernel] = counts[kernel]
+            out[engine] = res.ys
+    return launches, out
 
 
-def phase_parallel_rom(crt, dev, card, mesh) -> None:
-    """Phase 37: the sharded ROM, fixed-step, adaptive, forced and guarded,
-    against simulate()/the single-device engine on the card (float64)."""
+def phase_parallel_rom(crt, dev, card, mesh, label: str = "phase 37", ref=None) -> dict:
+    """The sharded ROM, fixed-step, adaptive, forced and guarded, on the card
+    (float64): phase 37 against simulate() and the single-device engine,
+    phase 43 against phase 37's results ``ref``; returns {key: result}."""
     from continuum_robot_tpu_torch import parallel as tpar
 
     cfg = PAR_SMALL
     fp = dict(enable_gravity_effects=True, gravity_vector=[0.0, -9.81, 0.0],
               enable_fluid_effects=True, fluid_density=1000.0)
     types = mixed_types(cfg["n_el"])
-    for label, model in (("plain", golden_beam(crt, types)),
-                         ("forced", golden_beam(crt, types, fp))):
+    out = {}
+    for name, model in (("plain", golden_beam(crt, types)),
+                        ("forced", golden_beam(crt, types, fp))):
         n = model.n_pos_states
         x0 = np.zeros((3, 2 * n))
         x0[:, n - 2] = [1e-4, 2e-4, -1e-4]
@@ -3578,22 +3693,30 @@ def phase_parallel_rom(crt, dev, card, mesh) -> None:
         for method, kw in (("modal_rom", dict(substeps=4, n_newton=2)),
                            ("modal_rom_adaptive", dict(rtol=cfg["rtol"], atol=1e-12))):
             xs = x0 if method == "modal_rom" else x0[0]
-            res = tpar.simulate_sharded(model, xs, cfg["t_final"], cfg["dt"], mesh,
-                                        method=method, u=u, **kw)
-            ref = crt.simulate(model, xs, cfg["t_final"], cfg["dt"], method=method, u=u,
-                               device=dev, **kw)
-            ys_ref = ref.ys.movedim(1, 0) if ref.ys.dim() == 3 else ref.ys
-            err = scaled_err((res.ys,), (ys_ref,))
-            line = (f"phase 37 sharded ROM {label} {method} [{card}]: max err / scale "
-                    f"{err:.3e} (limit {PAR_ROM_MAX})")
+            res, secs = wall(lambda: tpar.simulate_sharded(model, xs, cfg["t_final"], cfg["dt"],
+                                                           mesh, method=method, u=u, **kw))
+            got = dict(ys=res.ys)
             if res.stats is not None:
-                line += (f"; accepted {int(res.stats.n_accepted)}/"
-                         f"{int(ref.stats.n_accepted)}")
-                require(int(res.stats.n_accepted) == int(ref.stats.n_accepted)
-                        and int(res.stats.n_rejected) == int(ref.stats.n_rejected),
-                        f"sharded {method}: counts differ")
-            print(line, flush=True)
-            require(err <= PAR_ROM_MAX, f"sharded ROM {label} {method} {err:.3e}")
+                got.update(acc=int(res.stats.n_accepted), rej=int(res.stats.n_rejected))
+            if ref is None:
+                sim = crt.simulate(model, xs, cfg["t_final"], cfg["dt"], method=method, u=u,
+                                   device=dev, **kw)
+                want = dict(ys=sim.ys.movedim(1, 0) if sim.ys.dim() == 3 else sim.ys)
+                if sim.stats is not None:
+                    want.update(acc=int(sim.stats.n_accepted), rej=int(sim.stats.n_rejected))
+                against = "simulate"
+            else:
+                want, against = ref[f"{name}:{method}"], "world size 1"
+            err = scaled_err((res.ys,), (want["ys"],))
+            line = (f"{label} sharded ROM {name} {method} ({mesh_shape(mesh)}) [{card}]: vs "
+                    f"{against} max err / scale {err:.3e} (limit {PAR_ROM_MAX}); {secs:.2f} s")
+            if "acc" in got:
+                line += f"; accepted {got['acc']}/{want['acc']}"
+                require((got["acc"], got["rej"]) == (want["acc"], want["rej"]),
+                        f"{label} sharded {method}: counts differ from {against}")
+            say(line)
+            require(err <= PAR_ROM_MAX, f"{label} sharded ROM {name} {method} {err:.3e}")
+            out[f"{name}:{method}"] = got
 
     # ECSW guard: the sharded audit against the single-device one.
     model = golden_beam(crt, ["nonlinear"] * 22)
@@ -3611,12 +3734,13 @@ def phase_parallel_rom(crt, dev, card, mesh) -> None:
     err = scaled_err((g[1],), (g1[1],))
     res_err = abs(float(g[3]["max_residual"]) - float(g1[3]["max_residual"])) / float(
         g1[3]["max_residual"])
-    print(f"phase 37 sharded ECSW guard [{card}]: {red.ms.sampled_params['sel'].size} sampled "
-          f"of 22; guarded frames vs single device {err:.3e}, max residual "
-          f"{float(g[3]['max_residual']):.3e} (rel diff {res_err:.3e}), flagged "
-          f"{bool(g[3]['flagged'])}", flush=True)
+    say(f"{label} sharded ECSW guard ({mesh_shape(mesh)}) [{card}]: "
+        f"{red.ms.sampled_params['sel'].size} sampled of 22; guarded frames vs single "
+        f"device {err:.3e}, max residual {float(g[3]['max_residual']):.3e} (rel diff "
+        f"{res_err:.3e}), flagged {bool(g[3]['flagged'])}")
     require(err <= PAR_ROM_MAX and res_err <= 1e-8 and not bool(g[3]["flagged"]),
-            f"sharded ECSW guard: {err:.3e}, {res_err:.3e}")
+            f"{label} sharded ECSW guard: {err:.3e}, {res_err:.3e}")
+    return out
 
 
 def mixed_types(n: int) -> list:
@@ -3626,7 +3750,8 @@ def mixed_types(n: int) -> list:
 
 def phase_parallel_batched(crt, kb, dev, card, mesh) -> dict:
     """Phase 38: batched_rollout(mesh=) against the one-device call, and
-    dryrun_multichip(1); returns btd_solve launches of the mesh rollout."""
+    dryrun_multichip(1) on the card; returns btd_solve launches of the mesh
+    rollout."""
     from continuum_robot_tpu_torch import parallel as tpar
 
     cfg = PAR_BATCH
@@ -3649,14 +3774,15 @@ def phase_parallel_batched(crt, kb, dev, card, mesh) -> dict:
     require(same, "batched_rollout(mesh=) differs from the one-device rollout")
     t0 = time.perf_counter()
     summary = tpar.dryrun_multichip(1, timeout=240.0)
-    print(f"phase 38 dryrun_multichip(1) (one gloo CPU rank): {summary}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 38 dryrun_multichip(1) (one NCCL rank on the card, launched) [{card}]: "
+          f"{summary}; {time.perf_counter() - t0:.1f} s", flush=True)
     return {"batched_rollout:mesh": counts["btd_solve"]}
 
 
 def parallel_paths(crt, kb, kr, dev, card) -> tuple:
     """Phases 33-38; returns (btd_solve launches by path, modal kernels'
-    launches, SPIKE ms a step by local solver)."""
+    launches, SPIKE ms a step by local solver, the world-size-1 results
+    that phases 40-43 are held to, on the host)."""
     import torch.distributed as dist
 
     from continuum_robot_tpu_torch import parallel as tpar
@@ -3670,15 +3796,259 @@ def parallel_paths(crt, kb, kr, dev, card) -> tuple:
               f"{dist.get_world_size()}, FileStore, mesh {tuple(mesh.mesh_dim_names)} "
               f"{tuple(mesh.mesh.shape)}", flush=True)
         require(backend == ("nccl" if dev.type == "cuda" else "gloo"), f"backend {backend}")
-        btd, step_ms = phase_spike(crt, kb, dev, card, mesh)
-        btd.update(phase_parallel_small(crt, kb, dev, card, mesh))
-        modal = phase_parallel_modal(crt, kr, dev, card, mesh)
-        phase_parallel_rom(crt, dev, card, mesh)
+        spike = phase_spike(crt, kb, dev, card, mesh)
+        btd = {"spike:thomas": spike["launches"]}
+        small_btd, small = phase_parallel_small(crt, kb, dev, card, mesh)
+        btd.update(small_btd)
+        modal, modal_ys = phase_parallel_modal(crt, kr, dev, card, mesh)
+        rom = phase_parallel_rom(crt, dev, card, mesh)
         btd.update(phase_parallel_batched(crt, kb, dev, card, mesh))
     finally:
         tpar.destroy_process_group()
     print(f"phases 33-38: {time.perf_counter() - t0:.1f} s", flush=True)
-    return btd, modal, step_ms
+    oracle = dict(spike=spike["end"], small=small, modal=modal_ys, rom=rom)
+    return btd, modal, spike["step_ms"], _host(oracle)
+
+
+def _host(obj):
+    """Tensors to the CPU, through dicts."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    return obj
+
+
+# ---------------------------------------------------------------------------
+# Phases 39-44 (--cards 4): the parallel layer on four cards
+# ---------------------------------------------------------------------------
+
+
+def gathered(reading) -> list:
+    """Every rank's ``reading`` (a small picklable value), in rank order."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, reading)
+    return out
+
+
+def phase_runtime(dev, card) -> dict:
+    """Phase 39: NCCL's version and the world; ``ppermute`` along
+    ``right_perm`` and ``left_perm``, ``psum`` and ``all_gather`` on a 1-D
+    ``sp`` mesh of every rank and on both axes of a ``dp x sp`` mesh, each
+    equal to the same permutation or sum computed by hand (exact: integer
+    values in float32 and float64); returns the meshes."""
+    import torch.distributed as dist
+
+    from continuum_robot_tpu_torch import parallel as tpar
+    from continuum_robot_tpu_torch.parallel import collectives as col
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def payload(r, dtype):
+        return (1000.0 * r + torch.arange(12.0, dtype=torch.float64)).reshape(4, 3).to(dtype)
+
+    meshes, checks = {}, []
+    for sizes in ({"sp": world}, {"dp": 2, "sp": world // 2}, {"dp": world}):
+        mesh = tpar.make_mesh(sizes, device=dev)
+        meshes[tuple(sizes)] = mesh
+        if tuple(sizes) == ("dp",):
+            continue  # phase 42's mesh: its collectives are the sp mesh's
+        for name in mesh.mesh_dim_names:
+            ax = col.MeshAxis(mesh, name)
+            S, k, R = ax.size, ax.index, ax.ranks
+            for dtype in (torch.float32, torch.float64):
+                x = payload(rank, dtype).to(dev)
+                got = {"right_perm": col.ppermute(x, ax, col.right_perm(S)),
+                       "left_perm": col.ppermute(x, ax, col.left_perm(S)),
+                       "psum": col.psum(x, ax), "all_gather": col.all_gather(x, ax)}
+                want = {"right_perm": payload(R[(k - 1) % S], dtype),
+                        "left_perm": payload(R[(k + 1) % S], dtype),
+                        "psum": sum(payload(r, dtype) for r in R),
+                        "all_gather": torch.stack([payload(r, dtype) for r in R])}
+                for key in got:
+                    require(torch.equal(got[key].cpu(), want[key]),
+                            f"phase 39 rank {rank}: {key} on {name} of {sizes} ({dtype})")
+                    checks.append(f"{name}{S}:{key}")
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    counts = gathered(len(checks))
+    # The SPIKE step's messages alone, the ranks in step: a 48 KB float32
+    # halo (4096 envs x 1 node x 3) by ppermute, and the 6 interface values
+    # a shard of 4096 envs by all_gather, on the sp axis of 4 (CUDA events,
+    # 100 calls back to back after a warm-up).
+    ax = col.MeshAxis(meshes[("sp",)], "sp")
+    halo = torch.ones((SPIKE["envs"], 1, 3), dtype=torch.float32, device=dev)
+    iface = torch.ones((SPIKE["envs"], 2, 3), dtype=torch.float32, device=dev)
+    msg_ms = {}
+    for key, fn in (("ppermute", lambda: col.ppermute(halo, ax, col.right_perm(ax.size))),
+                    ("all_gather", lambda: col.all_gather(iface, ax))):
+        fn()
+        dist.barrier()
+        msg_ms[key] = timed_once(lambda fn=fn: [fn() for _ in range(100)], dev)[1] / 100
+    say(f"phase 39 runtime [{card}]: backend {dist.get_backend()}, NCCL {nccl}, world "
+        f"{world}, meshes {[mesh_shape(m) for m in meshes.values()]}; ppermute (right_perm, "
+        f"left_perm), psum and all_gather in position order on sp of {world} and on dp and sp "
+        f"of 2 x {world // 2}, float32 and float64, each equal to the permutation computed "
+        f"by hand: {counts} checks by rank, all exact; the step's messages alone (rank 0): "
+        f"ppermute of a 48 KB halo {msg_ms['ppermute']:.4f} ms, all_gather of the interface "
+        f"values {msg_ms['all_gather']:.4f} ms a call")
+    return meshes
+
+
+def phase_batched_cards(crt, kb, dev, card, mesh) -> dict:
+    """Phase 42: ``batched_rollout(mesh=)`` at dp = 4 over the SPIKE row's
+    batch (the 1000-element linear beam, 4096 envs float32, 300 steps of
+    generalized-alpha, ``linear_solver="pallas"``): this rank's block
+    against the one-card ``batched_rollout`` of the whole batch on this
+    card, bit for bit; env-steps/s of each (the whole entry call, set-up
+    included, best of 2 after a warm-up)."""
+    from continuum_robot_tpu_torch import parallel as tpar
+    from continuum_robot_tpu_torch.parallel.collectives import MeshAxis, env_chunk
+
+    cfg = SPIKE
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "linear"))
+    x, u_red = spike_inputs(model, None, cfg["envs"], torch.float32, dev)
+    h, sub, frames = DT, cfg["substeps"], cfg["frames"]
+    kw = dict(method="generalized_alpha", u=u_red, substeps=sub, linear_solver="pallas",
+              rho_inf=cfg["rho_inf"], n_newton=cfg["n_newton"])
+    args = (model, x, frames * sub * h, sub * h)
+    one = lambda: tpar.batched_rollout(*args, **kw)  # noqa: E731
+    four = lambda: tpar.batched_rollout(*args, mesh=mesh, **kw)  # noqa: E731
+    ref, counts1 = counted(kb, one)
+    res, counts = counted(kb, four)
+    local = res.ys.to_local()
+    ax = MeshAxis(mesh, "dp")
+    lo = ax.index * env_chunk(cfg["envs"], ax)
+    rows = ref.ys[:, lo:lo + local.shape[1]]
+    same = bool(torch.equal(local, rows))
+    err = 0.0 if same else rel(local, rows)
+    ms_one = min(timed_once(one, dev)[1] for _ in range(2))
+    ms_four = min(timed_once(four, dev)[1] for _ in range(2))
+    # The rollout alone, its set-up built once: the whole batch on this
+    # card, then this card's block.
+    rollout = tpar.build_rollout_fn(*args[:1], *args[2:], device=dev, dtype=x.dtype, **kw)
+    span = {}
+    for key, xb in (("one", x), ("four", x[lo:lo + local.shape[1]])):
+        rollout(xb)
+        span[key] = min(timed_once(lambda xb=xb: rollout(xb), dev)[1] for _ in range(2))
+    return dict(same=same, err=err, launches=counts["btd_solve"],
+                launches_one=counts1["btd_solve"], ms_one=ms_one, ms_four=ms_four,
+                span_one=span["one"], span_four=span["four"],
+                local=tuple(local.shape), placements=str(res.ys.placements),
+                env_steps=cfg["envs"] * frames * sub)
+
+
+def cards_rank(oracle_path: str, sp1_ms: dict, t_launch: float) -> dict:
+    """Phases 39-43 on one rank of a world of four, one a card over NCCL
+    (launched by name from ``cards_paths``). ``oracle_path``: the
+    world-size-1 results of phases 34-37 (``torch.save``); ``sp1_ms``:
+    phase 34's ms a step by local solver; ``t_launch``: the launcher's
+    ``time.time()`` at the start. Returns this rank's readings."""
+    started = time.time() - t_launch  # the fork, imports and NCCL's set-up
+    import continuum_robot_tpu_torch as crt
+    from continuum_robot_tpu_torch.ops.cuda import btd_solve as kb
+    from continuum_robot_tpu_torch.ops.cuda import modal_rollout as kr
+    from continuum_robot_tpu_torch.parallel.collectives import world_device
+
+    dev = world_device()
+    card = card_line()
+    oracle = torch.load(oracle_path, map_location=dev)
+    out, secs = {"started_s": started}, {}
+    t = time.perf_counter()
+    meshes = phase_runtime(dev, card)
+    secs["39"] = time.perf_counter() - t
+    for ph, key in (("40", ("sp",)), ("41", ("dp", "sp"))):
+        t = time.perf_counter()
+        r = phase_spike(crt, kb, dev, card, meshes[key], f"phase {ph}", oracle["spike"])
+        r.pop("end")
+        every = gathered({k: r[k] for k in ("launches", "busy", "nccl_ms_step", "syncs_step",
+                                            "issue_ms_step", "step_ms")})
+        say(f"phase {ph} by rank [{card}]: btd_solve launches "
+            f"{[e['launches'] for e in every]}, thomas busy share (NCCL apart) "
+            f"{[round(e['busy'], 3) for e in every]}, NCCL kernels ms a step "
+            f"{[round(e['nccl_ms_step'], 4) for e in every]}, host issue ms a step "
+            f"{[round(e['issue_ms_step'], 4) for e in every]}, host syncs a step "
+            f"{[e['syncs_step'] for e in every]}; ms a step sp=1 (phase 34, this run) "
+            f"{ {k: round(v, 4) for k, v in sp1_ms.items()} } vs "
+            f"{mesh_shape(meshes[key])} (rank 0) "
+            f"{ {k: round(v, 4) for k, v in r['step_ms'].items()} }")
+        out[ph], secs[ph] = r, time.perf_counter() - t
+    t = time.perf_counter()
+    r = phase_batched_cards(crt, kb, dev, card, meshes[("dp",)])
+    every = gathered(r)
+    slowest = max(e["ms_four"] for e in every)
+    rate1 = r["env_steps"] / (r["ms_one"] / 1e3)
+    rate4 = r["env_steps"] / (slowest / 1e3)
+    span4 = max(e["span_four"] for e in every)
+    steady1 = r["env_steps"] / (r["span_one"] / 1e3)
+    steady4 = r["env_steps"] / (span4 / 1e3)
+    say(f"phase 42 batched_rollout(mesh=) dp=4 [{card}]: {N_ELEMENTS} linear elements, "
+        f"{SPIKE['envs']} envs float32 ({every[0]['local'][1]} a card), "
+        f"{SPIKE['frames'] * SPIKE['substeps']} steps generalized_alpha "
+        f"linear_solver='pallas', placements {r['placements']}; each block bit for bit the "
+        f"one-card rollout's rows: {[e['same'] for e in every]} (max rel err "
+        f"{max(e['err'] for e in every):.3e}); btd_solve launches by rank "
+        f"{[e['launches'] for e in every]} (one card {r['launches_one']}); whole call "
+        f"(set-up included) one card {r['ms_one']:.1f} ms (rank 0), four cards "
+        f"{slowest:.1f} ms (slowest rank): {rate1:.4g} vs {rate4:.4g} env-steps/s "
+        f"({rate4 / rate1:.3f}x); the rollout alone (set-up built once) {r['span_one']:.1f} "
+        f"vs {span4:.1f} ms: {steady1:.4g} vs {steady4:.4g} env-steps/s "
+        f"({steady4 / steady1:.3f}x)")
+    require(all(e["same"] for e in every), f"phase 42: dp=4 differs from one card: "
+            f"{[e['err'] for e in every]}")
+    out["42"], secs["42"] = (dict(r, rate_one=rate1, rate_four=rate4, steady_one=steady1,
+                                  steady_four=steady4), time.perf_counter() - t)
+    t = time.perf_counter()
+    sp4 = meshes[("sp",)]
+    small_btd, _ = phase_parallel_small(crt, kb, dev, card, sp4, "phase 43", oracle["small"])
+    modal, _ = phase_parallel_modal(crt, kr, dev, card, sp4, "phase 43", oracle["modal"])
+    phase_parallel_rom(crt, dev, card, sp4, "phase 43", oracle["rom"])
+    every = gathered((small_btd, modal))
+    say(f"phase 43 launches by rank [{card}]: btd_solve {[e[0] for e in every]}, modal "
+        f"kernels {[e[1] for e in every]}")
+    out["43"], secs["43"] = dict(btd=small_btd, modal=modal), time.perf_counter() - t
+    say(f"phases 39-43 wall by phase (rank 0): "
+        f"{', '.join(f'{k}: {v:.1f} s' for k, v in secs.items())}")
+    return out
+
+
+def cards_paths(crt, kb, kr, dev, card, n_cards: int) -> dict:
+    """``--cards 4``: phases 33-38 at world size 1 (the oracle), phases
+    39-43 on ``n_cards`` ranks, one a card, and phase 44, the dry run on
+    them; returns the launches by path."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    btd, modal, step_ms, oracle = parallel_paths(crt, kb, kr, dev, card)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_cards_")
+    try:
+        path = f"{tmp}/oracle.pt"
+        torch.save(oracle, path)
+        # The ranks import the rank body by name: this file as the module
+        # chip_smoke (run as a script it is __main__, which they cannot).
+        this = importlib.import_module("chip_smoke")
+        t0 = time.perf_counter()
+        world = tpar.launch(this.cards_rank, n_cards, path, step_ms, time.time(),
+                            timeout=CARDS_TIMEOUT)
+        print(f"phases 39-43: a world of {n_cards} NCCL ranks, one a card, started in "
+              f"{max(r['started_s'] for r in world):.1f} s (the last rank in its body), "
+              f"run in {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    summary = tpar.dryrun_multichip(n_cards, timeout=240.0)
+    print(f"phase 44 dryrun_multichip({n_cards}) on {n_cards} cards (NCCL) [{card}]: "
+          f"{summary}; {time.perf_counter() - t0:.1f} s", flush=True)
+    require((summary["dp"], summary["sp"]) == (2, 2), f"phase 44 mesh {summary}")
+    return {"btd_solve": {**btd, **{f"{k}:cards": [r[k]["launches"] for r in world]
+                                    for k in ("40", "41", "42")},
+                          "43:cards": [r["43"]["btd"] for r in world]},
+            "modal": {**modal, "43:cards": [r["43"]["modal"] for r in world]}}
 
 
 def main() -> int:
@@ -3721,9 +4091,22 @@ def main() -> int:
         t0 = time.time()
         _build.build_all()
         print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
-        btd, modal, step_ms = parallel_paths(crt, kb, kr, dev, card)
+        btd, modal, step_ms, _ = parallel_paths(crt, kb, kr, dev, card)
         print(f"parallel launches by path: btd_solve {btd}, {modal}; SPIKE ms a step "
               f"{step_ms}; total {time.time() - t_start:.1f} s", flush=True)
+        return 0
+    if "--cards" in args:
+        n_cards = int((args[args.index("--cards") + 1:] or ["0"])[0])
+        require(n_cards == N_CARDS, f"--cards takes {N_CARDS} (sp = 4, dp x sp = 2 x 2)")
+        found = torch.cuda.device_count()
+        require(found >= n_cards, f"--cards {n_cards} needs {n_cards} cards, found {found}")
+        t0 = time.time()
+        _build.build_all()
+        print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
+        by_path = cards_paths(crt, kb, kr, dev, card, n_cards)
+        print(json.dumps({"launches_by_path": by_path}), flush=True)
+        print(f"four-card phases done; total {time.time() - t_start:.1f} s", flush=True)
+        print(card)
         return 0
     if "--rom-tier" in args:
         t0 = time.time()
@@ -3775,7 +4158,7 @@ def main() -> int:
     for name in rom_records:
         records[name]["launches_by_path"].update({p: c[name] for p, c in tier.items()})
     print(f"ROM tier done; {time.time() - t_start:.1f} s so far", flush=True)
-    btd, modal, _ = parallel_paths(crt, kb, kr, dev, card)
+    btd, modal, _, _ = parallel_paths(crt, kb, kr, dev, card)
     records["btd_solve"]["launches_by_path"].update(btd)
     records["modal_frames"]["launches_by_path"]["simulate_sharded:pallas"] = modal[
         "modal_frames"]

@@ -475,32 +475,31 @@ def element_params(arrays: BeamArrays, like: torch.Tensor):
 def element_tangent_stiffness(arrays: BeamArrays, q6, use_consistent: bool = False,
                               params=None):
     """Per-element tangent ``df/dq`` blocks ``(..., E, 6, 6)`` at ``q6``
-    ``(..., E, 6)``: the forward-mode Jacobian of the element force
-    (``torch.func.jacfwd``, batched over elements and leading axes with
-    ``vmap``), as the JAX package's ``jacfwd``. The elementwise Jacobian
-    keeps the global tangent block-tridiagonal.
+    ``(..., E, 6)``: the forward-mode Jacobian of the element force, as the
+    JAX package's ``jacfwd``, taken as one ``torch.func.jvp`` of the whole
+    batch for each of the six unit directions (``vmap``-ed over them; each
+    element's force depends on its own six DOFs only). The elementwise
+    Jacobian keeps the global tangent block-tridiagonal.
 
     A NumPy ``q6`` is evaluated in float64 on the CPU and returns NumPy;
-    a tensor on its device and dtype. ``params``: :func:`element_params`
-    already uploaded for that device and dtype.
+    a tensor on its device and in its dtype, for both elements. (A
+    ``jacfwd`` per element would see 0-dim state components, and under
+    ``vmap`` a Python scalar times a 0-dim float32 tensor comes out float64:
+    the parity element's tangent used to.) ``params``:
+    :func:`element_params` already uploaded for that device and dtype.
     """
     is_np = not isinstance(q6, torch.Tensor)
     q = torch.as_tensor(np.asarray(q6, np.float64)) if is_np else q6
     if params is None:
         params = element_params(arrays, q)
 
-    def one(qe, L, E, I, A, nl):
-        return torch.func.jacfwd(
-            lambda x: elements.element_internal_force(
-                x, L, E, I, A, nl, use_consistent=use_consistent
-            )
-        )(qe)
+    def force(x):
+        return elements.element_internal_force(x, *params, use_consistent=use_consistent)
 
-    per_element = torch.func.vmap(one)
-    batch = q.shape[:-2]
-    qf = q.reshape(-1, *q.shape[-2:])
-    Kt = torch.func.vmap(per_element, in_dims=(0,) + (None,) * 5)(qf, *params)
-    Kt = Kt.reshape(*batch, *Kt.shape[-3:])
+    units = torch.eye(6, dtype=q.dtype, device=q.device)
+    units = units.reshape((6,) + (1,) * (q.dim() - 1) + (6,)).expand((6,) + tuple(q.shape))
+    cols = torch.func.vmap(lambda d: torch.func.jvp(force, (q,), (d,))[1])(units)
+    Kt = cols.movedim(0, -1)  # (..., E, 6 force slots, 6 unit directions)
     return Kt.numpy() if is_np else Kt
 
 

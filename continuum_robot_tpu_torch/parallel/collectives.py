@@ -24,9 +24,9 @@ values only.
 :func:`init_process_group` opens the world on a ``FileStore`` (no TCP port
 to pick or collide on): NCCL for a CUDA device, gloo for the CPU, nothing
 else; :func:`destroy_process_group` closes it. :func:`launch` runs a
-function on N CPU ranks (forked from a server process that has imported
-the package once) and returns their results, killing every rank after a
-time limit.
+function on N ranks, by default one a card over NCCL (``device="cpu"``: gloo
+CPU ranks), forked from a server process that has imported the package
+once, and returns their results, killing every rank after a time limit.
 """
 
 from __future__ import annotations
@@ -89,6 +89,16 @@ def init_process_group(device=None, rank: int = 0, world_size: int = 1,
         kw["device_id"] = device
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size, **kw)
     return backend
+
+
+def world_device() -> torch.device:
+    """The device of this rank's open world: its card under NCCL, else the
+    CPU. A rank body passes it to :func:`mesh.make_mesh` and its tensors."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group is open")
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def destroy_process_group() -> None:
@@ -190,7 +200,10 @@ def ppermute(x: torch.Tensor, axis: MeshAxis, perm: Sequence) -> torch.Tensor:
         return torch.zeros_like(x)
     if dst == [k] and src == [k]:
         return x.clone()
-    out = torch.zeros_like(x) if not src else torch.empty_like(x)
+    # NCCL sends and receives contiguous buffers only (empty_like would
+    # keep a permuted layout); it also needs this rank's card set as the
+    # current device, which init_process_group does.
+    out = x.new_zeros(x.shape) if not src else x.new_empty(x.shape)
     ops = []
     if dst:
         if dst[0] == k:
@@ -266,7 +279,7 @@ def gather_env_blocks(y: torch.Tensor, axis: MeshAxis, n: int, dim: int = 0) -> 
 
 
 # ---------------------------------------------------------------------------
-# Launcher: N CPU ranks on a FileStore
+# Launcher: N ranks on a FileStore, one a card (NCCL) or on the CPU (gloo)
 # ---------------------------------------------------------------------------
 
 
@@ -287,16 +300,32 @@ def _to_host(obj):
     return obj
 
 
-def _rank_main(fn, rank, world_size, init_file, results, args, kwargs):
+def _rank_main(fn, rank, world_size, init_file, results, device_type, args, kwargs):
     try:
-        torch.set_num_threads(1)
-        init_process_group("cpu", rank=rank, world_size=world_size, init_file=init_file)
+        if device_type == "cpu":
+            torch.set_num_threads(1)
+            device = torch.device("cpu")
+        else:  # rank r on card r; CUDA is first touched here, in the rank
+            device = torch.device("cuda", rank)
+            _share_host_threads(world_size)
+        init_process_group(device, rank=rank, world_size=world_size, init_file=init_file)
         out = _to_host(fn(*args, **kwargs))
         results.put((rank, True, out))
     except Exception:  # report the failure to the parent, then exit
         results.put((rank, False, traceback.format_exc()))
     finally:
         destroy_process_group()
+
+
+def _share_host_threads(world_size: int) -> None:
+    """Give a card's rank its share of the host's cores for host work
+    (torch's CPU ops, and the BLAS of a library it loads later, such as
+    scipy's eigensolver): N ranks with every core each spin their thread
+    pools against each other and slow every rank's host."""
+    share = str(max(1, len(os.sched_getaffinity(0)) // world_size))
+    torch.set_num_threads(int(share))
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = share
 
 
 def _stop_servers() -> None:
@@ -308,16 +337,48 @@ def _stop_servers() -> None:
     resource_tracker._resource_tracker._stop()
 
 
-class World:
-    """N CPU ranks running one function (:func:`start`)."""
+def _start_fork_server(preload) -> None:
+    """Start the fork server (once per process) with ``preload`` imported.
 
-    def __init__(self, fn, n_ranks, args, kwargs, timeout):
+    Its ranks may open CUDA, so CUDA must not be initialised in it: the
+    server runs with ``PYTORCH_NVML_BASED_CUDA_CHECK=1`` (so a
+    ``torch.cuda.is_available()`` at import asks NVML, not the driver),
+    and nothing it imports touches CUDA.
+    """
+    from multiprocessing import forkserver
+
+    forkserver.set_forkserver_preload(preload)
+    atexit.unregister(_stop_servers)
+    atexit.register(_stop_servers)
+    key, had = "PYTORCH_NVML_BASED_CUDA_CHECK", os.environ.get("PYTORCH_NVML_BASED_CUDA_CHECK")
+    os.environ[key] = "1"
+    try:
+        forkserver.ensure_running()
+    finally:
+        if had is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = had
+
+
+class World:
+    """N ranks running one function (:func:`start`)."""
+
+    def __init__(self, fn, n_ranks, args, kwargs, timeout, device=None):
+        device = resolve_device(device)
+        if device.type == "cuda":
+            n_cards = torch.cuda.device_count()
+            if n_cards < n_ranks:
+                raise RuntimeError(f"{n_ranks} ranks need {n_ranks} cards, found {n_cards}")
+            from ..ops.cuda import _build
+
+            _build.build_all()  # once, here: not nvcc in every rank at once
+        elif device.type != "cpu":
+            raise ValueError(f"ranks run on CUDA cards or the CPU, got {device}")
         ctx = multiprocessing.get_context("forkserver")
         # The server imports these once; each rank is a fork of it.
-        ctx.set_forkserver_preload([__name__, "torch.distributed.tensor", "torch._dynamo",
-                                  fn.__module__])
-        atexit.unregister(_stop_servers)
-        atexit.register(_stop_servers)
+        _start_fork_server([__name__, "torch.distributed.tensor", "torch._dynamo",
+                            fn.__module__])
         self._name = getattr(fn, "__name__", str(fn))
         self._n = n_ranks
         self._tmp = tempfile.mkdtemp(prefix="crt_launch_")
@@ -325,7 +386,7 @@ class World:
         self._procs = [
             ctx.Process(target=_rank_main, daemon=True,
                         args=(fn, r, n_ranks, os.path.join(self._tmp, "store"),
-                              self._results, args, kwargs))
+                              self._results, device.type, args, kwargs))
             for r in range(n_ranks)
         ]
         self._deadline = time.monotonic() + timeout
@@ -388,25 +449,32 @@ class World:
         return out
 
 
-def start(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, **kwargs) -> World:
-    """Start ``fn(*args, **kwargs)`` on ``n_ranks`` CPU ranks (gloo) and
-    return at once; :meth:`World.result` collects (see :func:`launch`).
-    The time limit counts from the start."""
-    return World(fn, int(n_ranks), args, kwargs, timeout)
+def start(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, device=None,
+          **kwargs) -> World:
+    """Start ``fn(*args, **kwargs)`` on ``n_ranks`` ranks and return at
+    once; :meth:`World.result` collects (see :func:`launch`). The time
+    limit counts from the start."""
+    return World(fn, int(n_ranks), args, kwargs, timeout, device)
 
 
-def launch(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, **kwargs) -> list:
-    """Run ``fn(*args, **kwargs)`` on ``n_ranks`` CPU ranks (gloo).
+def launch(fn: Callable, n_ranks: int, *args, timeout: float = 120.0, device=None,
+           **kwargs) -> list:
+    """Run ``fn(*args, **kwargs)`` on ``n_ranks`` ranks.
 
-    The ranks are forked from a ``multiprocessing`` fork server, a fresh
-    process that imports this package and ``fn``'s module once (so a
-    second world starts in a fraction of a second). Each rank runs on one
-    thread and opens the world on one ``FileStore`` in a temporary
-    directory before it calls ``fn``; ``fn`` must be importable by name (a
-    module-level function) and its module must not need JAX. Tensors in the results come
-    back as NumPy arrays. Returns the results in rank order. A rank that
-    raises or dies, or a world that has not finished after ``timeout``
-    seconds, kills every rank and raises (``RuntimeError`` with the rank's
-    traceback, ``TimeoutError``).
+    ``device`` is resolved as :func:`resolve_device` resolves it: None
+    means the cards, rank r on ``cuda:r`` over NCCL (it raises where there
+    are fewer cards than ranks, or none); ``"cpu"`` gloo ranks on the CPU,
+    one thread each. There is no fallback to the CPU. For cards the
+    kernels are built here first, once. The ranks are forked from a
+    ``multiprocessing`` fork server, a fresh process that imports this
+    package and ``fn``'s module once (so a second world starts in a
+    fraction of a second) and never touches CUDA; each rank opens the world
+    on one ``FileStore`` in a temporary directory before it calls ``fn``
+    (:func:`world_device` names its device). ``fn`` must be importable by
+    name (a module-level function) and its module must not need JAX.
+    Tensors in the results come back as NumPy arrays. Returns the results
+    in rank order. A rank that raises or dies, or a world that has not
+    finished after ``timeout`` seconds, kills every rank and raises
+    (``RuntimeError`` with the rank's traceback, ``TimeoutError``).
     """
-    return start(fn, n_ranks, *args, timeout=timeout, **kwargs).result()
+    return start(fn, n_ranks, *args, timeout=timeout, device=device, **kwargs).result()

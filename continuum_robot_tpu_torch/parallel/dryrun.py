@@ -1,4 +1,4 @@
-"""Multi-rank dry run of the parallel layer on spawned CPU ranks.
+"""Multi-rank dry run of the parallel layer on launched ranks.
 
 The port's counterpart of ``dryrun_multichip`` in the JAX package's
 ``__graft_entry__.py``: factor N ranks into ``dp x sp``, build the mesh and
@@ -8,7 +8,8 @@ fluid drag and gravity), take one batched RK4 step through
 over ``dp``, reduce the cross-env statistics over the DTensor of the
 result, then one fixed-step SPIKE gen-α frame (``local_solver="dense"``),
 one adaptive gen-α interval and one SDIRK3 interval on the same mesh. The
-ranks run gloo on the CPU (:func:`collectives.launch`).
+ranks run one a card over NCCL, or gloo on the CPU for ``device="cpu"``
+(:func:`collectives.launch`).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import pandas as pd
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .collectives import env_block, launch
+from .collectives import env_block, launch, world_device
 
 
 def mesh_factors(n_ranks: int):
@@ -67,15 +68,16 @@ def _dryrun_rank(n_ranks: int) -> dict:
     )
 
     dp, sp = mesh_factors(n_ranks)
-    mesh = make_mesh({"dp": dp, "sp": sp}, device="cpu")
+    dev = world_device()
+    mesh = make_mesh({"dp": dp, "sp": sp}, device=dev)
     model = flagship_model(n_segments=max(2 * sp, 6))
     beam = make_spatial_beam(model.beam_model.arrays,
                              model.beam_model.bc_info.free_mask.reshape(-1, 3), mesh)
     rhs = build_spatial_rhs(beam, cg_iters=32, cg_tol=1e-6).local
 
     n_envs = 2 * dp
-    xb = torch.zeros((n_envs, 2, beam.n_nodes, 3), dtype=torch.float64)
-    xb[:, 0, 1, 1] = torch.linspace(1e-4, 2e-4, n_envs, dtype=torch.float64)
+    xb = torch.zeros((n_envs, 2, beam.n_nodes, 3), dtype=torch.float64, device=dev)
+    xb[:, 0, 1, 1] = torch.linspace(1e-4, 2e-4, n_envs, dtype=torch.float64, device=dev)
     x = beam.local(env_block(xb, beam.dp))
     h = 1e-6
     k1 = rhs(0.0, x)
@@ -91,7 +93,7 @@ def _dryrun_rank(n_ranks: int) -> dict:
     if tuple(xb1.shape) != (n_envs, 1, 2 * beam.n_nodes * 3):
         raise AssertionError(f"dryrun step shape {tuple(xb1.shape)}")
 
-    u_node = torch.zeros((beam.n_nodes, 3), dtype=torch.float64)
+    u_node = torch.zeros((beam.n_nodes, 3), dtype=torch.float64, device=dev)
     u_node[1, 1] = 1e-3
     roll = build_spatial_genalpha(beam, dt=1e-5, rho_inf=0.8, n_newton=2,
                                   local_solver="dense")
@@ -113,9 +115,12 @@ def _dryrun_rank(n_ranks: int) -> dict:
             "tip": float(xs[-1, 0, 0, 1, 1])}
 
 
-def dryrun_multichip(n_ranks: int, timeout: float = 300.0) -> dict:
-    """One batched step of every sharded engine on ``n_ranks`` spawned gloo
-    ranks (``dp x sp`` as :func:`mesh_factors`). Returns rank 0's summary
-    (mesh shape, the cross-env RMS, accepted adaptive steps); raises on a
-    non-finite or misshapen result, a failed rank or the time limit."""
-    return launch(_dryrun_rank, int(n_ranks), int(n_ranks), timeout=timeout)[0]
+def dryrun_multichip(n_ranks: int, timeout: float = 300.0, device=None) -> dict:
+    """One batched step of every sharded engine on ``n_ranks`` launched
+    ranks (``dp x sp`` as :func:`mesh_factors`): by default one a card
+    over NCCL, gloo CPU ranks for ``device="cpu"`` (:func:`collectives.launch`;
+    it raises without a card unless asked for the CPU). Returns rank 0's
+    summary (mesh shape, the cross-env RMS, accepted adaptive steps); raises
+    on a non-finite or misshapen result, a failed rank or the time limit."""
+    return launch(_dryrun_rank, int(n_ranks), int(n_ranks), timeout=timeout,
+                  device=device)[0]

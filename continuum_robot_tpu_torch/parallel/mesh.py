@@ -36,6 +36,12 @@ def make_mesh(axis_sizes: Optional[dict] = None, device=None):
     type, and with it the backend of a world this call opens when none is
     open (a one-rank world, :func:`collectives.init_process_group`).
     Every rank must call it, in the same order as its other collectives.
+
+    On CUDA every dimension's NCCL communicator is opened here, by one
+    one-element ``all_reduce`` on each: a ``batch_isend_irecv`` that is
+    the first call on a group needs every rank of the group, and a
+    :func:`collectives.ppermute` along a partial permutation has ranks that
+    send and receive nothing.
     """
     device = resolve_device(device)
     if not dist.is_initialized():
@@ -50,7 +56,12 @@ def make_mesh(axis_sizes: Optional[dict] = None, device=None):
             f"Mesh axes {axis_sizes} need {int(np.prod(sizes))} devices, "
             f"got {world}"
         )
-    return init_device_mesh(device.type, sizes, mesh_dim_names=names)
+    mesh = init_device_mesh(device.type, sizes, mesh_dim_names=names)
+    if device.type == "cuda":
+        one = torch.zeros(1, device=mesh_device(mesh))
+        for name in names:
+            dist.all_reduce(one, group=mesh.get_group(name))
+    return mesh
 
 
 def batch_sharding(mesh, axis: str = "dp") -> list:

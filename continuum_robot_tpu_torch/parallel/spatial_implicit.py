@@ -92,9 +92,8 @@ def spatial_tangent_aligned(q_local, params, axis: MeshAxis, use_consistent: boo
     halo = ppermute(q_local[..., :1, :], axis, left_perm(S))
     q_ext = torch.cat([q_local, halo], dim=-2)
     q6 = torch.cat([q_ext[..., :-1, :], q_ext[..., 1:, :]], dim=-1)
-    # (..., m, 6, 6); forward-mode AD of the element formulas returns float64
     Kt = assembly.element_tangent_stiffness(None, q6, use_consistent=use_consistent,
-                                            params=params).to(q_local.dtype)
+                                            params=params)  # (..., m, 6, 6)
     kd = Kt[..., :, 0:3, 0:3].clone()  # K11 of element j -> node j
     kd[..., 1:, :, :] += Kt[..., :-1, 3:6, 3:6]  # K22 of element j -> node j+1
     kup = Kt[..., :, 0:3, 3:6].clone()  # entry m-1: U_k, last node -> right halo

@@ -216,7 +216,7 @@ JAX_CASES = ("ga", "ad", "sd_nf", "modal", "rom", "rom_ad")
 @pytest.fixture(scope="module")
 def world():
     specs, meta = _specs()
-    w = collectives.start(cases.run_cases, N_RANKS, specs, timeout=180.0)
+    w = collectives.start(cases.run_cases, N_RANKS, specs, timeout=180.0, device="cpu")
     try:
         with ThreadPoolExecutor(JAX_THREADS) as pool:  # XLA compiles off the GIL
             futs = {name: pool.submit(_jax_facade, name, specs[name]) for name in JAX_CASES}
@@ -295,7 +295,20 @@ def test_dryrun(world):
 
 def test_launcher_reports_a_failed_rank():
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
-        collectives.launch(cases.fail_on_rank, 2, 1, timeout=60.0)
+        collectives.launch(cases.fail_on_rank, 2, 1, timeout=60.0, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["launch", "start", "dryrun_multichip"])
+def test_launcher_defaults_to_the_cards(entry):
+    """With no device named the ranks go on the cards: without one the
+    launcher raises ``resolve_device``'s error and starts no rank."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default world would run on it")
+    call = {"launch": lambda: collectives.launch(cases.fail_on_rank, 2, 1, timeout=5.0),
+            "start": lambda: collectives.start(cases.fail_on_rank, 2, 1, timeout=5.0),
+            "dryrun_multichip": lambda: tcrt.parallel.dryrun_multichip(2, timeout=5.0)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call[entry]()
 
 
 def test_destroy_removes_the_store():
@@ -317,7 +330,7 @@ def test_destroy_removes_the_store():
 
 def test_launcher_time_limit():
     with pytest.raises(TimeoutError, match="did not finish within"):
-        collectives.launch(cases.sleep_case, 1, 60.0, timeout=1.0)
+        collectives.launch(cases.sleep_case, 1, 60.0, timeout=1.0, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -474,3 +487,51 @@ def test_spike_thomas_launches_the_kernel_on_card(cuda_device):
         assert _rel(ys.cpu(), ref.ys.cpu()) <= 1e-12
     finally:
         tpar.destroy_process_group()
+
+
+def _cards(n: int) -> None:
+    if not torch.cuda.is_available():
+        pytest.skip("needs NVIDIA GPUs (NCCL ranks, one a card)")
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards for {n} NCCL ranks, found {torch.cuda.device_count()}")
+
+
+@pytest.mark.cuda
+def test_nccl_collectives_match_gloo():
+    """A 2-rank NCCL world (one rank a card): ``ppermute`` both ways and on
+    a partial perm, ``psum``, ``all_gather`` and the environment blocks on
+    an ``sp`` and a ``dp`` mesh equal the gloo CPU world's answers exactly
+    (integer-valued float64 payloads)."""
+    _cards(2)
+    specs = {"coll_sp": dict(case="collectives_case", mesh=SP2),
+             "coll_dp": dict(case="collectives_case", mesh=DP2)}
+    nccl = collectives.launch(cases.run_cases, 2, specs, timeout=240.0)
+    gloo = collectives.launch(cases.run_cases, 2, specs, timeout=120.0, device="cpu")
+    for r in range(2):
+        for key in specs:
+            for name, want in gloo[r][key].items():
+                for field, val in want.items():
+                    np.testing.assert_array_equal(nccl[r][key][name][field], val,
+                                                  err_msg=f"rank {r} {key} {name} {field}")
+
+
+@pytest.mark.cuda
+def test_spike_on_four_cards_matches_one_card():
+    """The fixed-step SPIKE gen-alpha ("thomas": the btd_solve kernel) on
+    an 8-element hybrid beam split over 4 cards (sp = 4, NCCL) equals the
+    same span on one card (sp = 1) to 1e-12 of the state's scale
+    (float64)."""
+    _cards(4)
+    csv = helpers.mixed_csv(8)
+    n = tcrt.DynamicEulerBernoulliBeam(csv).n_pos_states
+    x = np.zeros((3, 2 * n))
+    x[:, n - 2] = [1e-4, 2e-4, -1e-4]
+    u = np.zeros(n)
+    u[n - 2] = 0.05
+    spec = dict(case="spike_span_case", csv=csv, x_red=x, u_red=u, frames=3, substeps=4)
+    one = collectives.launch(cases.run_cases, 1, {"s": dict(spec, mesh={"sp": 1})},
+                             timeout=240.0)[0]["s"]
+    four = collectives.launch(cases.run_cases, 4, {"s": dict(spec, mesh={"sp": 4})},
+                              timeout=240.0)
+    for r in range(4):
+        assert _rel(four[r]["s"], one) <= 1e-12

@@ -216,7 +216,7 @@ def world():
     """The ranks' results, and the JAX package's references (computed while
     the ranks run)."""
     specs, meta = _specs()
-    w = collectives.start(cases.run_cases, N_RANKS, specs, timeout=240.0)
+    w = collectives.start(cases.run_cases, N_RANKS, specs, timeout=240.0, device="cpu")
     try:
         with ThreadPoolExecutor(JAX_THREADS) as pool:  # XLA compiles off the GIL
             futs = {name: pool.submit(fn, specs[name]) for name, fn in _jax_refs().items()}

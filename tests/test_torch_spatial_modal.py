@@ -95,7 +95,7 @@ def _jax_rom(spec, basis):
 @pytest.fixture(scope="module")
 def world():
     specs, meta = _specs()
-    w = collectives.start(cases.run_cases, N_RANKS, specs, timeout=180.0)
+    w = collectives.start(cases.run_cases, N_RANKS, specs, timeout=180.0, device="cpu")
     try:
         ref = _jax_rom(specs["hyb"], meta["basis"])
     except BaseException:

@@ -1,4 +1,5 @@
-"""Cases of the parallel-layer tests that run on spawned gloo ranks.
+"""Cases of the parallel-layer tests that run on launched ranks (gloo CPU
+ranks, or one rank a card over NCCL in the card-only tests).
 
 The ranks import this module by name (``collectives.launch``), so it
 imports no JAX: the tests build the inputs (CSV paths, NumPy arrays) in the
@@ -68,17 +69,19 @@ def collectives_case(mesh, **_):
     ways, a partial perm, ``psum``, ``all_gather`` and ``axis_index``."""
     out = {}
     rank = torch.distributed.get_rank()
+    dev = col.world_device()
+    envs = torch.arange(5.0, device=dev)
     for name in mesh.mesh_dim_names:
         ax = col.MeshAxis(mesh, name)
-        x = torch.tensor([float(rank), 10.0 * ax.index, 1.0], dtype=torch.float64)
+        x = torch.tensor([float(rank), 10.0 * ax.index, 1.0], dtype=torch.float64, device=dev)
         out[name] = dict(
             index=col.axis_index(ax), size=ax.size, ranks=list(ax.ranks),
             right=col.ppermute(x, ax, col.right_perm(ax.size)),
             left=col.ppermute(x, ax, col.left_perm(ax.size)),
             first_only=col.ppermute(x, ax, [(0, ax.size - 1)]),
             psum=col.psum(x, ax), gather=col.all_gather(x, ax),
-            env_block=col.env_block(torch.arange(5.0), ax),
-            gathered_envs=col.gather_env_blocks(col.env_block(torch.arange(5.0), ax), ax, 5),
+            env_block=col.env_block(envs, ax),
+            gathered_envs=col.gather_env_blocks(col.env_block(envs, ax), ax, 5),
         )
     return out
 
@@ -99,6 +102,20 @@ def dryrun_case(mesh, **_):
     return dryrun._dryrun_rank(torch.distributed.get_world_size())
 
 
+def spike_span_case(mesh, csv, x_red, u_red, frames, substeps, **_):
+    """The fixed-step SPIKE gen-alpha ("thomas") span of a batch, reduced."""
+    from continuum_robot_tpu_torch.parallel import facade
+
+    model = port_model(csv)
+    beam = spatial_beam(model, mesh)
+    x = torch.as_tensor(x_red, device=col.world_device())
+    xn = tpar.reduced_to_node_layout(model, x, beam.n_nodes)
+    roll = tpar.build_spatial_genalpha(beam, 1e-4, n_newton=2, local_solver="thomas")
+    _, xs = roll(xn, frames, u=facade._node_force(model, u_red, beam.n_nodes, xn),
+                 substeps=substeps)
+    return facade._node_frames_to_reduced(model, xs)
+
+
 def fail_on_rank(rank):
     if torch.distributed.get_rank() == rank:
         raise ValueError(f"planted failure on rank {rank}")
@@ -117,7 +134,7 @@ def const_force(t):
 
 def mesh_error_case(mesh, **_):
     try:
-        tpar.make_mesh({"dp": 3, "sp": 5}, device="cpu")
+        tpar.make_mesh({"dp": 3, "sp": 5}, device=col.world_device())
     except ValueError as e:
         return str(e)
     return None
@@ -320,7 +337,7 @@ def run_cases(specs: dict) -> dict:
             continue
         key = tuple(spec["mesh"].items())
         if key not in meshes:
-            meshes[key] = tpar.make_mesh(dict(spec["mesh"]), device="cpu")
+            meshes[key] = tpar.make_mesh(dict(spec["mesh"]), device=col.world_device())
         fn = globals()[spec["case"]]
         out[name] = fn(meshes[key], **{k: v for k, v in spec.items()
                                        if k not in ("case", "mesh")})
