@@ -9,7 +9,8 @@
     python3 chip_smoke.py --control           # phases 25-28 alone (no kernel is built)
     python3 chip_smoke.py --rom-tier          # phases 29-32 alone (the ROM main path rebuilt)
     python3 chip_smoke.py --parallel          # phases 33-38 alone (the parallel layer)
-    python3 chip_smoke.py --cards 4           # phases 33-38, then 39-44 on four cards
+    python3 chip_smoke.py --cards 4           # phases 33-38, then 39-44 and 49 on four cards
+    python3 chip_smoke.py --sweep             # phases 45-48 alone (the gradient path)
 
 Phases, one line each (any failure exits non-zero):
 
@@ -217,6 +218,35 @@ Phases, one line each (any failure exits non-zero):
     adaptive counts, one ``modal_frames`` / ``affine_frames`` launch a
     rank); 44 ``dryrun_multichip(4)`` (2 x 2). A failure on any rank fails
     the run with that rank's traceback.
+45-48. the differentiable-parameter path (``--sweep`` runs them alone):
+    45 ``btd_solve_adjoint`` (the reverse-mode sweeps of the block-tridiagonal
+    solve) against ``banded.btd_adjoint_sweeps`` and the whole adjoint
+    against ``banded.btd_solve_adjoint``, 4096 rhs x the 1001-node main path
+    system, float32 and float64, bit for bit; ``btd_solve``'s autograd
+    Function (backward and forward-mode tangent) against autograd and
+    forward AD of the plain sweep, float64 at 13 nodes (<= 1e-12); the
+    kernel's times beside its byte bound; 46 the SPIKE gen-alpha row's
+    beam at sp = 1 with traced ``arrays=``: ``beam.arrays`` as tensors
+    against the baked span (float64 16 envs, float32 4096 envs, the JAX
+    test's 1e-14 x max(scale, 1)), reverse-mode gradients in the elastic
+    modulus and the density scales against central differences (float64,
+    2 frames x 4 substeps, rtol 2e-5), both kernels launched in each
+    gradient path, and float32 forward and backward at 4096 envs (ms, peak
+    memory; the batch halved past 70 GB); 47
+    ``parametric_modal_rom_rollout`` on the ROM main path's engine (frozen
+    256-mode bases): the float64 gradient against central differences
+    (rtol 1e-6), remat equal to plain (rtol 1e-10), float32 forward and
+    backward with remat at the largest of 4096, 1024, 256 configurations
+    that fits (ms, peak memory); 48 the small dense paths:
+    ``parametric_rollout`` and ``parametric_genalpha_rollout`` gradients
+    against central differences on examples/system_identification.py's
+    beam (its impulse's 2 ms) and tests/test_sweep.py's, remat equality, the
+    traced operator under adaptive gen-alpha against
+    ``make_newmark_operator(linear_solver="btd")`` and its forward-mode
+    tangent against central differences. The kernel record gains
+    ``btd_solve_adjoint`` (its launches from phase 46's paths).
+49. ``--cards 4`` only: phase 46's float64 gradients at sp = 4 over NCCL
+    against the world-size-1 gradients (<= 1e-9 relative), every rank.
 
 Phases 25-32 launch no kernel but the ROM kernels of phase 31's loaded
 ECSW span and phase 32's augmented simulate; every other path of theirs
@@ -4008,6 +4038,21 @@ def cards_rank(oracle_path: str, sp1_ms: dict, t_launch: float) -> dict:
     say(f"phase 43 launches by rank [{card}]: btd_solve {[e[0] for e in every]}, modal "
         f"kernels {[e[1] for e in every]}")
     out["43"], secs["43"] = dict(btd=small_btd, modal=modal), time.perf_counter() - t
+    t = time.perf_counter()
+    grads = spike_gradients(crt, dev, sp4)
+    ref = oracle["spike_grads"]
+    errs = {k: abs(grads[k]["g"] - float(ref[k]["g"])) / abs(float(ref[k]["g"]))
+            for k in grads}
+    every = gathered(errs)
+    say(f"phase 49 SPIKE arrays= gradients at sp = 4 (NCCL) [{card}]: float64, "
+        f"{N_ELEMENTS} linear elements, {SPIKE_GRAD['frames']} frames x "
+        f"{SPIKE_GRAD['substeps']} substeps; d(1e3 q_tip)/d(scale) "
+        f"{ {k: f'{v["g"]:.12e}' for k, v in grads.items()} } vs world size 1 "
+        f"{ {k: f'{float(v["g"]):.12e}' for k, v in ref.items()} }: relative error by rank "
+        f"{every} (limit {SPIKE_GRAD['cards_max']})")
+    require(all(max(e.values()) <= SPIKE_GRAD["cards_max"] for e in every),
+            f"phase 49 sp = 4 gradients differ from world size 1: {every}")
+    out["49"], secs["49"] = errs, time.perf_counter() - t
     say(f"phases 39-43 wall by phase (rank 0): "
         f"{', '.join(f'{k}: {v:.1f} s' for k, v in secs.items())}")
     return out
@@ -4024,6 +4069,11 @@ def cards_paths(crt, kb, kr, dev, card, n_cards: int) -> dict:
     from continuum_robot_tpu_torch import parallel as tpar
 
     btd, modal, step_ms, oracle = parallel_paths(crt, kb, kr, dev, card)
+    tpar.init_process_group(dev)
+    try:  # phase 49's oracle: the float64 SPIKE gradients at world size 1
+        oracle["spike_grads"] = spike_gradients(crt, dev, tpar.make_mesh({"sp": 1}, device=dev))
+    finally:
+        tpar.destroy_process_group()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_cards_")
     try:
@@ -4049,6 +4099,489 @@ def cards_paths(crt, kb, kr, dev, card, n_cards: int) -> dict:
                                     for k in ("40", "41", "42")},
                           "43:cards": [r["43"]["btd"] for r in world]},
             "modal": {**modal, "43:cards": [r["43"]["modal"] for r in world]}}
+
+
+# ---------------------------------------------------------------------------
+# Phases 45-48: the differentiable-parameter path (--sweep runs them alone)
+# ---------------------------------------------------------------------------
+
+# Phase 45: the adjoint kernel at the implicit main path's system (1001
+# nodes) and 4096 right-hand sides; the Function's derivatives at a small
+# size, float64, against autograd and forward AD of the plain sweep.
+ADJOINT = dict(small_nodes=13, small_envs=5, function_max=1e-12)
+# Phase 46: the SPIKE row's 1000-element beam at sp = 1, traced arrays=:
+# the JAX test's span (2 frames x 4 substeps, dt 1e-4, rho_inf 0.8, one
+# Newton iteration), its central-difference step and bound; the float32
+# forward and backward at 4096 envs (halved past 70 GB of the card).
+SPIKE_GRAD = dict(frames=2, substeps=4, h=1e-5, fd_rtol=2e-5, f64_envs=16, baked_max=1e-14,
+                  f32_baked_max=1e-5, envs=4096, mem_limit_gb=70.0, cards_max=1e-9)
+# Phase 47: the ROM main path's engine, frozen bases, 50 steps, 2 Newton
+# iterations for the float64 gradient (the JAX test's rtol 1e-6 against
+# central differences, remat equal to plain at rtol 1e-10); float32 forward
+# and backward with remat at the largest of the batches that fits.
+ROM_GRAD = dict(steps=50, n_newton=2, h=1e-5, fd_rtol=1e-6, remat_rtol=1e-10, tip=0.1,
+                batches=(4096, 1024, 256), f32_steps=50)
+# Phase 48: examples/system_identification.py's beam (4 linear segments,
+# DT 2e-4, 20 substeps, a 0.1 N tip impulse for 2 ms) over the impulse's 2
+# ms (the example's T is 0.02 s: 100 frames, whose RK4 gradient alone takes
+# about 140 s of host issue on the card's machine) and tests/test_sweep.py's
+# beams (6 and 5 linear segments; remat on the latter, 100 steps); the
+# adaptive check over one 1 ms frame (the test's horizon is 5 ms: about
+# 1900 trials).
+DENSE_GRAD = dict(segments=4, t_final=0.002, dt=2e-4, substeps=20, impulse=0.1, t_imp=0.002,
+                  h_rel=1e-5, rk4_rtol=2e-3, ga_rtol=1e-5, remat_rtol=1e-10,
+                  adaptive_t=1e-3, adaptive_rtol=1e-6)
+
+
+def _btd_adjoint_inputs(factors, envs, dtype, dev, rng):
+    """The factors on the card, random right-hand sides and cotangents."""
+    n = factors[0].shape[0]
+    f = tuple(torch.tensor(np.asarray(x), dtype=dtype, device=dev) for x in factors)
+    b = torch.tensor(rng.normal(size=(envs, n, 3)), dtype=dtype, device=dev)
+    g = torch.tensor(rng.normal(size=(envs, n, 3)), dtype=dtype, device=dev)
+    return f, b, g
+
+
+def phase_btd_adjoint(kb, lin_model, dev, card) -> dict:
+    """Phase 45: ``btd_solve_adjoint`` against its plain version, bit for
+    bit, at the main path's system, and the Function's derivatives; the
+    kernel's timings beside its bound. Returns its record."""
+    import torch.autograd.forward_ad as fwAD
+
+    from continuum_robot_tpu_torch.ops import banded
+    from continuum_robot_tpu_torch.utils import cuda_event_times
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(45)
+    a, c = gen_alpha_system(IMPLICIT["rho_lin"])
+    full = btd_host_factors(lin_model, a, c)
+    n = full[0].shape[0]
+    err, parts = 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        f, b, g = _btd_adjoint_inputs(full, N_ENVS, dtype, dev, rng)
+        packed = kb.pack_factors(f)
+        kb.reset_launch_counts()
+        sweeps = kb._launch_adjoint(packed.packed(), b, g)
+        require(kb.btd_solve_adjoint.launches == 1, "btd_solve_adjoint did not launch")
+        ref = banded.btd_adjoint_sweeps(f, b, g)
+        e = max_abs(sweeps, ref)
+        x = kb.btd_solve(packed, b)
+        whole = kb.btd_solve_adjoint(packed, b, x, g)
+        e_whole = max_abs(whole, banded.btd_solve_adjoint(f, b, x, g))
+        require(finite(*sweeps, *whole), f"btd_solve_adjoint: non-finite ({dtype})")
+        parts[str(dtype)[6:]] = (e, e_whole)
+        err = max(err, e, e_whole)
+    # The Function at a small float64 size: vjp and jvp against autograd and
+    # forward AD of the plain sweep.
+    small = random_btd_factors(ADJOINT["small_nodes"], rng)
+    f, b, g = _btd_adjoint_inputs(small, ADJOINT["small_envs"], torch.float64, dev, rng)
+    f = tuple(t.requires_grad_() for t in f)
+    b.requires_grad_()
+    kb.reset_launch_counts()
+    got = torch.autograd.grad(kb.btd_solve(f, b), (*f, b), g)
+    fn_launches = (kb.btd_solve.launches, kb.btd_solve_adjoint.launches)
+    want = torch.autograd.grad(banded.btd_solve(f, b), (*f, b), g)
+    vjp_err = max(scaled_err(x, y) for x, y in zip(got, want))
+    tangents = [torch.randn_like(t) for t in (*f, b)]
+    with fwAD.dual_level():
+        duals = [fwAD.make_dual(t.detach(), d) for t, d in zip((*f, b), tangents)]
+        jvp_ref = fwAD.unpack_dual(banded.btd_solve(tuple(duals[:3]), duals[3])).tangent
+        jvp_out = fwAD.unpack_dual(kb.btd_solve(tuple(duals[:3]), duals[3])).tangent
+    jvp_err = scaled_err(jvp_out, jvp_ref)
+    say(f"phase 45 btd_solve_adjoint vs plain [{card}]: {N_ENVS} rhs x {n} nodes; "
+        f"max|kernel-plain| (sweeps y, s, b_bar; whole adjoint with the factor sums) "
+        f"{parts}; the Function on {ADJOINT['small_envs']} x {ADJOINT['small_nodes']} "
+        f"float64: vjp vs autograd of the plain sweep {vjp_err:.3e}, jvp vs forward AD "
+        f"{jvp_err:.3e} (limit {ADJOINT['function_max']}), launches (btd_solve, adjoint) "
+        f"{fn_launches}")
+    require(err == 0.0, f"btd_solve_adjoint: kernel and plain version differ: {parts}")
+    require(max(vjp_err, jvp_err) <= ADJOINT["function_max"],
+            f"btd_solve Function derivatives: vjp {vjp_err:.3e}, jvp {jvp_err:.3e}")
+    require(fn_launches == (1, 1), f"btd_solve Function launches {fn_launches}")
+
+    # Timings, float32 at the main path's size.
+    f, b, g = _btd_adjoint_inputs(full, N_ENVS, torch.float32, dev, rng)
+    packed = kb.pack_factors(f).packed()
+    lone = min(cuda_event_times(lambda: kb._launch_adjoint(packed, b, g), repeats=3, warmup=1,
+                                device=dev))
+    dev_ms = device_ms(lambda: kb._launch_adjoint(packed, b, g), dev)
+    _, plain_ms = timed_once(lambda: banded.btd_adjoint_sweeps(f, b, g), dev)
+    ops = N_ENVS * n * (18 + 33 + 18)
+    nbytes = 4 * (5 * N_ENVS * 3 * n + 36 * n)
+    bnd = bound(ops, nbytes)
+    say(f"phase 45 btd_solve_adjoint timings [{card}]: float32 {N_ENVS} x {n}: "
+        f"{lone:.4f} ms a lone launch, device {dev_ms:.4f} ms, plain sweeps {plain_ms:.1f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}: b and g read, y, s, b_bar written), kernel at "
+        f"{bnd[0] / dev_ms:.3f} of it; library: none; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(max_abs_err=err, ms=lone, device_ms=dev_ms, plain_ms=plain_ms, bound=bnd,
+                library_ms=None, source=BTD_SOURCE, replaces=BTD_REPLACES,
+                note="the reverse-mode derivative of that kernel's solve (the JAX package "
+                     "differentiates its jnp scans; no TPU kernel of its own)")
+
+
+def _tensor_arrays(beam, dev, **scales):
+    """``beam.arrays`` as float64 tensors on ``dev``, fields scaled."""
+    fields = {f.name: torch.as_tensor(np.asarray(getattr(beam.arrays, f.name)), device=dev)
+              for f in dataclasses.fields(beam.arrays)}
+    for name, s in scales.items():
+        fields[name] = s * fields[name]
+    return type(beam.arrays)(**fields)
+
+
+def spike_grad_setup(crt, mesh):
+    """The SPIKE row's beam on ``mesh`` and its traced-arrays rollout."""
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "linear"))
+    beam = tpar.make_spatial_beam(model.beam_model.arrays,
+                                  model.beam_model.bc_info.free_mask.reshape(-1, 3), mesh)
+    roll = tpar.build_spatial_genalpha(beam, DT, rho_inf=SPIKE["rho_inf"],
+                                       n_newton=SPIKE["n_newton"])
+    return model, beam, roll
+
+
+def spike_gradients(crt, dev, mesh, kb=None):
+    """d(loss)/d(scale) of the elastic modulus and the density by autograd
+    through the float64 SPIKE span (one environment at rest, the row's tip
+    force), the loss ``1e3 sum(q_tip)`` at the last frame as the JAX test
+    takes it; with ``kb`` also the central differences and the kernels'
+    launches in the gradient path."""
+    from continuum_robot_tpu_torch.parallel import facade
+
+    model, beam, roll = spike_grad_setup(crt, mesh)
+    cfg = SPIKE_GRAD
+    tip = beam.n_nodes_real - 1
+    u_red = np.zeros(model.n_pos_states)
+    u_red[-2] = 0.1
+    x0 = torch.zeros((2, beam.n_nodes, 3), dtype=torch.float64, device=dev)
+    u = facade._node_force(model, u_red, beam.n_nodes, x0)
+
+    def loss(**scales):
+        _, xs = roll(x0, cfg["frames"], u=u, substeps=cfg["substeps"],
+                     arrays=_tensor_arrays(beam, dev, **scales))
+        return xs[-1, 0, tip].sum() * 1e3
+
+    out = {}
+    for field in ("elastic_modulus", "density"):
+        s = torch.tensor(1.0, dtype=torch.float64, device=dev, requires_grad=True)
+        if kb is not None:
+            kb.reset_launch_counts()
+        g, = torch.autograd.grad(loss(**{field: s}), s)
+        rec = dict(g=float(g))
+        if kb is not None:
+            rec["launches"] = {k.__name__: k.launches for k in kb.KERNELS}
+            h = cfg["h"]
+            with torch.no_grad():
+                rec["fd"] = float((loss(**{field: 1.0 + h}) - loss(**{field: 1.0 - h}))
+                                  / (2 * h))
+        out[field] = rec
+    return out
+
+
+def phase_spike_grad(crt, kb, dev, card) -> dict:
+    """Phase 46; returns the launches of btd_solve and btd_solve_adjoint by
+    path and the float64 gradients (the four-card oracle)."""
+    from continuum_robot_tpu_torch import parallel as tpar
+
+    t_phase = time.perf_counter()
+    cfg = SPIKE_GRAD
+    backend = tpar.init_process_group(dev)
+    try:
+        mesh = tpar.make_mesh({"sp": 1}, device=dev)
+        model, beam, roll = spike_grad_setup(crt, mesh)
+        frames, sub = cfg["frames"], cfg["substeps"]
+        repro = {}
+        for dtype, envs, limit in ((torch.float64, cfg["f64_envs"], cfg["baked_max"]),
+                                   (torch.float32, cfg["envs"], cfg["f32_baked_max"])):
+            _, _, xn, u_node = spike_inputs(model, beam, envs, dtype, dev)
+            _, baked = roll(xn, frames, u=u_node, substeps=sub)
+            _, traced = roll(xn, frames, u=u_node, substeps=sub,
+                             arrays=_tensor_arrays(beam, dev))
+            # The JAX test's form: max |traced - baked| <= limit x max(scale, 1).
+            diff = float((traced - baked).abs().max())
+            repro[str(dtype)[6:]] = (diff / max(float(baked.abs().max()), 1.0), limit,
+                                     scaled_err(traced, baked))
+            del baked, traced
+        grads = spike_gradients(crt, dev, mesh, kb)
+        paths = {}
+        for field, r in grads.items():
+            paths[f"spike:grad:{field}"] = r["launches"]
+        fd_err = {k: abs(r["g"] - r["fd"]) / abs(r["fd"]) for k, r in grads.items()}
+        say(f"phase 46 SPIKE arrays= [{card}]: {N_ELEMENTS} linear elements at sp = 1 "
+            f"({backend}), {frames} frames x {sub} substeps; arrays=beam.arrays as tensors "
+            f"vs the baked span, max err / max(scale, 1) (limit; max err / scale): "
+            f"{ {k: (f'{v[0]:.3e}', v[1], f'{v[2]:.3e}') for k, v in repro.items()} }; "
+            f"float64 d(1e3 "
+            f"q_tip)/d(scale): "
+            + ", ".join(f"{k} {r['g']:.10e} (central difference {r['fd']:.10e}, rel "
+                        f"{fd_err[k]:.3e}, limit {cfg['fd_rtol']})" for k, r in grads.items())
+            + f"; launches in each gradient path {paths}")
+        for k, (e, limit, _) in repro.items():
+            require(e <= limit, f"phase 46 traced vs baked ({k}): {e:.3e} > {limit}")
+        require(max(fd_err.values()) <= cfg["fd_rtol"], f"phase 46 gradient vs FD {fd_err}")
+        for p, c in paths.items():
+            require(c["btd_solve"] > 0 and c["btd_solve_adjoint"] > 0,
+                    f"phase 46 {p}: the thomas solves did not launch both kernels: {c}")
+
+        # float32 forward and backward at full width, memory watched.
+        envs, g32 = cfg["envs"], None
+        while True:
+            _, _, xn, u_node = spike_inputs(model, beam, envs, torch.float32, dev)
+            tip = beam.n_nodes_real - 1
+
+            def fwd_bwd():
+                s = torch.ones(2, dtype=torch.float64, device=dev, requires_grad=True)
+                arrs = _tensor_arrays(beam, dev, elastic_modulus=s[0], density=s[1])
+                _, xs = roll(xn, frames, u=u_node, substeps=sub, arrays=arrs)
+                return torch.autograd.grad(xs[-1, :, 0, tip].sum(), s)[0]
+
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            try:
+                kb.reset_launch_counts()
+                g32, ms = timed_once(fwd_bwd, dev)
+                counts = {k.__name__: k.launches for k in kb.KERNELS}
+                peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            except torch.cuda.OutOfMemoryError:
+                peak = float("inf")
+            if peak <= cfg["mem_limit_gb"] or envs <= 256:
+                break
+            say(f"phase 46: {envs} envs took {peak:.1f} GB (limit {cfg['mem_limit_gb']} GB): "
+                f"halving the batch")
+            envs //= 2
+        require(peak <= cfg["mem_limit_gb"] and g32 is not None and finite(g32),
+                f"phase 46 float32 forward+backward at {envs} envs: {peak} GB, {g32}")
+        paths["spike:grad:f32"] = counts
+        say(f"phase 46 SPIKE float32 forward+backward [{card}]: {envs} envs, "
+            f"{frames * sub} steps, d/d(E scale, density scale) of the summed tip "
+            f"{g32.tolist()}; {ms:.2f} ms (one call, set-up in), peak memory {peak:.2f} GB; launches "
+            f"{counts}; {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        tpar.destroy_process_group()
+    return dict(paths=paths, grads={k: r["g"] for k, r in grads.items()})
+
+
+def phase_rom_grad(crt, dev, card, rom_main) -> None:
+    """Phase 47: ``parametric_modal_rom_rollout`` on the ROM main path's
+    engine (frozen bases)."""
+    from continuum_robot_tpu_torch.parallel import sweep
+
+    t_phase = time.perf_counter()
+    cfg = ROM_GRAD
+    model, ms = rom_main["model"], rom_main["ms"]
+    bc, arrays = model.beam_model.bc_info, model.beam_model.arrays
+    m = ms.Phi.shape[1]
+    u = np.zeros(model.n_pos_states)
+    u[-2] = cfg["tip"]
+    u_m = ms.project_force_host(u)
+    E0 = float(np.asarray(arrays.elastic_modulus)[0])
+
+    def loss(scale, remat=False, dtype=torch.float64, n_newton=cfg["n_newton"],
+             steps=cfg["steps"]):
+        B = scale.shape[0] if scale.dim() else 1
+        arrs = sweep.override_arrays(arrays, elastic_modulus=(scale * E0).reshape(B, 1))
+        eta0 = torch.zeros(B, m, dtype=dtype, device=dev)
+        eta, _ = sweep.parametric_modal_rom_rollout(ms, bc, arrs, eta0, eta0, u_modal=u_m,
+                                                    n_steps=steps, n_newton=n_newton,
+                                                    remat=remat)
+        return (eta.double() ** 2).sum() * 1e6
+
+    one = torch.tensor(1.0, dtype=torch.float64, device=dev)
+    grads = {}
+    for remat in (False, True):
+        s = one.clone().requires_grad_()
+        grads[remat] = float(torch.autograd.grad(loss(s, remat), s)[0])
+    h = cfg["h"]
+    with torch.no_grad():
+        fd = float((loss(one + h) - loss(one - h)) / (2 * h))
+    fd_err = abs(grads[False] - fd) / abs(fd)
+    remat_err = abs(grads[True] - grads[False]) / abs(grads[False])
+    say(f"phase 47 parametric_modal_rom_rollout [{card}]: {N_ELEMENTS} von Karman elements, "
+        f"{m} frozen modes, float64, {cfg['steps']} steps x {cfg['n_newton']} Newton: "
+        f"d(1e6 |eta|^2)/d(E scale) {grads[False]:.10e}, central difference {fd:.10e} (rel "
+        f"{fd_err:.3e}, limit {cfg['fd_rtol']}); remat {grads[True]:.10e} (rel "
+        f"{remat_err:.3e}, limit {cfg['remat_rtol']})")
+    require(fd_err <= cfg["fd_rtol"], f"phase 47 gradient vs FD: {fd_err:.3e}")
+    require(remat_err <= cfg["remat_rtol"], f"phase 47 remat vs plain: {remat_err:.3e}")
+
+    rng = np.random.default_rng(47)
+    tried = []
+    for B in cfg["batches"]:
+        scales = torch.tensor(1.0 + 0.01 * rng.normal(size=B), dtype=torch.float64,
+                              device=dev)
+
+        def fwd_bwd():
+            s = scales.clone().requires_grad_()
+            return torch.autograd.grad(loss(s, True, torch.float32, 1, cfg["f32_steps"]), s)[0]
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            g = fwd_bwd()
+            ms_t = timed_once(fwd_bwd, dev)[1]
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        except torch.cuda.OutOfMemoryError:
+            tried.append(B)
+            continue
+        break
+    else:
+        require(False, f"phase 47: no batch of {cfg['batches']} fits")
+    require(finite(g), "phase 47 float32 gradient not finite")
+    say(f"phase 47 float32 forward+backward, remat [{card}]: {B} configurations (out of "
+        f"memory at {tried}), {cfg['f32_steps']} steps, one Newton iteration: {ms_t:.1f} ms, "
+        f"peak memory {peak:.2f} GB; {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_dense_grad(crt, dev, card) -> None:
+    """Phase 48: the small dense parametric paths."""
+    import torch.autograd.forward_ad as fwAD
+
+    from continuum_robot_tpu_torch.ops import integrators
+    from continuum_robot_tpu_torch.parallel import sweep
+
+    t_phase = time.perf_counter()
+    cfg = DENSE_GRAD
+    f64 = torch.float64
+    lines, checks = [], []
+
+    def grad_and_fd(run, E0, h):
+        """``(g, fd)``: the gradient at ``E0`` of ``run(E (3,)) -> (3,)``
+        (losses of three configurations E0 - h, E0, E0 + h in one batch)."""
+        E = torch.tensor([E0 - h, E0, E0 + h], dtype=f64, device=dev, requires_grad=True)
+        losses = run(E)
+        g = float(torch.autograd.grad(losses[1], E)[0][1])
+        return g, float(losses[2].detach() - losses[0].detach()) / (2 * h)
+
+    # examples/system_identification.py: RK4 and implicit rollouts of the
+    # tip trace under a 2 ms tip impulse.
+    model = golden_beam(crt, ["linear"] * cfg["segments"])
+    bc, arrays, n = model.beam_model.bc_info, model.beam_model.arrays, model.n_pos_states
+    imp = torch.zeros(n, dtype=f64, device=dev)
+    imp[-2] = cfg["impulse"]
+
+    def u(t):
+        return imp if t < cfg["t_imp"] else torch.zeros_like(imp)
+
+    def tip_loss(kind):
+        def run(E):
+            arrs = sweep.override_arrays(arrays, elastic_modulus=E[:, None])
+            x0 = torch.zeros(3, 2 * n, dtype=f64, device=dev)
+            roll = sweep.parametric_rollout if kind == "rk4" else sweep.parametric_genalpha_rollout
+            _, ys = roll(bc, arrs, x0, cfg["t_final"], cfg["dt"], u=u,
+                         substeps=cfg["substeps"])
+            return (ys[:, :, n - 2] ** 2).sum(0) * 1e6
+        return run
+
+    E0 = 75e9
+    h = E0 * cfg["h_rel"]
+    for kind, rtol in (("rk4", cfg["rk4_rtol"]), ("genalpha", cfg["ga_rtol"])):
+        (g, fd), secs = wall(lambda: grad_and_fd(tip_loss(kind), E0, h))
+        err = abs(g - fd) / abs(fd)
+        lines.append(f"system_identification {kind}: dL/dE {g:.8e} vs FD {fd:.8e} (rel "
+                     f"{err:.2e}, limit {rtol}; {secs:.1f} s)")
+        checks.append((err <= rtol, f"{kind} gradient vs FD {err:.3e}"))
+
+    # tests/test_sweep.py's beams: RK4 (6 segments, 2 ms, 20 substeps, the
+    # tip displaced 1 mm) and gen-alpha (5 segments, 10 ms, 10 substeps).
+    for kind, segs, t_final, dt, sub, rtol in (("rk4", 6, 0.002, 0.001, 20, cfg["rk4_rtol"]),
+                                               ("genalpha", 5, 0.01, 1e-3, 10,
+                                                cfg["ga_rtol"])):
+        m6 = golden_beam(crt, ["linear"] * segs)
+        nn = m6.n_pos_states
+
+        def run(E, m6=m6, nn=nn, kind=kind, t_final=t_final, dt=dt, sub=sub, remat=False):
+            arrs = sweep.override_arrays(m6.beam_model.arrays, elastic_modulus=E[:, None])
+            x0 = torch.zeros(3, 2 * nn, dtype=f64, device=dev)
+            x0[:, nn - 2] = 1e-3 if kind == "rk4" else 1e-4
+            if kind == "rk4":
+                _, ys = sweep.parametric_rollout(m6.beam_model.bc_info, arrs, x0, t_final, dt,
+                                                 substeps=sub)
+            else:
+                uu = torch.zeros(nn, dtype=f64, device=dev)
+                uu[-2] = 0.01
+                _, ys = sweep.parametric_genalpha_rollout(m6.beam_model.bc_info, arrs, x0,
+                                                          t_final, dt, u=uu, substeps=sub,
+                                                          remat=remat)
+            return (ys[-1, :, :nn] ** 2).sum(-1) * 1e6
+
+        g, fd = grad_and_fd(run, E0, 1e3)
+        err = abs(g - fd) / abs(fd)
+        lines.append(f"test_sweep {kind} ({segs} segments): dL/dE {g:.8e} vs FD {fd:.8e} "
+                     f"(rel {err:.2e}, limit {rtol})")
+        checks.append((err <= rtol, f"test_sweep {kind} gradient vs FD {err:.3e}"))
+        if kind == "genalpha":
+            g_r, _ = grad_and_fd(lambda E: run(E, remat=True), E0, 1e3)
+            err = abs(g_r - g) / abs(g)
+            lines.append(f"remat vs plain {err:.2e}")
+            checks.append((err <= cfg["remat_rtol"], f"test_sweep remat {err:.3e}"))
+
+    # The traced operator under adaptive gen-alpha (test_sweep's 5-segment
+    # beam, rho_inf 0.9, the tip force 0.01): the host-prefactored "btd"
+    # operator's run, and forward mode against central differences.
+    m5 = golden_beam(crt, ["linear"] * 5)
+    n5 = m5.n_pos_states
+    q0 = torch.zeros(n5, dtype=f64, device=dev)
+    q0[-2] = 1e-4
+    u5 = torch.zeros(n5, dtype=f64, device=dev)
+    u5[-2] = 0.01
+    t_eval = np.linspace(0.0, cfg["adaptive_t"], 2)
+    kw = dict(u=u5, rho_inf=0.9, rtol=cfg["adaptive_rtol"], atol=1e-9)
+    op_t = sweep.make_traced_genalpha_operator(m5.beam_model.bc_info, m5.beam_model.arrays,
+                                               dt=1e-4, rho_inf=0.9, device=dev)
+    op_h = crt.make_newmark_operator(m5, dt=None, linear_solver="btd", device=dev)
+    (qs_t, _, st_t), secs = wall(lambda: integrators.integrate_generalized_alpha_adaptive(
+        op_t, q0, torch.zeros_like(q0), t_eval, **kw))
+    qs_h, _, st_h = integrators.integrate_generalized_alpha_adaptive(
+        op_h, q0, torch.zeros_like(q0), t_eval, **kw)
+    err = rel(qs_t, qs_h)
+    same = int(st_t.n_accepted) == int(st_h.n_accepted)
+    lines.append(f"adaptive traced vs host-prefactored btd: {err:.2e} (limit 1e-9), accepted "
+                 f"{int(st_t.n_accepted)} vs {int(st_h.n_accepted)}, {int(st_t.trials_run)} "
+                 f"trials in {secs:.1f} s")
+    checks.append((err <= 1e-9 and same, f"adaptive traced vs btd {err:.3e}, {same}"))
+    h5 = E0 * cfg["h_rel"]
+    with fwAD.dual_level():
+        E = fwAD.make_dual(torch.tensor([E0 - h5, E0, E0 + h5], dtype=f64, device=dev),
+                           torch.tensor([0.0, 1.0, 0.0], dtype=f64, device=dev))
+        arr = sweep.override_arrays(m5.beam_model.arrays, elastic_modulus=E[:, None])
+        op = sweep.make_traced_genalpha_operator(m5.beam_model.bc_info, arr, dt=1e-4,
+                                                 rho_inf=0.9)
+        (qs, _, _), secs = wall(lambda: integrators.integrate_generalized_alpha_adaptive(
+            op, q0.expand(3, n5), torch.zeros(3, n5, dtype=f64, device=dev), t_eval,
+            per_env=True, **kw))
+        tip, tangent = fwAD.unpack_dual(qs[-1, :, -2])
+    g = float(tangent[1])
+    fd = float(tip[2] - tip[0]) / (2 * h5)
+    err = abs(g - fd) / abs(fd)
+    lines.append(f"forward mode through adaptive: d(tip)/dE {g:.8e} vs FD {fd:.8e} (rel "
+                 f"{err:.2e}, limit 1e-6; {secs:.1f} s)")
+    checks.append((err <= 1e-6, f"adaptive jvp vs FD {err:.3e}"))
+    say(f"phase 48 dense parametric paths [{card}], float64: " + "; ".join(lines)
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+    for ok, msg in checks:
+        require(ok, f"phase 48 {msg}")
+
+
+def sweep_paths(crt, kb, dev, card, lin_model=None, rom_main=None) -> dict:
+    """Phases 45-48; returns the btd_solve_adjoint record (launches by path
+    included) and btd_solve's launches by path there."""
+    t0 = time.perf_counter()
+    if lin_model is None:
+        lin_model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "linear"))
+    rec = phase_btd_adjoint(kb, lin_model, dev, card)
+    spike = phase_spike_grad(crt, kb, dev, card)
+    if rom_main is None:
+        model, ms = rom_main_path(crt, dev)[:2]
+        rom_main = dict(model=model, ms=ms)
+    phase_rom_grad(crt, dev, card, rom_main)
+    phase_dense_grad(crt, dev, card)
+    paths = spike["paths"]
+    rec.update(launches=paths["spike:grad:elastic_modulus"]["btd_solve_adjoint"],
+               launches_by_path={p: c["btd_solve_adjoint"] for p, c in paths.items()})
+    print(f"phases 45-48: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(record=rec, btd_paths={p: c["btd_solve"] for p, c in paths.items()},
+                grads=spike["grads"])
 
 
 def main() -> int:
@@ -4108,6 +4641,17 @@ def main() -> int:
         print(f"four-card phases done; total {time.time() - t_start:.1f} s", flush=True)
         print(card)
         return 0
+    if "--sweep" in args:
+        t0 = time.time()
+        _build.build_all()
+        print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
+        out = sweep_paths(crt, kb, dev, card)
+        rec = out["record"]
+        print(json.dumps({"btd_solve_adjoint": {k: rec[k] for k in (
+            "launches", "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms")},
+            "btd_solve_launches_by_path": out["btd_paths"]}), flush=True)
+        print(f"sweep phases done; total {time.time() - t_start:.1f} s", flush=True)
+        return 0
     if "--rom-tier" in args:
         t0 = time.time()
         _build.build_all()
@@ -4164,6 +4708,9 @@ def main() -> int:
         "modal_frames"]
     records["affine_frames"]["launches_by_path"]["simulate_sharded:power"] = modal[
         "affine_frames"]
+    sweep = sweep_paths(crt, kb, dev, card, lin_model, rom_main)
+    records["btd_solve"]["launches_by_path"].update(sweep["btd_paths"])
+    records["btd_solve_adjoint"] = sweep["record"]
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
@@ -4176,7 +4723,8 @@ def main() -> int:
          **({"device_ms": rec["device_ms"]} if "device_ms" in rec else {}),
          **({k: rec[k] for k in ("dispatch_us", "full_width") if k in rec}),
          **({"rn_bound_ms": rec["rn_bound_ms"]} if "rn_bound_ms" in rec else {}),
-         **({"design": rec["design"]} if "design" in rec else {})}
+         **({"design": rec["design"]} if "design" in rec else {}),
+         **({"note": rec["note"]} if "note" in rec else {})}
         for name, rec in records.items()
     ]}))
     print(card)

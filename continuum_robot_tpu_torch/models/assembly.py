@@ -9,7 +9,10 @@ forms are host NumPy for eigensolves and control design.
 
 The internal-force functions take NumPy arrays (host, returns NumPy) or
 torch tensors (returns tensors on their device and dtype) and broadcast
-over leading batch axes. The state-dependent tangent
+over leading batch axes. A :class:`BeamArrays` whose fields are tensors
+(batched ``(n_envs, E)`` or not; ``parallel/sweep.py``) flows through the
+mass and tangent bands, the internal force and the padding helpers with
+its graph: derivatives in the physical parameters reach its fields. The state-dependent tangent
 (:func:`tangent_block_tridiagonal`) feeds the implicit integrators' Newton
 solves.
 """
@@ -20,6 +23,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from . import elements
 from .config import BeamArrays
@@ -461,15 +465,25 @@ def reduce_matrix(M, free_dofs: np.ndarray):
 # ---------------------------------------------------------------------------
 
 
+def _field_like(x, dtype, device) -> torch.Tensor:
+    """A parameter field on ``device`` in ``dtype``: a tensor keeps its graph
+    (and its tangent), a host array is uploaded."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
 def element_params(arrays: BeamArrays, like: torch.Tensor):
     """``(L, E, I, A, nonlinear_mask)`` as tensors on ``like``'s device and
     dtype (the mask as bool): upload once and pass them to the element
-    functions, which then copy nothing from the host."""
+    functions, which then copy nothing from the host. Fields that are
+    tensors (traced parameters, batched ``(n_envs, E)`` or not) pass
+    through with their graph, so derivatives reach them."""
     return tuple(
-        torch.tensor(np.asarray(x), dtype=like.dtype, device=like.device)
+        _field_like(x, like.dtype, like.device)
         for x in (arrays.length, arrays.elastic_modulus, arrays.moment_inertia,
                   arrays.cross_area)
-    ) + (torch.tensor(np.asarray(arrays.nonlinear_mask), device=like.device),)
+    ) + (_field_like(arrays.nonlinear_mask, torch.bool, like.device),)
 
 
 def element_tangent_stiffness(arrays: BeamArrays, q6, use_consistent: bool = False,
@@ -486,7 +500,12 @@ def element_tangent_stiffness(arrays: BeamArrays, q6, use_consistent: bool = Fal
     ``jacfwd`` per element would see 0-dim state components, and under
     ``vmap`` a Python scalar times a 0-dim float32 tensor comes out float64:
     the parity element's tangent used to.) ``params``:
-    :func:`element_params` already uploaded for that device and dtype.
+    :func:`element_params` already uploaded for that device and dtype, or
+    tensors with a host NumPy mask; an all-linear host mask returns the
+    element stiffness (the exact tangent) without forward AD. Inside a
+    ``torch.autograd.forward_ad`` level the columns come from
+    :func:`_cubic_columns` (forward AD does not nest). Reverse mode reaches
+    tensor parameters through the ``jvp`` columns.
     """
     is_np = not isinstance(q6, torch.Tensor)
     q = torch.as_tensor(np.asarray(q6, np.float64)) if is_np else q6
@@ -496,11 +515,39 @@ def element_tangent_stiffness(arrays: BeamArrays, q6, use_consistent: bool = Fal
     def force(x):
         return elements.element_internal_force(x, *params, use_consistent=use_consistent)
 
+    mask = params[4]
     units = torch.eye(6, dtype=q.dtype, device=q.device)
-    units = units.reshape((6,) + (1,) * (q.dim() - 1) + (6,)).expand((6,) + tuple(q.shape))
-    cols = torch.func.vmap(lambda d: torch.func.jvp(force, (q,), (d,))[1])(units)
-    Kt = cols.movedim(0, -1)  # (..., E, 6 force slots, 6 unit directions)
+    if isinstance(mask, np.ndarray) and not mask.any():
+        # Linear elements only (a host mask): the tangent is the element
+        # stiffness itself, whatever the state.
+        K = elements.linear_stiffness_matrix(*params[:4])
+        Kt = torch.broadcast_to(K, torch.broadcast_shapes(q.shape[:-1], K.shape[:-2]) + (6, 6))
+    elif fwAD._current_level >= 0:
+        Kt = _cubic_columns(force, q, units)
+    else:
+        units = units.reshape((6,) + (1,) * (q.dim() - 1) + (6,)).expand((6,) + tuple(q.shape))
+        cols = torch.func.vmap(lambda d: torch.func.jvp(force, (q,), (d,))[1])(units)
+        Kt = cols.movedim(0, -1)  # (..., E, 6 force slots, 6 unit directions)
     return Kt.numpy() if is_np else Kt
+
+
+def _cubic_columns(force, q, units):
+    """The element Jacobian ``(..., E, 6, 6)`` at ``q`` without nested
+    forward AD, for callers inside a ``torch.autograd.forward_ad`` level
+    (``torch.func.jvp`` cannot open a second one): every element force is a
+    polynomial of degree 3 in its six DOFs, so along a unit direction ``p(s)
+    = f(q + s h e_j)`` has the exact derivative ``[8 (p(1) - p(-1)) - (p(2)
+    - p(-2))] / (12 h)``; one batched force call of the 4 x 6 points. The
+    step ``h`` is the element's ``max |q|`` (at least 1e-6), where the
+    roundoff of the cancelling terms stays a few ulps of the tangent's
+    scale. Plain ops: the outer level's tangents flow through."""
+    h = q.detach().abs().amax(-1, keepdim=True).clamp(min=1e-6)  # (..., E, 1)
+    s = torch.tensor([1.0, -1.0, 2.0, -2.0], dtype=q.dtype, device=q.device)
+    lead = (1,) * (q.dim() - 1)
+    steps = s.reshape(4, 1, *lead, 1) * units.reshape(1, 6, *lead, 6)  # (4, 6, ..., 6)
+    p = force(q + steps * h)
+    cols = (8.0 * (p[0] - p[1]) - (p[2] - p[3])) / (12.0 * h)  # (6, ..., E, 6)
+    return cols.movedim(0, -1)
 
 
 def tangent_block_tridiagonal(arrays: BeamArrays, q_full, use_consistent: bool = False,

@@ -92,7 +92,10 @@ def consistent_mass_matrix(length, density, cross_area):
     L, rhoAL = _broadcast(xp, L, rhoAL)
 
     z = xp.zeros_like(L)
-    c = rhoAL / 420.0
+    # A tensor divisor on the tensor's device: CUDA divides by a host scalar
+    # through its reciprocal (one rounding more), which would set the card's
+    # mass apart from the host's by an ulp.
+    c = rhoAL / (420.0 if xp is np else rhoAL.new_full((), 420.0))
     m140 = 140.0 * c
     m70 = 70.0 * c
     m156 = 156.0 * c
@@ -431,10 +434,17 @@ def element_internal_force(
     xp, (q6, L, E, I, A) = _as_arrays(
         q6, length, elastic_modulus, moment_inertia, cross_area
     )
-    K = linear_stiffness_matrix(L, E, I, A)
-    f_lin = xp.einsum("...ij,...j->...i", K, q6)
     nl_force = (nonlinear_internal_force_consistent if use_consistent
                 else nonlinear_internal_force)
+    if isinstance(nonlinear_mask, np.ndarray) and xp is torch:
+        # A host mask that is all one kind selects one branch: skip the
+        # other (the same values; tensor masks evaluate both).
+        if not nonlinear_mask.any():
+            return torch.einsum("...ij,...j->...i", linear_stiffness_matrix(L, E, I, A), q6)
+        if nonlinear_mask.all():
+            return nl_force(q6, L, E, I, A)
+    K = linear_stiffness_matrix(L, E, I, A)
+    f_lin = xp.einsum("...ij,...j->...i", K, q6)
     nl = nl_force(q6, L, E, I, A)
     if xp is np:
         mask = np.asarray(nonlinear_mask)

@@ -21,7 +21,11 @@ batched op over the environments.
 ``ops/cuda/btd_solve.btd_solve``: each 3x3 product row is summed as ``acc =
 m0*v0; acc += m1*v1; acc += m2*v2`` (the order of the Pallas kernel's
 ``matvec33``), which the kernel repeats with unfused multiplies and adds,
-so the two agree bit for bit.
+so the two agree bit for bit. :func:`btd_solve_adjoint` is its reverse-mode
+derivative, the plain version of the kernel ``btd_solve_adjoint``
+(:func:`btd_adjoint_sweeps`, same order), and :func:`btd_solve_tangent_rhs`
+the right-hand side of its forward-mode derivative; on tensors every
+function here is also differentiable by torch's autograd directly.
 """
 
 from __future__ import annotations
@@ -146,6 +150,135 @@ def btd_solve(factors, b):
             dinv[..., i, :, :], ys[i] - _matvec33(upper[..., i, :, :], xs[i + 1])
         )
     return _stack(xs, -2)
+
+
+def _matvec33_t(m, v):
+    """``m^T @ v`` for blocks ``(..., 3, 3)`` and vectors ``(..., 3)``: entry
+    j summed as ``m0j*v0 + m1j*v1 + m2j*v2`` from the left."""
+    return m[..., 0, :] * v[..., 0:1] + m[..., 1, :] * v[..., 1:2] + m[..., 2, :] * v[..., 2:3]
+
+
+def _sum_to(x, shape):
+    """``x`` summed over the leading and broadcast axes down to ``shape``."""
+    shape = tuple(shape)
+    lead = x.dim() - len(shape)
+    if lead:
+        x = x.sum(tuple(range(lead)))
+    axes = tuple(i for i, n in enumerate(shape) if n == 1 and x.shape[i] != 1)
+    return x.sum(axes, keepdim=True) if axes else x
+
+
+def btd_adjoint_sweeps(factors, b, g):
+    """The sequential part of :func:`btd_solve_adjoint`: ``(y, s, b_bar)``.
+
+    ``y`` is the forward sweep of :func:`btd_solve` on ``b`` (``y_0 = b_0``,
+    ``y_i = b_i - W_{i-1} y_{i-1}``, ``W = lw``); then, for the cotangent
+    ``g = dL/dx``, an ascending sweep ``xbar_0 = g_0``, ``xbar_i = g_i -
+    U_{i-1}^T s_{i-1}``, ``s_i = Dinv_i^T xbar_i`` and a descending one
+    ``b_bar_{N-1} = s_{N-1}``, ``b_bar_i = s_i - W_i^T b_bar_{i+1}``. Every
+    3x3 product is summed from the left (:func:`_matvec33`,
+    :func:`_matvec33_t`): the plain version of the CUDA kernel
+    ``btd_solve_adjoint``, which computes the same three arrays in the same
+    order."""
+    dinv, lw, upper = factors
+    n = b.shape[-2]
+    ys = [b[..., 0, :]]
+    for i in range(1, n):
+        ys.append(b[..., i, :] - _matvec33(lw[..., i - 1, :, :], ys[-1]))
+    ss = [_matvec33_t(dinv[..., 0, :, :], g[..., 0, :])]
+    for i in range(1, n):
+        xbar = g[..., i, :] - _matvec33_t(upper[..., i - 1, :, :], ss[-1])
+        ss.append(_matvec33_t(dinv[..., i, :, :], xbar))
+    bbar = [None] * n
+    bbar[-1] = ss[-1]
+    for i in range(n - 2, -1, -1):
+        bbar[i] = ss[i] - _matvec33_t(lw[..., i, :, :], bbar[i + 1])
+    return _stack(ys, -2), _stack(ss, -2), _stack(bbar, -2)
+
+
+def btd_adjoint_factors(factors, x, g, y, s, bbar):
+    """The factor cotangents of :func:`btd_solve_adjoint` from the sweeps'
+    arrays: ``dinv_bar_i = sum xbar_i t_i^T`` (``t_i = y_i - U_i x_{i+1}``,
+    ``xbar_i = g_i - U_{i-1}^T s_{i-1}``), ``upper_bar_i = -sum s_i
+    x_{i+1}^T`` and ``lw_bar_i = -sum b_bar_{i+1} y_i^T``, each summed over
+    the right-hand sides' batch down to the factor's shape (one batched
+    product a node for factors shared by the whole batch). Vectorized over
+    the nodes: the kernel and the plain sweeps share it."""
+    dinv, lw, upper = factors
+    xbar = g.clone()
+    xbar[..., 1:, :] = g[..., 1:, :] - _matvec33_t(upper, s[..., :-1, :])
+    t = y.clone()
+    t[..., :-1, :] = y[..., :-1, :] - _matvec33(upper, x[..., 1:, :])
+
+    def outer(a, c, like):
+        if like.dim() == 3:  # shared factors: one (3, B) x (B, 3) product a node
+            a2 = a.flatten(0, -3) if a.dim() > 2 else a[None]
+            c2 = c.flatten(0, -3) if c.dim() > 2 else c[None]
+            return torch.einsum("bni,bnj->nij", a2, c2)
+        return _sum_to(a[..., :, None] * c[..., None, :], like.shape)
+
+    dinv_bar = outer(xbar, t, dinv)
+    upper_bar = -outer(s[..., :-1, :], x[..., 1:, :], upper)
+    lw_bar = -outer(bbar[..., 1:, :], y[..., :-1, :], lw)
+    return dinv_bar, lw_bar, upper_bar
+
+
+def btd_solve_adjoint(factors, b, x, g):
+    """Reverse-mode derivative of :func:`btd_solve`: ``x = T^{-1} b``.
+
+    ``factors`` ``(dinv, lw, upper)`` from :func:`btd_factor`, ``b`` the
+    right-hand sides, ``x`` the solve's result and ``g = dL/dx``, all
+    tensors. Returns ``(dinv_bar, lw_bar, upper_bar, b_bar)``: the
+    cotangents of the three factors (summed over the batch the factors are
+    broadcast over) and of ``b``. With ``T = L R`` (``L`` unit lower with
+    subdiagonal ``W = lw``, ``R`` upper with diagonal ``D_i = dinv_i^{-1}``
+    and superdiagonal ``U = upper``), the forward is ``y = L^{-1} b``, ``t_i
+    = y_i - U_i x_{i+1}``, ``x_i = dinv_i t_i``; the adjoint runs the sweeps
+    of :func:`btd_adjoint_sweeps` (the CUDA kernel's plain version, with the
+    same order of operations) and the batch reductions of
+    :func:`btd_adjoint_factors`.
+    """
+    y, s, bbar = btd_adjoint_sweeps(factors, b, g)
+    dinv_bar, lw_bar, upper_bar = btd_adjoint_factors(factors, x, g, y, s, bbar)
+    return dinv_bar, lw_bar, upper_bar, _sum_to(bbar, b.shape)
+
+
+def btd_solve_tangent_rhs(factors, x, tangents, b_dot):
+    """Right-hand side ``c`` of the forward-mode derivative of
+    :func:`btd_solve`: ``x_dot = T^{-1} c``, ``c = b_dot - L_dot y - L
+    (R_dot x)``.
+
+    ``tangents``: the tangents ``(dinv_dot, lw_dot, upper_dot)`` of the
+    factors (None for none), ``b_dot`` that of the right-hand side (or
+    None); ``x`` the solve's result. With ``D = dinv^{-1}`` (:func:`inv33`),
+    ``t_i = D_i x_i`` and ``y_i = t_i + U_i x_{i+1}``: ``(L_dot y)_i =
+    W_dot_{i-1} y_{i-1}``, ``(R_dot x)_i = -D_i dinv_dot_i t_i + U_dot_i
+    x_{i+1}`` and ``(L z)_i = z_i + W_{i-1} z_{i-1}``. Vectorized over the
+    nodes; one more solve (the forward kernel on the card) gives the
+    tangent."""
+    dinv, lw, upper = factors
+    d_dinv, d_lw, d_up = tangents
+    c = torch.zeros_like(x) if b_dot is None else b_dot.expand(x.shape).clone()
+    needs_t = d_dinv is not None or d_lw is not None
+    if needs_t:
+        D = inv33(dinv)
+        t = _mv(D, x)
+    if d_lw is not None:
+        y = t.clone()
+        y[..., :-1, :] = t[..., :-1, :] + _mv(upper, x[..., 1:, :])
+        c[..., 1:, :] = c[..., 1:, :] - _mv(d_lw, y[..., :-1, :])
+    rx = None
+    if d_dinv is not None:
+        rx = -_mv(D, _mv(d_dinv, t))
+    if d_up is not None:
+        ux = torch.zeros_like(x)
+        ux[..., :-1, :] = _mv(d_up, x[..., 1:, :])
+        rx = ux if rx is None else rx + ux
+    if rx is not None:
+        lrx = rx.clone()
+        lrx[..., 1:, :] = rx[..., 1:, :] + _mv(lw, rx[..., :-1, :])
+        c = c - lrx
+    return c
 
 
 # ---------------------------------------------------------------------------

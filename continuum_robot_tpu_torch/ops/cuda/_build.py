@@ -23,6 +23,9 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+import torch.autograd.forward_ad as fwAD
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # One shared library per source, built by its own nvcc process.
 SOURCES = {
@@ -80,6 +83,7 @@ _SIGNATURES = {
     },
     "btd_solve": {
         "btd_solve_launch": [_c_int] * 3 + [_c_i64] * 2 + [_c_ptr] * 5,
+        "btd_solve_adjoint_launch": [_c_int] * 3 + [_c_i64] + [_c_ptr] * 8,
     },
     "fused_rollout": {
         "fused_gen_alpha_launch": [_c_int] * 6 + [_c_dbl] * 9 + [_c_ptr] * 9,
@@ -180,3 +184,33 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def _derivative_asked(t) -> bool:
+    """Whether ``t`` carries a reverse-mode graph (under grad mode), a
+    forward-mode tangent or a ``torch.func`` transform's wrapper."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    if t.requires_grad and torch.is_grad_enabled():
+        return True
+    if fwAD._current_level >= 0 and fwAD.unpack_dual(t).tangent is not None:
+        return True
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when a caller asks kernel ``name`` for a derivative.
+
+    A kernel launched through raw device pointers returns a tensor with no
+    ``grad_fn`` and no tangent, so a gradient through it would silently
+    lose the kernel's contribution. The kernels without a backward call this
+    on their tensor inputs before launching: with grad mode on and an input
+    that requires grad, or an input with a forward-mode tangent, they raise
+    instead (there is no switch to the plain version). ``btd_solve`` has a
+    backward and a tangent of its own (``btd_solve.py``)."""
+    if any(_derivative_asked(t) for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no derivative; an input requires grad or "
+            "carries a tangent (run it under torch.no_grad() on detached inputs, or "
+            "differentiate the plain PyTorch version on CPU tensors)"
+        )

@@ -1,4 +1,4 @@
-"""Block-tridiagonal solve: CUDA on the card, the plain sweep elsewhere.
+"""Block-tridiagonal solve and its adjoint: CUDA on the card, plain sweeps elsewhere.
 
 Counterpart of ``continuum_robot_tpu/ops/pallas/btd_solve.py``. The TPU
 kernel ``btd_solve_pallas`` becomes the hand-written CUDA kernel of
@@ -9,6 +9,12 @@ kernel ``btd_solve_pallas`` becomes the hand-written CUDA kernel of
 :func:`btd_solve` dispatches by the device of the right-hand sides: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (building
 it on first use) or raises. ``btd_solve.launches`` counts the launches.
+On the card the solve is a ``torch.autograd.Function`` (:class:`_Solve`):
+its backward launches the second kernel of the source,
+:func:`btd_solve_adjoint` (no TPU counterpart: the JAX package
+differentiates the plain jnp scans), whose plain version is
+``banded.btd_solve_adjoint``; its forward-mode tangent is one more
+``btd_solve`` launch. ``btd_solve_adjoint.launches`` counts its launches.
 
 The kernel moves rows and factors with 16-byte bulk copies. It reads rows
 whose pitch is a multiple of 16 bytes (the implicit operator pads its
@@ -46,19 +52,44 @@ class BTDFactors(tuple):
     sweep) with the kernel's packed copies: ``fwd (N, 12)``, node ``n``'s
     forward multiplier ``lw[n-1]`` (zero at node 0), and ``bwd (N, 24)``,
     ``dinv[n]`` then ``upper[n]`` (zero at node N-1); each 3x3 block as
-    three rows of four, the fourth zero. The same nine values per block."""
+    three rows of four, the fourth zero. The same nine values per block.
+
+    The packed copies are made once, at the first launch (or at the first
+    read of ``fwd`` / ``bwd``), from the factors' values and outside any
+    graph: a launch reads values only, and the derivatives go to the
+    factors themselves (:class:`_Solve`)."""
 
     def __new__(cls, factors):
         self = super().__new__(cls, tuple(factors))
-        dinv, lw, up = self
-        zero = dinv.new_zeros((1, 3, 3))
-        self.fwd = _blocks(torch.cat([zero, lw])).contiguous()
-        self.bwd = torch.cat([_blocks(dinv), _blocks(torch.cat([up, zero]))], 1).contiguous()
+        self._packed = None
         return self
+
+    def packed(self, dinv=None, lw=None, up=None):
+        """``(fwd, bwd)``, packed from ``(dinv, lw, up)`` (default: this
+        tuple's) on first use."""
+        if self._packed is None:
+            if dinv is None:
+                dinv, lw, up = self
+            with torch.no_grad():
+                dinv, lw, up = (t.detach() for t in (dinv, lw, up))
+                zero = dinv.new_zeros((1, 3, 3))
+                fwd = _blocks(torch.cat([zero, lw])).contiguous()
+                bwd = torch.cat([_blocks(dinv), _blocks(torch.cat([up, zero]))], 1).contiguous()
+            self._packed = (fwd, bwd)
+        return self._packed
+
+    @property
+    def fwd(self) -> torch.Tensor:
+        return self.packed()[0]
+
+    @property
+    def bwd(self) -> torch.Tensor:
+        return self.packed()[1]
 
 
 def pack_factors(factors) -> BTDFactors:
-    """The factors with the kernel's packed copies (once per upload)."""
+    """The factors as a :class:`BTDFactors`, which packs them for the
+    kernel once."""
     return factors if isinstance(factors, BTDFactors) else BTDFactors(factors)
 
 
@@ -73,38 +104,27 @@ def _kernel_rows(r: torch.Tensor) -> bool:
     return end * r.element_size() <= r.untyped_storage().nbytes()
 
 
-def btd_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve ``T x = rhs`` for a batch of right-hand sides, one shared ``T``.
-
-    Args:
-      factors: ``(dinv (N, 3, 3), lw (N-1, 3, 3), upper (N-1, 3, 3))`` from
-        :func:`~continuum_robot_tpu_torch.ops.banded.btd_factor` (unbatched),
-        on ``rhs``'s device and in its dtype; a :class:`BTDFactors` carries
-        the kernel's packed copies (otherwise they are packed per call).
-      rhs: ``(..., N, 3)`` right-hand sides (every leading axis is a batch
-        axis; the kernel sees ``(B, 3N)`` rows, in place when their pitch
-        is a multiple of :data:`PITCH` elements).
-
-    Returns the ``(..., N, 3)`` solutions. CPU tensors run the plain
-    version; CUDA tensors (float32 or float64) one kernel launch, whose
-    result is a view of rows padded to :data:`PITCH`.
-    """
+def _check(factors, rhs: torch.Tensor, what: str) -> None:
+    """The CUDA kernels' contract: float32/float64 ``(..., N, 3)`` rows and
+    unbatched factors on their device, in their dtype."""
     dev = rhs.device
-    if dev.type == "cpu":
-        return banded.btd_solve(factors, rhs)
-    if dev.type != "cuda":
-        raise ValueError(f"btd_solve takes CPU or CUDA tensors, got {dev}")
     if rhs.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA btd_solve takes float32/float64, got {rhs.dtype}")
+        raise TypeError(f"the CUDA {what} takes float32/float64, got {rhs.dtype}")
     n = rhs.shape[-2]
     want = ((n, 3, 3), (n - 1, 3, 3), (n - 1, 3, 3))
     if rhs.shape[-1] != 3 or tuple(tuple(f.shape) for f in factors) != want:
         raise ValueError(
-            f"btd_solve needs rhs (..., N, 3) and unbatched factors {want}, got rhs "
+            f"{what} needs rhs (..., N, 3) and unbatched factors {want}, got rhs "
             f"{tuple(rhs.shape)} and factors {[tuple(f.shape) for f in factors]}"
         )
     if any(f.device != dev or f.dtype != rhs.dtype for f in factors):
-        raise ValueError("btd_solve factors must be on rhs's device, in its dtype")
+        raise ValueError(f"{what} factors must be on rhs's device, in its dtype")
+
+
+def _launch_solve(packed, rhs: torch.Tensor) -> torch.Tensor:
+    """One ``btd_solve`` launch on plain (graph-free) tensors."""
+    dev = rhs.device
+    n = rhs.shape[-2]
     r = rhs.reshape(-1, 3 * n)
     if not _kernel_rows(r):
         r = torch.empty((r.shape[0], padded_width(3 * n)), dtype=r.dtype,
@@ -112,25 +132,146 @@ def btd_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((r.shape[0], padded_width(3 * n)), dtype=r.dtype,
                       device=dev)[:, :3 * n]
     if r.shape[0] and n:
-        packed = pack_factors(factors)
+        fwd, bwd = packed
         lib = _build.library("btd_solve")
         with torch.cuda.device(dev):
             rc = lib.btd_solve_launch(
                 _DTYPE_CODES[rhs.dtype], r.shape[0], n,
                 r.stride(0) if r.shape[0] > 1 else padded_width(3 * n), out.stride(0),
-                packed.fwd.data_ptr(), packed.bwd.data_ptr(), r.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                fwd.data_ptr(), bwd.data_ptr(), r.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, "btd_solve")
         btd_solve.launches += 1
     return out.reshape(rhs.shape)
 
 
+def _launch_adjoint(packed, b: torch.Tensor, g: torch.Tensor):
+    """One ``btd_solve_adjoint`` launch: ``(y, s, b_bar)`` shaped like ``b``."""
+    dev = b.device
+    n = b.shape[-2]
+    rows = b.reshape(-1, 3 * n).contiguous()
+    grows = g.expand(b.shape).reshape(-1, 3 * n).contiguous()
+    y, s, bbar = torch.empty((3, *rows.shape), dtype=b.dtype, device=dev).unbind(0)
+    if rows.shape[0] and n:
+        fwd, bwd = packed
+        lib = _build.library("btd_solve")
+        with torch.cuda.device(dev):
+            rc = lib.btd_solve_adjoint_launch(
+                _DTYPE_CODES[b.dtype], rows.shape[0], n, 3 * n, fwd.data_ptr(),
+                bwd.data_ptr(), rows.data_ptr(), grows.data_ptr(), y.data_ptr(),
+                s.data_ptr(), bbar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(lib, rc, "btd_solve_adjoint")
+        btd_solve_adjoint.launches += 1
+    return tuple(t.reshape(b.shape) for t in (y, s, bbar))
+
+
+def _cache_for(factors):
+    return factors if isinstance(factors, BTDFactors) else BTDFactors(factors)
+
+
+class _Solve(torch.autograd.Function):
+    """``x = T^{-1} rhs`` through the kernels, with its derivatives.
+
+    Inputs ``(dinv, lw, upper, rhs, cache)``: the factors as tensors (their
+    gradients are the factor cotangents), the right-hand sides, and the
+    :class:`BTDFactors` holding the packed copies (packed here, from the
+    values, on first use). Forward: one ``btd_solve`` launch. Backward: one
+    ``btd_solve_adjoint`` launch (the three sweeps) and the batch sums of
+    ``banded.btd_adjoint_factors``. Forward mode: the tangent right-hand
+    side ``banded.btd_solve_tangent_rhs`` (vectorized torch ops) and one
+    more ``btd_solve`` launch. Both launch the kernels whether or not grad
+    mode is on; ``torch.utils.checkpoint`` and ``torch.func.jvp`` compose
+    with it."""
+
+    @staticmethod
+    def forward(dinv, lw, upper, rhs, cache):
+        return _launch_solve(cache.packed(dinv, lw, upper), rhs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dinv, lw, upper, rhs, cache = inputs
+        ctx.cache = cache
+        ctx.save_for_backward(dinv, lw, upper, rhs, output)
+        ctx.save_for_forward(dinv, lw, upper, output)
+
+    @staticmethod
+    def backward(ctx, gx):
+        dinv, lw, upper, rhs, x = ctx.saved_tensors
+        factors = (dinv, lw, upper)
+        y, s, bbar = _launch_adjoint(ctx.cache.packed(*factors), rhs, gx)
+        if any(ctx.needs_input_grad[:3]):
+            d_dinv, d_lw, d_up = banded.btd_adjoint_factors(factors, x, gx, y, s, bbar)
+        else:
+            d_dinv = d_lw = d_up = None
+        return d_dinv, d_lw, d_up, bbar if ctx.needs_input_grad[3] else None, None
+
+    @staticmethod
+    def jvp(ctx, d_dinv, d_lw, d_up, d_rhs, _):
+        dinv, lw, upper, x = ctx.saved_tensors
+        factors = (dinv, lw, upper)
+        c = banded.btd_solve_tangent_rhs(factors, x, (d_dinv, d_lw, d_up), d_rhs)
+        return _launch_solve(ctx.cache.packed(*factors), c)
+
+
+def btd_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve ``T x = rhs`` for a batch of right-hand sides, one shared ``T``.
+
+    Args:
+      factors: ``(dinv (N, 3, 3), lw (N-1, 3, 3), upper (N-1, 3, 3))`` from
+        :func:`~continuum_robot_tpu_torch.ops.banded.btd_factor` (unbatched),
+        on ``rhs``'s device and in its dtype; a :class:`BTDFactors` keeps
+        the kernel's packed copies across calls (otherwise they are packed
+        per call).
+      rhs: ``(..., N, 3)`` right-hand sides (every leading axis is a batch
+        axis; the kernel sees ``(B, 3N)`` rows, in place when their pitch
+        is a multiple of :data:`PITCH` elements).
+
+    Returns the ``(..., N, 3)`` solutions. CPU tensors run the plain
+    version; CUDA tensors (float32 or float64) one kernel launch, whose
+    result is a view of rows padded to :data:`PITCH`. On the card the
+    result is differentiable in the factors and ``rhs``: reverse mode
+    launches :func:`btd_solve_adjoint`'s kernel, forward mode one more
+    ``btd_solve`` (:class:`_Solve`).
+    """
+    dev = rhs.device
+    if dev.type == "cpu":
+        return banded.btd_solve(factors, rhs)
+    if dev.type != "cuda":
+        raise ValueError(f"btd_solve takes CPU or CUDA tensors, got {dev}")
+    _check(factors, rhs, "btd_solve")
+    dinv, lw, up = factors
+    return _Solve.apply(dinv, lw, up, rhs, _cache_for(factors))
+
+
 btd_solve.launches = 0
 
-KERNELS = (btd_solve,)
+
+def btd_solve_adjoint(factors, b: torch.Tensor, x: torch.Tensor, g: torch.Tensor):
+    """Reverse-mode derivative of :func:`btd_solve` (``x = T^{-1} b``).
+
+    Returns ``(dinv_bar, lw_bar, upper_bar, b_bar)`` for the cotangent ``g
+    = dL/dx``, as :func:`~continuum_robot_tpu_torch.ops.banded.btd_solve_adjoint`
+    (the plain version) does. On CUDA tensors the three sweeps are one
+    launch of the hand-written kernel ``btd_solve_adjoint`` (``csrc/btd_solve.cu``;
+    the factors shared by the batch), the factor cotangents its batch
+    sums (``banded.btd_adjoint_factors``); CPU tensors run the plain version.
+    """
+    if b.device.type == "cpu":
+        return banded.btd_solve_adjoint(factors, b, x, g)
+    _check(factors, b, "btd_solve_adjoint")
+    y, s, bbar = _launch_adjoint(_cache_for(factors).packed(), b, g)
+    d_dinv, d_lw, d_up = banded.btd_adjoint_factors(tuple(factors), x, g, y, s, bbar)
+    return d_dinv, d_lw, d_up, bbar
+
+
+btd_solve_adjoint.launches = 0
+
+KERNELS = (btd_solve, btd_solve_adjoint)
 
 
 def reset_launch_counts() -> None:
-    """Set the kernel wrapper's launch count to 0."""
-    btd_solve.launches = 0
+    """Set the kernel wrappers' launch counts to 0."""
+    for fn in KERNELS:
+        fn.launches = 0

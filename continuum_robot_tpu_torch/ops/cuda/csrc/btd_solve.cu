@@ -1,4 +1,4 @@
-// Block-tridiagonal (3x3 blocks) solve for Hopper (sm_90a).
+// Block-tridiagonal (3x3 blocks) solve for Hopper (sm_90a), and its adjoint.
 //
 // Replaces the Pallas TPU kernel btd_solve_pallas of
 // continuum_robot_tpu/ops/pallas/btd_solve.py (kernel body _solve_kernel). It solves
@@ -425,6 +425,109 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// btd_solve_adjoint: the reverse-mode derivative of the solve above. The
+// JAX package differentiates the TPU kernel's plain twin (the jnp scans of
+// ops/banded.py) with its own transposes; this kernel is the counterpart of
+// those transposed scans. For the cotangent g = dL/dx of B right-hand sides
+// it runs, per row, the three sequential sweeps of btd_adjoint_sweeps in
+// ops/banded.py:
+//   y     y_0 = b_0,              y_i = b_i - W_{i-1} y_{i-1}   (the forward sweep again)
+//   s     s_0 = Dinv_0^T g_0,     s_i = Dinv_i^T (g_i - U_{i-1}^T s_{i-1})
+//   bbar  bbar_{N-1} = s_{N-1},   bbar_i = s_i - W_i^T bbar_{i+1}
+// and writes y, s and bbar; the factor cotangents (batch sums of outer
+// products) are torch products over these (btd_adjoint_factors).
+//
+// Design: the simple one. One thread walks one row's nodes through the
+// three sweeps, 32 rows a block, reading its rows and the packed factors
+// (the forward kernel's fwd and bwd layouts, broadcast to the warp) from
+// global memory; s is read back by the thread that wrote it. Rows are
+// dense (B, 3N). The sweeps are dependent chains of 3x3 products, so the
+// kernel is latency-bound; its times stand beside the bound in PERF.md.
+// Rounding: every product row summed from the left with _rn intrinsics, as
+// in btd_solve above and in the plain version, so the two agree bit for bit.
+// ---------------------------------------------------------------------------
+
+// One entry of a transposed 3x3 product: m[0][j]*v0 + m[1][j]*v1 + m[2][j]*v2
+// (rows of four, as packed), summed from the left.
+template <typename T>
+__device__ __forceinline__ T col(const T* m, int j, T v0, T v1, T v2) {
+  return add(add(mul(m[j], v0), mul(m[4 + j], v1)), mul(m[8 + j], v2));
+}
+
+constexpr int kAdjointThreads = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kAdjointThreads)
+    btd_adjoint_kernel(int B, int N, int64_t ld, const T* __restrict__ fwd,
+                       const T* __restrict__ bwd, const T* __restrict__ b,
+                       const T* __restrict__ g, T* __restrict__ y, T* s, T* __restrict__ bbar) {
+  const int r = blockIdx.x * kAdjointThreads + threadIdx.x;
+  if (r >= B) return;
+  const T* br = b + r * ld;
+  const T* gr = g + r * ld;
+  T* yr = y + r * ld;
+  T* sr = s + r * ld;
+  T* bb = bbar + r * ld;
+  // y: the forward sweep (node 0's multiplier block is zero).
+  T y0 = T(0), y1 = T(0), y2 = T(0);
+  for (int i = 0; i < N; ++i) {
+    T c[3] = {br[3 * i], br[3 * i + 1], br[3 * i + 2]};
+    forward_node(fwd + 12LL * i, c, y0, y1, y2);
+    yr[3 * i] = c[0];
+    yr[3 * i + 1] = c[1];
+    yr[3 * i + 2] = c[2];
+  }
+  // s: the ascending sweep.
+  const T* d = bwd;  // node 0: Dinv_0 (U_0 at d + 12)
+  T s0 = col(d, 0, gr[0], gr[1], gr[2]);
+  T s1 = col(d, 1, gr[0], gr[1], gr[2]);
+  T s2 = col(d, 2, gr[0], gr[1], gr[2]);
+  sr[0] = s0;
+  sr[1] = s1;
+  sr[2] = s2;
+  for (int i = 1; i < N; ++i) {
+    const T* u = bwd + 24LL * (i - 1) + 12;
+    const T x0 = sub(gr[3 * i], col(u, 0, s0, s1, s2));
+    const T x1 = sub(gr[3 * i + 1], col(u, 1, s0, s1, s2));
+    const T x2 = sub(gr[3 * i + 2], col(u, 2, s0, s1, s2));
+    d = bwd + 24LL * i;
+    s0 = col(d, 0, x0, x1, x2);
+    s1 = col(d, 1, x0, x1, x2);
+    s2 = col(d, 2, x0, x1, x2);
+    sr[3 * i] = s0;
+    sr[3 * i + 1] = s1;
+    sr[3 * i + 2] = s2;
+  }
+  // bbar: the descending sweep, from s_{N-1} (still in registers).
+  bb[3 * (N - 1)] = s0;
+  bb[3 * (N - 1) + 1] = s1;
+  bb[3 * (N - 1) + 2] = s2;
+  for (int i = N - 2; i >= 0; --i) {
+    const T* w = fwd + 12LL * (i + 1);  // W_i
+    const T n0 = sub(sr[3 * i], col(w, 0, s0, s1, s2));
+    const T n1 = sub(sr[3 * i + 1], col(w, 1, s0, s1, s2));
+    const T n2 = sub(sr[3 * i + 2], col(w, 2, s0, s1, s2));
+    s0 = n0;
+    s1 = n1;
+    s2 = n2;
+    bb[3 * i] = n0;
+    bb[3 * i + 1] = n1;
+    bb[3 * i + 2] = n2;
+  }
+}
+
+template <typename T>
+int launch_adjoint(int B, int N, int64_t ld, const void* fwd, const void* bwd, const void* b,
+                   const void* g, void* y, void* s, void* bbar, cudaStream_t stream) {
+  btd_adjoint_kernel<T><<<(B + kAdjointThreads - 1) / kAdjointThreads, kAdjointThreads, 0,
+                          stream>>>(
+      B, N, ld, static_cast<const T*>(fwd), static_cast<const T*>(bwd),
+      static_cast<const T*>(b), static_cast<const T*>(g), static_cast<T*>(y),
+      static_cast<T*>(s), static_cast<T*>(bbar));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Per device, whether each instance may use its dynamic shared memory (set
 // once, read on every launch).
 constexpr int kMaxDevices = 64;
@@ -464,6 +567,18 @@ int btd_solve_launch(int dtype, int B, int N, int64_t ld_in, int64_t ld_out, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(B, N, ld_in, ld_out, fwd, bwd, rhs, out, st);
   return launch<double>(B, N, ld_in, ld_out, fwd, bwd, rhs, out, st);
+}
+
+// dtype as above. B >= 1 rows of N >= 1 nodes: b (the solve's right-hand
+// sides), g (the cotangent of its result) and the outputs y, s, bbar are
+// dense (B, 3N) rows of pitch ld elements; fwd and bwd the packed factors.
+// Returns the cudaError_t of the launch.
+int btd_solve_adjoint_launch(int dtype, int B, int N, int64_t ld, const void* fwd,
+                             const void* bwd, const void* b, const void* g, void* y, void* s,
+                             void* bbar, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_adjoint<float>(B, N, ld, fwd, bwd, b, g, y, s, bbar, st);
+  return launch_adjoint<double>(B, N, ld, fwd, bwd, b, g, y, s, bbar, st);
 }
 
 const char* cuda_error_string(int code) {

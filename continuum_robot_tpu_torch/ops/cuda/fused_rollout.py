@@ -16,7 +16,9 @@ for bit.
 
 The wrappers dispatch by the device of the states: a CPU tensor runs the
 plain twin, a CUDA tensor launches the kernel (building it on first use) or
-raises. Each wrapper's ``launches`` counts its launches.
+raises; on the card it raises too when an input requires grad or carries
+a tangent (the kernel has no derivative: ``_build.refuse_grad``). Each
+wrapper's ``launches`` counts its launches.
 :func:`launch_geometry` reads the kernel's thread map for a size and dtype
 (which instance, how many environments a thread and a block) from the
 kernel's own C query.
@@ -200,6 +202,7 @@ def fused_gen_alpha_steps(mats, drag_coeffs, u, x: torch.Tensor, steps: int, h: 
     if x.device.type == "cpu":
         return fused_gen_alpha_steps_plain(mats, drag_coeffs, u, x, steps, h,
                                            rho_inf, n_newton)
+    _build.refuse_grad("fused_gen_alpha_steps", *mats, drag_coeffs, u, x)
     operands = _checked("fused_gen_alpha_steps", mats, drag_coeffs, u, x)
     x = operands[-1]
     out = torch.empty_like(x)
@@ -222,6 +225,7 @@ def fused_gen_alpha_frames(mats, drag_coeffs, u, x: torch.Tensor, n_frames: int,
     if x.device.type == "cpu":
         return fused_gen_alpha_frames_plain(mats, drag_coeffs, u, x, n_frames, substeps, h,
                                             rho_inf, n_newton)
+    _build.refuse_grad("fused_gen_alpha_frames", *mats, drag_coeffs, u, x)
     operands = _checked("fused_gen_alpha_frames", mats, drag_coeffs, u, x)
     x = operands[-1]
     B, n = x.shape[0], x.shape[1] // 3

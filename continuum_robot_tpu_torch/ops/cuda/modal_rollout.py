@@ -21,6 +21,9 @@ wrapper                replaces                        plain version
 Dispatch goes by the device of the state tensor: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (building it on first use) or
 raises. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+The kernels have no derivative: on the card a wrapper raises when an input
+requires grad (with grad mode on) or carries a tangent
+(``_build.refuse_grad``).
 
 Rounding: every step and every affine application is a chain of
 :func:`madd` in the order the plain versions state (:func:`fma_step`,
@@ -252,6 +255,7 @@ def modal_steps(lam, winv, u_modal, eta, etad, etadd=None, steps: int = 1,
     if not _on_cuda(eta, etad, etadd):
         return modal_steps_plain(lam, winv, u_modal, eta, etad, etadd, steps,
                                  h, rho_inf, cdamp)
+    _build.refuse_grad("modal_steps", lam, winv, u_modal, eta, etad, etadd, cdamp)
     (p1, p2, p3, p5, p6), p4 = _coeff_cols(lam, winv, u_modal, cdamp, rho_inf, eta)
     damped = p5 is not None
     cols = torch.stack([p1, p2, p3, p4] + ([p5, p6] if damped else []))
@@ -341,6 +345,7 @@ def modal_frames(lam, winv, u_modal, eta, etad, n_frames: int = 1,
     if not _on_cuda(eta, etad):
         return modal_frames_plain(lam, winv, u_modal, eta, etad, n_frames,
                                   substeps, h, rho_inf, cdamp)
+    _build.refuse_grad("modal_frames", lam, winv, u_modal, eta, etad, cdamp)
     if coeffs is None:
         coeffs = frame_coeffs(lam, winv, u_modal, cdamp, rho_inf, eta)
     q0, v0 = eta.contiguous(), etad.contiguous()
@@ -427,6 +432,7 @@ def affine_steps(tmat, bvec, eta, etad, etadd, apps: int = 1):
     """
     if not _on_cuda(eta, etad, etadd):
         return affine_steps_plain(tmat, bvec, eta, etad, etadd, apps)
+    _build.refuse_grad("affine_steps", tmat, bvec, eta, etad, etadd)
     P, b = _affine_map(tmat, bvec, eta)
     q0, v0, a0 = eta.contiguous(), etad.contiguous(), etadd.contiguous()
     n, m = q0.numel(), q0.shape[-1]
@@ -477,6 +483,8 @@ def affine_drive(lam, u_modal, cdamp, tmat, bvec, eta, etad, apps: int,
     if not _on_cuda(eta, etad):
         return affine_drive_plain(lam, u_modal, cdamp, tmat, bvec, eta, etad, apps,
                                   rem_tmat, rem_bvec)
+    _build.refuse_grad("affine_drive", lam, u_modal, cdamp, tmat, bvec, eta, etad,
+                       rem_tmat, rem_bvec)
     P, b = _affine_map(tmat, bvec, eta)
     Pr, br = (None, None) if rem_tmat is None else _affine_map(rem_tmat, rem_bvec, eta)
     cols = [_like(x, eta).contiguous() if x is not None else None
@@ -540,6 +548,7 @@ def affine_frames(lam, u_modal, cdamp, tmat, bvec, eta, etad, counts):
     """
     if not _on_cuda(eta, etad):
         return affine_frames_plain(lam, u_modal, cdamp, tmat, bvec, eta, etad, counts)
+    _build.refuse_grad("affine_frames", lam, u_modal, cdamp, tmat, bvec, eta, etad)
     counts = tuple(int(c) for c in counts)
     if any(c < 0 for c in counts):
         raise ValueError(f"frame counts must be >= 0, got {counts}")

@@ -40,7 +40,9 @@ wrapper                      computes
 Each wrapper has a plain PyTorch twin (``<wrapper>_plain``) with the same
 arithmetic through ``torch.matmul`` and elementwise ops. A CPU tensor runs
 the twin; a CUDA tensor launches the kernel (float32 only) or raises. Each
-wrapper counts its launches in ``<wrapper>.launches``. :func:`rom_steps`
+wrapper counts its launches in ``<wrapper>.launches``. On the card a wrapper
+raises when an input requires grad or carries a tangent: the kernels have
+no derivative (``_build.refuse_grad``). :func:`rom_steps`
 and :func:`rom_frames` drive a span through the wrappers,
 :func:`rom_steps_plain` and :func:`rom_frames_plain` through the twins.
 
@@ -446,6 +448,7 @@ def rom_alpha_point(op: ROMOperators, eta, etad, etadd, a1):
     af eta`` of the Newton iterate ``a1``; all ``(B, m)``."""
     if not _on_cuda(eta):
         return rom_alpha_point_plain(op, eta, etad, etadd, a1)
+    _build.refuse_grad("rom_alpha_point", eta, etad, etadd, a1)
     B, m = eta.shape
     out = torch.empty_like(eta)
     if B:
@@ -474,6 +477,7 @@ def rom_expand(op: ROMOperators, eta_af):
     ``nl_precision="highest"`` :func:`rom_expand_f32`."""
     if not _on_cuda(eta_af):
         return rom_expand_plain(op, eta_af)
+    _build.refuse_grad("rom_expand", eta_af)
     if _highest(op):
         return rom_expand_f32(op, eta_af)
     B, m = eta_af.shape
@@ -513,6 +517,7 @@ def rom_correction_window(op: ROMOperators, x):
     is a view of a row-padded buffer."""
     if not _on_cuda(x):
         return rom_correction_window_plain(op, x)
+    _build.refuse_grad("rom_correction_window", x)
     g = _correction("rom_correction_window", op, x, 3, max(x.shape[1] // 3 - 1, 0))
     if x.shape[0]:
         rom_correction_window.launches += 1
@@ -525,6 +530,7 @@ def rom_correction_gathered(op: ROMOperators, x):
     in :func:`rom_correction_window`."""
     if not _on_cuda(x):
         return rom_correction_gathered_plain(op, x)
+    _build.refuse_grad("rom_correction_gathered", x)
     g = _correction("rom_correction_gathered", op, x, 6, x.shape[1] // 6)
     if x.shape[0]:
         rom_correction_gathered.launches += 1
@@ -577,6 +583,7 @@ def rom_project(op: ROMOperators, g):
     :func:`rom_project_f32`."""
     if not _on_cuda(g):
         return rom_project_plain(op, g)
+    _build.refuse_grad("rom_project", g)
     if _highest(op):
         return rom_project_f32(op, g)
     B, N = g.shape
@@ -599,6 +606,7 @@ def rom_expand_f32(op: ROMOperators, eta_af):
     :class:`SplitBasis`), fed by TMA like the tensor-core kernel."""
     if not _on_cuda(eta_af):
         return rom_expand_plain(op, eta_af)
+    _build.refuse_grad("rom_expand_f32", eta_af)
     B, m = eta_af.shape
     phi_map = _split(op, 1).phi_maps[0]
     x = _padded_empty(B, op.n_rows, eta_af)
@@ -616,6 +624,7 @@ def rom_project_f32(op: ROMOperators, g):
     ``W^T`` over ``S`` slices (:func:`project_splits_f32`)."""
     if not _on_cuda(g):
         return rom_project_plain(op, g)
+    _build.refuse_grad("rom_project_f32", g)
     B, N = g.shape
     m = op.w.shape[1]
     wt_map = _split(op, 1).wt_maps[0]
@@ -635,6 +644,7 @@ def rom_update(op: ROMOperators, partials, eta, etad, etadd, a1, last: bool):
     iteration the new ``(eta, etad, etadd)``."""
     if not _on_cuda(partials):
         return rom_update_plain(op, partials, eta, etad, etadd, a1, last)
+    _build.refuse_grad("rom_update", partials, eta, etad, etadd, a1)
     B, m = eta.shape
     outs = _state_out(op, eta, last)
     o = outs + [None] * (3 - len(outs))
@@ -658,6 +668,7 @@ def rom_newton_dense(op: ROMOperators, partials, eta, etad, etadd, a1, last: boo
     stays in the kernel's shared memory."""
     if not _on_cuda(partials):
         return rom_newton_dense_plain(op, partials, eta, etad, etadd, a1, last)
+    _build.refuse_grad("rom_newton_dense", partials, eta, etad, etadd, a1)
     B, m = eta.shape
     if m > DENSE_MAX_MODES:
         raise ValueError(f"the dense Newton kernel takes at most {DENSE_MAX_MODES} "

@@ -10,7 +10,8 @@ package's expression order:
 * :class:`AdaptiveStats` / :func:`adaptive_drive` — the accept/reject
   interval driver behind every adaptive engine;
 * :func:`newmark_step`, :func:`generalized_alpha_step` and their fixed-step
-  rollouts; :func:`integrate_generalized_alpha_adaptive` (Zienkiewicz-Xie
+  rollouts (``integrate_generalized_alpha(remat=True)`` checkpoints each
+  frame); :func:`integrate_generalized_alpha_adaptive` (Zienkiewicz-Xie
   estimate) and :func:`sdirk3_step` / :func:`integrate_sdirk3_adaptive`
   (L-stable SDIRK3), the error-controlled implicit engines.
 
@@ -536,15 +537,24 @@ def initial_accel(op: NewmarkOperator, q0, v0, t0: float = 0.0, u=None):
     return op.solve(q0, 0.0)(f0)
 
 
-def _rollout(step, op, q0, v0, t0, dt, n_steps, u, substeps):
+def _rollout(step, op, q0, v0, t0, dt, n_steps, u, substeps, remat: bool = False):
     u = _input(u, q0)
     q, v, a = q0, v0, initial_accel(op, q0, v0, t0, u)
     h = dt / substeps
+
+    def advance(q, v, a, t_frame):
+        for j in range(int(substeps)):
+            q, v, a = step(t_frame + j * h, q, v, a, h, u)
+        return q, v, a
+
     qs, vs = [q0], [v0]
     for i in range(int(n_steps)):
         t_frame = t0 + i * dt
-        for j in range(int(substeps)):
-            q, v, a = step(t_frame + j * h, q, v, a, h, u)
+        if remat:
+            q, v, a = torch.utils.checkpoint.checkpoint(advance, q, v, a, t_frame,
+                                                        use_reentrant=False)
+        else:
+            q, v, a = advance(q, v, a, t_frame)
         qs.append(q)
         vs.append(v)
     ts = t0 + dt * torch.arange(int(n_steps) + 1, dtype=torch.float64, device=q0.device)
@@ -558,17 +568,20 @@ def integrate_generalized_alpha(op: NewmarkOperator, q0, v0, t0: float, dt: floa
     """Generalized-α rollout: ``n_steps`` frames of ``substeps`` steps.
 
     Returns ``(ts (n_steps+1,), qs (n_steps+1, ..., n), vs)`` including the
-    initial state. ``remat=True`` (rematerialized frames for reverse-mode
-    sweeps) is not ported and raises.
+    initial state. ``remat=True`` runs each frame's substeps under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of a
+    frame): reverse mode stores one state per frame instead of every
+    substep and Newton iterate, and recomputes a frame in the backward
+    pass; the values are those of ``remat=False``, bit for bit (the
+    implicit twin of ``integrate_fixed(remat=True)``, for long stiff
+    rollouts such as ``parallel.sweep.parametric_genalpha_rollout``).
     """
-    if remat:
-        raise NotImplementedError("remat (rematerialized autograd sweeps) is not yet ported")
 
     def step(t, q, v, a, h, u):
         return generalized_alpha_step(op, t, q, v, a, h, u, rho_inf=rho_inf,
                                       n_newton=n_newton)
 
-    return _rollout(step, op, q0, v0, t0, dt, n_steps, u, substeps)
+    return _rollout(step, op, q0, v0, t0, dt, n_steps, u, substeps, remat=remat)
 
 
 def integrate_newmark(op: NewmarkOperator, q0, v0, t0: float, dt: float, n_steps: int,

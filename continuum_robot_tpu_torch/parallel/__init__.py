@@ -1,6 +1,7 @@
 """Parallel layer: device meshes, batched and mesh-sharded rollouts, spatial
-sharding of one beam's nodes (the forward half of the JAX package's
-``parallel/``; ``sweep.py`` and traced ``arrays=`` come in a later slice).
+sharding of one beam's nodes, and parameter sweeps differentiable in the
+physical parameters (``sweep.py``; traced ``arrays=`` on the sharded
+implicit engines and ``simulate_sharded``).
 
 Every rank of a ``torch.distributed`` world runs the same program
 (``collectives.py``: the runtime, ``mesh.py``: ``DeviceMesh`` helpers);

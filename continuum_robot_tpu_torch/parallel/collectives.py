@@ -16,6 +16,18 @@ its own block. The JAX collectives map as:
   ordered by the position on the axis, whatever the sub-group's rank order;
 * ``jax.lax.axis_index`` -> :func:`axis_index`.
 
+The three collectives are ``torch.autograd.Function``s with the transposes
+of the JAX package's ``shard_map``: a backward sends a cotangent along the
+inverse permutation (``ppermute``), sums it over the axis (``psum``) or
+reduce-scatters it (``all_gather``); a forward-mode tangent takes the
+collective itself. A rank's cotangent of a value the ranks share is its
+own part of the whole, so two boundary helpers close the convention: an
+input every rank holds alike enters through :func:`replicated_in` (its
+backward sums the ranks' parts: a gradient comes out whole on every rank)
+and a result every rank returns alike leaves through :func:`gather_out`
+(its backward keeps this rank's block). The NCCL and gloo paths are the
+same.
+
 A collective names its axis by a :class:`MeshAxis` (a ``DeviceMesh`` and one
 of its dimension names). Every rank must issue the same collectives in the
 same order: loops whose trip count depends on data stop on all-reduced
@@ -47,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.simulate import resolve_device
+from ..ops.cuda._build import _derivative_asked
 
 # The temporary directory of the store init_process_group made itself (a
 # world of size 1), removed by destroy_process_group.
@@ -187,10 +200,7 @@ def left_perm(n: int):
     return [(i, (i - 1) % n) for i in range(n)]
 
 
-def ppermute(x: torch.Tensor, axis: MeshAxis, perm: Sequence) -> torch.Tensor:
-    """Send ``x`` along the ``(source, destination)`` pairs of ``perm``
-    (positions on ``axis``); returns what this rank receives, zeros when no
-    pair names it as destination (``jax.lax.ppermute``)."""
+def _ppermute(x: torch.Tensor, axis: MeshAxis, perm: Sequence) -> torch.Tensor:
     k = axis.index
     dst = [d for s, d in perm if s == k]
     src = [s for s, d in perm if d == k]
@@ -218,20 +228,13 @@ def ppermute(x: torch.Tensor, axis: MeshAxis, perm: Sequence) -> torch.Tensor:
     return out
 
 
-def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
-    """Sum over ``axis`` (``jax.lax.psum``): every rank gets the same value."""
-    if axis.size == 1:
-        return x
+def _all_reduce(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, group=axis.group)
     return y
 
 
-def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
-    """``(size, *x.shape)``: every position's ``x``, in position order
-    (``jax.lax.all_gather``)."""
-    if axis.size == 1:
-        return x[None]
+def _all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((axis.size * x.numel(),))
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -241,12 +244,174 @@ def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     return out if order is None else out[order]
 
 
+def _reduce_scatter(g: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``g (size, ...)`` summed over the axis's ranks, this position's row
+    (the transpose of :func:`_all_gather`): an all-reduce of the whole
+    cotangent (gloo has no reduce-scatter), then the row."""
+    return _all_reduce(g, axis)[axis.index]
+
+
+# Autograd: every rank runs the same program, so every rank differentiates
+# the same graph and issues the transposed collectives in the same order.
+# The transposes are those of the JAX package's shard_map (a rank's
+# cotangent of a value it shares is its own contribution, summed over the
+# ranks): ppermute by the inverse permutation, psum by psum, all_gather by
+# a reduce-scatter. A forward-mode tangent takes the same collective.
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis, perm):
+        return _ppermute(x, axis, perm)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis, ctx.perm = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _PPermute.apply(g, ctx.axis, inverse), None, None
+
+    @staticmethod
+    def jvp(ctx, dx, _axis, _perm):
+        return _ppermute(dx, ctx.axis, ctx.perm)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _PSum.apply(g, ctx.axis), None
+
+    @staticmethod
+    def jvp(ctx, dx, _axis):
+        return _all_reduce(dx, ctx.axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis):
+        return _all_gather(x, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.axis), None
+
+    @staticmethod
+    def jvp(ctx, dx, _axis):
+        return _all_gather(dx, ctx.axis)
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; backward sums the cotangent over the axis (the
+    JAX package's ``pvary``/``pbroadcast`` transpose): where a value that
+    every rank holds alike enters the ranks' different work, each rank's
+    cotangent is its part of the whole."""
+
+    @staticmethod
+    def forward(x, axis):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _PSum.apply(g, ctx.axis), None
+
+    @staticmethod
+    def jvp(ctx, dx, _axis):
+        return dx.view_as(dx)
+
+
+class _GatherOut(torch.autograd.Function):
+    """Every position's block concatenated along ``dim``, as a result every
+    rank returns alike (a rollout's output): a loss computed from it is the
+    same on every rank, so the backward keeps this rank's block of the
+    cotangent (no message)."""
+
+    @staticmethod
+    def forward(x, axis, dim):
+        return torch.cat(list(_all_gather(x, axis).unbind(0)), dim=dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.axis, ctx.dim = inputs
+        ctx.block = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.block, ctx.block), None, None
+
+    @staticmethod
+    def jvp(ctx, dx, _axis, _dim):
+        return torch.cat(list(_all_gather(dx, ctx.axis).unbind(0)), dim=ctx.dim)
+
+
+def ppermute(x: torch.Tensor, axis: MeshAxis, perm: Sequence) -> torch.Tensor:
+    """Send ``x`` along the ``(source, destination)`` pairs of ``perm``
+    (positions on ``axis``); returns what this rank receives, zeros when no
+    pair names it as destination (``jax.lax.ppermute``). Differentiable:
+    the backward sends the cotangent along the inverse permutation, a
+    tangent along ``perm``."""
+    return _PPermute.apply(x, axis, tuple(perm))
+
+
+def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """Sum over ``axis`` (``jax.lax.psum``): every rank gets the same value.
+    Differentiable (backward and tangent: a ``psum``)."""
+    if axis.size == 1:
+        return x
+    return _PSum.apply(x, axis)
+
+
+def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``(size, *x.shape)``: every position's ``x``, in position order
+    (``jax.lax.all_gather``). Differentiable: the backward is a
+    reduce-scatter of the cotangent, a tangent is gathered."""
+    if axis.size == 1:
+        return x[None]
+    return _AllGather.apply(x, axis)
+
+
 def all_gather_cat(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
-    """Every position's block of ``x`` concatenated along ``dim``."""
+    """Every position's block of ``x`` concatenated along ``dim`` (a
+    reduce-scatter in the backward, as :func:`all_gather`)."""
     if axis.size == 1:
         return x
     g = all_gather(x, axis)
     return torch.cat(list(g.unbind(0)), dim=dim)
+
+
+def replicated_in(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``x``, a value every rank of ``axis`` holds alike (an input), as it
+    enters the ranks' different work: the backward sums the ranks'
+    cotangents, so a gradient with respect to an input comes out whole, and
+    the same, on every rank."""
+    if axis.size == 1 or not _derivative_asked(x):
+        return x
+    return _Replicated.apply(x, axis)
+
+
+def gather_out(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+    """:func:`all_gather_cat` for a result that every rank returns alike:
+    the backward keeps this rank's block of the (same) cotangent."""
+    if axis.size == 1:
+        return x
+    return _GatherOut.apply(x, axis, dim)
 
 
 def env_chunk(n: int, axis: MeshAxis) -> int:
@@ -267,7 +432,7 @@ def env_block(x: torch.Tensor, axis: MeshAxis, dim: int = 0) -> torch.Tensor:
     n = x.shape[dim]
     c = env_chunk(n, axis)
     idx = torch.arange(axis.index * c, (axis.index + 1) * c, device=x.device)
-    return x.index_select(dim, idx.clamp(max=n - 1))
+    return replicated_in(x, axis).index_select(dim, idx.clamp(max=n - 1))
 
 
 def gather_env_blocks(y: torch.Tensor, axis: MeshAxis, n: int, dim: int = 0) -> torch.Tensor:
@@ -275,7 +440,7 @@ def gather_env_blocks(y: torch.Tensor, axis: MeshAxis, n: int, dim: int = 0) -> 
     ``dim``, the fill dropped (``n`` environments)."""
     if axis.size == 1:
         return y
-    return all_gather_cat(y, axis, dim).narrow(dim, 0, n)
+    return gather_out(y, axis, dim).narrow(dim, 0, n)
 
 
 # ---------------------------------------------------------------------------

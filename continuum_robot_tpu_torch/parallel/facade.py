@@ -27,7 +27,6 @@ from ..ops.integrators import AdaptiveStats
 from .mesh import mesh_device
 from .spatial import make_spatial_beam, reduced_to_node_layout, spatial_rollout
 from .spatial_implicit import (
-    NEXT_SLICE,
     build_spatial_genalpha,
     build_spatial_genalpha_adaptive,
     build_spatial_sdirk3,
@@ -43,7 +42,7 @@ def _spatial_beam_of(model, mesh, axis: str):
                              axis=axis)
 
 
-def _chunked_adaptive(roll, method, xn, t_eval, chunk, u_node, rtol, atol):
+def _chunked_adaptive(roll, method, xn, t_eval, chunk, u_node, rtol, atol, arrays=None):
     """Chunked drive of the sharded adaptive rollouts: one call per
     ``chunk`` output intervals, threading the controller's proposal
     (``stats.dt_next``, per environment when batched) and, for gen-α, the
@@ -63,9 +62,10 @@ def _chunked_adaptive(roll, method, xn, t_eval, chunk, u_node, rtol, atol):
         grid = t_eval[i:j + 1]
         if is_ga:
             xs_c, stats, state = roll(state, grid, u=u_node, rtol=rtol, atol=atol, dt0=dt0,
-                                      return_carry=True)
+                                      arrays=arrays, return_carry=True)
         else:
-            xs_c, stats = roll(state, grid, u=u_node, rtol=rtol, atol=atol, dt0=dt0)
+            xs_c, stats = roll(state, grid, u=u_node, rtol=rtol, atol=atol, dt0=dt0,
+                               arrays=arrays)
             state = xs_c[-1]
         xs_parts.append(xs_c if i == 0 else xs_c[1:])
         dt0 = stats.dt_next
@@ -177,8 +177,12 @@ def simulate_sharded(
             shard's block ``x = (..., 2, m, 3)`` (node-local forces:
             springs, dampers, time-harmonic loads), on every node-layout
             method; see :func:`build_spatial_genalpha`.
-        arrays: traced parameters, not yet ported (raises
-            ``NotImplementedError``; the next slice).
+        arrays: traced parameters for the implicit methods
+            (``generalized_alpha``, ``generalized_alpha_adaptive``,
+            ``sdirk3``; ``chunk=`` too): a :class:`BeamArrays` of the model's
+            elements or of the padded sharded beam's, whose fields may be
+            tensors that require grad or carry forward-mode tangents (see
+            ``build_spatial_genalpha``'s rollout); ``rk4`` raises.
         engine: the stepping engine of ``method='modal'`` (``simulate()``'s
             dial): ``"xla"`` (plain torch), ``"pallas"`` (one
             ``modal_frames`` launch on the card) or ``"power"`` (one
@@ -227,9 +231,6 @@ def simulate_sharded(
             "SPIKE methods (generalized_alpha / *_adaptive / sdirk3); the "
             "explicit rk4 path solves its mass system with CG"
         )
-    if arrays is not None:
-        raise NotImplementedError(NEXT_SLICE)
-
     fp = getattr(model, "force_params", None)
     if fp is not None:
         if fluid_density is None and fp.enable_fluid_effects:
@@ -261,6 +262,12 @@ def simulate_sharded(
     kw_forces = dict(use_consistent=use_consistent, fluid_density=fluid_density,
                      gravity=gravity, node_force=node_force)
     if method == "rk4":
+        if arrays is not None:
+            raise ValueError(
+                "arrays= (traced parameters) is supported by the implicit methods; "
+                "for explicit differentiable rollouts use build_spatial_rhs directly "
+                "with cg_tol=None"
+            )
         out = spatial_rollout(beam, xn, t_final, dt, u=u_node, substeps=substeps,
                               cg_iters=cg_iters, cg_tol=cg_tol,
                               cg_stats=cg_tol is not None, **kw_forces)
@@ -272,7 +279,7 @@ def simulate_sharded(
             n_newton=1 if n_newton is None else n_newton, local_solver=local_solver,
             **kw_forces,
         )
-        ts, xs = roll(xn, n_frames, u=u_node, substeps=substeps)
+        ts, xs = roll(xn, n_frames, u=u_node, substeps=substeps, arrays=arrays)
     else:
         build = (build_spatial_genalpha_adaptive if method == "generalized_alpha_adaptive"
                    else build_spatial_sdirk3)
@@ -283,10 +290,10 @@ def simulate_sharded(
         roll = build(beam, **kw)
         t_eval = np.linspace(0.0, t_final, n_frames + 1)
         if chunk is None:
-            xs, stats = roll(xn, t_eval, u=u_node, rtol=rtol, atol=atol)
+            xs, stats = roll(xn, t_eval, u=u_node, rtol=rtol, atol=atol, arrays=arrays)
         else:
             xs, stats = _chunked_adaptive(roll, method, xn, t_eval, chunk, u_node, rtol,
-                                          atol)
+                                          atol, arrays)
         ts = torch.as_tensor(t_eval, dtype=torch.float64, device=x0.device)
 
     ys = _node_frames_to_reduced(model, xs)

@@ -41,13 +41,14 @@ from ..models.config import BeamArrays
 from ..ops import banded, integrators
 from .collectives import (
     MeshAxis,
-    all_gather_cat,
     env_axis,
     env_block,
     gather_env_blocks,
+    gather_out,
     left_perm,
     ppermute,
     psum,
+    replicated_in,
     right_perm,
 )
 from .mesh import mesh_device
@@ -113,12 +114,16 @@ class NodeBlocks:
         return mesh_device(self.mesh)
 
     def local(self, x, dim: int = -2):
-        """This rank's node block of ``x`` along ``dim``."""
-        return x.narrow(dim, self.sp.index * self.m_local, self.m_local)
+        """This rank's node block of ``x`` along ``dim`` (``x`` the same on
+        every rank: a gradient with respect to it comes out whole,
+        :func:`collectives.replicated_in`)."""
+        return replicated_in(x, self.sp).narrow(dim, self.sp.index * self.m_local,
+                                                self.m_local)
 
     def gather(self, y: torch.Tensor, dim: int = -2) -> torch.Tensor:
-        """Every shard's node block of ``y`` along ``dim``, concatenated."""
-        return all_gather_cat(y, self.sp, dim)
+        """Every shard's node block of ``y`` along ``dim``, concatenated: a
+        result every rank returns alike (:func:`collectives.gather_out`)."""
+        return gather_out(y, self.sp, dim)
 
     def tensor(self, x, dtype) -> torch.Tensor:
         """A global array or tensor on this rank's device in ``dtype``."""

@@ -34,12 +34,14 @@ every shard takes the same accept/reject decision.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
 
 from ..models import assembly
+from ..models.config import BeamArrays
 from ..ops import banded, integrators
 from ..ops.cuda import btd_solve as btd_kernel
 from .collectives import (
@@ -50,6 +52,7 @@ from .collectives import (
     left_perm,
     ppermute,
     psum,
+    replicated_in,
     right_perm,
 )
 from .spatial import (
@@ -66,12 +69,6 @@ from .spatial import (
 )
 
 LOCAL_SOLVERS = ("thomas", "cr", "dense")
-
-NEXT_SLICE = (
-    "the differentiable-parameter path (traced arrays=, parallel/sweep.py, "
-    "integrate_generalized_alpha(remat=True)) is not yet ported: it comes in the "
-    "next slice of the port"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +258,75 @@ def _spike_apply(cols, vec):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Traced parameters (arrays=): the operands rebuilt from tensors
+# ---------------------------------------------------------------------------
+
+
+def _traced_mass_bands(arrays, Np: int, like):
+    """Shard-aligned consistent-mass bands ``(Np, 3, 3)`` each from tensor
+    parameters (the torch twin of :func:`spatial._aligned_mass_bands`, the
+    same truncation and zero rows), cast to ``like``'s dtype."""
+    diag, off = assembly.mass_block_tridiagonal(arrays)
+    md = diag[:Np].to(like.dtype)
+    off = off[: Np - 1].to(like.dtype)
+    z33 = like.new_zeros((1, 3, 3))
+    return md, torch.cat([z33, off.transpose(-1, -2)]), torch.cat([off, z33])
+
+
+def _traced_drag_factors(arrays, n_real: int, Np: int, fluid_density: float, like):
+    """The torch twin of :func:`spatial.node_drag_factors` (the final-node
+    quirk included): ``(Np, 3)``, the factor on the w DOF."""
+    w = arrays.wetted_area.to(like.dtype)
+    c = arrays.drag_coef.to(like.dtype)
+    half_rho = 0.5 * fluid_density
+    fac_w = torch.cat([half_rho * w[: n_real - 1] * c[: n_real - 1],
+                       (half_rho * w[n_real - 2] * c[n_real - 2])[None],
+                       like.new_zeros(Np - n_real)])
+    z = like.new_zeros(Np)
+    return torch.stack([z, fac_w, z], dim=-1)
+
+
+def _traced_gravity_masses(arrays, n_real: int, like):
+    """The torch twin of :func:`spatial.element_gravity_masses`."""
+    m = (arrays.density * arrays.cross_area * arrays.length).to(like.dtype)
+    return torch.cat([m[: n_real - 1], like.new_zeros(m.shape[0] - n_real + 1)])
+
+
+def traced_arrays(beam: SpatialBeam, arrays: BeamArrays, like) -> BeamArrays:
+    """``arrays`` for a rollout's ``arrays=``: fields of the padded length
+    ``Np`` (``beam.arrays``'s; the unpadded ``E`` of the model is padded as
+    :func:`spatial.pad_arrays_for_shards` pads, length 1 and zeros), float
+    fields as tensors on ``like``'s device (a tensor keeps its dtype and
+    its graph, a host array becomes float64), the mask as bool. Every rank
+    holds them alike: they enter through :func:`collectives.replicated_in`
+    on the ``dp`` axis (``beam.local`` does the ``sp`` axis)."""
+    dev = like.device
+    n_el = np.shape(arrays.length)[-1]
+    if n_el not in (beam.n_nodes, beam.n_nodes_real - 1):
+        raise ValueError(f"arrays= has {n_el} elements; the sharded beam takes "
+                         f"{beam.n_nodes} (padded, like beam.arrays) or "
+                         f"{beam.n_nodes_real - 1}")
+    pad = beam.n_nodes - n_el
+    out = {}
+    for f in dataclasses.fields(BeamArrays):
+        x = getattr(arrays, f.name)
+        if f.name == "nonlinear_mask":
+            x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                                device=dev).to(torch.bool)
+            out[f.name] = torch.cat([x, x.new_zeros(pad)]) if pad else x
+            continue
+        x = assembly._field_like(x, x.dtype if isinstance(x, torch.Tensor)
+                                 else torch.float64, dev)
+        if pad:
+            x = torch.cat([x, x.new_full((pad,), 1.0 if f.name == "length" else 0.0)])
+        out[f.name] = replicated_in(x, beam.dp)
+    return BeamArrays(**out)
+
+
 def _implicit_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
-    """Host constants of the implicit engines and a memo of their local
-    tensors per device and dtype.
+    """Host constants of the implicit engines, a memo of their local
+    tensors per device and dtype, and their traced counterpart.
 
     Shard-aligned mass bands without BC masking (masking is applied on the
     assembled operators and on matvec inputs), the static neighbour seam
@@ -272,6 +335,12 @@ def _implicit_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
     exactly), the drag factors and gravity masses. The zero-state tangent
     (the modified Newton of every engine) is environment-independent, so
     its blocks are computed once per device and dtype.
+
+    ``traced(like, arrays)`` builds the same local tensors from tensor
+    parameters (a rollout's ``arrays=``: the JAX package's
+    ``_operand_arrays``), every call and without the memo: the mass bands,
+    element fields, drag factors, gravity masses and the zero-state tangent
+    then carry the parameters' graph and tangents.
     """
     S, Np = beam.n_shards, beam.n_nodes
     sp = beam.sp
@@ -285,17 +354,12 @@ def _implicit_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
     has_gravity, g_x, g_y = _gravity_params(gravity)
     gmass = element_gravity_masses(beam) if has_gravity else np.zeros(Np)
 
-    def build(like):
-        def t(a, dim=0):
-            return beam.local(torch.as_tensor(a, dtype=like.dtype, device=like.device), dim)
+    def t(a, like, dim=0):
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(a, dtype=like.dtype, device=like.device)
+        return beam.local(a, dim)
 
-        k = sp.index
-        c = dict(
-            m3=t(mask_nodes), md=t(mdiag), ml=t(mlow), mu=t(mup), dfac=t(dfac),
-            gmass=t(gmass), params=_local_params(beam, like),
-            llm3=torch.as_tensor(left_last[k], dtype=like.dtype, device=like.device),
-            rfm3=torch.as_tensor(right_first[k], dtype=like.dtype, device=like.device),
-        )
+    def derived(c, like):
         c["md_bc"], c["ml_bc"], c["mu_bc"] = mask_aligned_blocks(
             c["md"], c["ml"], c["mu"], c["m3"], c["llm3"], c["rfm3"])
         q0 = like.new_zeros((m_per, 3))
@@ -303,8 +367,42 @@ def _implicit_setup(beam: SpatialBeam, fluid_density, gravity, use_consistent):
             q0, c["params"], sp, use_consistent)
         return c
 
-    return dict(consts=_Consts(build), has_fluid=has_fluid, has_gravity=has_gravity,
-                g_x=g_x, g_y=g_y)
+    def static(like):
+        k = sp.index
+        return dict(
+            m3=t(mask_nodes, like),
+            llm3=torch.as_tensor(left_last[k], dtype=like.dtype, device=like.device),
+            rfm3=torch.as_tensor(right_first[k], dtype=like.dtype, device=like.device),
+        )
+
+    def build(like):
+        c = dict(static(like), md=t(mdiag, like), ml=t(mlow, like), mu=t(mup, like),
+                 dfac=t(dfac, like), gmass=t(gmass, like), params=_local_params(beam, like))
+        return derived(c, like)
+
+    def traced(like, arrays):
+        arrays = traced_arrays(beam, arrays, like)
+        n_real = beam.n_nodes_real
+        md, ml, mu = _traced_mass_bands(arrays, Np, like)
+        dfac_t = (_traced_drag_factors(arrays, n_real, Np, float(fluid_density), like)
+                  if has_fluid else like.new_zeros((Np, 3)))
+        gmass_t = (_traced_gravity_masses(arrays, n_real, like) if has_gravity
+                   else like.new_zeros(Np))
+        params = tuple(beam.local(p, dim=0) for p in assembly.element_params(arrays, like))
+        c = dict(static(like), md=t(md, like), ml=t(ml, like), mu=t(mu, like),
+                 dfac=t(dfac_t, like), gmass=t(gmass_t, like), params=params)
+        return derived(c, like)
+
+    return dict(consts=_Consts(build), traced=traced, has_fluid=has_fluid,
+                has_gravity=has_gravity, g_x=g_x, g_y=g_y)
+
+
+def _engine_consts(setup, like, arrays):
+    """The local tensors of a rollout: the memo's, or traced from
+    ``arrays``."""
+    if arrays is None:
+        return setup["consts"](like)
+    return setup["traced"](like, arrays)
 
 
 class _Forces:
@@ -414,7 +512,7 @@ def _frames_out(beam: SpatialBeam, frames, n_env, env_dim=1):
 def _u_local(beam: SpatialBeam, u, like):
     if u is None:
         return like.new_zeros((beam.m_local, 3))
-    return beam.local(beam.tensor(u, like.dtype))
+    return beam.local(replicated_in(beam.tensor(u, like.dtype), beam.dp))
 
 
 def _ga_coeffs(rho_inf):
@@ -467,8 +565,22 @@ def build_spatial_genalpha(
     ``return_carry=True`` also returns the final ``(3, Np, 3)`` carry ``[q;
     v; a]`` (batched: ``(envs, 3, Np, 3)``); a 3-plane ``x0`` continues the
     recurrence from it bit for bit (no consistent-acceleration solve), and
-    ``t0`` offsets the ``node_force`` times and the frame times. ``arrays``
-    (traced parameters) raises ``NotImplementedError``: the next slice.
+    ``t0`` offsets the ``node_force`` times and the frame times.
+
+    ``arrays``: traced parameters, a :class:`BeamArrays` like ``beam.arrays``
+    (padded; build it with ``dataclasses.replace(beam.arrays,
+    elastic_modulus=...)``, keeping the pad entries at their padded values)
+    whose fields may be tensors that require grad or carry forward-mode
+    tangents. The mass bands, element fields, drag factors, gravity masses,
+    the zero-state tangent and both SPIKE preparations are then rebuilt from
+    them every call, so the whole rollout is differentiable in the physical
+    parameters: reverse mode (autograd; on the card the ``"thomas"`` solves
+    launch ``btd_solve`` forward and ``btd_solve_adjoint`` backward) and
+    forward mode (``torch.autograd.forward_ad``). With ``arrays=None`` the
+    memoized host constants serve, bit for bit as before. A loss computed
+    alike on every rank from the returned frames differentiates to the same
+    whole gradient on every rank (``collectives.replicated_in`` /
+    ``gather_out``).
     """
     coeffs = _ga_coeffs(rho_inf)
     am, af, beta, gamma = coeffs
@@ -489,12 +601,14 @@ def build_spatial_genalpha(
 
     def rollout(x0, n_frames: int, u=None, substeps: int = 1, arrays=None,
                 return_carry: bool = False, t0: float = 0.0):
-        if arrays is not None:
-            raise NotImplementedError(NEXT_SLICE)
         x0, n_env, x = _state_in(beam, x0)
-        c = setup["consts"](x0)
+        c = _engine_consts(setup, x0, arrays)
         F = _Forces(c, beam.sp, setup, node_force, use_consistent)
-        prep_jac, prep_mass = prepared(x0, F)
+        if arrays is None:
+            prep_jac, prep_mass = prepared(x0, F)
+        else:  # factored from the parameters, every call
+            prep_jac = F.prep(a_jac, c_jac, solver)
+            prep_mass = spike_prepare(c["md_bc"], c["ml_bc"], c["mu_bc"], beam.sp, solver)
         m3 = c["m3"]
         u_m = _u_local(beam, u, x0) * m3
         q, v = x[..., 0, :, :] * m3, x[..., 1, :, :] * m3
@@ -588,7 +702,11 @@ def build_spatial_genalpha_adaptive(
     trial dt, so per-environment SPIKE preparations: the plain solves).
     ``return_carry=True`` adds the final ``(3, Np, 3)`` carry ``[q; v; a]``;
     fed back as ``x0`` with ``dt0=stats.dt_next`` (``(envs,)`` when
-    batched) it continues the span exactly.
+    batched) it continues the span exactly. ``arrays``: traced parameters,
+    as for :func:`build_spatial_genalpha`; forward-mode tangents
+    (``torch.autograd.forward_ad``) flow through the error-controlled
+    engine (the tangent of the realized step sequence, as the JAX
+    package's ``jax.jvp``); autograd records the trials too.
     """
     coeffs = _ga_coeffs(rho_inf)
     am, af, beta, gamma = coeffs
@@ -600,11 +718,9 @@ def build_spatial_genalpha_adaptive(
 
     def rollout(x0, t_eval, u=None, rtol: float = 1e-6, atol: float = 1e-9,
                 dt0: float = None, arrays=None, return_carry: bool = False):
-        if arrays is not None:
-            raise NotImplementedError(NEXT_SLICE)
         x0, n_env, x, t_eval_np, dt0, per_env = _adaptive_inputs(beam, x0, t_eval, dt0)
         sp = beam.sp
-        c = setup["consts"](x0)
+        c = _engine_consts(setup, x0, arrays)
         F = _Forces(c, sp, setup, node_force, use_consistent)
         m3 = c["m3"]
         prep_mass = spike_prepare(c["md_bc"], c["ml_bc"], c["mu_bc"], sp, solver)
@@ -672,8 +788,9 @@ def build_spatial_sdirk3(
 
     Returns ``rollout(x0, t_eval, u=None, rtol=1e-6, atol=1e-9, dt0=None,
     arrays=None) -> (xs, AdaptiveStats)`` with the contracts of the adaptive
-    gen-α engine. The trial state is ``(q, v)``: restarting from a frame
-    with ``dt0=stats.dt_next`` continues a span exactly.
+    gen-α engine (``arrays`` too). The trial state is ``(q, v)``:
+    restarting from a frame with ``dt0=stats.dt_next`` continues a span
+    exactly.
     """
     G, A_, B_, BH, C_ = (integrators._SD_G, integrators._SD_A, integrators._SD_B,
                          integrators._SD_BHAT, integrators._SD_C)
@@ -684,11 +801,9 @@ def build_spatial_sdirk3(
 
     def rollout(x0, t_eval, u=None, rtol: float = 1e-6, atol: float = 1e-9,
                 dt0: float = None, arrays=None):
-        if arrays is not None:
-            raise NotImplementedError(NEXT_SLICE)
         x0, n_env, x, t_eval_np, dt0, per_env = _adaptive_inputs(beam, x0, t_eval, dt0)
         sp = beam.sp
-        c = setup["consts"](x0)
+        c = _engine_consts(setup, x0, arrays)
         F = _Forces(c, sp, setup, node_force, use_consistent)
         m3 = c["m3"]
         n_free = psum(m3.sum(), sp)

@@ -285,3 +285,297 @@ def test_kernel_ragged_shapes_bit_equal_on_card(cuda_device, dtype, padded):
             out = kb.btd_solve(f, rhs)
             assert kb.btd_solve.launches == 1
             assert torch.equal(out, tb.btd_solve(f, rhs)), (n, b)
+
+
+# ---------------------------------------------------------------------------
+# The solve's derivatives: the plain adjoint and tangent, the adjoint
+# kernel's source on the host, and the autograd Function around the kernels
+# ---------------------------------------------------------------------------
+
+
+def _grad_system(n, batch, seed, batched=False):
+    """Random factors (requiring grad), right-hand sides and a cotangent."""
+    rng = np.random.default_rng(seed)
+    lead = (batch,) if batched else ()
+    d = rng.normal(size=lead + (n, 3, 3))
+    bands = (d + np.swapaxes(d, -1, -2) + 8 * np.eye(3),
+             0.4 * rng.normal(size=lead + (n - 1, 3, 3)),
+             0.4 * rng.normal(size=lead + (n - 1, 3, 3)))
+    f = tuple(t.detach().requires_grad_()
+              for t in tb.btd_factor(*(torch.tensor(x) for x in bands)))
+    b = torch.tensor(rng.normal(size=(batch, n, 3)), requires_grad=True)
+    g = torch.tensor(rng.normal(size=(batch, n, 3)))
+    return f, b, g
+
+
+def _autograd_vjp(f, b, g):
+    x = tb.btd_solve(f, b)
+    grads = torch.autograd.grad(x, (*f, b), g, allow_unused=True)
+    return [torch.zeros_like(t) if r is None else r for r, t in zip(grads, (*f, b))]
+
+
+@pytest.mark.parametrize("n,batch,batched", [(7, 5, False), (1, 3, False), (2, 4, False),
+                                             (9, 3, True)])
+def test_btd_solve_adjoint_equals_autograd(n, batch, batched):
+    """``banded.btd_solve_adjoint`` (the adjoint kernel's plain version and
+    the factor reductions) is autograd's derivative of the plain sweep, for
+    factors shared by the batch and per environment (float64, 1e-12)."""
+    f, b, g = _grad_system(n, batch, seed=n + batch, batched=batched)
+    ref = _autograd_vjp(f, b, g)
+    with torch.no_grad():
+        x = tb.btd_solve(f, b)
+        out = tb.btd_solve_adjoint(tuple(t.detach() for t in f), b.detach(), x, g)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        if r.numel():
+            _close(o, r)
+
+
+@pytest.mark.parametrize("n,batched", [(7, False), (1, False), (6, True)])
+def test_btd_solve_tangent_equals_forward_ad(n, batched):
+    """``banded.btd_solve_tangent_rhs`` and one more solve give forward AD's
+    tangent of the plain sweep (float64, 1e-12)."""
+    import torch.autograd.forward_ad as fwAD
+
+    f, b, _ = _grad_system(n, 4, seed=3 * n, batched=batched)
+    f, b = tuple(t.detach() for t in f), b.detach()
+    rng = np.random.default_rng(n)
+    tangents = [torch.tensor(rng.normal(size=t.shape)) for t in (*f, b)]
+    with fwAD.dual_level():
+        duals = [fwAD.make_dual(t, d) for t, d in zip((*f, b), tangents)]
+        ref = fwAD.unpack_dual(tb.btd_solve(tuple(duals[:3]), duals[3])).tangent
+    x = tb.btd_solve(f, b)
+    out = tb.btd_solve(f, tb.btd_solve_tangent_rhs(f, x, tangents[:3], tangents[3]))
+    _close(out, ref)
+
+
+def _host_adjoint_source() -> str:
+    """The adjoint kernel of ``csrc/btd_solve.cu`` with the arithmetic it
+    uses, as host C++: the rounding helpers, ``row`` and ``forward_node``,
+    the adjoint section and its C entry (the forward kernel's bulk copies
+    and barriers stay out)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kb.__file__).parent / "csrc" / "btd_solve.cu").read_text()
+    helpers = "\n".join(ln for ln in src.splitlines()
+                        if re.match(r"__device__ __forceinline__ \w+ (mul|add|sub)\(", ln))
+
+    def block(start, end):
+        i = src.index(start)
+        return src[i:src.index(end, i)]
+
+    body = "\n".join([
+        helpers,
+        block("// One row of a 3x3 product", "// The sweeps over one staged row"),
+        block("// One entry of a transposed 3x3 product", "// Per device, whether"),
+        'extern "C" {\n' + block("int btd_solve_adjoint_launch(", "const char* cuda_error_string")
+        + "}\n",
+    ])
+    body = body.replace("template <typename T>\n__device__ __forceinline__ void sweep_forward",
+                        "")
+    body, n = re.subn(r"(\w+<[^<>]*>)<<<(.*?), (\w+), 0,\s*stream>>>\(",
+                      r"host_launch(\2, \3, [&](auto... xs) { \1(xs...); }, ", body, flags=re.S)
+    assert n == 1
+    return HOST_SHIM + "namespace {\nconstexpr int kEnvs = 32;\n" + body.replace(
+        'extern "C" {', '}  // namespace\nextern "C" {', 1)
+
+
+# Just enough of CUDA for the host compiler: a launch runs its blocks and
+# threads one after another; the _rn intrinsics round each operation
+# (volatile: no contraction).
+HOST_SHIM = r"""
+#include <cstdint>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+typedef void* cudaStream_t;
+inline int cudaGetLastError() { return 0; }
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+static dim3 blockIdx, threadIdx;
+#define RN(name, T, op) inline T name(T a, T b) { volatile T r = a op b; return r; }
+RN(__fmul_rn, float, *) RN(__fadd_rn, float, +) RN(__fsub_rn, float, -)
+RN(__dmul_rn, double, *) RN(__dadd_rn, double, +) RN(__dsub_rn, double, -)
+template <typename F, typename... A>
+void host_launch(unsigned g, unsigned b, F f, A... args) {
+  for (unsigned bx = 0; bx < g; ++bx) for (unsigned tx = 0; tx < b; ++tx) {
+    blockIdx = dim3(bx); threadIdx = dim3(tx); f(args...);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_adjoint(tmp_path_factory):
+    """The adjoint kernel's source built by the host C++ compiler."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    out = tmp_path_factory.mktemp("btd_adjoint_host")
+    (out / "adjoint.cpp").write_text(_host_adjoint_source())
+    cxx = shutil.which("c++") or shutil.which("g++")
+    subprocess.run([cxx, "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+                    "-o", str(out / "adjoint.so"), str(out / "adjoint.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out / "adjoint.so"))
+    fn = lib.btd_solve_adjoint_launch
+    fn.argtypes, fn.restype = _build._SIGNATURES["btd_solve"]["btd_solve_adjoint_launch"], \
+        ctypes.c_int
+    return lib
+
+
+def _host_launch_adjoint(lib):
+    """``_launch_adjoint`` on CPU tensors through the host-built kernel."""
+    def launch(packed, b, g):
+        n = b.shape[-2]
+        rows = b.reshape(-1, 3 * n).contiguous()
+        grows = g.expand(b.shape).reshape(-1, 3 * n).contiguous()
+        y, s, bbar = torch.empty((3, *rows.shape), dtype=b.dtype).unbind(0)
+        fwd, bwd = packed
+        rc = lib.btd_solve_adjoint_launch(
+            kb._DTYPE_CODES[b.dtype], rows.shape[0], n, 3 * n, fwd.data_ptr(), bwd.data_ptr(),
+            rows.data_ptr(), grows.data_ptr(), y.data_ptr(), s.data_ptr(), bbar.data_ptr(),
+            None)
+        assert rc == 0
+        kb.btd_solve_adjoint.launches += 1
+        return tuple(t.reshape(b.shape) for t in (y, s, bbar))
+
+    return launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,batch", [(1, 3), (2, 33), (13, 5), (70, 40)])
+def test_adjoint_kernel_source_equals_plain(host_adjoint, dtype, n, batch):
+    """The adjoint kernel's source, built for the host, computes the plain
+    version's three sweeps bit for bit (float32 and float64; rows past a
+    32-row block)."""
+    f, b, g = _grad_system(n, batch, seed=n)
+    f = tuple(t.detach().to(dtype) for t in f)
+    b, g = b.detach().to(dtype), g.to(dtype)
+    got = _host_launch_adjoint(host_adjoint)(kb.pack_factors(f).packed(), b, g)
+    for o, r in zip(got, tb.btd_adjoint_sweeps(f, b, g)):
+        assert torch.equal(o, r)
+
+
+@pytest.fixture
+def function_on_host(host_adjoint, monkeypatch):
+    """The autograd Function around the kernels on CPU tensors: the forward
+    launch is the plain sweep from the packed blocks, the adjoint launch
+    the host-built kernel."""
+    def solve(packed, rhs):
+        fwd, bwd = packed
+        n = rhs.shape[-2]
+        factors = (bwd[:, :12].reshape(n, 3, 4)[..., :3], fwd[1:].reshape(n - 1, 3, 4)[..., :3],
+                   bwd[:-1, 12:].reshape(n - 1, 3, 4)[..., :3])
+        kb.btd_solve.launches += 1
+        return tb.btd_solve(factors, rhs)
+
+    monkeypatch.setattr(kb, "_launch_solve", solve)
+    monkeypatch.setattr(kb, "_launch_adjoint", _host_launch_adjoint(host_adjoint))
+    kb.reset_launch_counts()
+
+
+def _apply(f, b):
+    return kb._Solve.apply(*f, b, kb.BTDFactors(tuple(t.detach() for t in f)))
+
+
+@pytest.mark.parametrize("n", [1, 6])
+def test_solve_function_vjp_and_jvp(function_on_host, n):
+    """The Function's backward (one adjoint launch) and tangent (one more
+    solve) equal autograd and forward AD of the plain sweep (float64,
+    1e-12), also under ``torch.utils.checkpoint``."""
+    import torch.autograd.forward_ad as fwAD
+
+    f, b, g = _grad_system(n, 5, seed=11 * n)
+    ref = _autograd_vjp(f, b, g)
+    x = _apply(f, b)
+    assert kb.btd_solve.launches == 1
+    grads = torch.autograd.grad(x, (*f, b), g, allow_unused=True)
+    assert kb.btd_solve_adjoint.launches == 1
+    for o, r in zip(grads, ref):
+        if r.numel():
+            _close(o, r)
+    ck = torch.utils.checkpoint.checkpoint(_apply, f, b, use_reentrant=False)
+    for o, r in zip(torch.autograd.grad(ck, (*f, b), g, allow_unused=True), ref):
+        if r.numel():
+            _close(o, r)
+    rng = np.random.default_rng(n)
+    tangents = [torch.tensor(rng.normal(size=t.shape)) for t in (*f, b)]
+    with fwAD.dual_level():
+        duals = [fwAD.make_dual(t.detach(), d) for t, d in zip((*f, b), tangents)]
+        want = fwAD.unpack_dual(tb.btd_solve(tuple(duals[:3]), duals[3])).tangent
+        got = fwAD.unpack_dual(_apply(duals[:3], duals[3])).tangent
+    _close(got, want)
+
+
+def test_element_params_keep_the_graph():
+    """Tensor fields pass through ``assembly.element_params`` with their
+    graph (no NumPy round trip); host arrays are uploaded as before."""
+    from continuum_robot_tpu_torch.models import assembly as ta
+    from continuum_robot_tpu_torch.models.config import BeamArrays
+
+    E = torch.tensor([7e10, 8e10], dtype=torch.float64, requires_grad=True)
+    arrays = BeamArrays(length=np.array([0.1, 0.2]), elastic_modulus=E,
+                        moment_inertia=np.array([1e-10, 2e-10]), density=np.ones(2),
+                        cross_area=np.ones(2) * 1e-5, wetted_area=np.zeros(2),
+                        drag_coef=np.zeros(2), nonlinear_mask=np.array([False, True]))
+    L, E_t, I, A, nl = ta.element_params(arrays, torch.zeros(1, dtype=torch.float32))
+    assert E_t.dtype == torch.float32 and E_t.grad_fn is not None and nl.dtype == torch.bool
+    assert L.dtype == torch.float32 and not L.requires_grad
+    g, = torch.autograd.grad(E_t.sum(), E)
+    assert torch.equal(g, torch.ones(2, dtype=torch.float64))
+    q = torch.zeros((2, 6), dtype=torch.float64)
+    diag, _, _ = ta.tangent_block_tridiagonal(arrays, q.reshape(-1)[:9],
+                                              params=ta.element_params(arrays, q))
+    assert diag.grad_fn is not None
+
+
+def test_refuse_grad_asks_for_no_derivative():
+    """The kernels without a derivative refuse an input that requires grad
+    (with grad mode on) or carries a forward-mode tangent, and nothing
+    else."""
+    import torch.autograd.forward_ad as fwAD
+
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="modal_steps: the CUDA kernel has no derivative"):
+        _build.refuse_grad("modal_steps", None, torch.ones(2), x)
+    with torch.no_grad():
+        _build.refuse_grad("modal_steps", x)
+    _build.refuse_grad("modal_steps", x.detach(), None, 1.0)
+    with fwAD.dual_level():
+        d = fwAD.make_dual(torch.ones(3), torch.ones(3))
+        with torch.no_grad(), pytest.raises(RuntimeError, match="rom_expand"):
+            _build.refuse_grad("rom_expand", d)
+        _build.refuse_grad("rom_expand", torch.ones(3))
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_card(cuda_device):
+    """On the card the modal, ROM and fused kernels raise, naming the
+    kernel, when an input requires grad: a kernel launched through raw
+    pointers would return a result without a graph. btd_solve instead
+    differentiates (its Function)."""
+    from continuum_robot_tpu_torch.ops.cuda import fused_rollout as kf
+    from continuum_robot_tpu_torch.ops.cuda import modal_rollout as km
+    from continuum_robot_tpu_torch.ops.cuda import rom_rollout as kr
+
+    dev = cuda_device
+    eta = torch.zeros(2, 4, device=dev, requires_grad=True)
+    lam = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="modal_steps"):
+        km.modal_steps(lam, lam, None, eta, eta.detach(), eta.detach())
+    with pytest.raises(RuntimeError, match="rom_expand"):
+        kr.rom_expand(None, eta)
+    x = torch.zeros(2, 9, dtype=torch.float64, device=dev, requires_grad=True)
+    mats = tuple(torch.eye(3, dtype=torch.float64, device=dev) for _ in range(3))
+    with pytest.raises(RuntimeError, match="fused_gen_alpha_steps"):
+        kf.fused_gen_alpha_steps(mats, torch.zeros(3), torch.zeros(3), x, 1, 1e-3)
+    f, _, _ = _grad_system(5, 3, seed=5)
+    f = tuple(t.detach().to(dev).requires_grad_() for t in f)
+    kb.reset_launch_counts()
+    rhs = torch.ones(3, 5, 3, dtype=torch.float64, device=dev)
+    torch.autograd.grad(kb.btd_solve(f, rhs).sum(), f[0])
+    assert kb.btd_solve.launches == 1 and kb.btd_solve_adjoint.launches == 1

@@ -120,7 +120,7 @@ def _specs():
         dict(u=cases.const_force),
         dict(x0=np.zeros((2, 2, 2 * n))),
         dict(u=np.zeros(3)),
-        dict(arrays=object()),
+        dict(method="rk4", arrays=object()),
         dict(method="rk4", local_solver="cr"),
         dict(method="generalized_alpha", chunk=2),
         dict(method="generalized_alpha", rayleigh=(1.0, 0.0)),
@@ -413,7 +413,7 @@ def test_error_contracts(world):
         ("ValueError", "constant reduced force"),
         ("ValueError", "at most one leading"),
         ("ValueError", "shape"),
-        ("NotImplementedError", "next slice"),
+        ("ValueError", "arrays= (traced parameters)"),
         ("ValueError", "local_solver="),
         ("ValueError", "chunk= applies"),
         ("ValueError", "rayleigh"),
@@ -435,13 +435,23 @@ def test_error_contracts(world):
 
 
 def test_sweep_path_is_not_ported_yet():
+    """The differentiable-parameter path is ported now: the seven sweep
+    entry points are the parallel layer's exports (held to the JAX package
+    in tests/test_torch_sweep.py), and none of them raises a not-ported
+    error on a small call."""
+    from continuum_robot_tpu_torch import parallel as tpar
     from continuum_robot_tpu_torch.parallel import sweep
 
     for name in ("tile_arrays", "override_arrays", "make_parametric_rhs",
                  "parametric_rollout", "make_traced_genalpha_operator",
                  "parametric_modal_rom_rollout", "parametric_genalpha_rollout"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            getattr(sweep, name)()
+        assert getattr(tpar, name) is getattr(sweep, name) and name in tpar.__all__
+    model = tcrt.DynamicEulerBernoulliBeam(helpers.linear_csv(3))
+    n = model.n_pos_states
+    batch = sweep.tile_arrays(model.beam_model.arrays, 2, device="cpu")
+    _, ys = sweep.parametric_genalpha_rollout(model.beam_model.bc_info, batch,
+                                              np.zeros((2, 2 * n)), 2e-4, 1e-4)
+    assert ys.shape == (3, 2, 2 * n) and bool(torch.isfinite(ys).all())
 
 
 @pytest.fixture

@@ -467,3 +467,128 @@ def modal_contracts_case(mesh, csv_mixed6, **_):
     out["ext"] = sm.ms.ext_modal is not None
     out["moved"] = float(sm.rollout_frames(z, z, None, 2, substeps=2)[1][-1].abs().max())
     return out
+
+
+# ---------------------------------------------------------------------------
+# The differentiable-parameter path: collectives' derivatives and traced
+# arrays= through the sharded implicit engines
+# ---------------------------------------------------------------------------
+
+
+def collectives_grad_case(mesh, **_):
+    """Each collective's backward and tangent on the ``sp`` axis. Every
+    rank's loss is its own term of a global sum, so rank k's gradient is the
+    global sum's derivative in its ``x_k``; the test holds each to its
+    closed form."""
+    import torch.autograd.forward_ad as fwAD
+
+    ax = col.MeshAxis(mesh, "sp")
+    k, S = ax.index, ax.size
+    dev = col.world_device()
+
+    def vec(*v):
+        return torch.tensor(v, dtype=torch.float64, device=dev)
+
+    x = vec(k + 1.0, 2.0 * k - 3.0).requires_grad_()
+    w = vec(3.0 * k + 1.0, 0.5 - k)
+    W = torch.stack([vec(r + 10.0 * k, r * k - 1.0) for r in range(S)])
+    out = {}
+    terms = {
+        "ppermute": lambda z: (w * col.ppermute(z, ax, col.right_perm(S))).sum(),
+        "psum": lambda z: (w * col.psum(z, ax)).sum(),
+        "all_gather": lambda z: (W * col.all_gather(z, ax)).sum(),
+    }
+    for name, term in terms.items():
+        out[name] = torch.autograd.grad(term(x), x)[0]
+    # A loss every rank computes alike, from a gathered result, of an input
+    # every rank holds alike: the whole gradient on every rank.
+    a = torch.tensor(1.5, dtype=torch.float64, device=dev, requires_grad=True)
+    ramp = torch.arange(1.0, 2 * S + 1, dtype=torch.float64, device=dev)
+    block = col.replicated_in(ramp * a, ax)[2 * k:2 * k + 2] ** 2
+    out["boundary"] = torch.autograd.grad((col.gather_out(block, ax, 0) * ramp).sum(), a)[0]
+    tangent = vec(0.25 * k + 1.0, -1.0)
+    with fwAD.dual_level():
+        xd = fwAD.make_dual(x.detach(), tangent)
+        for name, fn in (("ppermute", lambda z: col.ppermute(z, ax, col.right_perm(S))),
+                         ("psum", lambda z: col.psum(z, ax)),
+                         ("all_gather", lambda z: col.all_gather(z, ax))):
+            out[name + "_jvp"] = fwAD.unpack_dual(fn(xd)).tangent
+    out["w"], out["W"], out["x"], out["t"] = w, W, x.detach(), tangent
+    return out
+
+
+def _traced_arrays(beam, **scaled):
+    """``beam.arrays`` as float64 tensors on this rank's device, fields in
+    ``scaled`` multiplied by the given factors (tensors keep their graph)."""
+    import dataclasses
+
+    dev = col.world_device()
+    fields = {f.name: torch.as_tensor(np.asarray(getattr(beam.arrays, f.name)), device=dev)
+              for f in dataclasses.fields(beam.arrays)}
+    for name, s in scaled.items():
+        fields[name] = s * fields[name]
+    return type(beam.arrays)(**fields)
+
+
+def _tip_setup(csv, mesh):
+    model = port_model(csv)
+    beam = spatial_beam(model, mesh)
+    tip = beam.n_nodes_real - 1
+    u = np.zeros((beam.n_nodes, 3))
+    u[tip, 1] = 0.05
+    x0 = torch.zeros((2, beam.n_nodes, 3), dtype=torch.float64, device=col.world_device())
+    return beam, tip, torch.as_tensor(u, device=x0.device), x0
+
+
+def traced_genalpha_case(mesh, csv, frames, substeps, fluid=None, gravity=None, **_):
+    """The fixed-step SPIKE rollout with ``arrays=beam.arrays`` as tensors
+    and with the baked constants."""
+    beam, tip, u, x0 = _tip_setup(csv, mesh)
+    roll = tpar.build_spatial_genalpha(beam, 1e-4, rho_inf=0.8, n_newton=1,
+                                       fluid_density=fluid, gravity=gravity)
+    _, baked = roll(x0, frames, u=u, substeps=substeps)
+    _, traced = roll(x0, frames, u=u, substeps=substeps, arrays=_traced_arrays(beam))
+    return dict(baked=baked, traced=traced)
+
+
+def traced_grad_case(mesh, csv, field, frames, substeps, h, **_):
+    """d(loss)/d(scale of ``field``) by autograd through the SPIKE rollout,
+    and its central difference (step ``h``)."""
+    beam, tip, u, x0 = _tip_setup(csv, mesh)
+    roll = tpar.build_spatial_genalpha(beam, 1e-4, rho_inf=0.8, n_newton=1)
+
+    def loss(s):
+        _, xs = roll(x0, frames, u=u, substeps=substeps,
+                     arrays=_traced_arrays(beam, **{field: s}))
+        return xs[-1, 0, tip].sum() * 1e3
+
+    s = torch.tensor(1.0, dtype=torch.float64, device=x0.device, requires_grad=True)
+    value = loss(s)
+    g, = torch.autograd.grad(value, s)
+    with torch.no_grad():
+        fd = (loss(1.0 + h) - loss(1.0 - h)) / (2 * h)
+    return dict(g=g, fd=fd, value=value.detach())
+
+
+def traced_jvp_case(mesh, csv, engine, t_eval, h, **_):
+    """d(tip)/d(modulus scale) by forward mode (``torch.autograd.forward_ad``)
+    through an error-controlled sharded engine, and its central difference."""
+    import torch.autograd.forward_ad as fwAD
+
+    beam, tip, u, x0 = _tip_setup(csv, mesh)
+    build = (tpar.build_spatial_genalpha_adaptive if engine == "genalpha"
+             else tpar.build_spatial_sdirk3)
+    roll = build(beam, **(dict(rho_inf=0.9, n_newton=2) if engine == "genalpha"
+                          else dict(n_newton=2)))
+
+    def tip_at_end(s):
+        xs, stats = roll(x0, t_eval, u=u, rtol=1e-7, atol=1e-10,
+                         arrays=_traced_arrays(beam, elastic_modulus=s))
+        return xs[-1, 0, tip, 1] * 1e3, stats
+
+    one = torch.tensor(1.0, dtype=torch.float64, device=x0.device)
+    with fwAD.dual_level():
+        out, stats = tip_at_end(fwAD.make_dual(one, torch.ones_like(one)))
+        value, g = fwAD.unpack_dual(out)
+    fd = (tip_at_end(1.0 + h)[0] - tip_at_end(1.0 - h)[0]) / (2 * h)
+    return dict(g=g, fd=fd, value=value, accepted=stats.n_accepted)
