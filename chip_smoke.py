@@ -4204,7 +4204,7 @@ def phase_btd_adjoint(kb, lin_model, dev, card) -> dict:
     packed = kb.pack_factors(f).packed()
     lone = min(cuda_event_times(lambda: kb._launch_adjoint(packed, b, g), repeats=3, warmup=1,
                                 device=dev))
-    dev_ms = device_ms(lambda: kb._launch_adjoint(packed, b, g), dev)
+    dev_ms = queued_device_ms(lambda: kb._launch_adjoint(packed, b, g), dev)
     _, plain_ms = timed_once(lambda: banded.btd_adjoint_sweeps(f, b, g), dev)
     ops = N_ENVS * n * (18 + 33 + 18)
     nbytes = 4 * (5 * N_ENVS * 3 * n + 36 * n)

@@ -208,7 +208,14 @@ def refuse_grad(name: str, *tensors) -> None:
     that requires grad, or an input with a forward-mode tangent, they raise
     instead (there is no switch to the plain version). ``btd_solve`` has a
     backward and a tangent of its own (``btd_solve.py``)."""
-    if any(_derivative_asked(t) for t in tensors):
+    grad, tangents = torch.is_grad_enabled(), fwAD._current_level >= 0
+    if not (grad or tangents):
+        return
+    # Cheap checks only: a ROM span calls this thousands of times. (A
+    # torch.func transform's wrapper has no storage: its launch raises.)
+    if any(isinstance(t, torch.Tensor) and (
+            (grad and t.requires_grad)
+            or (tangents and fwAD.unpack_dual(t).tangent is not None)) for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no derivative; an input requires grad or "
             "carries a tangent (run it under torch.no_grad() on detached inputs, or "

@@ -231,9 +231,11 @@ def btd_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
     Returns the ``(..., N, 3)`` solutions. CPU tensors run the plain
     version; CUDA tensors (float32 or float64) one kernel launch, whose
     result is a view of rows padded to :data:`PITCH`. On the card the
-    result is differentiable in the factors and ``rhs``: reverse mode
-    launches :func:`btd_solve_adjoint`'s kernel, forward mode one more
-    ``btd_solve`` (:class:`_Solve`).
+    result is differentiable in the factors and ``rhs``: when an input
+    requires grad or carries a tangent the launch goes through
+    :class:`_Solve`, whose reverse mode launches :func:`btd_solve_adjoint`'s
+    kernel and forward mode one more ``btd_solve``; the kernel runs either
+    way.
     """
     dev = rhs.device
     if dev.type == "cpu":
@@ -242,7 +244,12 @@ def btd_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"btd_solve takes CPU or CUDA tensors, got {dev}")
     _check(factors, rhs, "btd_solve")
     dinv, lw, up = factors
-    return _Solve.apply(dinv, lw, up, rhs, _cache_for(factors))
+    cache = _cache_for(factors)
+    if not any(map(_build._derivative_asked, (dinv, lw, up, rhs))):
+        # No derivative asked: the launch without the Function's host cost
+        # (tens of microseconds a call, on a path of thousands of solves).
+        return _launch_solve(cache.packed(dinv, lw, up), rhs)
+    return _Solve.apply(dinv, lw, up, rhs, cache)
 
 
 btd_solve.launches = 0

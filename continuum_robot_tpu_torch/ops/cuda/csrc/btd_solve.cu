@@ -441,9 +441,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Design: the simple one. One thread walks one row's nodes through the
 // three sweeps, 32 rows a block, reading its rows and the packed factors
 // (the forward kernel's fwd and bwd layouts, broadcast to the warp) from
-// global memory; s is read back by the thread that wrote it. Rows are
-// dense (B, 3N). The sweeps are dependent chains of 3x3 products, so the
-// kernel is latency-bound; its times stand beside the bound in PERF.md.
+// global memory, the next node's values loaded ahead; s is read back by
+// the thread that wrote it. Rows are dense (B, 3N). The sweeps are
+// dependent chains of 3x3 products, so the kernel is latency-bound; its
+// times stand beside the bound in PERF.md.
 // Rounding: every product row summed from the left with _rn intrinsics, as
 // in btd_solve above and in the plain version, so the two agree bit for bit.
 // ---------------------------------------------------------------------------
@@ -456,7 +457,27 @@ __device__ __forceinline__ T col(const T* m, int j, T v0, T v1, T v2) {
 }
 
 constexpr int kAdjointThreads = 32;
+constexpr int kAhead = 16;  // nodes the rows' L1 prefetch runs ahead of the sweep
 
+// A hint to bring the line holding p into L1 (nothing off the device).
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+#endif
+}
+
+template <int K, typename T>
+__device__ __forceinline__ void copy_n(T* d, const T* s) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) d[k] = s[k];
+}
+
+// Each sweep loads the next node's row values and factor blocks into a
+// second register set before computing the current node, so the loads'
+// latency overlaps the dependent chain of 3x3 products; the lines of the
+// rows and of the factor blocks are prefetched into L1 kAhead nodes ahead
+// (one warp an SM reads each factor line once: without the hint every
+// node waited on L2).
 template <typename T>
 __global__ void __launch_bounds__(kAdjointThreads)
     btd_adjoint_kernel(int B, int N, int64_t ld, const T* __restrict__ fwd,
@@ -471,49 +492,87 @@ __global__ void __launch_bounds__(kAdjointThreads)
   T* bb = bbar + r * ld;
   // y: the forward sweep (node 0's multiplier block is zero).
   T y0 = T(0), y1 = T(0), y2 = T(0);
+  T c[3], w[12];
+  copy_n<3>(c, br);
+  copy_n<12>(w, fwd);
   for (int i = 0; i < N; ++i) {
-    T c[3] = {br[3 * i], br[3 * i + 1], br[3 * i + 2]};
-    forward_node(fwd + 12LL * i, c, y0, y1, y2);
+    const int j = min(i + 1, N - 1);
+    T cn[3], wn[12];
+    copy_n<3>(cn, br + 3LL * j);
+    copy_n<12>(wn, fwd + 12LL * j);
+    prefetch_l1(br + 3LL * min(i + kAhead, N - 1));
+    prefetch_l1(fwd + 12LL * min(i + kAhead, N - 1));
+    forward_node(w, c, y0, y1, y2);
     yr[3 * i] = c[0];
     yr[3 * i + 1] = c[1];
     yr[3 * i + 2] = c[2];
+    copy_n<3>(c, cn);
+    copy_n<12>(w, wn);
   }
-  // s: the ascending sweep.
-  const T* d = bwd;  // node 0: Dinv_0 (U_0 at d + 12)
-  T s0 = col(d, 0, gr[0], gr[1], gr[2]);
-  T s1 = col(d, 1, gr[0], gr[1], gr[2]);
-  T s2 = col(d, 2, gr[0], gr[1], gr[2]);
+  // s: the ascending sweep; node i reads g_i, U_{i-1} and Dinv_i.
+  T gc[3], dc[12], uc[12];
+  copy_n<3>(gc, gr);
+  copy_n<12>(dc, bwd);
+  T s0 = col(dc, 0, gc[0], gc[1], gc[2]);
+  T s1 = col(dc, 1, gc[0], gc[1], gc[2]);
+  T s2 = col(dc, 2, gc[0], gc[1], gc[2]);
   sr[0] = s0;
   sr[1] = s1;
   sr[2] = s2;
+  if (N > 1) {
+    copy_n<3>(gc, gr + 3);
+    copy_n<12>(uc, bwd + 12);
+    copy_n<12>(dc, bwd + 24);
+  }
   for (int i = 1; i < N; ++i) {
-    const T* u = bwd + 24LL * (i - 1) + 12;
-    const T x0 = sub(gr[3 * i], col(u, 0, s0, s1, s2));
-    const T x1 = sub(gr[3 * i + 1], col(u, 1, s0, s1, s2));
-    const T x2 = sub(gr[3 * i + 2], col(u, 2, s0, s1, s2));
-    d = bwd + 24LL * i;
-    s0 = col(d, 0, x0, x1, x2);
-    s1 = col(d, 1, x0, x1, x2);
-    s2 = col(d, 2, x0, x1, x2);
+    const int j = min(i + 1, N - 1);
+    T gn[3], un[12], dn[12];
+    copy_n<3>(gn, gr + 3LL * j);
+    copy_n<12>(un, bwd + 24LL * (j - 1) + 12);
+    copy_n<12>(dn, bwd + 24LL * j);
+    prefetch_l1(gr + 3LL * min(i + kAhead, N - 1));
+    prefetch_l1(bwd + 24LL * min(i + kAhead, N - 1));
+    prefetch_l1(bwd + 24LL * min(i + kAhead, N - 1) + 12);
+    const T x0 = sub(gc[0], col(uc, 0, s0, s1, s2));
+    const T x1 = sub(gc[1], col(uc, 1, s0, s1, s2));
+    const T x2 = sub(gc[2], col(uc, 2, s0, s1, s2));
+    s0 = col(dc, 0, x0, x1, x2);
+    s1 = col(dc, 1, x0, x1, x2);
+    s2 = col(dc, 2, x0, x1, x2);
     sr[3 * i] = s0;
     sr[3 * i + 1] = s1;
     sr[3 * i + 2] = s2;
+    copy_n<3>(gc, gn);
+    copy_n<12>(uc, un);
+    copy_n<12>(dc, dn);
   }
-  // bbar: the descending sweep, from s_{N-1} (still in registers).
+  // bbar: the descending sweep, from s_{N-1} (still in registers); node i
+  // reads s_i and W_i.
   bb[3 * (N - 1)] = s0;
   bb[3 * (N - 1) + 1] = s1;
   bb[3 * (N - 1) + 2] = s2;
+  if (N < 2) return;
+  T sc[3], wc[12];
+  copy_n<3>(sc, sr + 3LL * (N - 2));
+  copy_n<12>(wc, fwd + 12LL * (N - 1));
   for (int i = N - 2; i >= 0; --i) {
-    const T* w = fwd + 12LL * (i + 1);  // W_i
-    const T n0 = sub(sr[3 * i], col(w, 0, s0, s1, s2));
-    const T n1 = sub(sr[3 * i + 1], col(w, 1, s0, s1, s2));
-    const T n2 = sub(sr[3 * i + 2], col(w, 2, s0, s1, s2));
+    const int j = max(i - 1, 0);
+    T sn[3], wn[12];
+    copy_n<3>(sn, sr + 3LL * j);
+    copy_n<12>(wn, fwd + 12LL * (j + 1));
+    prefetch_l1(sr + 3LL * max(i - kAhead, 0));
+    prefetch_l1(fwd + 12LL * max(i - kAhead, 0));
+    const T n0 = sub(sc[0], col(wc, 0, s0, s1, s2));
+    const T n1 = sub(sc[1], col(wc, 1, s0, s1, s2));
+    const T n2 = sub(sc[2], col(wc, 2, s0, s1, s2));
     s0 = n0;
     s1 = n1;
     s2 = n2;
     bb[3 * i] = n0;
     bb[3 * i + 1] = n1;
     bb[3 * i + 2] = n2;
+    copy_n<3>(sc, sn);
+    copy_n<12>(wc, wn);
   }
 }
 

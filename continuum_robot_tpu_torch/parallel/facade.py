@@ -179,10 +179,11 @@ def simulate_sharded(
             method; see :func:`build_spatial_genalpha`.
         arrays: traced parameters for the implicit methods
             (``generalized_alpha``, ``generalized_alpha_adaptive``,
-            ``sdirk3``; ``chunk=`` too): a :class:`BeamArrays` of the model's
-            elements or of the padded sharded beam's, whose fields may be
-            tensors that require grad or carry forward-mode tangents (see
-            ``build_spatial_genalpha``'s rollout); ``rk4`` raises.
+            ``sdirk3``; ``chunk=`` too): a :class:`BeamArrays` shaped like
+            the padded sharded beam's (``make_spatial_beam(...).arrays``),
+            whose fields may be tensors that require grad or carry
+            forward-mode tangents (see ``build_spatial_genalpha``'s
+            rollout); ``rk4`` raises.
         engine: the stepping engine of ``method='modal'`` (``simulate()``'s
             dial): ``"xla"`` (plain torch), ``"pallas"`` (one
             ``modal_frames`` launch on the card) or ``"power"`` (one

@@ -295,32 +295,25 @@ def _traced_gravity_masses(arrays, n_real: int, like):
 
 def traced_arrays(beam: SpatialBeam, arrays: BeamArrays, like) -> BeamArrays:
     """``arrays`` for a rollout's ``arrays=``: fields of the padded length
-    ``Np`` (``beam.arrays``'s; the unpadded ``E`` of the model is padded as
-    :func:`spatial.pad_arrays_for_shards` pads, length 1 and zeros), float
-    fields as tensors on ``like``'s device (a tensor keeps its dtype and
-    its graph, a host array becomes float64), the mask as bool. Every rank
-    holds them alike: they enter through :func:`collectives.replicated_in`
-    on the ``dp`` axis (``beam.local`` does the ``sp`` axis)."""
+    ``Np`` (like ``beam.arrays``), float fields as tensors on ``like``'s
+    device (a tensor keeps its dtype and its graph, a host array becomes
+    float64), the mask as bool. Every rank holds them alike: they enter
+    through :func:`collectives.replicated_in` on the ``dp`` axis
+    (``beam.local`` does the ``sp`` axis)."""
     dev = like.device
     n_el = np.shape(arrays.length)[-1]
-    if n_el not in (beam.n_nodes, beam.n_nodes_real - 1):
+    if n_el != beam.n_nodes:
         raise ValueError(f"arrays= has {n_el} elements; the sharded beam takes "
-                         f"{beam.n_nodes} (padded, like beam.arrays) or "
-                         f"{beam.n_nodes_real - 1}")
-    pad = beam.n_nodes - n_el
+                         f"{beam.n_nodes} (padded, like beam.arrays)")
     out = {}
     for f in dataclasses.fields(BeamArrays):
         x = getattr(arrays, f.name)
         if f.name == "nonlinear_mask":
-            x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                                device=dev).to(torch.bool)
-            out[f.name] = torch.cat([x, x.new_zeros(pad)]) if pad else x
-            continue
-        x = assembly._field_like(x, x.dtype if isinstance(x, torch.Tensor)
-                                 else torch.float64, dev)
-        if pad:
-            x = torch.cat([x, x.new_full((pad,), 1.0 if f.name == "length" else 0.0)])
-        out[f.name] = replicated_in(x, beam.dp)
+            out[f.name] = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                                          else x, device=dev).to(torch.bool)
+        else:
+            out[f.name] = replicated_in(assembly._field_like(
+                x, x.dtype if isinstance(x, torch.Tensor) else torch.float64, dev), beam.dp)
     return BeamArrays(**out)
 
 

@@ -131,9 +131,12 @@ def override_arrays(arrays: BeamArrays, *, device=None, dtype=None, **columns) -
     batched = tile_arrays(arrays, n, device, dtype)
     updates = {}
     for k, v in columns.items():
-        tgt = getattr(batched, k)
-        v = assembly._field_like(v, tgt.dtype, device)
-        updates[k] = torch.broadcast_to(v, tgt.shape)
+        shape = getattr(batched, k).shape
+        if k == "nonlinear_mask":
+            v = _mask(v, device)
+            updates[k] = (torch if isinstance(v, torch.Tensor) else np).broadcast_to(v, shape)
+        else:
+            updates[k] = torch.broadcast_to(assembly._field_like(v, dtype, device), shape)
     return dataclasses.replace(batched, **updates)
 
 
@@ -158,18 +161,11 @@ def make_parametric_rhs(
     physical parameter is differentiable. Fields that are host arrays go to
     ``x``'s device and dtype, tensors are cast to them (keeping their graph).
     ``forces_func(x, t, arrays)`` adds a force over the position DOFs; ``u``
-    is None, a constant or a callable of ``t``. ``rhs.mass_factors(arrays)``
-    returns the factors an optional fifth argument reuses (a rollout with
-    fixed parameters factors once: the same values).
+    is None, a constant or a callable of ``t``.
     """
     free, n_full, n_nodes, mask_nodes = _free_bookkeeping(bc_info)
 
-    def mass_factors(arrays):
-        diag, off = assembly.mass_block_tridiagonal(arrays)
-        return banded.btd_factor(*banded.btd_apply_bc(diag, off.transpose(-1, -2), off,
-                                                      mask_nodes))
-
-    def rhs(t, x, u, arrays: BeamArrays, factors=None):
+    def rhs(t, x, u, arrays: BeamArrays):
         arrays = _tensor_arrays(arrays, x.device, x.dtype)
         n = x.shape[-1] // 2
         q, v = x[..., :n], x[..., n:]
@@ -183,14 +179,14 @@ def make_parametric_rhs(
             f = f + torch.as_tensor(u(t) if callable(u) else u, dtype=x.dtype,
                                     device=x.device)
 
-        if factors is None:
-            factors = mass_factors(arrays)
+        diag, off = assembly.mass_block_tridiagonal(arrays)
+        factors = banded.btd_factor(*banded.btd_apply_bc(diag, off.transpose(-1, -2), off,
+                                                         mask_nodes))
         f_nodes = assembly.pad_to_full(f, free, n_full).reshape(*f.shape[:-1], n_nodes, 3)
         acc_full = banded.btd_solve(factors, f_nodes).reshape(*f.shape[:-1], n_full)
         acc = assembly.reduce_from_full(acc_full, free)
         return torch.cat([v, acc], dim=-1)
 
-    rhs.mass_factors = mass_factors
     return rhs
 
 
@@ -225,10 +221,9 @@ def parametric_rollout(
     n_steps = int(round(t_final / dt))
     x0 = _state(x0_batch, arrays_batch, device)
     arrays = _tensor_arrays(arrays_batch, x0.device, x0.dtype)
-    factors = rhs.mass_factors(arrays)  # the parameters are fixed over the rollout
 
     def rhs_fixed(t, x, uu):
-        return rhs(t, x, uu, arrays, factors)
+        return rhs(t, x, uu, arrays)
 
     return integrators.integrate_fixed(rhs_fixed, x0, 0.0, dt, n_steps, u=u,
                                        substeps=substeps)

@@ -385,7 +385,10 @@ def _host_adjoint_source() -> str:
 # threads one after another; the _rn intrinsics round each operation
 # (volatile: no contraction).
 HOST_SHIM = r"""
+#include <algorithm>
 #include <cstdint>
+using std::max;
+using std::min;
 #define __global__
 #define __device__
 #define __forceinline__ inline

@@ -7,13 +7,15 @@ two threads, while the ranks run). The cases are ``tests/test_sharding.py``'s
 ``TestSpatialParametric`` on its 14-element hybrid beam, float64:
 
 * ``arrays=beam.arrays`` as tensors reproduces the baked-constant span with
-  drag and gravity (1e-14 of scale);
+  drag and gravity (the JAX test's 1e-14 x max(scale, 1));
 * reverse mode through the fixed-step SPIKE rollout with respect to a scale
   on the elastic modulus and on the density: the JAX package's
   ``jax.grad`` (1e-9) and central differences (rtol 2e-5, the JAX test's);
 * forward mode (``torch.autograd.forward_ad``) through the adaptive
   generalized-alpha and SDIRK3 engines: ``jax.jvp`` (1e-9) and central
   differences (rtol 1e-4, the JAX test's);
+* ``simulate_sharded(arrays=...)`` on fixed-step and adaptive gen-alpha,
+  ``chunk=`` included, against the baked run;
 
 and the collectives' backward and tangent on 2 ranks against their closed
 forms. The world has a 240 s limit.
@@ -42,6 +44,7 @@ def _specs():
     for field in ("elastic_modulus", "density"):
         specs[f"grad_{field}"] = dict(case="traced_grad_case", mesh=SP2, csv=csv, field=field,
                                       frames=FRAMES, substeps=SUBSTEPS, h=H)
+    specs["facade"] = dict(case="facade_arrays_case", mesh=SP2, csv=csv)
     for engine in ("genalpha", "sdirk3"):
         specs[f"jvp_{engine}"] = dict(case="traced_jvp_case", mesh=SP2, csv=csv,
                                       engine=engine, t_eval=T_EVAL, h=H)
@@ -191,3 +194,13 @@ def test_forward_mode_through_adaptive_engines(world, engine):
         assert np.isfinite(g) and abs(g) > 0
         assert abs(g - g_ref) <= 1e-9 * abs(g_ref)
         np.testing.assert_allclose(g, float(out["fd"]), rtol=1e-4)
+
+
+def test_simulate_sharded_takes_arrays(world):
+    """``simulate_sharded(arrays=...)`` on fixed-step and adaptive gen-alpha
+    (``chunk=`` on the latter) reproduces the baked run (the JAX test's
+    1e-14 x max(scale, 1))."""
+    _, ranks, _ = world
+    for method, (baked, traced) in ranks[0]["facade"].items():
+        scale = max(float(np.abs(baked).max()), 1.0)
+        assert float(np.abs(traced - baked).max()) <= 1e-14 * scale, method

@@ -592,3 +592,23 @@ def traced_jvp_case(mesh, csv, engine, t_eval, h, **_):
         value, g = fwAD.unpack_dual(out)
     fd = (tip_at_end(1.0 + h)[0] - tip_at_end(1.0 - h)[0]) / (2 * h)
     return dict(g=g, fd=fd, value=value, accepted=stats.n_accepted)
+
+
+def facade_arrays_case(mesh, csv, **_):
+    """``simulate_sharded`` of the fixed-step and the adaptive gen-alpha
+    (``chunk=``) with ``arrays=`` the padded beam's arrays as tensors, and
+    without."""
+    model = port_model(csv)
+    beam = spatial_beam(model, mesh)
+    n = model.n_pos_states
+    x0 = np.zeros(2 * n)
+    x0[n - 2] = 1e-4
+    u = np.zeros(n)
+    u[-2] = 0.05
+    out = {}
+    for method, kw in (("generalized_alpha", dict(substeps=2)),
+                       ("generalized_alpha_adaptive", dict(chunk=1, rtol=1e-4))):
+        out[method] = [tpar.simulate_sharded(model, x0, 2e-4, 1e-4, mesh, method=method, u=u,
+                                             arrays=arrays, **kw).ys
+                       for arrays in (None, _traced_arrays(beam))]
+    return out
