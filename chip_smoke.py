@@ -11,6 +11,7 @@
     python3 chip_smoke.py --parallel          # phases 33-38 alone (the parallel layer)
     python3 chip_smoke.py --cards 4           # phases 33-38, then 39-44 and 49 on four cards
     python3 chip_smoke.py --sweep             # phases 45-48 alone (the gradient path)
+    python3 chip_smoke.py --adjoint           # phase 45 alone (the adjoint kernel)
 
 Phases, one line each (any failure exits non-zero):
 
@@ -218,14 +219,20 @@ Phases, one line each (any failure exits non-zero):
     adaptive counts, one ``modal_frames`` / ``affine_frames`` launch a
     rank); 44 ``dryrun_multichip(4)`` (2 x 2). A failure on any rank fails
     the run with that rank's traceback.
-45-48. the differentiable-parameter path (``--sweep`` runs them alone):
+45-48. the differentiable-parameter path (``--sweep`` runs them alone;
+    ``--adjoint`` phase 45 alone):
     45 ``btd_solve_adjoint`` (the reverse-mode sweeps of the block-tridiagonal
-    solve) against ``banded.btd_adjoint_sweeps`` and the whole adjoint
-    against ``banded.btd_solve_adjoint``, 4096 rhs x the 1001-node main path
-    system, float32 and float64, bit for bit; ``btd_solve``'s autograd
-    Function (backward and forward-mode tangent) against autograd and
-    forward AD of the plain sweep, float64 at 13 nodes (<= 1e-12); the
-    kernel's times beside its byte bound; 46 the SPIKE gen-alpha row's
+    solve) against ``banded.btd_adjoint_sweeps``, bit for bit, float32 and
+    float64: the 1001-node main path system at 1, 33 and 4096 rhs, and the
+    kernel's chunk edges (N = C - 1, C, C + 1 and one node past the
+    resident chunks, from ``btd_solve.adjoint_geometry``) at 1 and 33, each
+    with b and g unpadded, both in padded rows, and g one row shared by the
+    batch (pitch 0); the whole adjoint against ``banded.btd_solve_adjoint``
+    at 4096; ``btd_solve``'s autograd Function (backward and forward-mode
+    tangent) against autograd and forward AD of the plain sweep, float64 at
+    13 nodes (<= 1e-12); the kernel's device times (float32, float64) beside
+    its byte bound, the whole backward's (the kernel and the factor sums)
+    and the library's (``g @ T^-1``, b_bar only); 46 the SPIKE gen-alpha row's
     beam at sp = 1 with traced ``arrays=``: ``beam.arrays`` as tensors
     against the baked span (float64 16 envs, float32 4096 envs, the JAX
     test's 1e-14 x max(scale, 1)), reverse-mode gradients in the elastic
@@ -1562,6 +1569,18 @@ def random_btd_factors(n: int, rng):
                              0.3 * rng.normal(size=(n - 1, 3, 3)))
 
 
+def dense_system_inverse(model, a: float, c: float, dev) -> torch.Tensor:
+    """The dense float32 inverse of ``a M + c K0`` on the free DOFs: the
+    library yardstick of the block-tridiagonal kernels (one ``torch.matmul``
+    of the rows' free part with it)."""
+    from continuum_robot_tpu_torch.models import simulate as sim_mod
+
+    J = (a * np.asarray(model.beam_model.M.toarray())
+         + c * sim_mod.reduce_matrix_dense(model.beam_model.arrays,
+                                           model.beam_model.bc_info.free_dofs))
+    return torch.tensor(np.linalg.inv(J), dtype=torch.float32, device=dev)
+
+
 def padded_rows(x: torch.Tensor, kb) -> torch.Tensor:
     """``(B, N, 3)`` ``x`` in rows padded to the kernel's pitch (NaN in the
     pad), as the implicit operator hands them to it."""
@@ -1742,10 +1761,7 @@ def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
     rhs[:, 0, :] = 0.0  # the fixed node's rows, as the operator pads them
     rhs = padded_rows(rhs, kb)  # and in rows of the kernel's pitch, as it hands them
     fac = kb.pack_factors(fac)  # packed once, as the operator uploads them
-    J = (a * np.asarray(lin_model.beam_model.M.toarray())
-         + c * sim_mod.reduce_matrix_dense(lin_model.beam_model.arrays,
-                                           lin_model.beam_model.bc_info.free_dofs))
-    inv = torch.tensor(np.linalg.inv(J), dtype=torch.float32, device=dev)
+    inv = dense_system_inverse(lin_model, a, c, dev)
     r_red = rhs.reshape(N_ENVS, -1)[:, 3:].contiguous()
     x_lib = r_red @ inv.mT
     x_ker = kb.btd_solve(fac, rhs).reshape(N_ENVS, -1)[:, 3:]
@@ -4109,6 +4125,9 @@ def cards_paths(crt, kb, kr, dev, card, n_cards: int) -> dict:
 # nodes) and 4096 right-hand sides; the Function's derivatives at a small
 # size, float64, against autograd and forward AD of the plain sweep.
 ADJOINT = dict(small_nodes=13, small_envs=5, function_max=1e-12)
+# The adjoint record's numbers that --sweep and --adjoint print.
+ADJOINT_KEYS = ("max_abs_err", "ms", "device_ms", "device_ms_f64", "whole_device_ms",
+                "factor_sums_ms", "plain_ms", "library_ms", "bound")
 # Phase 46: the SPIKE row's 1000-element beam at sp = 1, traced arrays=:
 # the JAX test's span (2 frames x 4 substeps, dt 1e-4, rho_inf 0.8, one
 # Newton iteration), its central-difference step and bound; the float32
@@ -4142,10 +4161,33 @@ def _btd_adjoint_inputs(factors, envs, dtype, dev, rng):
     return f, b, g
 
 
+def _adjoint_cases(kb, f, b, g):
+    """The adjoint kernel against its plain sweeps on one system and batch:
+    ``b`` and ``g`` unpadded (both copied into padded rows), both in padded
+    rows (read in place), and one ``g`` row expanded over the batch (pitch
+    0). Returns ``{layout: max|kernel - plain|}``."""
+    from continuum_robot_tpu_torch.ops import banded
+
+    packed = kb.pack_factors(f).packed()
+    shared = g[0].expand(g.shape)
+    ref, ref_shared = (banded.btd_adjoint_sweeps(f, b, x) for x in (g, shared))
+    out = {}
+    for layout, bb, gg, want in (
+            ("unpadded", b, g, ref), ("padded", padded_rows(b, kb), padded_rows(g, kb), ref),
+            ("shared g", padded_rows(b, kb), shared, ref_shared)):
+        kb.reset_launch_counts()
+        got = kb._launch_adjoint(packed, bb, gg)
+        require(kb.btd_solve_adjoint.launches == 1, "btd_solve_adjoint did not launch")
+        require(finite(*got), f"btd_solve_adjoint: non-finite ({layout}, {tuple(b.shape)})")
+        out[layout] = max_abs(got, want)
+    return out
+
+
 def phase_btd_adjoint(kb, lin_model, dev, card) -> dict:
     """Phase 45: ``btd_solve_adjoint`` against its plain version, bit for
-    bit, at the main path's system, and the Function's derivatives; the
-    kernel's timings beside its bound. Returns its record."""
+    bit, at the main path's system and at the chunk's ragged sizes, and the
+    Function's derivatives; the kernel's timings beside its bound, the whole
+    backward's and the library call's. Returns its record."""
     import torch.autograd.forward_ad as fwAD
 
     from continuum_robot_tpu_torch.ops import banded
@@ -4158,19 +4200,27 @@ def phase_btd_adjoint(kb, lin_model, dev, card) -> dict:
     n = full[0].shape[0]
     err, parts = 0.0, {}
     for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        # The chunk's ragged edges, and one node past the resident chunks
+        # (chunk 0 loads its s back).
+        chunk, slots = kb.adjoint_geometry(dtype)
+        worst = 0.0
+        for nr in (chunk - 1, chunk, chunk + 1, slots * chunk + 1):
+            fac = random_btd_factors(nr, rng)
+            for envs in (1, 33):
+                cases = _adjoint_cases(kb, *_btd_adjoint_inputs(fac, envs, dtype, dev, rng))
+                worst = max(worst, *cases.values())
         f, b, g = _btd_adjoint_inputs(full, N_ENVS, dtype, dev, rng)
+        main = {}
+        for envs in (1, 33, N_ENVS):
+            main[envs] = max(_adjoint_cases(kb, f, b[:envs], g[:envs]).values())
         packed = kb.pack_factors(f)
-        kb.reset_launch_counts()
-        sweeps = kb._launch_adjoint(packed.packed(), b, g)
-        require(kb.btd_solve_adjoint.launches == 1, "btd_solve_adjoint did not launch")
-        ref = banded.btd_adjoint_sweeps(f, b, g)
-        e = max_abs(sweeps, ref)
         x = kb.btd_solve(packed, b)
         whole = kb.btd_solve_adjoint(packed, b, x, g)
         e_whole = max_abs(whole, banded.btd_solve_adjoint(f, b, x, g))
-        require(finite(*sweeps, *whole), f"btd_solve_adjoint: non-finite ({dtype})")
-        parts[str(dtype)[6:]] = (e, e_whole)
-        err = max(err, e, e_whole)
+        require(finite(*whole), f"btd_solve_adjoint: non-finite ({dtype})")
+        parts[name] = dict(main=main, whole=e_whole, edges=worst)
+        err = max(err, worst, e_whole, *main.values())
     # The Function at a small float64 size: vjp and jvp against autograd and
     # forward AD of the plain sweep.
     small = random_btd_factors(ADJOINT["small_nodes"], rng)
@@ -4188,36 +4238,65 @@ def phase_btd_adjoint(kb, lin_model, dev, card) -> dict:
         jvp_ref = fwAD.unpack_dual(banded.btd_solve(tuple(duals[:3]), duals[3])).tangent
         jvp_out = fwAD.unpack_dual(kb.btd_solve(tuple(duals[:3]), duals[3])).tangent
     jvp_err = scaled_err(jvp_out, jvp_ref)
-    say(f"phase 45 btd_solve_adjoint vs plain [{card}]: {N_ENVS} rhs x {n} nodes; "
-        f"max|kernel-plain| (sweeps y, s, b_bar; whole adjoint with the factor sums) "
-        f"{parts}; the Function on {ADJOINT['small_envs']} x {ADJOINT['small_nodes']} "
-        f"float64: vjp vs autograd of the plain sweep {vjp_err:.3e}, jvp vs forward AD "
-        f"{jvp_err:.3e} (limit {ADJOINT['function_max']}), launches (btd_solve, adjoint) "
-        f"{fn_launches}")
+    say(f"phase 45 btd_solve_adjoint vs plain [{card}]: {n} nodes x B in (1, 33, {N_ENVS}) "
+        f"and the ragged chunk edges (chunk, slots {kb.adjoint_geometry(torch.float32)} float32, "
+        f"{kb.adjoint_geometry(torch.float64)} float64; N = C-1, C, C+1, slots x C + 1; B in "
+        f"1, 33), g unpadded, padded and shared (pitch 0): max|kernel-plain| (sweeps y, s, "
+        f"b_bar; whole adjoint with the factor sums at {N_ENVS}) {parts}; the Function on "
+        f"{ADJOINT['small_envs']} x {ADJOINT['small_nodes']} float64: vjp vs autograd of the "
+        f"plain sweep {vjp_err:.3e}, jvp vs forward AD {jvp_err:.3e} (limit "
+        f"{ADJOINT['function_max']}), launches (btd_solve, adjoint) {fn_launches}")
     require(err == 0.0, f"btd_solve_adjoint: kernel and plain version differ: {parts}")
     require(max(vjp_err, jvp_err) <= ADJOINT["function_max"],
             f"btd_solve Function derivatives: vjp {vjp_err:.3e}, jvp {jvp_err:.3e}")
     require(fn_launches == (1, 1), f"btd_solve Function launches {fn_launches}")
 
-    # Timings, float32 at the main path's size.
-    f, b, g = _btd_adjoint_inputs(full, N_ENVS, torch.float32, dev, rng)
-    packed = kb.pack_factors(f).packed()
-    lone = min(cuda_event_times(lambda: kb._launch_adjoint(packed, b, g), repeats=3, warmup=1,
-                                device=dev))
-    dev_ms = queued_device_ms(lambda: kb._launch_adjoint(packed, b, g), dev)
-    _, plain_ms = timed_once(lambda: banded.btd_adjoint_sweeps(f, b, g), dev)
+    # Timings at the main path's size, b and g in padded rows as the implicit
+    # operator and its solve hand them over (no copy in the wrapper).
+    def best(fn):
+        return min(cuda_event_times(fn, repeats=3, warmup=1, device=dev))
+
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        f, b, g = _btd_adjoint_inputs(full, N_ENVS, dtype, dev, rng)
+        b, g = padded_rows(b, kb), padded_rows(g, kb)
+        packed = kb.pack_factors(f)
+        fp = packed.packed()
+        times[dtype] = dict(dev=queued_device_ms(lambda: kb._launch_adjoint(fp, b, g), dev))
+        if dtype != torch.float32:
+            continue
+        times[dtype]["lone"] = best(lambda: kb._launch_adjoint(fp, b, g))
+        x = kb.btd_solve(packed, b)
+        y, s, bbar = kb._launch_adjoint(fp, b, g)
+        times[dtype]["whole"] = queued_device_ms(
+            lambda: kb.btd_solve_adjoint(packed, b, x, g), dev)
+        times[dtype]["sums"] = queued_device_ms(
+            lambda: banded.btd_adjoint_factors(f, x, g, y, s, bbar), dev)
+        _, times[dtype]["plain"] = timed_once(lambda: banded.btd_adjoint_sweeps(f, b, g), dev)
+        inv = dense_system_inverse(lin_model, a, c, dev)
+        g_red = g.reshape(N_ENVS, -1)[:, 3:].contiguous()
+        lib_rel = rel(bbar.reshape(N_ENVS, -1)[:, 3:], g_red @ inv)
+        times[dtype]["library"] = best(lambda: g_red @ inv)
+    t32, t64 = times[torch.float32], times[torch.float64]
     ops = N_ENVS * n * (18 + 33 + 18)
     nbytes = 4 * (5 * N_ENVS * 3 * n + 36 * n)
-    bnd = bound(ops, nbytes)
-    say(f"phase 45 btd_solve_adjoint timings [{card}]: float32 {N_ENVS} x {n}: "
-        f"{lone:.4f} ms a lone launch, device {dev_ms:.4f} ms, plain sweeps {plain_ms:.1f} ms, "
+    bnd, bnd64 = bound(ops, nbytes), bound(ops, 2 * nbytes)
+    say(f"phase 45 btd_solve_adjoint timings [{card}]: {N_ENVS} x {n}, b and g in padded "
+        f"rows: float32 {t32['lone']:.4f} ms a lone launch, device {t32['dev']:.4f} ms, "
         f"bound {bnd[0]:.4f} ms ({bnd[1]}: b and g read, y, s, b_bar written), kernel at "
-        f"{bnd[0] / dev_ms:.3f} of it; library: none; "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    return dict(max_abs_err=err, ms=lone, device_ms=dev_ms, plain_ms=plain_ms, bound=bnd,
-                library_ms=None, source=BTD_SOURCE, replaces=BTD_REPLACES,
+        f"{bnd[0] / t32['dev']:.3f} of it; float64 device {t64['dev']:.4f} ms (bound "
+        f"{bnd64[0]:.4f}); the whole backward (kernel and btd_adjoint_factors' batch sums) "
+        f"device {t32['whole']:.4f} ms, the sums alone {t32['sums']:.4f} ms; plain sweeps "
+        f"{t32['plain']:.1f} ms; library: g @ T^-1 (one torch.matmul, the dense inverse "
+        f"of phase 17's library time; b_bar only) {t32['library']:.4f} ms (b_bar vs it "
+        f"{lib_rel:.3e} relative); {time.perf_counter() - t_phase:.1f} s")
+    return dict(max_abs_err=err, ms=t32["lone"], device_ms=t32["dev"], plain_ms=t32["plain"],
+                bound=bnd, library_ms=t32["library"], device_ms_f64=t64["dev"],
+                whole_device_ms=t32["whole"], factor_sums_ms=t32["sums"], source=BTD_SOURCE,
+                replaces=BTD_REPLACES,
                 note="the reverse-mode derivative of that kernel's solve (the JAX package "
-                     "differentiates its jnp scans; no TPU kernel of its own)")
+                     "differentiates its jnp scans; no TPU kernel of its own); library_ms: "
+                     "g @ T^-1 by torch.matmul, b_bar only")
 
 
 def _tensor_arrays(beam, dev, **scales):
@@ -4648,9 +4727,18 @@ def main() -> int:
         out = sweep_paths(crt, kb, dev, card)
         rec = out["record"]
         print(json.dumps({"btd_solve_adjoint": {k: rec[k] for k in (
-            "launches", "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms")},
+            "launches", "launches_by_path") + ADJOINT_KEYS},
             "btd_solve_launches_by_path": out["btd_paths"]}), flush=True)
         print(f"sweep phases done; total {time.time() - t_start:.1f} s", flush=True)
+        return 0
+    if "--adjoint" in args:
+        t0 = time.time()
+        _build.build_all()
+        print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
+        lin_model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS, "linear"))
+        rec = phase_btd_adjoint(kb, lin_model, dev, card)
+        print(json.dumps({"btd_solve_adjoint": {k: rec[k] for k in ADJOINT_KEYS}}), flush=True)
+        print(f"phase 45 done; total {time.time() - t_start:.1f} s", flush=True)
         return 0
     if "--rom-tier" in args:
         t0 = time.time()

@@ -83,7 +83,8 @@ _SIGNATURES = {
     },
     "btd_solve": {
         "btd_solve_launch": [_c_int] * 3 + [_c_i64] * 2 + [_c_ptr] * 5,
-        "btd_solve_adjoint_launch": [_c_int] * 3 + [_c_i64] + [_c_ptr] * 8,
+        "btd_solve_adjoint_launch": [_c_int] * 3 + [_c_i64] * 3 + [_c_ptr] * 8,
+        "btd_solve_adjoint_geometry": [_c_int, _c_int],
     },
     "fused_rollout": {
         "fused_gen_alpha_launch": [_c_int] * 6 + [_c_dbl] * 9 + [_c_ptr] * 9,

@@ -16,15 +16,18 @@ differentiates the plain jnp scans), whose plain version is
 ``banded.btd_solve_adjoint``; its forward-mode tangent is one more
 ``btd_solve`` launch. ``btd_solve_adjoint.launches`` counts its launches.
 
-The kernel moves rows and factors with 16-byte bulk copies. It reads rows
+Both kernels move rows and factors with 16-byte bulk copies. They read rows
 whose pitch is a multiple of 16 bytes (the implicit operator pads its
 right-hand sides to a multiple of :data:`PITCH` elements; other rows are
-copied into such a buffer) and returns its solutions as a view of such a
-buffer. Its factors are packed once into 16-byte aligned blocks
+copied into such a buffer; the adjoint reads a cotangent shared by the
+whole batch as one row of pitch 0) and return their results as views of
+such buffers. The factors are packed once into 16-byte aligned blocks
 (:func:`pack_factors`, :class:`BTDFactors`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -121,14 +124,32 @@ def _check(factors, rhs: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} factors must be on rhs's device, in its dtype")
 
 
+def _kernel_operand(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``(..., N, 3)`` ``t`` as the ``(B, 3N)`` rows the kernels read: a view
+    where :func:`_kernel_rows` allows it, else a copy into rows padded to
+    :data:`PITCH` (one copy, whatever ``t``'s strides)."""
+    try:
+        r = t.view(-1, 3 * n)
+    except RuntimeError:  # not one pitch apart
+        r = None
+    if r is not None and _kernel_rows(r):
+        return r
+    rows = math.prod(t.shape[:-2])
+    buf = torch.empty((rows, padded_width(3 * n)), dtype=t.dtype, device=t.device)[:, :3 * n]
+    buf.view(t.shape).copy_(t)
+    return buf
+
+
+def _pointers(args) -> list:
+    """A launch's arguments with each tensor replaced by its data pointer."""
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+
 def _launch_solve(packed, rhs: torch.Tensor) -> torch.Tensor:
     """One ``btd_solve`` launch on plain (graph-free) tensors."""
     dev = rhs.device
     n = rhs.shape[-2]
-    r = rhs.reshape(-1, 3 * n)
-    if not _kernel_rows(r):
-        r = torch.empty((r.shape[0], padded_width(3 * n)), dtype=r.dtype,
-                        device=dev)[:, :3 * n].copy_(r)
+    r = _kernel_operand(rhs, n)
     out = torch.empty((r.shape[0], padded_width(3 * n)), dtype=r.dtype,
                       device=dev)[:, :3 * n]
     if r.shape[0] and n:
@@ -143,28 +164,56 @@ def _launch_solve(packed, rhs: torch.Tensor) -> torch.Tensor:
             )
         _build.check(lib, rc, "btd_solve")
         btd_solve.launches += 1
-    return out.reshape(rhs.shape)
+    return out.view(rhs.shape)
+
+
+def _adjoint_operands(packed, b: torch.Tensor, g: torch.Tensor):
+    """The ``btd_solve_adjoint`` launch's arguments, tensors in place of their
+    pointers and without the stream, and its outputs ``(y, s, b_bar)``,
+    shaped like ``b``.
+
+    ``b`` is read in place where :func:`_kernel_rows` allows it (the
+    implicit operator's padded rows). A ``g`` that every row of the batch
+    shares (an expanded cotangent) is one row of pitch 0; otherwise ``g``
+    is read in place or copied once into padded rows. The outputs are
+    views of one ``(3, B, padded_width(3N))`` buffer."""
+    n = b.shape[-2]
+    rows = _kernel_operand(b, n)
+    gx = g.expand(b.shape)
+    lead = gx.dim() - 2
+    if rows.shape[0] and all(st == 0 for st in gx.stride()[:lead]):  # one row for the batch
+        grows, ld_g = _kernel_operand(gx[(0,) * lead], n), 0
+    else:
+        grows = _kernel_operand(gx, n)
+        ld_g = grows.stride(0)
+    out = torch.empty((3, rows.shape[0], padded_width(3 * n)), dtype=b.dtype,
+                      device=b.device)[..., :3 * n]
+    fwd, bwd = packed
+    args = (_DTYPE_CODES[b.dtype], rows.shape[0], n, rows.stride(0), ld_g, out.stride(1),
+            fwd, bwd, rows, grows, *out.unbind(0))
+    return args, tuple(t.view(b.shape) for t in out.unbind(0))
 
 
 def _launch_adjoint(packed, b: torch.Tensor, g: torch.Tensor):
     """One ``btd_solve_adjoint`` launch: ``(y, s, b_bar)`` shaped like ``b``."""
     dev = b.device
-    n = b.shape[-2]
-    rows = b.reshape(-1, 3 * n).contiguous()
-    grows = g.expand(b.shape).reshape(-1, 3 * n).contiguous()
-    y, s, bbar = torch.empty((3, *rows.shape), dtype=b.dtype, device=dev).unbind(0)
-    if rows.shape[0] and n:
-        fwd, bwd = packed
+    args, outs = _adjoint_operands(packed, b, g)
+    if outs[0].numel():
         lib = _build.library("btd_solve")
         with torch.cuda.device(dev):
-            rc = lib.btd_solve_adjoint_launch(
-                _DTYPE_CODES[b.dtype], rows.shape[0], n, 3 * n, fwd.data_ptr(),
-                bwd.data_ptr(), rows.data_ptr(), grows.data_ptr(), y.data_ptr(),
-                s.data_ptr(), bbar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-            )
+            rc = lib.btd_solve_adjoint_launch(*_pointers(args),
+                                              torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, rc, "btd_solve_adjoint")
         btd_solve_adjoint.launches += 1
-    return tuple(t.reshape(b.shape) for t in (y, s, bbar))
+    return outs
+
+
+def adjoint_geometry(dtype: torch.dtype) -> tuple:
+    """``(nodes a chunk, ring slots)`` of the ``btd_solve_adjoint`` kernel in
+    ``dtype``, read from the built library."""
+    lib = _build.library("btd_solve")
+    code = _DTYPE_CODES[dtype]
+    return lib.btd_solve_adjoint_geometry(code, 0), lib.btd_solve_adjoint_geometry(code, 1)
 
 
 def _cache_for(factors):

@@ -66,6 +66,11 @@
 
 namespace {
 
+// ---- arithmetic: begin ------------------------------------------------------
+// Plain device code: no copies, no barriers, no CUDA types but float4 and
+// double2. tests/test_torch_banded.py builds the lines from this mark to
+// "arithmetic: end" with the host compiler and runs the adjoint's jobs on them.
+
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -73,7 +78,7 @@ __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, 
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
 
-constexpr int kEnvs = 32;            // environments per block: warp 0's lanes
+constexpr int kEnvs = 32;            // environments per block: a sweeping warp's lanes
 constexpr int kThreads = 3 * 32;     // the sweep, the loads, the stores
 constexpr int kSlots = 7;            // ring slots of one chunk each
 
@@ -148,48 +153,100 @@ __device__ __forceinline__ void st16(T* dst, const T* src) {
   for (int i = 0; i < K / n; ++i) reinterpret_cast<Vec16<T>*>(dst)[i] = pack(src + n * i, T(0));
 }
 
+// A chunk's rows as copied: 3 cn elements rounded up to 16 bytes (the row
+// pitches leave room for them).
+template <typename T>
+__device__ __forceinline__ uint32_t row_bytes(int cn) {
+  return (3u * cn * static_cast<uint32_t>(sizeof(T)) + 15u) & ~15u;
+}
+
 // One row of a 3x3 product: m[0]*v0 + m[1]*v1 + m[2]*v2, summed from the left.
 template <typename T>
 __device__ __forceinline__ T row(const T* m, T v0, T v1, T v2) {
   return add(add(mul(m[0], v0), mul(m[1], v1)), mul(m[2], v2));
 }
 
-// One forward node: y = c - W y, written over the node's three rows c.
+// One entry of a transposed 3x3 product: m[0][j]*v0 + m[1][j]*v1 + m[2][j]*v2
+// (rows of four, as packed), summed from the left.
 template <typename T>
-__device__ __forceinline__ void forward_node(const T* w, T* c, T& y0, T& y1, T& y2) {
-  const T a0 = sub(c[0], row(w, y0, y1, y2));
-  const T a1 = sub(c[1], row(w + 4, y0, y1, y2));
-  const T a2 = sub(c[2], row(w + 8, y0, y1, y2));
-  c[0] = y0 = a0;
-  c[1] = y1 = a1;
-  c[2] = y2 = a2;
+__device__ __forceinline__ T col(const T* m, int j, T v0, T v1, T v2) {
+  return add(add(mul(m[j], v0), mul(m[4 + j], v1)), mul(m[8 + j], v2));
 }
 
-// One backward node: x = Dinv (y - U x), written over the node's rows y;
-// f holds Dinv then U.
-template <typename T>
-__device__ __forceinline__ void backward_node(const T* f, T* c, T& x0, T& x1, T& x2) {
-  const T a0 = sub(c[0], row(f + 12, x0, x1, x2));
-  const T a1 = sub(c[1], row(f + 16, x0, x1, x2));
-  const T a2 = sub(c[2], row(f + 20, x0, x1, x2));
-  c[0] = x0 = row(f, a0, a1, a2);
-  c[1] = x1 = row(f + 4, a0, a1, a2);
-  c[2] = x2 = row(f + 8, a0, a1, a2);
-}
+// The node steps. Each sweeps one node's three rows c in place, carrying its
+// chain in v0..v2, and reads F factor elements a node (the packed block(s)
+// of that node); the sweeps below take a step as their template argument.
+//   Forward   (btd_solve):  y = c - W y, W the node's fwd block (W_{n-1}).
+//   Backward  (btd_solve):  x = Dinv (c - U x), the node's bwd blocks.
+//   SStep     (adjoint):    s = Dinv^T (c - q), then q = U^T s for the next
+//                           node (q = +0 before node 0: c - 0 is c).
+//   BbarStep  (adjoint):    b = c - p, then p = W^T b for the node before
+//                           (p = +0 past node N-1: b_bar_{N-1} = s_{N-1}).
+struct Forward {
+  static constexpr int F = 12;
+  template <typename T>
+  static __device__ __forceinline__ void step(const T* w, T* c, T& y0, T& y1, T& y2) {
+    const T a0 = sub(c[0], row(w, y0, y1, y2));
+    const T a1 = sub(c[1], row(w + 4, y0, y1, y2));
+    const T a2 = sub(c[2], row(w + 8, y0, y1, y2));
+    c[0] = y0 = a0;
+    c[1] = y1 = a1;
+    c[2] = y2 = a2;
+  }
+};
+struct Backward {  // f holds Dinv then U
+  static constexpr int F = 24;
+  template <typename T>
+  static __device__ __forceinline__ void step(const T* f, T* c, T& x0, T& x1, T& x2) {
+    const T a0 = sub(c[0], row(f + 12, x0, x1, x2));
+    const T a1 = sub(c[1], row(f + 16, x0, x1, x2));
+    const T a2 = sub(c[2], row(f + 20, x0, x1, x2));
+    c[0] = x0 = row(f, a0, a1, a2);
+    c[1] = x1 = row(f + 4, a0, a1, a2);
+    c[2] = x2 = row(f + 8, a0, a1, a2);
+  }
+};
+struct SStep {  // f holds Dinv then U
+  static constexpr int F = 24;
+  template <typename T>
+  static __device__ __forceinline__ void step(const T* f, T* c, T& q0, T& q1, T& q2) {
+    const T a0 = sub(c[0], q0), a1 = sub(c[1], q1), a2 = sub(c[2], q2);
+    const T s0 = col(f, 0, a0, a1, a2), s1 = col(f, 1, a0, a1, a2), s2 = col(f, 2, a0, a1, a2);
+    c[0] = s0;
+    c[1] = s1;
+    c[2] = s2;
+    q0 = col(f + 12, 0, s0, s1, s2);
+    q1 = col(f + 12, 1, s0, s1, s2);
+    q2 = col(f + 12, 2, s0, s1, s2);
+  }
+};
+struct BbarStep {  // w: the node's fwd block, W_{n-1}
+  static constexpr int F = 12;
+  template <typename T>
+  static __device__ __forceinline__ void step(const T* w, T* c, T& p0, T& p1, T& p2) {
+    const T b0 = sub(c[0], p0), b1 = sub(c[1], p1), b2 = sub(c[2], p2);
+    c[0] = b0;
+    c[1] = b1;
+    c[2] = b2;
+    p0 = col(w, 0, b0, b1, b2);
+    p1 = col(w, 1, b0, b1, b2);
+    p2 = col(w, 2, b0, b1, b2);
+  }
+};
 
-// The sweeps over one staged row r (3 elements per node, swept in place)
-// of a chunk of cn nodes, factors f (F = 12 forward, 24 backward per node).
-// They are the warp's whole critical path, so every load runs ahead of the
-// arithmetic that needs it and no branch splits the steady state: nodes go
-// in pairs of groups of G nodes (a group's rows are three 16-byte vectors),
-// the next group's rows and the next node's factors load while a node is
-// computed, into two register sets used in turn (so no register copies),
-// and look-ahead indices are clamped inside the slot rather than tested.
-// The nodes past the last whole pair of groups (the chunk's ragged end)
-// take a plain loop.
-template <typename T>
-__device__ __forceinline__ void sweep_forward(T* r, const T* f, int cn, T& y0, T& y1, T& y2) {
-  constexpr int G = Cfg<T>::kGroup, F = 12;
+// The sweeps over one staged row r (3 elements per node, swept in place) of
+// a chunk of cn nodes with factors f (Step::F per node): sweep_up from node
+// 0, sweep_down from node cn - 1. They are a sweeping warp's whole critical
+// path, so every load runs ahead of the arithmetic that needs it and no
+// branch splits the steady state: nodes go in pairs of groups of G nodes (a
+// group's rows are three 16-byte vectors), the next group's rows and the
+// next node's factors load while a node is computed, into two register sets
+// used in turn (so no register copies), and look-ahead indices are clamped
+// inside the slot rather than tested. The nodes past the last whole pair of
+// groups (the chunk's ragged end) take a plain loop.
+template <typename Step, typename T>
+__device__ __forceinline__ void sweep_up(T* r, const T* f, int cn, T& v0, T& v1, T& v2) {
+  constexpr int G = Cfg<T>::kGroup, F = Step::F;
   const int whole = cn - cn % (2 * G);
   T fa[F], fb[F], ca[3 * G], cb[3 * G];
   ld16<F>(fa, f);
@@ -200,9 +257,9 @@ __device__ __forceinline__ void sweep_forward(T* r, const T* f, int cn, T& y0, T
 #pragma unroll
     for (int q = 0; q < G; q += 2) {
       ld16<F>(fb, f + F * (j0 + q + 1));
-      forward_node(fa, ca + 3 * q, y0, y1, y2);
+      Step::step(fa, ca + 3 * q, v0, v1, v2);
       ld16<F>(fa, f + F * (j0 + q + 2));
-      forward_node(fb, ca + 3 * q + 3, y0, y1, y2);
+      Step::step(fb, ca + 3 * q + 3, v0, v1, v2);
     }
     st16<3 * G>(r + 3 * j0, ca);
     // Group b: the next pair's first rows load meanwhile (past the chunk's
@@ -211,31 +268,31 @@ __device__ __forceinline__ void sweep_forward(T* r, const T* f, int cn, T& y0, T
 #pragma unroll
     for (int q = 0; q < G; q += 2) {
       ld16<F>(fb, f + F * min(j0 + G + q + 1, cn - 1));
-      forward_node(fa, cb + 3 * q, y0, y1, y2);
+      Step::step(fa, cb + 3 * q, v0, v1, v2);
       ld16<F>(fa, f + F * min(j0 + G + q + 2, cn - 1));
-      forward_node(fb, cb + 3 * q + 3, y0, y1, y2);
+      Step::step(fb, cb + 3 * q + 3, v0, v1, v2);
     }
     st16<3 * G>(r + 3 * (j0 + G), cb);
   }
   for (int j = whole; j < cn; ++j) {
     ld16<F>(fa, f + F * j);
     T c[3] = {r[3 * j], r[3 * j + 1], r[3 * j + 2]};
-    forward_node(fa, c, y0, y1, y2);
+    Step::step(fa, c, v0, v1, v2);
     r[3 * j] = c[0];
     r[3 * j + 1] = c[1];
     r[3 * j + 2] = c[2];
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void sweep_backward(T* r, const T* f, int cn, T& x0, T& x1, T& x2) {
-  constexpr int G = Cfg<T>::kGroup, F = 24;
+template <typename Step, typename T>
+__device__ __forceinline__ void sweep_down(T* r, const T* f, int cn, T& v0, T& v1, T& v2) {
+  constexpr int G = Cfg<T>::kGroup, F = Step::F;
   const int whole = cn - cn % (2 * G);
   T fa[F], fb[F], ca[3 * G], cb[3 * G];
   for (int j = cn - 1; j >= whole; --j) {
     ld16<F>(fa, f + F * j);
     T c[3] = {r[3 * j], r[3 * j + 1], r[3 * j + 2]};
-    backward_node(fa, c, x0, x1, x2);
+    Step::step(fa, c, v0, v1, v2);
     r[3 * j] = c[0];
     r[3 * j + 1] = c[1];
     r[3 * j + 2] = c[2];
@@ -249,9 +306,9 @@ __device__ __forceinline__ void sweep_backward(T* r, const T* f, int cn, T& x0, 
 #pragma unroll
     for (int q = G - 1; q > 0; q -= 2) {
       ld16<F>(fb, f + F * (j0 + G + q - 1));
-      backward_node(fa, ca + 3 * q, x0, x1, x2);
+      Step::step(fa, ca + 3 * q, v0, v1, v2);
       ld16<F>(fa, f + F * (j0 + G + q - 2));
-      backward_node(fb, ca + 3 * q - 3, x0, x1, x2);
+      Step::step(fb, ca + 3 * q - 3, v0, v1, v2);
     }
     st16<3 * G>(r + 3 * (j0 + G), ca);
     // Group b: nodes j0 + G - 1 .. j0; the next pair's first rows load
@@ -260,13 +317,228 @@ __device__ __forceinline__ void sweep_backward(T* r, const T* f, int cn, T& x0, 
 #pragma unroll
     for (int q = G - 1; q > 0; q -= 2) {
       ld16<F>(fb, f + F * (j0 + q - 1));
-      backward_node(fa, cb + 3 * q, x0, x1, x2);
+      Step::step(fa, cb + 3 * q, v0, v1, v2);
       ld16<F>(fa, f + F * max(j0 + q - 2, 0));
-      backward_node(fb, cb + 3 * q - 3, x0, x1, x2);
+      Step::step(fb, cb + 3 * q - 3, v0, v1, v2);
     }
     st16<3 * G>(r + 3 * j0, cb);
   }
 }
+
+// ---------------------------------------------------------------------------
+// btd_solve_adjoint: the reverse-mode derivative of the solve. It replaces
+// no TPU kernel: the JAX package differentiates the TPU kernel's plain twin
+// (the jnp scans of ops/banded.py) with its own transposes, and this kernel
+// is the counterpart of those transposed scans. For the cotangent g = dL/dx
+// of B right-hand sides b it runs, per row, the three sequential sweeps of
+// btd_adjoint_sweeps in ops/banded.py against the packed fwd and bwd factors
+// of btd_solve_kernel:
+//   y     y_0 = b_0,              y_i = b_i - W_{i-1} y_{i-1}   (the forward sweep again)
+//   s     s_0 = Dinv_0^T g_0,     s_i = Dinv_i^T (g_i - U_{i-1}^T s_{i-1})
+//   bbar  bbar_{N-1} = s_{N-1},   bbar_i = s_i - W_i^T bbar_{i+1}
+// and writes y, s and bbar; the factor cotangents (batch sums of outer
+// products) are torch products over these (btd_adjoint_factors).
+//
+// Design: btd_solve_kernel's, for three chains. A block owns 32 rows and
+// streams chunks of 32 nodes (16 in double) through a ring of 7 shared-memory
+// slots; a slot holds the chunk's b and g rows of the 32 rows and its packed
+// fwd and bwd factors. Four warps, one job each:
+//   warp 0, the y sweep: each ascending chunk's b rows into y (Forward), a
+//     lane a row, the factors broadcast;
+//   warp 1, the s sweep and then the bbar sweep: each ascending chunk's g
+//     rows into s (SStep), then from the last chunk down each chunk's s rows
+//     into bbar (BbarStep). The y and s chains share no data, so they run at
+//     once on two SM sub-partitions; the s chain's 33 operations a node
+//     (against y's 18) set the ascending pass's pace;
+//   warp 2, the loads: one thread bulk-copies (cp.async.bulk, 16-byte
+//     granules) a job's rows and factors into its slot, completing on the
+//     slot's "full" mbarrier;
+//   warp 3, the stores: one thread waits for a swept job ("done": both
+//     sweeping warps ascending, warp 1 descending) and bulk-copies its rows
+//     out (y and s, then bbar), then frees the slot ("empty").
+// Job j < n sweeps chunk j ascending, job n + i chunk n - 1 - i descending;
+// chunk k always sits in slot k % 7, so the last 7 chunks (224 of 1001 nodes;
+// 112 in double) are resident: the descending job finds their s and their
+// fwd factors in the slot and loads nothing. Their s is still stored (the
+// factor sums read it). Earlier chunks load s back from the output rows.
+// A slot holds two row sets, so its chunk is half the forward kernel's 64
+// nodes (32 in double) at the same 7 slots: 2 x 32 rows x 100 elements (50
+// in double) and 36 factor elements a node make 30,208 bytes, 7 slots 211 KB
+// of the 227 KB a block may have. Three slots of 64 nodes would fit as well,
+// but a three-slot ring cannot keep a load ahead of the sweep while a store
+// drains, and would keep 192 nodes resident instead of 224. Staged rows are
+// 100 (50) elements apart, 25 16-byte units, an odd number, so the sweeping
+// warps' vector accesses meet no bank conflict.
+//
+// Bound: the least traffic reads b and g once and writes y, s and bbar once,
+// 5 x B x 3N elements (246 MB in float32 at B = 4096, N = 1001, with the
+// factors: 0.0735 ms at 3.35 TB/s); the arithmetic is 18 + 33 + 18 operations
+// a node (2.8e8 in all, 4 us at 67 TFLOP/s). The round trip of s for the
+// chunks that are not resident adds 777 / 1001 of one array's read (38 MB,
+// 0.011 ms), on the copying warps. Instruction issue: the ascending pass is the s warp's,
+// about 41 instructions a node (6 vector factor loads, 3/G vector row loads
+// and stores, 33 unfused float operations), beside the y warp's 24; the
+// descending pass about 23 (3 + 3/G + 18): some 64,000 issue cycles for the
+// 1001-node chains (~0.036 ms at 1.8 GHz), under the copies' floor of about
+// 5.8 arrays (0.085 ms). On an H100 the kernel takes 0.136 ms on the device
+// at B = 4096, N = 1001 in float32 (0.270 in float64; chip_smoke.py, phase
+// 45): 1.85x its byte bound, 1.6x the copies' floor. The simple kernel
+// before it (a thread walking its row's three sweeps in global memory) took
+// 0.96-1.04 ms.
+//
+// Rounding: every product row summed from the left with the _rn intrinsics,
+// as in btd_solve and in the plain version, so the two agree bit for bit;
+// the carried products start from +0, and c - (+0) is c.
+// ---------------------------------------------------------------------------
+
+// Per type: nodes per chunk and the staged row's length (elements).
+template <typename T>
+struct AdjCfg;
+template <>
+struct AdjCfg<float> {
+  static constexpr int kNodes = 32;
+  static constexpr int kStride = 3 * 32 + 4;  // 25 16-byte units: odd
+};
+template <>
+struct AdjCfg<double> {
+  static constexpr int kNodes = 16;
+  static constexpr int kStride = 3 * 16 + 2;  // 25 16-byte units: odd
+};
+constexpr int kAdjSlots = 7;
+constexpr int kAdjThreads = 4 * 32;  // the y sweep, the s and bbar sweeps, the loads, the stores
+
+// A slot: the b rows (swept into y), the g rows (swept into s; descending,
+// the s rows swept into bbar), the chunk's fwd (12 a node) and bwd (24 a
+// node) factors.
+template <typename T>
+struct AdjSlot {
+  static constexpr int kRows = kEnvs * AdjCfg<T>::kStride;  // one row set
+  static constexpr int kFwd = 2 * kRows;
+  static constexpr int kBwd = kFwd + 12 * AdjCfg<T>::kNodes;
+  static constexpr int kElems = kBwd + 24 * AdjCfg<T>::kNodes;
+  static constexpr int kBytes = kElems * static_cast<int>(sizeof(T));
+  static constexpr int kSmem = kAdjSlots * kBytes + 3 * kAdjSlots * 8;  // + the mbarriers
+};
+static_assert(AdjSlot<float>::kBytes % 16 == 0 && AdjSlot<double>::kBytes % 16 == 0, "slots");
+static_assert(AdjSlot<float>::kSmem <= 232448 && AdjSlot<double>::kSmem <= 232448, "smem");
+
+// 0: nodes a chunk, 1: ring slots (the C query btd_solve_adjoint_geometry).
+template <typename T>
+int adjoint_geometry(int what) {
+  return what == 0 ? AdjCfg<T>::kNodes : kAdjSlots;
+}
+
+// The launch's operands: (B, 3N) rows of pitch ld_* elements (ld_g = 0: one
+// g row shared by the whole batch).
+template <typename T>
+struct AdjArgs {
+  int B, N;
+  int64_t ld_b, ld_g, ld_out;
+  const T* fwd;
+  const T* bwd;
+  const T* b;
+  const T* g;
+  T* y;
+  T* s;
+  T* bbar;
+};
+
+template <typename T>
+AdjArgs<T> adjoint_args(int B, int N, int64_t ld_b, int64_t ld_g, int64_t ld_out,
+                        const void* fwd, const void* bwd, const void* b, const void* g,
+                        void* y, void* s, void* bbar) {
+  return AdjArgs<T>{B, N, ld_b, ld_g, ld_out, static_cast<const T*>(fwd),
+                    static_cast<const T*>(bwd), static_cast<const T*>(b),
+                    static_cast<const T*>(g), static_cast<T*>(y), static_cast<T*>(s),
+                    static_cast<T*>(bbar)};
+}
+
+// The schedule of a block's jobs: job j < n sweeps chunk j ascending (y and
+// s), job n + i chunk n - 1 - i descending (bbar); chunk k sits in slot
+// k % kAdjSlots, and the last kAdjSlots chunks stay resident.
+template <typename T>
+struct AdjPlan {
+  static constexpr int C = AdjCfg<T>::kNodes;
+  int N, n_chunks;
+  __device__ explicit AdjPlan(int n) : N(n), n_chunks((n + C - 1) / C) {}
+  __device__ int jobs() const { return 2 * n_chunks; }
+  __device__ bool up(int j) const { return j < n_chunks; }
+  __device__ int chunk(int j) const { return up(j) ? j : 2 * n_chunks - 1 - j; }
+  __device__ int slot(int j) const { return chunk(j) % kAdjSlots; }
+  __device__ int nodes(int k) const { return min(C, N - k * C); }
+  __device__ bool resident(int k) const { return k >= n_chunks - kAdjSlots; }
+};
+
+// The copies that fill job j's slot for the block's rows env0 .. env0 + nb
+// - 1, as copy(shared dst, global src, bytes) calls (16-byte multiples);
+// returns their bytes. Ascending: the chunk's fwd and bwd factors, its b
+// and g rows. Descending: nothing for a resident chunk, else its fwd
+// factors and the s rows the ascending stores left in the output.
+template <typename T, typename Copy>
+__device__ __forceinline__ uint32_t adjoint_loads(const AdjArgs<T>& a, const AdjPlan<T>& plan,
+                                                  int env0, int nb, int j, T* slot, Copy copy) {
+  using S = AdjSlot<T>;
+  const int k = plan.chunk(j), n0 = k * AdjCfg<T>::kNodes, cn = plan.nodes(k);
+  const bool up = plan.up(j);
+  if (!up && plan.resident(k)) return 0;
+  const uint32_t fb = 12u * cn * static_cast<uint32_t>(sizeof(T)), rb = row_bytes<T>(cn);
+  copy(slot + S::kFwd, a.fwd + 12LL * n0, fb);
+  if (up) copy(slot + S::kBwd, a.bwd + 24LL * n0, 2 * fb);
+  for (int r = 0; r < nb; ++r) {
+    T* const dst = slot + r * AdjCfg<T>::kStride;
+    if (up) {
+      copy(dst, a.b + (env0 + r) * a.ld_b + 3LL * n0, rb);
+      copy(dst + S::kRows, a.g + (env0 + r) * a.ld_g + 3LL * n0, rb);
+    } else {
+      copy(dst + S::kRows, a.s + (env0 + r) * a.ld_out + 3LL * n0, rb);
+    }
+  }
+  return (up ? 3 * fb + 2 * nb * rb : fb + nb * rb);
+}
+
+// The copies that empty job j's slot, as copy(global dst, shared src,
+// bytes) calls: ascending y and s (a resident chunk's s too: the factor
+// sums read it), descending bbar.
+template <typename T, typename Copy>
+__device__ __forceinline__ void adjoint_stores(const AdjArgs<T>& a, const AdjPlan<T>& plan,
+                                               int env0, int nb, int j, const T* slot,
+                                               Copy copy) {
+  using S = AdjSlot<T>;
+  const int k = plan.chunk(j);
+  const uint32_t rb = row_bytes<T>(plan.nodes(k));
+  for (int r = 0; r < nb; ++r) {
+    const T* const src = slot + r * AdjCfg<T>::kStride;
+    const int64_t at = (env0 + r) * a.ld_out + 3LL * k * AdjCfg<T>::kNodes;
+    if (plan.up(j)) {
+      copy(a.y + at, src, rb);
+      copy(a.s + at, src + S::kRows, rb);
+    } else {
+      copy(a.bbar + at, src + S::kRows, rb);
+    }
+  }
+}
+
+// One lane's sweep of job j's staged chunk, its chain carried in v0..v2:
+// role 0 (ascending jobs only) y over the b rows with fwd; role 1 s over the
+// g rows with bwd ascending, then bbar over the s rows with fwd descending
+// (the carry restarts from +0 at the last chunk).
+template <int Role, typename T>
+__device__ __forceinline__ void adjoint_sweep(const AdjPlan<T>& plan, int j, T* slot, int lane,
+                                              T& v0, T& v1, T& v2) {
+  using S = AdjSlot<T>;
+  T* const rows = slot + lane * AdjCfg<T>::kStride;
+  const int cn = plan.nodes(plan.chunk(j));
+  if constexpr (Role == 0) {
+    sweep_up<Forward>(rows, slot + S::kFwd, cn, v0, v1, v2);
+  } else if (plan.up(j)) {
+    sweep_up<SStep>(rows + S::kRows, slot + S::kBwd, cn, v0, v1, v2);
+  } else {
+    if (j == plan.n_chunks) v0 = v1 = v2 = T(0);
+    sweep_down<BbarStep>(rows + S::kRows, slot + S::kFwd, cn, v0, v1, v2);
+  }
+}
+
+// ---- arithmetic: end --------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -283,6 +555,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// `count` arrivals at once.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
 }
 
 // Spin until the phase of parity `parity` has completed.
@@ -352,9 +630,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_jobs = 2 * n_chunks;
   auto chunk_of = [&](int j) { return j < n_chunks ? j : n_jobs - 1 - j; };
   auto resident = [&](int k) { return k >= n_chunks - kSlots; };
-  // A chunk's rows: 3 cn elements rounded up to 16 bytes (the row pitches
-  // leave room for them).
-  auto row_bytes = [&](int cn) { return (3u * cn * sizeof(T) + 15u) & ~15u; };
 
   if (warp == 0) {  // the sweep
     uint32_t parity = 0;
@@ -367,9 +642,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane < nb) {
         T* const r = rows(s) + lane * Cfg<T>::kStride;
         if (j < n_chunks) {
-          sweep_forward(r, factors(s), cn, y0, y1, y2);
+          sweep_up<Forward>(r, factors(s), cn, y0, y1, y2);
         } else {
-          sweep_backward(r, factors(s), cn, x0, x1, x2);
+          sweep_down<Backward>(r, factors(s), cn, x0, x1, x2);
         }
       }
       // The stores read this slot through the async proxy.
@@ -389,7 +664,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       used |= 1u << s;
       const bool with_rows = forward || !resident(k);
       const uint32_t fac_bytes = (forward ? 12u : 24u) * cn * sizeof(T);
-      const uint32_t rb = row_bytes(cn);
+      const uint32_t rb = row_bytes<T>(cn);
       mbar_expect_tx(full(s), fac_bytes + (with_rows ? nb * rb : 0u));
       bulk_load(smem_u32(factors(s)), forward ? fwd + 12LL * n0 : bwd + 24LL * n0, fac_bytes,
                 full(s));
@@ -412,7 +687,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(done(s), (parity >> s) & 1u);
       parity ^= 1u << s;
       if (!forward || !resident(k)) {
-        const uint32_t rb = row_bytes(cn);
+        const uint32_t rb = row_bytes<T>(cn);
         for (int b = 0; b < nb; ++b)
           bulk_store(out + (env0 + b) * ld_out + 3LL * n0,
                      smem_u32(rows(s) + b * Cfg<T>::kStride), rb);
@@ -425,190 +700,142 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// btd_solve_adjoint: the reverse-mode derivative of the solve above. The
-// JAX package differentiates the TPU kernel's plain twin (the jnp scans of
-// ops/banded.py) with its own transposes; this kernel is the counterpart of
-// those transposed scans. For the cotangent g = dL/dx of B right-hand sides
-// it runs, per row, the three sequential sweeps of btd_adjoint_sweeps in
-// ops/banded.py:
-//   y     y_0 = b_0,              y_i = b_i - W_{i-1} y_{i-1}   (the forward sweep again)
-//   s     s_0 = Dinv_0^T g_0,     s_i = Dinv_i^T (g_i - U_{i-1}^T s_{i-1})
-//   bbar  bbar_{N-1} = s_{N-1},   bbar_i = s_i - W_i^T bbar_{i+1}
-// and writes y, s and bbar; the factor cotangents (batch sums of outer
-// products) are torch products over these (btd_adjoint_factors).
-//
-// Design: the simple one. One thread walks one row's nodes through the
-// three sweeps, 32 rows a block, reading its rows and the packed factors
-// (the forward kernel's fwd and bwd layouts, broadcast to the warp) from
-// global memory, the next node's values loaded ahead; s is read back by
-// the thread that wrote it. Rows are dense (B, 3N). The sweeps are
-// dependent chains of 3x3 products, so the kernel is latency-bound; its
-// times stand beside the bound in PERF.md.
-// Rounding: every product row summed from the left with _rn intrinsics, as
-// in btd_solve above and in the plain version, so the two agree bit for bit.
-// ---------------------------------------------------------------------------
-
-// One entry of a transposed 3x3 product: m[0][j]*v0 + m[1][j]*v1 + m[2][j]*v2
-// (rows of four, as packed), summed from the left.
+// The adjoint (see its note above): the jobs of adjoint_loads, adjoint_sweep
+// and adjoint_stores on per-slot mbarriers, as btd_solve_kernel's roles.
 template <typename T>
-__device__ __forceinline__ T col(const T* m, int j, T v0, T v1, T v2) {
-  return add(add(mul(m[j], v0), mul(m[4 + j], v1)), mul(m[8 + j], v2));
-}
+__global__ void __launch_bounds__(kAdjThreads, 1) btd_adjoint_kernel(const AdjArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* const slots = reinterpret_cast<T*>(smem_raw);
+  const uint32_t bars = smem_u32(smem_raw) + kAdjSlots * AdjSlot<T>::kBytes;
+  // full[s] (the loads landed), done[s] (the job's sweeps finished: 64
+  // arrivals), empty[s] (the stores have finished with the slot): one phase
+  // per use of slot s.
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto done = [&](int s) { return bars + 8 * (kAdjSlots + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * kAdjSlots + s); };
+  auto slot = [&](int s) { return slots + s * AdjSlot<T>::kElems; };
 
-constexpr int kAdjointThreads = 32;
-constexpr int kAhead = 16;  // nodes the rows' L1 prefetch runs ahead of the sweep
+  const AdjPlan<T> plan(a.N);
+  const int env0 = blockIdx.x * kEnvs;
+  const int nb = min(kEnvs, a.B - env0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-// A hint to bring the line holding p into L1 (nothing off the device).
-__device__ __forceinline__ void prefetch_l1(const void* p) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
-#endif
-}
-
-template <int K, typename T>
-__device__ __forceinline__ void copy_n(T* d, const T* s) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) d[k] = s[k];
-}
-
-// Each sweep loads the next node's row values and factor blocks into a
-// second register set before computing the current node, so the loads'
-// latency overlaps the dependent chain of 3x3 products; the lines of the
-// rows and of the factor blocks are prefetched into L1 kAhead nodes ahead
-// (one warp an SM reads each factor line once: without the hint every
-// node waited on L2).
-template <typename T>
-__global__ void __launch_bounds__(kAdjointThreads)
-    btd_adjoint_kernel(int B, int N, int64_t ld, const T* __restrict__ fwd,
-                       const T* __restrict__ bwd, const T* __restrict__ b,
-                       const T* __restrict__ g, T* __restrict__ y, T* s, T* __restrict__ bbar) {
-  const int r = blockIdx.x * kAdjointThreads + threadIdx.x;
-  if (r >= B) return;
-  const T* br = b + r * ld;
-  const T* gr = g + r * ld;
-  T* yr = y + r * ld;
-  T* sr = s + r * ld;
-  T* bb = bbar + r * ld;
-  // y: the forward sweep (node 0's multiplier block is zero).
-  T y0 = T(0), y1 = T(0), y2 = T(0);
-  T c[3], w[12];
-  copy_n<3>(c, br);
-  copy_n<12>(w, fwd);
-  for (int i = 0; i < N; ++i) {
-    const int j = min(i + 1, N - 1);
-    T cn[3], wn[12];
-    copy_n<3>(cn, br + 3LL * j);
-    copy_n<12>(wn, fwd + 12LL * j);
-    prefetch_l1(br + 3LL * min(i + kAhead, N - 1));
-    prefetch_l1(fwd + 12LL * min(i + kAhead, N - 1));
-    forward_node(w, c, y0, y1, y2);
-    yr[3 * i] = c[0];
-    yr[3 * i + 1] = c[1];
-    yr[3 * i + 2] = c[2];
-    copy_n<3>(c, cn);
-    copy_n<12>(w, wn);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kAdjSlots; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(done(s), 64);
+      mbar_init(empty(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  // s: the ascending sweep; node i reads g_i, U_{i-1} and Dinv_i.
-  T gc[3], dc[12], uc[12];
-  copy_n<3>(gc, gr);
-  copy_n<12>(dc, bwd);
-  T s0 = col(dc, 0, gc[0], gc[1], gc[2]);
-  T s1 = col(dc, 1, gc[0], gc[1], gc[2]);
-  T s2 = col(dc, 2, gc[0], gc[1], gc[2]);
-  sr[0] = s0;
-  sr[1] = s1;
-  sr[2] = s2;
-  if (N > 1) {
-    copy_n<3>(gc, gr + 3);
-    copy_n<12>(uc, bwd + 12);
-    copy_n<12>(dc, bwd + 24);
-  }
-  for (int i = 1; i < N; ++i) {
-    const int j = min(i + 1, N - 1);
-    T gn[3], un[12], dn[12];
-    copy_n<3>(gn, gr + 3LL * j);
-    copy_n<12>(un, bwd + 24LL * (j - 1) + 12);
-    copy_n<12>(dn, bwd + 24LL * j);
-    prefetch_l1(gr + 3LL * min(i + kAhead, N - 1));
-    prefetch_l1(bwd + 24LL * min(i + kAhead, N - 1));
-    prefetch_l1(bwd + 24LL * min(i + kAhead, N - 1) + 12);
-    const T x0 = sub(gc[0], col(uc, 0, s0, s1, s2));
-    const T x1 = sub(gc[1], col(uc, 1, s0, s1, s2));
-    const T x2 = sub(gc[2], col(uc, 2, s0, s1, s2));
-    s0 = col(dc, 0, x0, x1, x2);
-    s1 = col(dc, 1, x0, x1, x2);
-    s2 = col(dc, 2, x0, x1, x2);
-    sr[3 * i] = s0;
-    sr[3 * i + 1] = s1;
-    sr[3 * i + 2] = s2;
-    copy_n<3>(gc, gn);
-    copy_n<12>(uc, un);
-    copy_n<12>(dc, dn);
-  }
-  // bbar: the descending sweep, from s_{N-1} (still in registers); node i
-  // reads s_i and W_i.
-  bb[3 * (N - 1)] = s0;
-  bb[3 * (N - 1) + 1] = s1;
-  bb[3 * (N - 1) + 2] = s2;
-  if (N < 2) return;
-  T sc[3], wc[12];
-  copy_n<3>(sc, sr + 3LL * (N - 2));
-  copy_n<12>(wc, fwd + 12LL * (N - 1));
-  for (int i = N - 2; i >= 0; --i) {
-    const int j = max(i - 1, 0);
-    T sn[3], wn[12];
-    copy_n<3>(sn, sr + 3LL * j);
-    copy_n<12>(wn, fwd + 12LL * (j + 1));
-    prefetch_l1(sr + 3LL * max(i - kAhead, 0));
-    prefetch_l1(fwd + 12LL * max(i - kAhead, 0));
-    const T n0 = sub(sc[0], col(wc, 0, s0, s1, s2));
-    const T n1 = sub(sc[1], col(wc, 1, s0, s1, s2));
-    const T n2 = sub(sc[2], col(wc, 2, s0, s1, s2));
-    s0 = n0;
-    s1 = n1;
-    s2 = n2;
-    bb[3 * i] = n0;
-    bb[3 * i + 1] = n1;
-    bb[3 * i + 2] = n2;
-    copy_n<3>(sc, sn);
-    copy_n<12>(wc, wn);
+  __syncthreads();
+
+  // Each role waits on every phase of its barriers in job order, so one
+  // parity bit per slot follows them.
+  if (warp < 2) {  // the sweeps: warp 0 the ascending jobs, warp 1 every job
+    const int n_jobs = warp == 0 ? plan.n_chunks : plan.jobs();
+    uint32_t parity = 0;
+    T v0 = T(0), v1 = T(0), v2 = T(0);
+    for (int j = 0; j < n_jobs; ++j) {
+      const int s = plan.slot(j);
+      mbar_wait(full(s), (parity >> s) & 1u);
+      parity ^= 1u << s;
+      if (lane < nb) {
+        if (warp == 0) {
+          adjoint_sweep<0>(plan, j, slot(s), lane, v0, v1, v2);
+        } else {
+          adjoint_sweep<1>(plan, j, slot(s), lane, v0, v1, v2);
+        }
+      }
+      // The stores read this slot through the async proxy.
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      // Descending, warp 1 arrives for both.
+      mbar_arrive(done(s), plan.up(j) ? 1u : 2u);
+    }
+  } else if (warp == 2 && lane == 0) {  // the loads
+    uint32_t parity = 0, used = 0;
+    for (int j = 0; j < plan.jobs(); ++j) {
+      const int s = plan.slot(j);
+      if ((used >> s) & 1u) {  // the slot's last job has been swept and stored
+        mbar_wait(empty(s), (parity >> s) & 1u);
+        parity ^= 1u << s;
+      }
+      used |= 1u << s;
+      const uint32_t bytes =
+          adjoint_loads(a, plan, env0, nb, j, slot(s), [](T*, const T*, uint32_t) {});
+      if (bytes == 0) {  // a resident chunk, descending
+        mbar_arrive(full(s));
+        continue;
+      }
+      mbar_expect_tx(full(s), bytes);
+      // Descending: s as the stores left it in the output rows.
+      if (!plan.up(j)) asm volatile("fence.proxy.async.global;" ::: "memory");
+      adjoint_loads(a, plan, env0, nb, j, slot(s), [&](T* dst, const T* src, uint32_t n) {
+        bulk_load(smem_u32(dst), src, n, full(s));
+      });
+    }
+  } else if (warp == 3 && lane == 0) {  // the stores
+    uint32_t parity = 0;
+    for (int j = 0; j < plan.jobs(); ++j) {
+      const int s = plan.slot(j);
+      mbar_wait(done(s), (parity >> s) & 1u);
+      parity ^= 1u << s;
+      adjoint_stores(a, plan, env0, nb, j, slot(s), [](T* dst, const T* src, uint32_t n) {
+        bulk_store(dst, smem_u32(src), n);
+      });
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      if (plan.up(j)) {
+        // Done writing, not only reading: a stored s is loaded back later.
+        asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+      } else {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+      mbar_arrive(empty(s));
+    }
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
   }
 }
 
-template <typename T>
-int launch_adjoint(int B, int N, int64_t ld, const void* fwd, const void* bwd, const void* b,
-                   const void* g, void* y, void* s, void* bbar, cudaStream_t stream) {
-  btd_adjoint_kernel<T><<<(B + kAdjointThreads - 1) / kAdjointThreads, kAdjointThreads, 0,
-                          stream>>>(
-      B, N, ld, static_cast<const T*>(fwd), static_cast<const T*>(bwd),
-      static_cast<const T*>(b), static_cast<const T*>(g), static_cast<T*>(y),
-      static_cast<T*>(s), static_cast<T*>(bbar));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Per device, whether each instance may use its dynamic shared memory (set
-// once, read on every launch).
+// Per device and instance, whether a kernel may use its dynamic shared
+// memory (set once, read on every launch): btd_solve_kernel float, double,
+// btd_adjoint_kernel float, double.
 constexpr int kMaxDevices = 64;
-bool g_smem_set[2][kMaxDevices];
+bool g_smem_set[4][kMaxDevices];
 
-template <typename T>
-int launch(int B, int N, int64_t ld_in, int64_t ld_out, const void* fwd, const void* bwd,
-           const void* rhs, void* out, cudaStream_t stream) {
-  constexpr int which = sizeof(T) == 4 ? 0 : 1;
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool* set) {
   int dev = 0;
   int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!g_smem_set[which][dev]) {
-    rc = static_cast<int>(cudaFuncSetAttribute(
-        btd_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, Slot<T>::kSmem));
+  if (!set[dev]) {
+    rc = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
     if (rc != 0) return rc;
-    g_smem_set[which][dev] = true;
+    set[dev] = true;
   }
+  return 0;
+}
+
+template <typename T>
+int launch(int B, int N, int64_t ld_in, int64_t ld_out, const void* fwd, const void* bwd,
+           const void* rhs, void* out, cudaStream_t stream) {
+  const int rc =
+      allow_smem(btd_solve_kernel<T>, Slot<T>::kSmem, g_smem_set[sizeof(T) == 4 ? 0 : 1]);
+  if (rc != 0) return rc;
   btd_solve_kernel<T><<<(B + kEnvs - 1) / kEnvs, kThreads, Slot<T>::kSmem, stream>>>(
       B, N, ld_in, ld_out, static_cast<const T*>(fwd), static_cast<const T*>(bwd),
       static_cast<const T*>(rhs), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_adjoint(const AdjArgs<T>& a, cudaStream_t stream) {
+  const int rc = allow_smem(btd_adjoint_kernel<T>, AdjSlot<T>::kSmem,
+                            g_smem_set[sizeof(T) == 4 ? 2 : 3]);
+  if (rc != 0) return rc;
+  btd_adjoint_kernel<T><<<(a.B + kEnvs - 1) / kEnvs, kAdjThreads, AdjSlot<T>::kSmem, stream>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -629,15 +856,24 @@ int btd_solve_launch(int dtype, int B, int N, int64_t ld_in, int64_t ld_out, con
 }
 
 // dtype as above. B >= 1 rows of N >= 1 nodes: b (the solve's right-hand
-// sides), g (the cotangent of its result) and the outputs y, s, bbar are
-// dense (B, 3N) rows of pitch ld elements; fwd and bwd the packed factors.
-// Returns the cudaError_t of the launch.
-int btd_solve_adjoint_launch(int dtype, int B, int N, int64_t ld, const void* fwd,
-                             const void* bwd, const void* b, const void* g, void* y, void* s,
-                             void* bbar, void* stream) {
+// sides), g (the cotangent of its result; ld_g = 0 for one row shared by the
+// batch) and the outputs y, s, bbar are (B, 3N) rows of pitches ld_b, ld_g
+// and ld_out, laid out as btd_solve_launch's rows; fwd and bwd the packed
+// factors. Returns the cudaError_t of the launch.
+int btd_solve_adjoint_launch(int dtype, int B, int N, int64_t ld_b, int64_t ld_g, int64_t ld_out,
+                             const void* fwd, const void* bwd, const void* b, const void* g,
+                             void* y, void* s, void* bbar, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_adjoint<float>(B, N, ld, fwd, bwd, b, g, y, s, bbar, st);
-  return launch_adjoint<double>(B, N, ld, fwd, bwd, b, g, y, s, bbar, st);
+  if (dtype == 0)
+    return launch_adjoint(
+        adjoint_args<float>(B, N, ld_b, ld_g, ld_out, fwd, bwd, b, g, y, s, bbar), st);
+  return launch_adjoint(
+      adjoint_args<double>(B, N, ld_b, ld_g, ld_out, fwd, bwd, b, g, y, s, bbar), st);
+}
+
+// The adjoint's chunk (what = 0: nodes a chunk) and ring (1: slots) for dtype.
+int btd_solve_adjoint_geometry(int dtype, int what) {
+  return dtype == 0 ? adjoint_geometry<float>(what) : adjoint_geometry<double>(what);
 }
 
 const char* cuda_error_string(int code) {

@@ -350,69 +350,88 @@ def test_btd_solve_tangent_equals_forward_ad(n, batched):
 
 
 def _host_adjoint_source() -> str:
-    """The adjoint kernel of ``csrc/btd_solve.cu`` with the arithmetic it
-    uses, as host C++: the rounding helpers, ``row`` and ``forward_node``,
-    the adjoint section and its C entry (the forward kernel's bulk copies
-    and barriers stay out)."""
-    import re
+    """The adjoint of ``csrc/btd_solve.cu`` as host C++: the source's
+    arithmetic (between its "arithmetic: begin" and "arithmetic: end"
+    marks: the rounding helpers, the node steps, the sweeps and the
+    adjoint's schedule and jobs), :data:`HOST_RING` in place of the
+    kernel's barriers and bulk copies, and the source's C entries."""
     from pathlib import Path
 
     src = (Path(kb.__file__).parent / "csrc" / "btd_solve.cu").read_text()
-    helpers = "\n".join(ln for ln in src.splitlines()
-                        if re.match(r"__device__ __forceinline__ \w+ (mul|add|sub)\(", ln))
 
     def block(start, end):
         i = src.index(start)
         return src[i:src.index(end, i)]
 
-    body = "\n".join([
-        helpers,
-        block("// One row of a 3x3 product", "// The sweeps over one staged row"),
-        block("// One entry of a transposed 3x3 product", "// Per device, whether"),
-        'extern "C" {\n' + block("int btd_solve_adjoint_launch(", "const char* cuda_error_string")
-        + "}\n",
+    return "\n".join([
+        HOST_SHIM, "namespace {",
+        block("// ---- arithmetic: begin", "// ---- arithmetic: end"),
+        HOST_RING, "}  // namespace", 'extern "C" {',
+        block("int btd_solve_adjoint_launch(", "const char* cuda_error_string"), "}",
     ])
-    body = body.replace("template <typename T>\n__device__ __forceinline__ void sweep_forward",
-                        "")
-    body, n = re.subn(r"(\w+<[^<>]*>)<<<(.*?), (\w+), 0,\s*stream>>>\(",
-                      r"host_launch(\2, \3, [&](auto... xs) { \1(xs...); }, ", body, flags=re.S)
-    assert n == 1
-    return HOST_SHIM + "namespace {\nconstexpr int kEnvs = 32;\n" + body.replace(
-        'extern "C" {', '}  // namespace\nextern "C" {', 1)
 
 
-# Just enough of CUDA for the host compiler: a launch runs its blocks and
-# threads one after another; the _rn intrinsics round each operation
-# (volatile: no contraction).
+# Just enough of CUDA for the host compiler: the vector types, and the _rn
+# intrinsics rounding each operation (volatile: no contraction).
 HOST_SHIM = r"""
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
+#include <limits>
+#include <vector>
 using std::max;
 using std::min;
-#define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__ __restrict
 typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
-struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-static dim3 blockIdx, threadIdx;
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline double2 make_double2(double a, double b) { return {a, b}; }
 #define RN(name, T, op) inline T name(T a, T b) { volatile T r = a op b; return r; }
 RN(__fmul_rn, float, *) RN(__fadd_rn, float, +) RN(__fsub_rn, float, -)
 RN(__dmul_rn, double, *) RN(__dadd_rn, double, +) RN(__dsub_rn, double, -)
-template <typename F, typename... A>
-void host_launch(unsigned g, unsigned b, F f, A... args) {
-  for (unsigned bx = 0; bx < g; ++bx) for (unsigned tx = 0; tx < b; ++tx) {
-    blockIdx = dim3(bx); threadIdx = dim3(tx); f(args...);
+"""
+
+# The kernel's roles, one after another: for each block of 32 rows, each job
+# in order on a ring of slots that starts as NaN; the loads and stores are
+# the kernel's copies as memcpy, and each lane sweeps in turn (role 0 on the
+# ascending jobs, then role 1), its chains carried from job to job.
+HOST_RING = r"""
+template <typename T>
+void host_adjoint(const AdjArgs<T>& a) {
+  const AdjPlan<T> plan(a.N);
+  std::vector<T> ring(kAdjSlots * AdjSlot<T>::kElems);
+  auto copy = [](auto* dst, const auto* src, uint32_t n) { std::memcpy(dst, src, n); };
+  for (int env0 = 0; env0 < a.B; env0 += kEnvs) {
+    const int nb = min(kEnvs, a.B - env0);
+    std::fill(ring.begin(), ring.end(), std::numeric_limits<T>::quiet_NaN());
+    T chain[2][kEnvs][3] = {};
+    for (int j = 0; j < plan.jobs(); ++j) {
+      T* const slot = ring.data() + plan.slot(j) * AdjSlot<T>::kElems;
+      adjoint_loads(a, plan, env0, nb, j, slot, copy);
+      for (int l = 0; l < nb; ++l) {
+        T* const y = chain[0][l];
+        T* const c = chain[1][l];
+        if (plan.up(j)) adjoint_sweep<0>(plan, j, slot, l, y[0], y[1], y[2]);
+        adjoint_sweep<1>(plan, j, slot, l, c[0], c[1], c[2]);
+      }
+      adjoint_stores(a, plan, env0, nb, j, slot, copy);
+    }
   }
+}
+
+template <typename T>
+int launch_adjoint(const AdjArgs<T>& a, cudaStream_t) {
+  host_adjoint(a);
+  return 0;
 }
 """
 
 
 @pytest.fixture(scope="module")
 def host_adjoint(tmp_path_factory):
-    """The adjoint kernel's source built by the host C++ compiler."""
+    """The adjoint's source built by the host C++ compiler."""
     import ctypes
     import shutil
     import subprocess
@@ -424,27 +443,20 @@ def host_adjoint(tmp_path_factory):
                     "-o", str(out / "adjoint.so"), str(out / "adjoint.cpp")],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(out / "adjoint.so"))
-    fn = lib.btd_solve_adjoint_launch
-    fn.argtypes, fn.restype = _build._SIGNATURES["btd_solve"]["btd_solve_adjoint_launch"], \
-        ctypes.c_int
+    for name in ("btd_solve_adjoint_launch", "btd_solve_adjoint_geometry"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = _build._SIGNATURES["btd_solve"][name], ctypes.c_int
     return lib
 
 
 def _host_launch_adjoint(lib):
-    """``_launch_adjoint`` on CPU tensors through the host-built kernel."""
+    """``_launch_adjoint`` on CPU tensors through the host-built adjoint: the
+    wrapper's operands, rows and pitches as on the card."""
     def launch(packed, b, g):
-        n = b.shape[-2]
-        rows = b.reshape(-1, 3 * n).contiguous()
-        grows = g.expand(b.shape).reshape(-1, 3 * n).contiguous()
-        y, s, bbar = torch.empty((3, *rows.shape), dtype=b.dtype).unbind(0)
-        fwd, bwd = packed
-        rc = lib.btd_solve_adjoint_launch(
-            kb._DTYPE_CODES[b.dtype], rows.shape[0], n, 3 * n, fwd.data_ptr(), bwd.data_ptr(),
-            rows.data_ptr(), grows.data_ptr(), y.data_ptr(), s.data_ptr(), bbar.data_ptr(),
-            None)
-        assert rc == 0
+        args, outs = kb._adjoint_operands(packed, b, g)
+        assert lib.btd_solve_adjoint_launch(*kb._pointers(args), None) == 0
         kb.btd_solve_adjoint.launches += 1
-        return tuple(t.reshape(b.shape) for t in (y, s, bbar))
+        return outs
 
     return launch
 
@@ -461,6 +473,45 @@ def test_adjoint_kernel_source_equals_plain(host_adjoint, dtype, n, batch):
     got = _host_launch_adjoint(host_adjoint)(kb.pack_factors(f).packed(), b, g)
     for o, r in zip(got, tb.btd_adjoint_sweeps(f, b, g)):
         assert torch.equal(o, r)
+
+
+def _padded(x, width):
+    """``(B, N, 3)`` ``x`` in rows of ``width`` elements (NaN in the pad)."""
+    buf = torch.full((x.shape[0], width), float("nan"), dtype=x.dtype)
+    return buf[:, :x[0].numel()].copy_(x.reshape(x.shape[0], -1)).view(x.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("edge", ["C-1", "C", "C+1", "resident+1"])
+def test_adjoint_kernel_chunk_edges(host_adjoint, dtype, edge):
+    """The host-built adjoint at a chunk's ragged edges (N = C - 1, C, C + 1
+    for the source's chunk of C nodes) and one node past the resident chunks
+    (N = slots x C + 1: chunk 0 loads its s back), at 45 rows (a block and a
+    ragged 13) and at 1, with ``b`` in padded rows (read in place) and ``g``
+    dense (copied), padded (read in place) and shared by the batch (one row
+    of pitch 0): the plain sweeps bit for bit."""
+    code = kb._DTYPE_CODES[dtype]
+    chunk, slots = (host_adjoint.btd_solve_adjoint_geometry(code, w) for w in (0, 1))
+    n = {"C-1": chunk - 1, "C": chunk, "C+1": chunk + 1, "resident+1": slots * chunk + 1}[edge]
+    launch = _host_launch_adjoint(host_adjoint)
+    for batch in (45, 1):
+        f, b, g = _grad_system(n, batch, seed=n + batch)
+        f = tuple(t.detach().to(dtype) for t in f)
+        b, g = b.detach().to(dtype), g.to(dtype)
+        packed = kb.pack_factors(f).packed()
+        b_in = _padded(b, kb.padded_width(3 * n) + 8)
+        shared = g[0].expand(b.shape)
+        for g_in, ref_g, ld_g in ((g, g, kb.padded_width(3 * n)),
+                                  (_padded(g, kb.padded_width(3 * n) + 4), g,
+                                   kb.padded_width(3 * n) + 4),
+                                  (shared, shared, 0)):
+            args, _ = kb._adjoint_operands(packed, b_in, g_in)
+            assert args[8].data_ptr() == b_in.data_ptr()  # b read in place
+            if batch > 1:
+                assert args[3:5] == (kb.padded_width(3 * n) + 8, ld_g)
+            got = launch(packed, b_in, g_in)
+            for o, r in zip(got, tb.btd_adjoint_sweeps(f, b, ref_g)):
+                assert torch.equal(o, r)
 
 
 @pytest.fixture
