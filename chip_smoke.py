@@ -12,6 +12,8 @@
     python3 chip_smoke.py --cards 4           # phases 33-38, then 39-44 and 49 on four cards
     python3 chip_smoke.py --sweep             # phases 45-48 alone (the gradient path)
     python3 chip_smoke.py --adjoint           # phase 45 alone (the adjoint kernel)
+    python3 chip_smoke.py --examples          # phases 50-53 alone (longer example spans)
+    python3 chip_smoke.py --cards 4 --examples  # phase 54 alone, on four cards
 
 Phases, one line each (any failure exits non-zero):
 
@@ -254,6 +256,29 @@ Phases, one line each (any failure exits non-zero):
     ``btd_solve_adjoint`` (its launches from phase 46's paths).
 49. ``--cards 4`` only: phase 46's float64 gradients at sp = 4 over NCCL
     against the world-size-1 gradients (<= 1e-9 relative), every rank.
+50-53. the roofline probes, the profiling helpers and the examples
+    (``--examples`` runs them alone, each example at ``EXAMPLES[name]
+    ["examples"]``: the JAX script's defaults, or the longest span that
+    finishes within about a minute): 50 the ``fma_chain`` probe kernel against its plain twin,
+    bit for bit (a ragged size, out of place and in place), then
+    ``utils.roofline.measure_ceilings()`` with each ceiling's ratio to its
+    data-sheet constant (``CEILING_PEAKS``, at most ``CEILING_MAX``), and
+    the probe's time at its size beside its bound; 51 ``StepMeter``,
+    ``trace`` (a kernel of the trace must be a port kernel) and
+    ``compile_time_breakdown`` on the linear main path; 52 the web demo
+    server on the card (port 0, a thread): three ``GET /simulate`` and a
+    ``GET /``, each request's latency, the payload against the port's CPU
+    run (<= 1e-9 relative) and the ``btd_solve`` launches of the first
+    request; 53 every other example's ``run()`` on the card at
+    ``EXAMPLES[name]["full"]`` (a cut of the JAX script's spans, printed
+    on its line; defaults where nothing is printed): wall seconds, its figures, its
+    launches by kernel (an implicit path must launch ``btd_solve``), then
+    at the tests' size on the card and on the CPU (<= 1e-9 relative). The
+    kernel record gains ``fma_chain`` and the examples' paths in each
+    kernel's ``launches_by_path``.
+54. ``--cards 4`` only: ``multichip_beam`` at dp x sp = 2 x 2 over NCCL
+    against the same example at world size 1 (<= 1e-9, equal SDIRK3
+    counts, ECSW sample and audit flags).
 
 Phases 25-32 launch no kernel but the ROM kernels of phase 31's loaded
 ECSW span and phase 32's augmented simulate; every other path of theirs
@@ -297,6 +322,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4663,6 +4689,332 @@ def sweep_paths(crt, kb, dev, card, lin_model=None, rom_main=None) -> dict:
                 grads=spike["grads"])
 
 
+# ---------------------------------------------------------------------------
+# Phases 50-54: the roofline probes, the profiling helpers, the web demo and
+# the examples (``--examples`` runs 50-53 alone; ``--cards 4`` adds 54)
+# ---------------------------------------------------------------------------
+
+ROOFLINE = dict(check_n=(1 << 16) + 3, chain=256, eps=1e-7, probe_mbytes=64)
+ROOFLINE_SOURCE = "continuum_robot_tpu_torch/ops/cuda/csrc/roofline.cu"
+ROOFLINE_REPLACES = ("none: the FMA-issue probe of utils/roofline.py's measure_vpu_ceiling "
+                     "(continuum_robot_tpu/utils/roofline.py:132 is a fused XLA chain)")
+CEILING_MAX = 1.05  # a measured ceiling over its data-sheet constant
+# Each measured ceiling's data-sheet constant. ``fma_f32_flops`` counts an
+# FMA as two FLOPs, as the data sheet's float32 rate does.
+CEILING_PEAKS = {"f32_flops": PEAK_F32_FLOPS, "tf32_flops": PEAK_TF32_FLOPS,
+                 "fma_f32_flops": 2 * PEAK_F32_INSTR, "hbm_bytes_per_sec": PEAK_BYTES}
+PORT_KERNEL_NAMES = ("affine_kernel", "modal_steps_kernel", "modal_frames_kernel",
+                     "affine_frames_kernel", "btd_", "rom_", "fused_gen_alpha", "fma_chain")
+DEMO_MAX = 1e-9  # the served payload on the card vs the CPU run, x each key's scale
+DEMO_REQUESTS = 3
+EXAMPLES_MAX = 1e-9  # an example on the card vs the CPU at the tests' size, float64
+# Each example's size: ``full`` in the full run (phases 50-53 within about 240
+# s together), ``examples`` with ``--examples`` (the JAX script's defaults
+# where they finish within about a minute on the card, else the longest span
+# that does: lqr_control's 0.5 s of Dopri5 takes ~6 min there, each
+# comparison sweep's 1 s ~20 min, adaptive_stepping's spans ~13 min and
+# system_identification's 150 iterations hours, all host-issued), and
+# ``small``, the tests' size, run on the card and on the CPU and compared.
+# Every size is printed on its phase line.
+EXAMPLES = {
+    "functional_composition_demo": dict(full={}, examples={}, small={}),
+    "lqr_control": dict(full=dict(t_final=0.01), examples=dict(t_final=0.05),
+                        small=dict(t_final=0.004)),
+    "lqg_control": dict(full={}, examples={}, small=dict(t_final=0.05)),
+    "batched_rollouts": dict(full=dict(t_final=0.025), examples={},
+                             small=dict(n_envs=4, t_final=0.004)),
+    "sampling_planner": dict(full=dict(n_mpc_rounds=2), examples={},
+                             small=dict(n_candidates=5, horizon_segments=3, seg_time=0.004,
+                                        n_mpc_rounds=2)),
+    "beam_comparison_fluid": dict(full=dict(t_final=0.005), examples=dict(t_final=0.02),
+                                  small=dict(t_final=0.002)),
+    "beam_comparison_gravity": dict(full=dict(t_final=0.005), examples=dict(t_final=0.02),
+                                    small=dict(t_final=0.002)),
+    "nonlinear_large_deflection": dict(full=dict(t_final=0.02), examples=dict(t_final=0.1),
+                                       small=dict(t_final=0.004)),
+    "rom_hyper_reduction": dict(full=dict(n_steps=400), examples={},
+                                small=dict(n=10, n_steps=60, frames=6)),
+    "adaptive_stepping": dict(full=dict(t_final=2e-4, dt_out=1e-4, nl_t_final=0.002),
+                              examples=dict(t_final=1e-3, dt_out=1e-4, nl_t_final=0.01),
+                              small=dict(n_el=4, t_final=2e-4, dt_out=1e-4,
+                                         nl_t_final=0.002)),
+    "system_identification": dict(full=dict(iters=2, t_final=0.002),
+                                  examples=dict(iters=2, t_final=0.004),
+                                  small=dict(iters=5, t_final=0.002, substeps=5)),
+}
+# Kernels that an example's path must launch (the others report their counts).
+EXAMPLE_KERNELS = {"batched_rollouts": ("btd_solve",),
+                   "nonlinear_large_deflection": ("btd_solve",)}
+# Phase 54: multichip_beam at dp x sp = 2 x 2 on four cards against world
+# size 1, the JAX script's beam (96 elements) over cut spans.
+CARDS_EXAMPLE = dict(n_el=96, spans=dict(explicit_t=2e-6, explicit_substeps=20, ga_frames=2,
+                                         sdirk_t=2e-4, rom_frames=4, guard_frames=2,
+                                         sysid_frames=2, sysid_iters=2),
+                     max=1e-9, timeout=600.0)
+
+
+def kernel_counts(kmods) -> dict:
+    """``{kernel: launches}`` of every kernel of ``kmods`` that launched."""
+    return {k.__name__: k.launches for kmod in kmods for k in kmod.KERNELS if k.launches}
+
+
+def phase_roofline(dev, card) -> dict:
+    """Phase 50: ``fma_chain`` against its twin (bit for bit), the measured
+    ceilings against the data sheet, the probe's record."""
+    from continuum_robot_tpu_torch.utils import cuda_event_times
+    from continuum_robot_tpu_torch.utils import roofline as rl
+
+    chain, eps = ROOFLINE["chain"], ROOFLINE["eps"]
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.rand(ROOFLINE["check_n"], generator=gen).to(dev)
+    ref = rl.fma_chain_plain(x, chain, eps)
+    y = rl.fma_chain(x, chain, eps)
+    z = x.clone()
+    rl.fma_chain(z, chain, eps, out=z)
+    err = max(max_abs(y, ref), max_abs(z, ref))
+    require(torch.equal(y, ref) and torch.equal(z, ref),
+            f"phase 50: fma_chain differs from its twin by {err:.3e}")
+
+    rl.reset_launch_counts()
+    t0 = time.perf_counter()
+    ceilings = rl.measure_ceilings(device=dev)
+    probe_s = time.perf_counter() - t0
+    launches = rl.fma_chain.launches
+    ratios = {k: ceilings[k] / CEILING_PEAKS[k] for k in ceilings}
+    print(f"phase 50 roofline [{card}]: fma_chain == twin bit for bit "
+          f"({ROOFLINE['check_n']} elements, chain {chain}); measured in {probe_s:.1f} s "
+          f"({launches} fma_chain launches): " + "; ".join(
+              f"{k} {ceilings[k]:.6e} = {ratios[k]:.4f} x {CEILING_PEAKS[k]:.4e}"
+              for k in ceilings), flush=True)
+    bad = {k: r for k, r in ratios.items() if r > CEILING_MAX}
+    require(not bad, f"phase 50: ceilings above {CEILING_MAX} x the data sheet: {bad}")
+    require(launches > 0, "phase 50: measure_ceilings launched no fma_chain")
+
+    n = ROOFLINE["probe_mbytes"] * 1024 * 1024 // 4
+    xp = torch.full((n,), 0.5, dtype=torch.float32, device=dev)
+    ms = min(cuda_event_times(lambda: rl.fma_chain(xp, chain, eps, out=xp), repeats=3))
+    xq = torch.full((n,), 0.5, dtype=torch.float32, device=dev)
+    plain_ms = cuda_event_times(lambda: rl.fma_chain_plain(xq, chain, eps), repeats=1,
+                                warmup=0)[0]
+    ops = 2.0 * chain * n  # an FMA two operations, the data sheet's unit
+    rec = {"source": ROOFLINE_SOURCE, "replaces": ROOFLINE_REPLACES, "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound(ops, 8.0 * n),
+           "library_ms": None, "launches_by_path": {"measure_ceilings": launches},
+           "note": f"{n} float32 elements, chain {chain}; measured {ceilings['fma_f32_flops']:.4e}"
+                   " FLOP/s"}
+    print(f"phase 50 fma_chain at the probe's size ({n} elements x {chain} links): {ms:.4f} ms "
+          f"(bound {rec['bound'][0]:.4f} ms, {rec['bound'][1]}), twin {plain_ms:.1f} ms",
+          flush=True)
+    return rec
+
+
+def linear_main_engine(crt, dev):
+    """The linear main path's engine and inputs (phase 4's), built anew."""
+    from continuum_robot_tpu_torch.models.simulate import make_modal_genalpha
+
+    model = crt.DynamicEulerBernoulliBeam(bench_beam_dataframe(N_ELEMENTS))
+    return make_modal_genalpha(model, DT, rho_inf=RHO_INF, device=dev, dtype=torch.float32)
+
+
+def phase_profiling(crt, kr, dev, card, ms=None) -> None:
+    """Phase 51: ``StepMeter``, ``trace`` and ``compile_time_breakdown`` on
+    the linear main path (``rollout_power``)."""
+    import tempfile
+
+    from continuum_robot_tpu_torch.utils import StepMeter, compile_time_breakdown, trace
+
+    ms = linear_main_engine(crt, dev) if ms is None else ms
+    n_red = ms.n_modes
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(scale=1e-6, size=(N_ENVS, n_red)), dtype=torch.float32,
+                     device=dev)
+    eta, etad = ms.to_modal(q, torch.zeros_like(q))
+    u = np.zeros(n_red, np.float32)
+    u[-2] = 0.1
+    u_m = np.asarray(ms.project_force_host(u), np.float32)
+    # A fresh memo: the first call composes the maps on the host again.
+    fresh = dataclasses.replace(ms)
+
+    def path(engine=ms):
+        return engine.rollout_power(eta, etad, u_m, N_STEPS, K=K_POWER)
+
+    breakdown = compile_time_breakdown(lambda: path(fresh))
+    meter = StepMeter(n_steps=N_STEPS, n_envs=N_ENVS)
+    meter.measure(path, repeats=3)
+    report = meter.report()
+    with tempfile.TemporaryDirectory() as logdir:
+        kr.reset_launch_counts()
+        with trace(logdir, device=dev) as trace_path:
+            path()
+        traced = kr.affine_drive.launches
+        with open(trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                     if e.get("cat") == "kernel"}
+        size_kb = os.path.getsize(trace_path) / 1024
+    port = sorted(n for n in names if any(k in n for k in PORT_KERNEL_NAMES))
+    print(f"phase 51 profiling, linear main path [{card}]: StepMeter {report}; "
+          f"compile_time_breakdown {breakdown}; trace {size_kb:.0f} KB, {len(names)} kernel "
+          f"names, port kernels {port} ({traced} affine_drive launches traced)", flush=True)
+    require(report["run_s"] > 0 and report["env_steps_per_sec"] > 0, "phase 51: StepMeter")
+    require(port, f"phase 51: the trace names no port kernel (kernels: {sorted(names)})")
+    require(traced == 1, f"phase 51: the traced path launched {traced} affine_drive")
+
+
+def phase_web_demo(kb, dev, card) -> dict:
+    """Phase 52: the web demo server on the card against its CPU payload."""
+    import threading
+    import urllib.request
+
+    from continuum_robot_tpu_torch.examples.web_demo import serve
+
+    with cpu_threads(4):
+        ref, cpu_s = host_secs(lambda: serve.run_simulation(device="cpu"))
+    server = serve.make_server(0, device=dev)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    latency, payloads = [], []
+    try:
+        kb.reset_launch_counts()
+        for i in range(DEMO_REQUESTS):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{base}/simulate", timeout=600) as r:
+                payloads.append(json.loads(r.read()))
+            latency.append(time.perf_counter() - t0)
+            if i == 0:
+                first = kernel_counts((kb,))
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"{base}/", timeout=60) as r:
+            page = r.read()
+        page_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    errs = {k: max(float(np.abs(np.asarray(p[k]) - np.asarray(ref[k])).max()
+                         / np.abs(np.asarray(ref[k])).max()) for p in payloads)
+            for k in ref}
+    frames = len(ref["times"])
+    print(f"phase 52 web demo on the card [{card}]: {DEMO_REQUESTS} GET /simulate "
+          f"({frames} frames) in {', '.join(f'{s * 1e3:.1f}' for s in latency)} ms, GET / "
+          f"{page_s * 1e3:.1f} ms ({len(page)} bytes); first request's launches {first}; "
+          f"payload vs the CPU run (rel.) {errs}; CPU run {cpu_s:.1f} s", flush=True)
+    require(max(errs.values()) <= DEMO_MAX, f"phase 52: payload vs CPU {errs} > {DEMO_MAX}")
+    require(first.get("btd_solve", 0) > 0, f"phase 52: the server launched {first}")
+    require(b"/simulate" in page and not thread.is_alive(), "phase 52: page or shutdown")
+    return {"web_demo": first}
+
+
+def example_arrays(name: str, out: dict) -> dict:
+    """The arrays of an example's result that its CPU and card runs must share."""
+    pick = {
+        "functional_composition_demo": lambda o: {k: o[k] for k in o},
+        "lqr_control": lambda o: {k: o[k] for k in ("tip_open", "tip_closed", "gain")},
+        "lqg_control": lambda o: {"zs": o["zs"]},
+        "batched_rollouts": lambda o: {k: o[k] for k in ("tip", "tip_modal")},
+        "sampling_planner": lambda o: {"final_state": o["final_state"]},
+        "beam_comparison_fluid": lambda o: dict(o["tips"]),
+        "beam_comparison_gravity": lambda o: dict(o["tips"]),
+        "nonlinear_large_deflection": lambda o: {
+            k: o[k] for k in ("tip_implicit", "tip_dopri5", "tip_rom")},
+        "rom_hyper_reduction": lambda o: {k: o[k] for k in ("qs_full", "qs_hr")},
+        "adaptive_stepping": lambda o: {k: v["tip"] for k, v in o.items()
+                                        if isinstance(v, dict)},
+        "system_identification": lambda o: {"history": np.asarray(o["history"]),
+                                            "log_E_path": np.asarray(o["log_E_path"])},
+    }[name]
+    return {k: np.asarray(v, dtype=float) for k, v in pick(out).items()}
+
+
+def figures(out: dict) -> dict:
+    """An example's scalar figures (nested one level), for its phase line."""
+    keep = {}
+    for k, v in out.items():
+        if isinstance(v, (bool, int, float)):
+            keep[k] = v
+        elif isinstance(v, dict):
+            sub = {s: w for s, w in v.items() if isinstance(w, (bool, int, float))}
+            if sub:
+                keep[k] = sub
+    return keep
+
+
+def phase_examples(kmods, dev, card, sizes: dict) -> dict:
+    """Phase 53: every example but the web demo and multichip_beam on the
+    card at ``sizes``, its launches by kernel; then at the tests' size on
+    the card and on the CPU, compared. Returns the launches by example."""
+    import importlib
+
+    by_path = {}
+    for name, size in sizes.items():
+        mod = importlib.import_module(f"continuum_robot_tpu_torch.examples.{name}")
+        reset_counts(kmods)
+        t0 = time.perf_counter()
+        out = mod.run(device=dev, **size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts(kmods)
+        by_path[name] = counts
+        print(f"phase 53 {name} {size or 'defaults'} [{card}]: {wall:.2f} s; "
+              f"launches {counts}; {json.dumps(figures(out), default=float)}", flush=True)
+        missing = [k for k in EXAMPLE_KERNELS.get(name, ()) if not counts.get(k)]
+        require(not missing, f"phase 53 {name}: no launch of {missing}")
+        small = EXAMPLES[name]["small"]
+        card_out = example_arrays(name, mod.run(device=dev, **small))
+        with cpu_threads(4):
+            cpu_out = example_arrays(name, mod.run(device="cpu", **small))
+        errs = {k: float(np.abs(card_out[k] - cpu_out[k]).max()
+                         / max(np.abs(cpu_out[k]).max(), 1e-300)) for k in cpu_out}
+        print(f"phase 53 {name} at the tests' size {small}: card vs CPU (rel.) "
+              f"{max(errs.values()):.3e}", flush=True)
+        require(max(errs.values()) <= EXAMPLES_MAX,
+                f"phase 53 {name}: card vs CPU {errs} > {EXAMPLES_MAX}")
+    return by_path
+
+
+def example_paths(crt, kmods, dev, card, sizes: dict, lin_ms=None) -> tuple:
+    """Phases 50-53; returns ``(fma_chain record, launches by example path)``."""
+    t0 = time.time()
+    rec = phase_roofline(dev, card)
+    phase_profiling(crt, kmods[0], dev, card, lin_ms)
+    by_path = phase_web_demo(kmods[2], dev, card)
+    by_path.update(phase_examples(kmods, dev, card, sizes))
+    print(f"phases 50-53 done in {time.time() - t0:.1f} s", flush=True)
+    return rec, by_path
+
+
+def phase_cards_example(card, n_cards: int) -> dict:
+    """Phase 54: ``multichip_beam`` at dp x sp = 2 x 2 over NCCL, one rank a
+    card, against the same example at world size 1 (one card)."""
+    from continuum_robot_tpu_torch.examples import multichip_beam as mb
+
+    kw = dict(n_elements=CARDS_EXAMPLE["n_el"], spans=CARDS_EXAMPLE["spans"],
+              timeout=CARDS_EXAMPLE["timeout"])
+    t0 = time.perf_counter()
+    one = mb.run(1, 1, **kw)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = mb.run(2, n_cards // 2, **kw)
+    four_s = time.perf_counter() - t0
+    tips = ("explicit_tip", "genalpha_tip", "sdirk3_tip", "rom_training_tip_modal",
+            "guard_max_residual", "outside_max_residual", "rom_tip", "sysid_scale")
+    errs = {k: float(np.abs(np.asarray(four[k]) - np.asarray(one[k])).max()
+                     / max(np.abs(np.asarray(one[k])).max(), 1e-300)) for k in tips}
+    same = {k: bool(np.array_equal(four[k], one[k])) for k in (
+        "sdirk3_accepted", "sdirk3_rejected", "ecsw_sampled", "guard_flagged",
+        "outside_flagged")}
+    walls = {k: round(four[k], 3) for k in four if k.endswith("_s")}
+    print(f"phase 54 multichip_beam 2 x {n_cards // 2} over NCCL [{card}] "
+          f"({CARDS_EXAMPLE['n_el']} elements, spans {CARDS_EXAMPLE['spans']}): "
+          f"{four_s:.1f} s (world size 1: {one_s:.1f} s); tiers' wall s {walls}; vs world "
+          f"size 1 (rel.) {errs}; counts and flags equal {same}; SDIRK3 "
+          f"{four['sdirk3_accepted'].tolist()} accepted", flush=True)
+    require(max(errs.values()) <= CARDS_EXAMPLE["max"],
+            f"phase 54: 2 x 2 vs world size 1 {errs} > {CARDS_EXAMPLE['max']}")
+    require(all(same.values()), f"phase 54: counts or flags differ {same}")
+    return errs
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -4715,7 +5067,13 @@ def main() -> int:
         t0 = time.time()
         _build.build_all()
         print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
+        if "--examples" in args:  # phase 54 alone
+            phase_cards_example(card, n_cards)
+            print(f"phase 54 done; total {time.time() - t_start:.1f} s", flush=True)
+            print(card)
+            return 0
         by_path = cards_paths(crt, kb, kr, dev, card, n_cards)
+        phase_cards_example(card, n_cards)
         print(json.dumps({"launches_by_path": by_path}), flush=True)
         print(f"four-card phases done; total {time.time() - t_start:.1f} s", flush=True)
         print(card)
@@ -4740,6 +5098,18 @@ def main() -> int:
         print(json.dumps({"btd_solve_adjoint": {k: rec[k] for k in ADJOINT_KEYS}}), flush=True)
         print(f"phase 45 done; total {time.time() - t_start:.1f} s", flush=True)
         return 0
+    if "--examples" in args:
+        t0 = time.time()
+        _build.build_all()
+        print(f"phase 2 build: {time.time() - t0:.1f} s ({_build.build_seconds})", flush=True)
+        rec, by_path = example_paths(crt, (kr, rk, kb, kf), dev, card,
+                                     {k: v["examples"] for k, v in EXAMPLES.items()})
+        print(json.dumps({"fma_chain": {k: rec[k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound")},
+            "launches_by_path": by_path}), flush=True)
+        print(f"example phases done; total {time.time() - t_start:.1f} s", flush=True)
+        print(card)
+        return 0
     if "--rom-tier" in args:
         t0 = time.time()
         _build.build_all()
@@ -4760,8 +5130,8 @@ def main() -> int:
         for ln in log.splitlines():  # e.g. wgmma serialisation
             if "arning" in ln:
                 print(f"phase 2 build {name}: {ln.strip()}", flush=True)
-    print(f"phase 2 build: {build_s:.1f} s for {len(libs)} sources in parallel",
-          flush=True)
+    print(f"phase 2 build: {build_s:.1f} s for {len(libs)} sources in parallel "
+          f"({_build.build_seconds})", flush=True)
 
     err = phase_kernels(kr, dev)
     records, lin_model, lin_ms = linear_paths(crt, kr, dev, card)
@@ -4799,6 +5169,12 @@ def main() -> int:
     sweep = sweep_paths(crt, kb, dev, card, lin_model, rom_main)
     records["btd_solve"]["launches_by_path"].update(sweep["btd_paths"])
     records["btd_solve_adjoint"] = sweep["record"]
+    print(f"sweep paths done; {time.time() - t_start:.1f} s so far", flush=True)
+    records["fma_chain"], examples = example_paths(
+        crt, (kr, rk, kb, kf), dev, card, {k: v["full"] for k, v in EXAMPLES.items()}, lin_ms)
+    for path, counts in examples.items():
+        for name, n in counts.items():
+            records[name]["launches_by_path"][f"example:{path}"] = n
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

@@ -22,6 +22,7 @@ import pathlib
 import subprocess
 import tempfile
 import threading
+import time
 
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -33,6 +34,7 @@ SOURCES = {
     "rom_rollout": CSRC / "rom_rollout.cu",
     "btd_solve": CSRC / "btd_solve.cu",
     "fused_rollout": CSRC / "fused_rollout.cu",
+    "roofline": CSRC / "roofline.cu",
 }
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -90,10 +92,15 @@ _SIGNATURES = {
         "fused_gen_alpha_launch": [_c_int] * 6 + [_c_dbl] * 9 + [_c_ptr] * 9,
         "fused_gen_alpha_geometry": [_c_int] * 3 + [ctypes.POINTER(_c_int)],
     },
+    "roofline": {
+        "fma_chain_launch": [_c_i64, _c_int, ctypes.c_float] + [_c_ptr] * 3,
+    },
 }
 
 _lock = threading.Lock()
 _libs = {}
+# Wall seconds of each source's nvcc in the last build_all (0.0: already built).
+build_seconds = {}
 
 
 def _nvcc() -> str:
@@ -152,14 +159,28 @@ def build_all() -> dict:
     """Build every source at once, one nvcc process each; returns
     ``{name: library path}``. A script that drives every kernel (such as
     ``chip_smoke.py``, which runs under a fixed time limit) calls it first, so
-    its build takes as long as the slowest source, not the sum of all."""
-    jobs = [job for job in map(_start, SOURCES) if job is not None]
+    its build takes as long as the slowest source, not the sum of all. Each
+    source's wall seconds, from the common start to its nvcc's exit (0.0 for
+    a library already built), go to :data:`build_seconds`."""
+    t0 = time.perf_counter()
+    jobs = {name: _start(name) for name in SOURCES}
+    build_seconds.clear()
     errors = []
-    for job in jobs:
+
+    def finish(name, job):
         try:
             _finish(job)
         except RuntimeError as exc:
             errors.append(str(exc))
+        build_seconds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=finish, args=item)
+               for item in jobs.items() if item[1] is not None]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    build_seconds.update({name: 0.0 for name, job in jobs.items() if job is None})
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: library_path(name) for name in SOURCES}

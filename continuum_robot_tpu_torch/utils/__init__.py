@@ -1,5 +1,6 @@
-"""Utilities: timing on the card, numerical guards, checkpoints, metrics
-(``utils.metrics``) and modal analysis (``utils.modal``)."""
+"""Utilities: timing and tracing on the card, numerical guards,
+checkpoints, metrics (``utils.metrics``), modal analysis (``utils.modal``)
+and measured ceilings and utilization (``utils.roofline``)."""
 
 from .checks import (
     HealthState,
@@ -10,10 +11,18 @@ from .checks import (
     verify_batch_consistency,
 )
 from .checkpoint import load_checkpoint, save_checkpoint
-from .profiling import cuda_event_times, force_completion
+from .profiling import (
+    StepMeter,
+    compile_time_breakdown,
+    cuda_event_times,
+    force_completion,
+    trace,
+)
 
 __all__ = [
     "HealthState",
+    "StepMeter",
+    "compile_time_breakdown",
     "cuda_event_times",
     "divergence_flags",
     "force_completion",
@@ -22,5 +31,6 @@ __all__ = [
     "load_checkpoint",
     "save_checkpoint",
     "step_with_guard",
+    "trace",
     "verify_batch_consistency",
 ]
