@@ -12,7 +12,7 @@
     python3 chip_smoke.py --cards 4           # phases 33-38, then 39-44 and 49 on four cards
     python3 chip_smoke.py --sweep             # phases 45-48 alone (the gradient path)
     python3 chip_smoke.py --adjoint           # phase 45 alone (the adjoint kernel)
-    python3 chip_smoke.py --examples          # phases 50-53 alone (longer example spans)
+    python3 chip_smoke.py --examples          # phases 50-53 alone
     python3 chip_smoke.py --cards 4 --examples  # phase 54 alone, on four cards
 
 Phases, one line each (any failure exits non-zero):
@@ -257,10 +257,10 @@ Phases, one line each (any failure exits non-zero):
 49. ``--cards 4`` only: phase 46's float64 gradients at sp = 4 over NCCL
     against the world-size-1 gradients (<= 1e-9 relative), every rank.
 50-53. the roofline probes, the profiling helpers and the examples
-    (``--examples`` runs them alone, each example at ``EXAMPLES[name]
-    ["examples"]``: the JAX script's defaults, or the longest span that
-    finishes within about a minute): 50 the ``fma_chain`` probe kernel against its plain twin,
-    bit for bit (a ragged size, out of place and in place), then
+    (``--examples`` runs them alone): 50 the ``fma_chain`` probe kernel
+    against its plain twin, bit for bit (a ragged size, out of place and in
+    place, and the probe's size, where every thread takes several
+    grid-stride passes), then
     ``utils.roofline.measure_ceilings()`` with each ceiling's ratio to its
     data-sheet constant (``CEILING_PEAKS``, at most ``CEILING_MAX``), and
     the probe's time at its size beside its bound; 51 ``StepMeter``,
@@ -278,7 +278,8 @@ Phases, one line each (any failure exits non-zero):
     kernel's ``launches_by_path``.
 54. ``--cards 4`` only: ``multichip_beam`` at dp x sp = 2 x 2 over NCCL
     against the same example at world size 1 (<= 1e-9, equal SDIRK3
-    counts, ECSW sample and audit flags).
+    counts, ECSW sample and audit flags); every rank's generalized-alpha
+    tier must launch ``btd_solve`` (SPIKE's local "thomas" solves).
 
 Phases 25-32 launch no kernel but the ROM kernels of phase 31's loaded
 ECSW span and phase 32's augmented simulate; every other path of theirs
@@ -329,6 +330,7 @@ import time
 import types
 
 import numpy as np
+
 import torch
 
 N_ELEMENTS, N_ENVS, N_STEPS, K_POWER = 1000, 4096, 2000, 64
@@ -945,6 +947,7 @@ def linear_paths(crt, kr, dev, card):
     def full_width(name):
         t = times[name + ":full"]
         return {"envs": N_ENVS, "ms": t[0], "plain_ms": t[1], "device_ms": t[2],
+                "device_ms_by": "queued_cuda_events",
                 "dispatch_us": t[3], "bound_ms": bounds[name + ":full"][0],
                 "bound_by": bounds[name + ":full"][1],
                 "entry_ms": entries[{"modal_frames": "rollout_frames_pallas",
@@ -954,6 +957,7 @@ def linear_paths(crt, kr, dev, card):
         name: dict(launches=paths[LINEAR_PATH[name]][name],
                    launches_by_path={p: c[name] for p, c in paths.items()},
                    ms=times[name][0], plain_ms=times[name][1], device_ms=times[name][2],
+                   device_ms_by="queued_cuda_events",
                    bound=bounds[name], library_ms=None,
                    **({"dispatch_us": times[name][3], "full_width": full_width(name)}
                       if "frames" in name else {}))
@@ -1068,21 +1072,28 @@ def rom_main_path(crt, dev):
     return model, ms, eta, etad, ms.project_force_host(u).astype(np.float32), setup
 
 
-PROFILER_TRIES = 3  # torch.profiler traces on the card come back empty now and then
+# Late in a full run, torch.profiler traces on the card come back without
+# the kernels' records now and then (the runtime calls that launched them
+# are there): two in a row before a full one at phase 51 in two runs.
+PROFILER_TRIES = 6
+TRACE_PAD_S = 0.02  # host pause around phase 51's traced path, seconds
+EMPTY_TRACES = []  # where a trace held no device event; printed at the end of the run
 
 
-def device_ms(fn, dev, n: int = 10) -> float:
-    """Device milliseconds per call of ``fn``: its CUDA kernels' time under
-    ``torch.profiler`` over ``n`` calls after a warm-up, divided by the calls
-    the trace holds (the most launches of one kernel). A trace with no
-    device time is taken again, up to ``PROFILER_TRIES`` times; after that
-    the calls are timed by CUDA events (``queued_device_ms``) and the line
-    says so."""
+def device_ms(fn, dev, n: int = 10) -> tuple:
+    """``(ms, method)``: device milliseconds per call of ``fn``, its CUDA
+    kernels' time under ``torch.profiler`` over ``n`` calls after a warm-up,
+    divided by the calls the trace holds (the most launches of one kernel);
+    ``method`` is ``"profiler"``. A trace with no device time is taken
+    again, up to ``PROFILER_TRIES`` times; after that the calls are timed by
+    CUDA events (``queued_device_ms``), ``method`` is ``"queued_cuda_events"``
+    and the line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(dev)
     for _ in range(PROFILER_TRIES):
+        EMPTY_TRACES.append("device_ms")  # taken back below if the trace holds device time
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -1094,11 +1105,12 @@ def device_ms(fn, dev, n: int = 10) -> float:
                 total += ev.self_cuda_time_total if dev_us is None else dev_us
                 launches = max(launches, ev.count)
         if total > 0:
+            EMPTY_TRACES.pop()
             # Per call as the trace recorded them (a one-kernel call: per launch).
-            return total / 1e3 / launches
+            return total / 1e3 / launches, "profiler"
     print(f"device_ms: {PROFILER_TRIES} profiler traces held no device time; "
           "timed by queued CUDA events instead", flush=True)
-    return queued_device_ms(fn, dev, n)
+    return queued_device_ms(fn, dev, n), "queued_cuda_events"
 
 
 def queued_device_ms(fn, dev, n: int = 10, repeats: int = 3) -> float:
@@ -1483,10 +1495,12 @@ def rom_paths(crt, rk, dev, card, small_model):
         limit = ROM_F32_PIECE_MAX if name.endswith("_f32") else ROM_PIECE_MAX
         require(ratio <= limit,
                 f"{name}: kernel vs plain {errors(k_out, p_out)} (max|k-p|, scale)")
+        k_dev_ms, k_dev_by = device_ms(kern, dev)
         records[name] = dict(
             launches=paths[ROM_PATH[name]][name],
             launches_by_path={p: c[name] for p, c in paths.items()},
-            max_abs_err=err, scaled_err=ratio, ms=best(kern), device_ms=device_ms(kern, dev),
+            max_abs_err=err, scaled_err=ratio, ms=best(kern), device_ms=k_dev_ms,
+            device_ms_by=k_dev_by,
             plain_ms=best(plain), bound=bnd,
             library_ms=None if lib is None else best(lib))
         if name in ROM_DESIGN:
@@ -1803,7 +1817,7 @@ def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
     x_ker = kb.btd_solve(fac, rhs).reshape(N_ENVS, -1)[:, 3:]
     lib_rel = rel(x_ker, x_lib)
     k_ms = best(lambda: kb.btd_solve(fac, rhs))
-    k_dev_ms = device_ms(lambda: kb.btd_solve(fac, rhs), dev)
+    k_dev_ms, k_dev_by = device_ms(lambda: kb.btd_solve(fac, rhs), dev)
     p_ms = best(lambda: banded.btd_solve(fac, rhs))
     lib_ms = best(lambda: r_red @ inv.mT)
     btd_ops = N_ENVS * ((n_nodes - 1) * (18 + 33) + 15)
@@ -1825,6 +1839,7 @@ def implicit_paths(crt, kb, dev, card, lin_model, lin_ms):
           f"{sim_mod.CARD_LINEAR_SOLVER}", flush=True)
     return dict(launches=paths["implicit:linear"],
                 launches_by_path=paths, max_abs_err=err, ms=k_ms, device_ms=k_dev_ms,
+                device_ms_by=k_dev_by,
                 plain_ms=p_ms,
                 bound=bnd, library_ms=lib_ms, source=BTD_SOURCE, replaces=BTD_REPLACES)
 
@@ -1850,7 +1865,7 @@ def profile_implicit(crt, kb, dev, card) -> None:
     lone = min(cuda_event_times(lambda: kb.btd_solve(fac, rhs), repeats=5, warmup=1,
                                 device=dev))
     print(f"profile [{card}]: btd_solve {N_ENVS} x {n} nodes float32: a lone launch "
-          f"{lone:.4f} ms, device {device_ms(lambda: kb.btd_solve(fac, rhs), dev):.4f} ms",
+          f"{lone:.4f} ms, device {device_ms(lambda: kb.btd_solve(fac, rhs), dev)[0]:.4f} ms",
           flush=True)
 
 
@@ -2146,12 +2161,14 @@ def fused_paths(crt, kf, kb, dev, card):
         "fused_gen_alpha_steps": dict(
             common("fused_gen_alpha_steps"), launches=paths["fused:steps_per_frame"]["fused_gen_alpha_steps"],
             max_abs_err=err["fused_gen_alpha_steps"], ms=times["main"], plain_ms=plain_ms,
-            device_ms=dev_ms["main"], bound=bounds["main"][:2],
+            device_ms=dev_ms["main"], device_ms_by="queued_cuda_events",
+            bound=bounds["main"][:2],
             rn_bound_ms=bounds["main"][2], design=design),
         "fused_gen_alpha_frames": dict(
             common("fused_gen_alpha_frames"), launches=paths["fused:float32"]["fused_gen_alpha_frames"],
             max_abs_err=err["fused_gen_alpha_frames"], ms=frames_ms,
-            plain_ms=frames_plain_ms, device_ms=frames_dev, bound=frames_bound[:2],
+            plain_ms=frames_plain_ms, device_ms=frames_dev, device_ms_by="queued_cuda_events",
+            bound=frames_bound[:2],
             rn_bound_ms=frames_bound[2],
             design=design + "; every frame in one launch (the JAX scan, "
                             "ops/pallas/fused_rollout.py:238)"),
@@ -4326,7 +4343,8 @@ def phase_btd_adjoint(kb, lin_model, dev, card) -> dict:
         f"{t32['plain']:.1f} ms; library: g @ T^-1 (one torch.matmul, the dense inverse "
         f"of phase 17's library time; b_bar only) {t32['library']:.4f} ms (b_bar vs it "
         f"{lib_rel:.3e} relative); {time.perf_counter() - t_phase:.1f} s")
-    return dict(max_abs_err=err, ms=t32["lone"], device_ms=t32["dev"], plain_ms=t32["plain"],
+    return dict(max_abs_err=err, ms=t32["lone"], device_ms=t32["dev"],
+                device_ms_by="queued_cuda_events", plain_ms=t32["plain"],
                 bound=bnd, library_ms=t32["library"], device_ms_f64=t64["dev"],
                 whole_device_ms=t32["whole"], factor_sums_ms=t32["sums"], source=BTD_SOURCE,
                 replaces=BTD_REPLACES,
@@ -4718,38 +4736,29 @@ PORT_KERNEL_NAMES = ("affine_kernel", "modal_steps_kernel", "modal_frames_kernel
 DEMO_MAX = 1e-9  # the served payload on the card vs the CPU run, x each key's scale
 DEMO_REQUESTS = 3
 EXAMPLES_MAX = 1e-9  # an example on the card vs the CPU at the tests' size, float64
-# Each example's size: ``full`` in the full run (phases 50-53 within about 240
-# s together), ``examples`` with ``--examples`` (the JAX script's defaults
-# where they finish within about a minute on the card, else the longest span
-# that does: lqr_control's 0.5 s of Dopri5 takes ~6 min there, each
-# comparison sweep's 1 s ~20 min, adaptive_stepping's spans ~13 min and
-# system_identification's 150 iterations hours, all host-issued), and
-# ``small``, the tests' size, run on the card and on the CPU and compared.
-# Every size is printed on its phase line.
+# Each example's size: ``full`` in the full run and with ``--examples``
+# (phases 50-53 within about 240 s together), and ``small``, the tests'
+# size, run on the card and on the CPU and compared. ``full`` cuts every span
+# that would not finish within about 30 s on the card: the examples issue
+# small host ops (a Dopri5 trial about 4-5 ms), so lqr_control's 0.5 s takes
+# ~6 min there, each comparison sweep's 1 s ~20 min, adaptive_stepping's
+# spans ~13 min and system_identification's 150 iterations hours. Every size
+# is printed on its phase line.
 EXAMPLES = {
-    "functional_composition_demo": dict(full={}, examples={}, small={}),
-    "lqr_control": dict(full=dict(t_final=0.01), examples=dict(t_final=0.04),
-                        small=dict(t_final=0.004)),
-    "lqg_control": dict(full={}, examples={}, small=dict(t_final=0.05)),
-    "batched_rollouts": dict(full=dict(t_final=0.025), examples={},
-                             small=dict(n_envs=4, t_final=0.004)),
-    "sampling_planner": dict(full=dict(n_mpc_rounds=2), examples={},
+    "functional_composition_demo": dict(full={}, small={}),
+    "lqr_control": dict(full=dict(t_final=0.005), small=dict(t_final=0.004)),
+    "lqg_control": dict(full={}, small=dict(t_final=0.05)),
+    "batched_rollouts": dict(full=dict(t_final=0.025), small=dict(n_envs=4, t_final=0.004)),
+    "sampling_planner": dict(full=dict(n_mpc_rounds=2),
                              small=dict(n_candidates=5, horizon_segments=3, seg_time=0.004,
                                         n_mpc_rounds=2)),
-    "beam_comparison_fluid": dict(full=dict(t_final=0.005), examples=dict(t_final=0.015),
-                                  small=dict(t_final=0.002)),
-    "beam_comparison_gravity": dict(full=dict(t_final=0.005), examples=dict(t_final=0.015),
-                                    small=dict(t_final=0.002)),
-    "nonlinear_large_deflection": dict(full=dict(t_final=0.02), examples=dict(t_final=0.1),
-                                       small=dict(t_final=0.004)),
-    "rom_hyper_reduction": dict(full=dict(n_steps=400), examples={},
-                                small=dict(n=10, n_steps=60, frames=6)),
+    "beam_comparison_fluid": dict(full=dict(t_final=0.003), small=dict(t_final=0.002)),
+    "beam_comparison_gravity": dict(full=dict(t_final=0.003), small=dict(t_final=0.002)),
+    "nonlinear_large_deflection": dict(full=dict(t_final=0.02), small=dict(t_final=0.004)),
+    "rom_hyper_reduction": dict(full=dict(n_steps=400), small=dict(n=10, n_steps=60, frames=6)),
     "adaptive_stepping": dict(full=dict(t_final=2e-4, dt_out=1e-4, nl_t_final=0.002),
-                              examples=dict(t_final=5e-4, dt_out=1e-4, nl_t_final=0.01),
-                              small=dict(n_el=4, t_final=2e-4, dt_out=1e-4,
-                                         nl_t_final=0.002)),
-    "system_identification": dict(full=dict(iters=2, t_final=0.002),
-                                  examples=dict(iters=2, t_final=0.002),
+                              small=dict(n_el=4, t_final=2e-4, dt_out=1e-4, nl_t_final=0.002)),
+    "system_identification": dict(full=dict(iters=1, t_final=0.002),
                                   small=dict(iters=5, t_final=0.002, substeps=5)),
 }
 # Kernels that an example's path must launch (the others report their counts).
@@ -4800,21 +4809,29 @@ def phase_roofline(dev, card) -> dict:
     require(not bad, f"phase 50: ceilings above {CEILING_MAX} x the data sheet: {bad}")
     require(launches > 0, "phase 50: measure_ceilings launched no fma_chain")
 
+    # At the probe's size (measure_vpu_ceiling's 64 MiB) the grid is capped
+    # and every thread takes several grid-stride passes: compared there too,
+    # out of place on the twin's input, before the in-place launches are timed.
     n = ROOFLINE["probe_mbytes"] * 1024 * 1024 // 4
-    xp = torch.full((n,), 0.5, dtype=torch.float32, device=dev)
+    xp = torch.rand(n, generator=gen).to(dev)
+    plain = {}
+    plain_ms = cuda_event_times(
+        lambda: plain.update(y=rl.fma_chain_plain(xp, chain, eps)), repeats=1, warmup=0)[0]
+    yp = rl.fma_chain(xp, chain, eps)
+    err = max(err, max_abs(yp, plain["y"]))
+    require(torch.equal(yp, plain["y"]),
+            f"phase 50: fma_chain differs from its twin at {n} elements by {err:.3e}")
+    del yp, plain
     ms = min(cuda_event_times(lambda: rl.fma_chain(xp, chain, eps, out=xp), repeats=3))
-    xq = torch.full((n,), 0.5, dtype=torch.float32, device=dev)
-    plain_ms = cuda_event_times(lambda: rl.fma_chain_plain(xq, chain, eps), repeats=1,
-                                warmup=0)[0]
     ops = 2.0 * chain * n  # an FMA two operations, the data sheet's unit
     rec = {"source": ROOFLINE_SOURCE, "replaces": ROOFLINE_REPLACES, "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound(ops, 8.0 * n),
            "library_ms": None, "launches_by_path": {"measure_ceilings": launches},
            "note": f"{n} float32 elements, chain {chain}; measured {ceilings['fma_f32_flops']:.4e}"
                    " FLOP/s"}
-    print(f"phase 50 fma_chain at the probe's size ({n} elements x {chain} links): {ms:.4f} ms "
-          f"(bound {rec['bound'][0]:.4f} ms, {rec['bound'][1]}), twin {plain_ms:.1f} ms",
-          flush=True)
+    print(f"phase 50 fma_chain at the probe's size ({n} elements x {chain} links): == twin "
+          f"bit for bit; {ms:.4f} ms (bound {rec['bound'][0]:.4f} ms, {rec['bound'][1]}), "
+          f"twin {plain_ms:.1f} ms", flush=True)
     return rec
 
 
@@ -4852,22 +4869,42 @@ def phase_profiling(crt, kr, dev, card, ms=None) -> None:
     meter = StepMeter(n_steps=N_STEPS, n_envs=N_ENVS)
     meter.measure(path, repeats=3)
     report = meter.report()
+    # The traced path sits in a named range between two pauses of the host,
+    # so each try's line can say where the card's events fell against it
+    # (a kernel outside Kineto's capture window is dropped from the trace).
+    tries_seen = []
     with tempfile.TemporaryDirectory() as logdir:
-        for _ in range(PROFILER_TRIES):  # a trace on the card is empty now and then
+        for tries in range(1, PROFILER_TRIES + 1):
             kr.reset_launch_counts()
             with trace(logdir, device=dev) as trace_path:
-                path()
+                time.sleep(TRACE_PAD_S)
+                with torch.profiler.record_function("phase51_path"):
+                    path()
+                    torch.cuda.synchronize(dev)
+                time.sleep(TRACE_PAD_S)
             traced = kr.affine_drive.launches
             with open(trace_path) as f:
-                names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])
-                         if e.get("cat") == "kernel"}
+                events = json.load(f).get("traceEvents", [])
             size_kb = os.path.getsize(trace_path) / 1024
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            names = {e.get("name", "") for e in kernels}
+            cats = {}
+            for e in events:
+                cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+            span = [e for e in events if e.get("name") == "phase51_path"
+                    and e.get("cat") == "user_annotation"][:1]
+            where = (f", first kernel at {kernels[0]['ts'] - span[0]['ts']:.1f} us of a "
+                     f"{span[0].get('dur', 0):.1f} us range" if kernels and span else "")
+            tries_seen.append(f"try {tries}: {size_kb:.0f} KB, events by category "
+                              f"{dict(sorted(cats.items(), key=str))}{where}")
             if names:
                 break
+            EMPTY_TRACES.append("phase 51")
     port = sorted(n for n in names if any(k in n for k in PORT_KERNEL_NAMES))
     print(f"phase 51 profiling, linear main path [{card}]: StepMeter {report}; "
-          f"compile_time_breakdown {breakdown}; trace {size_kb:.0f} KB, {len(names)} kernel "
-          f"names, port kernels {port} ({traced} affine_drive launches traced)", flush=True)
+          f"compile_time_breakdown {breakdown}; trace {'; '.join(tries_seen)}; "
+          f"{len(names)} kernel names, port kernels {port} ({traced} affine_drive launches "
+          f"traced)", flush=True)
     require(report["run_s"] > 0 and report["env_steps_per_sec"] > 0, "phase 51: StepMeter")
     require(port, f"phase 51: the trace names no port kernel (kernels: {sorted(names)})")
     require(traced == 1, f"phase 51: the traced path launched {traced} affine_drive")
@@ -4985,33 +5022,49 @@ def phase_examples(kmods, dev, card, sizes: dict) -> dict:
     return by_path
 
 
-def example_paths(crt, kmods, dev, card, sizes: dict, profiling: bool = True) -> tuple:
-    """Phases 50-53 (51 unless ``profiling`` is false: the full run takes it
-    beside the linear main path, before the parallel phases); returns
-    ``(fma_chain record, launches by example path)``."""
+def example_paths(crt, kmods, dev, card, sizes: dict, ms=None) -> tuple:
+    """Phases 50-53 (51 on ``ms``, the linear main path's engine, or a new
+    one); returns ``(fma_chain record, launches by example path)``."""
     t0 = time.time()
     rec = phase_roofline(dev, card)
-    if profiling:
-        phase_profiling(crt, kmods[0], dev, card)
+    phase_profiling(crt, kmods[0], dev, card, ms)
     by_path = phase_web_demo(kmods[2], dev, card)
     by_path.update(phase_examples(kmods, dev, card, sizes))
     print(f"phases 50-53 done in {time.time() - t0:.1f} s", flush=True)
     return rec, by_path
 
 
+def cards_example_rank(dp: int, sp: int, n_el: int, spans: dict) -> dict:
+    """Phase 54 on one rank (launched by name): ``multichip_beam``'s tiers
+    with every launch count set to 0 first; the result carries the
+    generalized-alpha tier's ``btd_solve`` launches."""
+    from continuum_robot_tpu_torch.examples import multichip_beam as mb
+    from continuum_robot_tpu_torch.ops.cuda import btd_solve as kb
+
+    kb.reset_launch_counts()
+    return mb.rank_main(dp, sp, n_el, spans, False)
+
+
 def phase_cards_example(card, n_cards: int) -> dict:
     """Phase 54: ``multichip_beam`` at dp x sp = 2 x 2 over NCCL, one rank a
     card, against the same example at world size 1 (one card)."""
-    from continuum_robot_tpu_torch.examples import multichip_beam as mb
+    import importlib
 
-    kw = dict(n_elements=CARDS_EXAMPLE["n_el"], spans=CARDS_EXAMPLE["spans"],
-              timeout=CARDS_EXAMPLE["timeout"])
-    t0 = time.perf_counter()
-    one = mb.run(1, 1, **kw)
-    one_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    four = mb.run(2, n_cards // 2, **kw)
-    four_s = time.perf_counter() - t0
+    from continuum_robot_tpu_torch.examples import multichip_beam as mb
+    from continuum_robot_tpu_torch.parallel import collectives
+
+    # The ranks import the rank body by name (see cards_paths).
+    this = importlib.import_module("chip_smoke")
+    spans = {**mb.SPANS, **CARDS_EXAMPLE["spans"]}
+    worlds, secs = {}, {}
+    for n in (1, n_cards):
+        t0 = time.perf_counter()
+        worlds[n] = collectives.launch(this.cards_example_rank, n, 2 if n > 1 else 1,
+                                       n // 2 if n > 1 else 1, CARDS_EXAMPLE["n_el"], spans,
+                                       timeout=CARDS_EXAMPLE["timeout"])
+        secs[n] = time.perf_counter() - t0
+    one, four = worlds[1][0], worlds[n_cards][0]
+    launches = {n: [r["genalpha_btd_launches"] for r in w] for n, w in worlds.items()}
     tips = ("explicit_tip", "genalpha_tip", "sdirk3_tip", "rom_training_tip_modal",
             "guard_max_residual", "outside_max_residual", "rom_tip", "sysid_scale")
     errs = {k: float(np.abs(np.asarray(four[k]) - np.asarray(one[k])).max()
@@ -5022,13 +5075,17 @@ def phase_cards_example(card, n_cards: int) -> dict:
     walls = {k: round(four[k], 3) for k in four if k.endswith("_s")}
     print(f"phase 54 multichip_beam 2 x {n_cards // 2} over NCCL [{card}] "
           f"({CARDS_EXAMPLE['n_el']} elements, spans {CARDS_EXAMPLE['spans']}): "
-          f"{four_s:.1f} s (world size 1: {one_s:.1f} s); tiers' wall s {walls}; vs world "
-          f"size 1 (rel.) {errs}; counts and flags equal {same}; SDIRK3 "
-          f"{four['sdirk3_accepted'].tolist()} accepted", flush=True)
+          f"{secs[n_cards]:.1f} s (world size 1: {secs[1]:.1f} s); tiers' wall s {walls}; "
+          f"generalized-alpha btd_solve launches by rank {launches[n_cards]} (world size 1: "
+          f"{launches[1]}); vs world size 1 (rel.) {errs}; counts and flags equal {same}; "
+          f"SDIRK3 {np.asarray(four['sdirk3_accepted']).tolist()} accepted", flush=True)
     require(max(errs.values()) <= CARDS_EXAMPLE["max"],
             f"phase 54: 2 x 2 vs world size 1 {errs} > {CARDS_EXAMPLE['max']}")
     require(all(same.values()), f"phase 54: counts or flags differ {same}")
-    return errs
+    require(all(c > 0 for w in launches.values() for c in w),
+            f"phase 54: a rank's generalized-alpha tier launched no btd_solve {launches}")
+    return {"multichip_beam:genalpha:cards": launches[n_cards],
+            "multichip_beam:genalpha": launches[1][0]}
 
 
 def main() -> int:
@@ -5084,12 +5141,13 @@ def main() -> int:
         _build.build_all()
         print(f"phase 2 build: {time.time() - t0:.1f} s", flush=True)
         if "--examples" in args:  # phase 54 alone
-            phase_cards_example(card, n_cards)
+            by_path = {"btd_solve": phase_cards_example(card, n_cards)}
+            print(json.dumps({"launches_by_path": by_path}), flush=True)
             print(f"phase 54 done; total {time.time() - t_start:.1f} s", flush=True)
             print(card)
             return 0
         by_path = cards_paths(crt, kb, kr, dev, card, n_cards)
-        phase_cards_example(card, n_cards)
+        by_path["btd_solve"].update(phase_cards_example(card, n_cards))
         print(json.dumps({"launches_by_path": by_path}), flush=True)
         print(f"four-card phases done; total {time.time() - t_start:.1f} s", flush=True)
         print(card)
@@ -5119,11 +5177,12 @@ def main() -> int:
         _build.build_all()
         print(f"phase 2 build: {time.time() - t0:.1f} s ({_build.build_seconds})", flush=True)
         rec, by_path = example_paths(crt, (kr, rk, kb, kf), dev, card,
-                                     {k: v["examples"] for k, v in EXAMPLES.items()})
+                                     {k: v["full"] for k, v in EXAMPLES.items()})
         print(json.dumps({"fma_chain": {k: rec[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound")},
             "launches_by_path": by_path}), flush=True)
-        print(f"example phases done; total {time.time() - t_start:.1f} s", flush=True)
+        print(f"example phases done; total {time.time() - t_start:.1f} s; profiler traces "
+              f"without device events: {EMPTY_TRACES or 'none'}", flush=True)
         print(card)
         return 0
     if "--rom-tier" in args:
@@ -5151,10 +5210,6 @@ def main() -> int:
 
     err = phase_kernels(kr, dev)
     records, lin_model, lin_ms = linear_paths(crt, kr, dev, card)
-    # Phase 51 on the linear main path's engine: here, in a process that has
-    # opened no process group yet (a trace taken after phases 33-49 came back
-    # empty on the card).
-    phase_profiling(crt, kr, dev, card, lin_ms)
     print(f"linear paths done; {time.time() - t_start:.1f} s so far", flush=True)
     for name in REPLACES:
         records[name].update(max_abs_err=err[name], source=SOURCE,
@@ -5191,12 +5246,12 @@ def main() -> int:
     records["btd_solve_adjoint"] = sweep["record"]
     print(f"sweep paths done; {time.time() - t_start:.1f} s so far", flush=True)
     records["fma_chain"], examples = example_paths(
-        crt, (kr, rk, kb, kf), dev, card, {k: v["full"] for k, v in EXAMPLES.items()},
-        profiling=False)
+        crt, (kr, rk, kb, kf), dev, card, {k: v["full"] for k, v in EXAMPLES.items()}, lin_ms)
     for path, counts in examples.items():
         for name, n in counts.items():
             records[name]["launches_by_path"][f"example:{path}"] = n
-    print(f"total {time.time() - t_start:.1f} s", flush=True)
+    print(f"total {time.time() - t_start:.1f} s; profiler traces without device events: "
+          f"{EMPTY_TRACES or 'none'}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": rec["source"],
@@ -5205,7 +5260,7 @@ def main() -> int:
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
          "bound_by": rec["bound"][1], "library_ms": rec["library_ms"],
          "launches_by_path": rec["launches_by_path"],
-         **({"device_ms": rec["device_ms"]} if "device_ms" in rec else {}),
+         **({k: rec[k] for k in ("device_ms", "device_ms_by") if k in rec}),
          **({k: rec[k] for k in ("dispatch_us", "full_width") if k in rec}),
          **({"rn_bound_ms": rec["rn_bound_ms"]} if "rn_bound_ms" in rec else {}),
          **({"design": rec["design"]} if "design" in rec else {}),

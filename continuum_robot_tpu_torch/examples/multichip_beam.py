@@ -32,6 +32,7 @@ import pandas as pd
 import torch
 
 from ..models import DynamicEulerBernoulliBeam
+from ..ops.cuda import btd_solve as kb
 from ..parallel import (
     build_spatial_genalpha,
     build_spatial_modal_rom,
@@ -102,14 +103,18 @@ def rank_main(dp: int, sp: int, n_el: int, spans: dict, verbose: bool, basis=Non
     say(f"explicit RK4      frames={len(ts)} tip w={out['explicit_tip'][0]:+.3e} m  "
         f"wall={out['explicit_s']:.1f}s")
 
-    # Implicit tier: distributed-SPIKE generalized-alpha.
+    # Implicit tier: distributed-SPIKE generalized-alpha. On a card each
+    # local solve is a launch of the btd_solve kernel (0 on the CPU).
     t0 = time.perf_counter()
+    launches0 = kb.btd_solve.launches
     rollout_ga = build_spatial_genalpha(beam, 1e-5, rho_inf=0.8, n_newton=1)
     ts, xs = rollout_ga(x0, spans["ga_frames"], u=u, substeps=20)
     out["genalpha_tip"] = host(xs[-1, :, 0, tip, 1])
     out["genalpha_s"] = time.perf_counter() - t0
+    out["genalpha_btd_launches"] = kb.btd_solve.launches - launches0
     say(f"implicit gen-a    frames={len(ts)} tip w={out['genalpha_tip'][0]:+.3e} m  "
-        f"wall={out['genalpha_s']:.1f}s (dt=1e-5, {spans['ga_frames'] * 20} steps)")
+        f"wall={out['genalpha_s']:.1f}s (dt=1e-5, {spans['ga_frames'] * 20} steps, "
+        f"{out['genalpha_btd_launches']} btd_solve launches)")
 
     # Error-controlled tier: sharded SDIRK3.
     t0 = time.perf_counter()
